@@ -5,19 +5,37 @@
 
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit (nvidia-smi); a CUDA device is required;
-  2. build kernels K1 (ProbSparse window attention) and K2 (fused LN+LeFF)
-     from dehaze_tpu_torch/csrc/ with nvcc for sm_90a;
-  3. K1 against its plain twin at the serving path's shapes, f32 and bf16;
-  4. K2 against its plain twin at the serving path's shapes, f32 and bf16,
-     exact and tanh GELU;
-  5. a seeded random-init Uformer-32 saved as a .pth state_dict:
+  2. build kernels K1 (ProbSparse window attention, forward and backward)
+     and K2 (fused LN+LeFF) from dehaze_tpu_torch/csrc/, one nvcc per
+     source, for sm_90a;
+  3. K1 forward against its plain twin at the serving path's shapes, f32
+     and bf16;
+  4. K1 backward against its plain twin at the training path's shapes
+     (batch 32 × 128²: enc0, enc1, bottleneck, dec3), f32 and bf16;
+  5. K2 against its plain twin at the serving path's shapes and the
+     training eval forward's (batch 32 × 128²), f32 and bf16, exact and
+     tanh GELU;
+  6. a seeded random-init Uformer-32 saved as a .pth state_dict:
      (a) CUDA forward (kernels) against the CPU forward (plain twins) at
          256², f32, same sampling seed; (b) the 1200×1600 uint8 frame
          through the whole-image function (rect canvas 1280×1664, bf16);
-  6. the serving CLI's machinery in-process with --weights: three PNG
-     requests (two concurrent) and /healthz; the kernel launch counts of
-     this phase are the main path's;
-  7. the kernels' JSON line, then the device's JSON line.
+  7. the serving path: the serving CLI's machinery in-process with
+     --weights, three PNG requests (two concurrent) and /healthz;
+  8. Uformer-32 at batch 2 × 128², f32, CUDA (kernels) against CPU
+     (twins): the model's backward for one fixed output gradient, then one
+     train step with the CR loss on a random VGG19 (loss and every
+     gradient leaf);
+  9. the training path: `python -m dehaze_tpu_torch.cli.train` semantics
+     in a subprocess on synthetic pairs, Uformer-32, batch 32 × 128², bf16,
+     CR on, one epoch of 8 steps with 4 evals; losses, launch counts per
+     step, checkpoints, reload of model_best.pth, img/s and peak memory;
+ 10. the full-width train step with its batches in memory (ms/step, the
+     host's ms to queue it, the calls in it that wait for the card), the
+     data pipeline alone (ms/batch), and torch.profiler over two steady
+     steps: device time by kernel group, the top kernels, the idle share;
+ 11. the kernels' JSON line, then the device's JSON line.
+The launch counts in the kernels line are those of the serving path (7)
+and the training path (9), each counted from 0 over its own run.
 Imports nothing of JAX.
 """
 
@@ -47,10 +65,43 @@ K1_TOL = {"float32": (1e-4, 0.0), "bfloat16": (1.6e-2, 1e-3)}
 # at the same points in both, but a sum-order difference can move one
 # rounding by an ulp.
 K2_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
-# 5a: CUDA (kernels) vs CPU (twins), f32 with TF32 off, same weights and
+# K1 backward, per gradient tensor (dq, dk, dv, dbias): every element
+# within tol·max|ref| of the twin, a bar set by the tensor's own scale (dq
+# and dk are ~1e-3 where dv is ~1, so a bar of fixed size would pass a dq
+# of zeros). f32 (TF32 off): sum order only, 1e-5. bf16: 2^-7, one bf16
+# ulp at the tensor's largest magnitude — the selection is exact in both
+# (float64 S), but the softmax sums run in another order, which can move
+# the bf16 rounding of a1 (and of each output) by an ulp.
+K1B_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# 6a: CUDA (kernels) vs CPU (twins), f32 with TF32 off, same weights and
 # sampling: summation order differs in every conv/Linear (cuDNN/cuBLAS vs
 # oneDNN), ~1e-6 relative per layer, so max |Δ| on the [0, 1] image <= 1e-3.
 MODEL_TOL = 1e-3
+# 8: CUDA vs CPU, f32 with TF32 off, on noise images (see
+# phase_train_parity). Each gradient leaf: ||Δ|| <=
+# rtol·||ref|| + atol·sqrt(numel); atol 1e-9 covers the key biases, whose
+# gradient is zero analytically (softmax ignores a per-row shift) and
+# rounding noise (~1e-13) in fact.
+# (a) the model's backward for one fixed output gradient: rtol 1e-4, the
+#     sum order of cuBLAS/cuDNN against the CPU's (~1e-6 per layer).
+# (b) a train step with Charbonnier + CR: the loss within 1e-5 relative;
+#     leaves within rtol 5e-3, those fed only through the attention scores
+#     (q/k projections, rel-pos tables) within 2e-2. The loss's own
+#     gradient differs by ~1e-3 between the devices: the L1 terms of the CR
+#     loss take sign(a - p) of VGG features that ReLU leaves at or near 0,
+#     where a one-ulp difference flips the sign, and the Charbonnier
+#     gradient d/sqrt(d² + eps²) has slope up to 1/eps = 1e3. The scores'
+#     gradient is a softmax-gradient sum that cancels to ~1% of its terms,
+#     which scales that difference up several times for those leaves.
+STEP_TOL = {"model": 1e-4, "loss": 1e-5, "step": 5e-3, "step_scores": 2e-2,
+            "atol": 1e-9}
+# 9: PSNR of the reloaded model_best.pth against the PSNR the run logged.
+RELOAD_TOL = 1e-3
+TRAIN_BATCH, TRAIN_PS = 32, 128
+# H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM bytes/s and
+# dense FLOP/s by operand type (bf16 on tensor cores, f32 on CUDA cores).
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def fail(msg: str) -> None:
@@ -91,15 +142,26 @@ def phase_device():
     return card
 
 
+def bound(nbytes: float, flops: float, dname: str):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the peak rate of the operands' type."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_build():
     from dehaze_tpu_torch.ops.kernels import _build, leff, window_attention
 
-    for name, sigs in (("window_attention", window_attention._SIGNATURES),
-                       ("leff", leff._SIGNATURES)):
-        t0 = time.perf_counter()
-        _build.load_library(name, sigs)
-        secs = time.perf_counter() - t0
-        report = _build.build_info.get(name, (0.0, ""))[1]
+    libs = (("window_attention", window_attention._SIGNATURES),
+            ("leff", leff._SIGNATURES))
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source
+        list(ex.map(lambda a: _build.load_library(*a), libs))
+    print(f"built {len(libs)} kernel libraries in "
+          f"{time.perf_counter() - t0:.1f}s (parallel nvcc)", flush=True)
+    for name, _ in libs:
+        secs, report = _build.build_info.get(name, (0.0, ""))
         usage = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"build {name}: {secs:.1f}s nvcc sm_90a from "
@@ -107,14 +169,32 @@ def phase_build():
               flush=True)
 
 
-def phase_k1():
+def _attn_case(g, dev, B, C, heads, win, reg_hw):
+    """(sample_idx, bias, region, nW) for one K1 case."""
     import numpy as np
     import torch
 
     from dehaze_tpu_torch.ops import probsparse as ps_ops
     from dehaze_tpu_torch.ops import window as win_ops
+
+    N = win * win
+    si = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, N, size=(N, ps_ops.probsparse_u(N))).astype(np.int32))
+    bias = torch.randn(heads, N, N, generator=g, device=dev) * 0.1
+    region = None
+    if reg_hw is not None:
+        region = torch.from_numpy(win_ops.shift_region_ids(
+            reg_hw[0], reg_hw[1], win, win // 2)).to(dev)
+    nW = region.shape[0] if region is not None else 1
+    return si, bias, region, nW
+
+
+def phase_k1():
+    import torch
+
+    from dehaze_tpu_torch.ops import probsparse as ps_ops
     from dehaze_tpu_torch.ops.kernels.window_attention import (
-        fused_window_attention)
+        window_attention_fwd)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -123,18 +203,12 @@ def phase_k1():
     cases = [("enc0", 33280, 32, 1, 8, (H0, W0)),
              ("enc1", 8320, 64, 2, 8, (H0 // 2, W0 // 2)),
              ("bottleneck", 130, 512, 16, 8, None),
-             ("N16", 2080, 128, 4, 4, None)]
+             ("N16", 2080, 128, 4, 4, None),
+             ("train_enc0", 8192, 32, 1, 8, (TRAIN_PS, TRAIN_PS))]
     results = []
     for name, B, C, heads, win, reg_hw in cases:
         N = win * win
-        si = torch.from_numpy(np.random.default_rng(SEED).integers(
-            0, N, size=(N, ps_ops.probsparse_u(N))).astype(np.int32))
-        bias = torch.randn(heads, N, N, generator=g, device=dev) * 0.1
-        region = None
-        if reg_hw is not None:
-            region = torch.from_numpy(win_ops.shift_region_ids(
-                reg_hw[0], reg_hw[1], win, win // 2)).to(dev)
-        nW = region.shape[0] if region is not None else 1
+        si, bias, region, nW = _attn_case(g, dev, B, C, heads, win, reg_hw)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(B, N, C, generator=g, device=dev)
                        .mul_(0.5).to(dtype) for _ in range(3))
@@ -142,7 +216,7 @@ def phase_k1():
                       sw_region=region)
 
             def kern():
-                return fused_window_attention(q, k, v, num_windows=nW, **kw)
+                return window_attention_fwd(q, k, v, num_windows=nW, **kw)
 
             def twin():
                 return ps_ops.probsparse_attention_bnc(q, k, v, **kw)
@@ -151,22 +225,103 @@ def phase_k1():
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             row_err = diff.reshape(B, N, heads, C // heads).amax(-1)
-            tol, share = K1_TOL[str(dtype).split(".")[1]]
+            dname = str(dtype).split(".")[1]
+            tol, share = K1_TOL[dname]
             bad = int((row_err > tol).sum())
             n_rows = row_err.numel()
             ms = cuda_ms(kern, 10)
             plain_ms = cuda_ms(twin, 3)
-            dname = str(dtype).split(".")[1]
+            u, D = ps_ops.probsparse_u(N), C // heads
+            nbytes = (4 * B * N * C * q.element_size() + bias.numel() * 4
+                      + N * N * 4 + (region.numel() * 4 if nW > 1 else 0))
+            b_ms, b_by = bound(nbytes, B * heads * (2 * N * N * D
+                                                   + 2 * u * N * D), dname)
             print(f"K1 {name} {dname} B_={B} C={C} h={heads} N={N} "
                   f"shifted={region is not None}: max|d|={float(diff.max()):.3e}"
                   f" rows>{tol:g}: {bad}/{n_rows} kernel {ms:.3f} ms "
-                  f"twin {plain_ms:.3f} ms", flush=True)
+                  f"twin {plain_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
             if not torch.isfinite(got.float()).all():
                 fail(f"K1 {name} {dname}: non-finite output")
             if bad > share * n_rows:
                 fail(f"K1 {name} {dname}: {bad} rows beyond {tol:g} "
                      f"(allowed {share:.1%})")
-            results.append((name, dname, float(diff.max()), ms, plain_ms))
+            results.append((name, dname, float(diff.max()), ms, plain_ms,
+                            b_ms, b_by))
+    return results
+
+
+def phase_k1_bwd():
+    import torch
+
+    from dehaze_tpu_torch.ops import probsparse as ps_ops
+    from dehaze_tpu_torch.ops.kernels.window_attention import (
+        window_attention_bwd)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    P = TRAIN_PS
+    # the training path's shapes at batch 32 × 128² (N = 64, D = 32)
+    cases = [("enc0", 8192, 32, 1, (P, P)),
+             ("enc1", 2048, 64, 2, (P // 2, P // 2)),
+             ("bottleneck", 32, 512, 16, None),
+             ("dec3", 8192, 64, 2, (P, P))]
+    results, wrong = [], []
+    before = window_attention_bwd.launches
+    for name, B, C, heads, reg_hw in cases:
+        N = 64
+        si, bias, region, nW = _attn_case(g, dev, B, C, heads, 8, reg_hw)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(B, N, C, generator=g, device=dev)
+                       .mul_(0.5).to(dtype) for _ in range(3))
+            go = torch.randn(B, N, C, generator=g, device=dev).to(dtype)
+            kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
+                      sw_region=region)
+
+            def kern():
+                return window_attention_bwd(q, k, v, go, num_windows=nW,
+                                            **kw)
+
+            def twin():
+                return ps_ops.probsparse_attention_bnc_bwd(q, k, v, go, **kw)
+
+            got, want = kern(), twin()
+            torch.cuda.synchronize()
+            dname = str(dtype).split(".")[1]
+            tol = K1B_TOL[dname]
+            errs, stats, bad, n_el = {}, [], 0, 0
+            for gname, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+                d = (a.float() - b.float()).abs()
+                ref = float(b.float().abs().max())
+                nb = int((d > tol * ref).sum())
+                if not torch.isfinite(a.float()).all():
+                    wrong.append(f"K1 bwd {name} {dname}: non-finite {gname}")
+                elif nb:
+                    wrong.append(f"K1 bwd {name} {dname}: {nb} {gname} "
+                                 f"elements beyond {tol:g}·max|ref|")
+                errs[gname] = float(d.max())
+                stats.append(f"{gname} {errs[gname]:.3e}/{ref:.3e}")
+                bad += nb
+                n_el += d.numel()
+            ms = cuda_ms(kern, 10)
+            plain_ms = cuda_ms(twin, 3)
+            u, D = ps_ops.probsparse_u(N), C // heads
+            nbytes = (7 * B * N * C * q.element_size()
+                      + 2 * bias.numel() * 4 + N * N * 4
+                      + (region.numel() * 4 if nW > 1 else 0))
+            b_ms, b_by = bound(nbytes, B * heads * (2 * N * N * D
+                                                   + 8 * u * N * D), dname)
+            print(f"K1 bwd {name} {dname} B_={B} C={C} h={heads} "
+                  f"shifted={region is not None}: max|d|/max|ref| "
+                  f"{', '.join(stats)}; elements beyond {tol:g}·max|ref| "
+                  f"{bad}/{n_el}; kernel {ms:.3f} ms twin {plain_ms:.3f} ms "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+            results.append((name, dname, max(errs.values()), ms, plain_ms,
+                            b_ms, b_by))
+    if wrong:  # every case is printed before the first failure stops us
+        fail("; ".join(wrong))
+    if window_attention_bwd.launches == before:
+        fail("the K1 backward launch counter did not move")
     return results
 
 
@@ -177,8 +332,13 @@ def phase_k2():
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    P = TRAIN_PS
+    # serving's enc0 and bottleneck, and the training eval forward's
+    # (batch 32, where the bottleneck's depthwise conv sees 8×8 images)
     cases = [("enc0", (1, 1280, 1664, 32), 128),
-             ("bottleneck", (1, 80, 104, 512), 2048)]
+             ("bottleneck", (1, 80, 104, 512), 2048),
+             ("train_enc0", (TRAIN_BATCH, P, P, 32), 128),
+             ("train_bottleneck", (TRAIN_BATCH, P // 16, P // 16, 512), 2048)]
     results = []
     for name, shape, Ch in cases:
         C = shape[-1]
@@ -211,33 +371,40 @@ def phase_k2():
                 ms = cuda_ms(kern, 3)
                 plain_ms = cuda_ms(twin, 3)
                 gelu = "tanh" if fast else "erf"
+                px = x.numel() // C
+                nbytes = (2 * x.numel() * x.element_size()
+                          + sum(t.numel() for t in p.values())
+                          * x.element_size())
+                b_ms, b_by = bound(nbytes, px * (4 * C * Ch + 18 * Ch), dname)
                 print(f"K2 {name} {dname} gelu={gelu} x={list(shape)} "
                       f"hidden={Ch}: max|d|={float(diff.max()):.3e} "
                       f"elements beyond tol: {bad} kernel {ms:.3f} ms "
-                      f"twin {plain_ms:.3f} ms", flush=True)
+                      f"twin {plain_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})",
+                      flush=True)
                 if not torch.isfinite(got.float()).all() or bad:
                     fail(f"K2 {name} {dname} gelu={gelu}: {bad} elements "
                          f"beyond atol=rtol={tol:g}")
                 results.append((name, dname, gelu, float(diff.max()), ms,
-                                plain_ms))
+                                plain_ms, b_ms, b_by))
     return results
 
 
-def reset_counts():
+def _counters():
     from dehaze_tpu_torch.ops.kernels.leff import leff_fused
     from dehaze_tpu_torch.ops.kernels.window_attention import (
-        fused_window_attention)
+        window_attention_bwd, window_attention_fwd)
 
-    fused_window_attention.launches = 0
-    leff_fused.launches = 0
+    return {"k1_fwd": window_attention_fwd, "k1_bwd": window_attention_bwd,
+            "k2": leff_fused}
+
+
+def reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from dehaze_tpu_torch.ops.kernels.leff import leff_fused
-    from dehaze_tpu_torch.ops.kernels.window_attention import (
-        fused_window_attention)
-
-    return fused_window_attention.launches, leff_fused.launches
+    return {k: fn.launches for k, fn in _counters().items()}
 
 
 def phase_model(tmp: str) -> str:
@@ -288,7 +455,8 @@ def phase_model(tmp: str) -> str:
         y = run(frame)
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t0) / reps
-    k1, k2 = read_counts()
+    counts = read_counts()
+    k1, k2 = counts["k1_fwd"], counts["k2"]
     ok = bool(torch.isfinite(y).all()) and float(y.min()) >= 0.0 \
         and float(y.max()) <= 1.0
     mpix = FRAME[0] * FRAME[1] / 1e6
@@ -318,7 +486,7 @@ def phase_serve(pth: str):
     args = build_parser().parse_args(
         ["--weights", pth, "--port", "0", "--seed", str(SEED),
          "--precompile", f"{FRAME[0]}x{FRAME[1]}"])
-    dehaze, info = build_dehaze_fn(args, config_from_args(args))
+    dehaze, info = build_dehaze_fn(args, config_from_args(args).model)
     print(f"serve warm-up {args.precompile}: "
           f"{warm_up(dehaze, info, args.precompile):.2f}s", flush=True)
     srv = ThreadingHTTPServer((args.host, 0), make_handler(dehaze, info))
@@ -348,7 +516,8 @@ def phase_serve(pth: str):
         srv.server_close()
         thread.join(timeout=30)
         dehaze.batcher.close()
-    k1, k2 = read_counts()
+    counts = read_counts()
+    k1, k2 = counts["k1_fwd"], counts["k2"]
     for i, (status, out, secs) in enumerate(results):
         shape = decode_img(out, u8=True).shape if status == 200 else None
         print(f"request {i}: status {status} latency {secs:.3f}s "
@@ -360,7 +529,294 @@ def phase_serve(pth: str):
           flush=True)
     if health["served"] != 3 or k1 == 0 or k2 == 0:
         fail("serving did not run through both kernels")
-    return k1, k2
+    return counts
+
+
+def _grad_check(name, gc, gg, rtol_of, atol):
+    """Compare gradient leaves {name: tensor}: ||Δ|| <= rtol·||ref|| +
+    atol·sqrt(numel), rtol per leaf from rtol_of(name). Prints the worst
+    relative error by leaf kind; returns the leaves beyond."""
+    rel, bad, kinds = {}, [], {}
+    for k in gc:
+        d, r = float((gg[k] - gc[k]).norm()), float(gc[k].norm())
+        rel[k] = d / max(r, 1e-30)
+        if d > rtol_of(k) * r + atol * gc[k].numel() ** 0.5:
+            bad.append(k)
+        kind = k.split(".blocks.")[-1].split(".", 1)[-1]
+        kinds[kind] = max(kinds.get(kind, 0.0), rel[k])
+    print(f"  {name}: {len(rel)} gradient leaves, median rel "
+          f"{sorted(rel.values())[len(rel) // 2]:.2e}, beyond tolerance "
+          f"{len(bad)}; worst rel by leaf kind: " + ", ".join(
+              f"{k} {v:.1e}" for k, v in sorted(kinds.items())), flush=True)
+    return bad
+
+
+def phase_train_parity():
+    """CUDA (kernels) against CPU (twins), f32, TF32 off, same weights and
+    sampling tables (one seeded CPU generator each), drop_path 0:
+    (a) the model's backward for one fixed output gradient; (b) one train
+    step with Charbonnier + CR loss on the fixed-seed random VGG19."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.config import (Config, DataConfig, LossConfig,
+                                         ModelConfig, TrainConfig)
+    from dehaze_tpu_torch.train.trainer import Trainer, build_model
+
+    # noise images: the smooth synthetic scenes have flat regions whose
+    # windows hold near-identical tokens, and there a one-ulp difference
+    # between cuBLAS and the CPU reorders near-tied sparsity measures and
+    # flips rows between attention and mean(V) (a change of selection, not
+    # an error of either device)
+    rng = np.random.default_rng(SEED)
+    clean = rng.integers(0, 256, size=(2, TRAIN_PS, TRAIN_PS, 3),
+                         dtype=np.uint8)
+    hazy = (clean * 0.6 + rng.integers(0, 100, size=clean.shape)).astype(
+        np.uint8)
+    cfg = Config(model=ModelConfig(dtype=torch.float32, drop_path_rate=0.0),
+                 loss=LossConfig(w_contrast=1.0),
+                 data=DataConfig(batch_size=2), train=TrainConfig(seed=SEED))
+    x = torch.from_numpy(hazy).float() / 255.0
+    cot = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=x.shape).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev).train()
+        y = model(x.to(dev), generator=torch.Generator().manual_seed(SEED))
+        (y * cot.to(dev)).sum().backward()
+        grads[dev] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    bad = _grad_check("model backward (fixed output gradient)",
+                      grads["cpu"], grads["cuda"],
+                      lambda k: STEP_TOL["model"], STEP_TOL["atol"])
+    if bad:
+        fail(f"model backward gradients {bad[:4]}: CUDA and CPU disagree")
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the random-VGG19 warning
+            tr = Trainer(cfg, steps_per_epoch=1, device=dev)
+        t0 = time.perf_counter()
+        m = tr.train_step(clean, hazy, use_mixup=False)
+        out[dev] = (float(m["loss"]), time.perf_counter() - t0,
+                    {k: p.grad.detach().cpu() for k, p in
+                     tr.model.named_parameters()})
+    (lc, tc, gc), (lg, tg, gg) = out["cpu"], out["cuda"]
+    score_fed = ("query_projection", "key_projection",
+                 "relative_position_bias_table")
+    bad = _grad_check(
+        "train step (Charbonnier + CR)", gc, gg,
+        lambda k: STEP_TOL["step_scores" if any(s in k for s in score_fed)
+                           else "step"], STEP_TOL["atol"])
+    loss_rel = abs(lg - lc) / abs(lc)
+    print(f"train step Uformer-32 b2x{TRAIN_PS}² f32 Charbonnier + CR, CUDA "
+          f"vs CPU: loss {lg:.7f} vs {lc:.7f} (rel {loss_rel:.2e}); step "
+          f"{tg:.2f}s CUDA, {tc:.2f}s CPU", flush=True)
+    if not math.isfinite(lg) or loss_rel > STEP_TOL["loss"]:
+        fail("train step loss: CUDA and CPU disagree")
+    if bad:
+        fail(f"train step gradients {bad[:4]}: CUDA and CPU disagree")
+
+
+def phase_train_cli(tmp: str):
+    """The training path through its CLI entry point, in a subprocess that
+    starts with every launch count at 0 and prints them at its end."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli.common import build_model_and_params
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.data.pipeline import PairedFolder, _val_batches
+    from dehaze_tpu_torch.data.synth import write_dataset
+    from dehaze_tpu_torch.ops import metrics as M
+    from dehaze_tpu_torch.train.checkpoint import load_checkpoint
+
+    n_train, n_val = 256, 32
+    t0 = time.perf_counter()
+    write_dataset(os.path.join(tmp, "train"), n_train, 256, seed=1)
+    write_dataset(os.path.join(tmp, "val"), n_val, TRAIN_PS, seed=2)
+    print(f"synthetic data: {n_train} train pairs at 256², {n_val} val "
+          f"pairs at {TRAIN_PS}² in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    code = ("import json, sys\n"
+            "from dehaze_tpu_torch.cli import train\n"
+            "train.main(sys.argv[1:])\n"
+            "from dehaze_tpu_torch.ops.kernels import leff, window_attention "
+            "as wa\n"
+            "print('LAUNCHES ' + json.dumps({'k1_fwd': "
+            "wa.window_attention_fwd.launches, 'k1_bwd': "
+            "wa.window_attention_bwd.launches, 'k2': "
+            "leff.leff_fused.launches}))\n")
+    save = os.path.join(tmp, "log")
+    args = ["--train_dir", os.path.join(tmp, "train"),
+            "--val_dir", os.path.join(tmp, "val"),
+            "--train_ps", str(TRAIN_PS), "--batch_size", str(TRAIN_BATCH),
+            "--embed_dim", "32", "--dtype", "bfloat16", "--nepoch", "1",
+            "--w_loss_vgg7", "1", "--save_dir", save, "--env", "_smoke"]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code] + args,
+                       capture_output=True, text=True, timeout=900,
+                       env={**os.environ, "PYTHONPATH": REPO})
+    secs = time.perf_counter() - t0
+    for ln in r.stdout.splitlines():
+        if ln.startswith(("Input & GT", "[Ep", "Epoch", "best", "==>")):
+            print(f"  cli.train | {ln}", flush=True)
+    if r.returncode != 0:
+        fail(f"cli.train exited {r.returncode}: {r.stderr[-3000:]}")
+    counts = json.loads(r.stdout.split("LAUNCHES ")[-1].splitlines()[0])
+    log_dir = os.path.join(save, "uformer_smoke")
+    events = [json.loads(ln) for f in glob.glob(os.path.join(log_dir,
+                                                             "*.jsonl"))
+              for ln in open(f)]
+    epoch = next(e for e in events if e["kind"] == "epoch")
+    evals = [e for e in events if e["kind"] == "eval"]
+    losses = epoch["step_losses"]
+    steps = n_train // TRAIN_BATCH
+    val_batches = -(-n_val // TRAIN_BATCH)
+    want = {"k1_fwd": 18 * (steps + len(evals) * val_batches),
+            "k1_bwd": 18 * steps, "k2": 18 * len(evals) * val_batches}
+    models = os.path.join(log_dir, "models")
+    best = os.path.join(models, "model_best.pth")
+    print(f"cli.train Uformer-32 b{TRAIN_BATCH}x{TRAIN_PS}² bf16 CR on: "
+          f"{len(losses)} steps, losses {[round(x, 4) for x in losses]}, "
+          f"{len(evals)} evals; launches {counts} (want {want}); "
+          f"steady {epoch['img_per_s']:.2f} img/s, peak device memory "
+          f"{epoch.get('peak_mem_gib', float('nan')):.2f} GiB; "
+          f"subprocess {secs:.1f}s", flush=True)
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail("cli.train: a step's loss is missing or not finite")
+    if counts != want:
+        fail("cli.train: kernel launches per step are not 18 K1 forward + "
+             "18 K1 backward (and 18 K2 per eval forward)")
+    for f in (best, os.path.join(models, "epoch_model_1.pth")):
+        if not os.path.exists(f):
+            fail(f"cli.train did not write {f}")
+    # reload model_best.pth into a fresh model; eval as the trainer does
+    payload = load_checkpoint(best)
+    model = build_model_and_params(ModelConfig(), best, torch.device("cuda"))
+    val, nv = _val_batches(PairedFolder(os.path.join(tmp, "val")), TRAIN_PS,
+                           TRAIN_BATCH, u8=True)
+    ps = []
+    with torch.no_grad():
+        for c, n in val:
+            c = torch.from_numpy(c).cuda().float() / 255.0
+            n = torch.from_numpy(n).cuda().float() / 255.0
+            y = model(n, generator=torch.Generator().manual_seed(0))
+            ps.append(M.batch_psnr(torch.clamp(y, 0.0, 1.0), c))
+    psnr = float(np.mean(torch.cat(ps)[:nv].cpu().numpy()))
+    logged = payload["extra"]["psnr"]
+    print(f"model_best.pth (epoch {payload['epoch']}, it "
+          f"{payload['extra']['iter']}) reloaded: PSNR {psnr:.4f} vs logged "
+          f"{logged:.4f} (|d| {abs(psnr - logged):.2e})", flush=True)
+    if abs(psnr - logged) > RELOAD_TOL:
+        fail("the reloaded model_best.pth does not give the logged PSNR")
+    return counts, epoch
+
+
+def phase_train_profile(tmp: str):
+    """Device time of two steady full-width train steps by kernel group."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dehaze_tpu_torch.config import (Config, DataConfig, ModelConfig,
+                                         TrainConfig)
+    from dehaze_tpu_torch.data.pipeline import PairedFolder, train_batches
+    from dehaze_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(model=ModelConfig(), data=DataConfig(batch_size=TRAIN_BATCH),
+                 train=TrainConfig(seed=SEED))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tr = Trainer(cfg, steps_per_epoch=8, device="cuda")
+    folder = PairedFolder(os.path.join(tmp, "train"))
+    t0 = time.perf_counter()
+    batches = list(train_batches(folder, batch_size=TRAIN_BATCH,
+                                 patch_size=TRAIN_PS, seed=SEED, epoch=1,
+                                 num_workers=8, u8=True))
+    load_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    clean, hazy = batches[0]
+    for _ in range(2):
+        tr.train_step(clean, hazy, use_mixup=False)
+    torch.cuda.synchronize()
+    host = 0.0
+    t0 = time.perf_counter()
+    for clean, hazy in batches[:4]:
+        h0 = time.perf_counter()
+        tr.train_step(clean, hazy, use_mixup=False)
+        host += time.perf_counter() - h0
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 4 * 1e3
+    # calls that make the host wait for the card (a blocking copy, .item())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tr.train_step(clean, hazy, use_mixup=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # every warning but the mode's own notice that it is a prototype
+    syncs = [f"{os.path.relpath(w.filename, REPO)}:{w.lineno} "
+             f"{str(w.message)[:40]}" for w in caught
+             if "prototype" not in str(w.message)]
+    print(f"train step b{TRAIN_BATCH}x{TRAIN_PS}² bf16 CR on, batches in "
+          f"memory: {step_ms:.2f} ms/step ({TRAIN_BATCH / step_ms * 1e3:.1f} "
+          f"img/s), {host / 4 * 1e3:.2f} ms of it for the host to queue the "
+          f"step; host waits for the card in a step: {len(syncs)} "
+          f"{sorted(set(syncs))[:5]}; data pipeline alone (8 threads, PNG "
+          f"decode, crop, dihedral): {load_ms:.2f} ms/batch", flush=True)
+    steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tr.train_step(clean, hazy, use_mixup=False)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    groups = [("K1 bwd", ("window_attention_bwd", "dbias_reduce")),
+              ("K1 fwd", ("window_attention_fwd",)),
+              ("K2", ("leff_fwd",)),
+              ("GEMM (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
+              ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad",
+                                "dgrad", "fprop")),
+              ("optimizer", ("adam", "multi_tensor", "foreach")),
+              ("softmax/LN/reductions", ("softmax", "layer_norm", "reduce")),
+              ]
+    ms, by_kernel = {}, {}
+    for evt in prof.key_averages():
+        # user annotations (e.g. the optimizer's step range) span kernels
+        # that are counted on their own
+        if (evt.device_type != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        t = getattr(evt, "self_device_time_total", 0.0) / 1e3 / steps
+        name = evt.key.lower()
+        g = next((gname for gname, keys in groups
+                  if any(k in name for k in keys)), "other (elementwise, "
+                  "copies, casts)")
+        ms[g] = ms.get(g, 0.0) + t
+        by_kernel[evt.key] = (t, evt.count // steps)
+    total = sum(ms.values())
+    if total <= 0:
+        print("profile: torch.profiler saw no device time", flush=True)
+        return None
+    print(f"profile train step b{TRAIN_BATCH}x{TRAIN_PS}² bf16 CR on: wall "
+          f"{wall:.2f} ms/step under the profiler, device {total:.2f} "
+          f"ms/step, idle {max(0.0, 1 - total / wall):.1%} (of the "
+          f"unprofiled step: {max(0.0, 1 - total / step_ms):.1%})",
+          flush=True)
+    for g, t in sorted(ms.items(), key=lambda kv: -kv[1]):
+        print(f"  {g:32s} {t:9.3f} ms  {t / total:6.1%}", flush=True)
+    print("  top kernels (ms/step, launches/step):", flush=True)
+    for k, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"    {t:8.3f} ms {n:5d}x  {k[:110]}", flush=True)
+    return wall, total, ms
 
 
 def main() -> None:
@@ -377,27 +833,37 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     k1_res = phase_k1()
+    k1b_res = phase_k1_bwd()
     k2_res = phase_k2()
     with tempfile.TemporaryDirectory() as tmp:
         pth = phase_model(tmp)
-        k1, k2 = phase_serve(pth)
+        serve = phase_serve(pth)
+        phase_train_parity()
+        train, _ = phase_train_cli(tmp)
+        phase_train_profile(tmp)
 
-    k1_main = next(r for r in k1_res if r[:2] == ("enc0", "bfloat16"))
-    k2_main = next(r for r in k2_res
-                   if r[:3] == ("enc0", "bfloat16", "erf"))
+    def entry(name, source, replaces, res, main, key, paths):
+        row = next(r for r in res if r[:len(main)] == main)
+        launches = {p: c[key] for p, c in paths.items()}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(launches.values()),
+                "launches_by_path": launches,
+                "max_abs_err": max(r[-5] for r in res if r[1] == "bfloat16"),
+                "ms": row[-4], "plain_ms": row[-3], "bound_ms": row[-2],
+                "bound_by": row[-1], "library_ms": None}
+
+    both = {"serve": serve, "train": train}
+    wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     kernels = {"kernels": [
-        {"name": "K1 ProbSparse window attention fwd", "route": "cuda",
-         "source": "dehaze_tpu_torch/csrc/window_attention.cu",
-         "replaces": "dehaze_tpu/ops/pallas/window_attention.py:912",
-         "launches": k1,
-         "max_abs_err": max(r[2] for r in k1_res if r[1] == "bfloat16"),
-         "ms": k1_main[3], "plain_ms": k1_main[4]},
-        {"name": "K2 fused LayerNorm+LeFF", "route": "cuda",
-         "source": "dehaze_tpu_torch/csrc/leff.cu",
-         "replaces": "dehaze_tpu/ops/pallas/leff.py:120",
-         "launches": k2,
-         "max_abs_err": max(r[3] for r in k2_res if r[1] == "bfloat16"),
-         "ms": k2_main[4], "plain_ms": k2_main[5]},
+        entry("K1 ProbSparse window attention fwd", wa,
+              "dehaze_tpu/ops/pallas/window_attention.py:912", k1_res,
+              ("enc0", "bfloat16"), "k1_fwd", both),
+        entry("K1 ProbSparse window attention bwd", wa,
+              "dehaze_tpu/ops/pallas/window_attention.py:938", k1b_res,
+              ("enc0", "bfloat16"), "k1_bwd", {"train": train}),
+        entry("K2 fused LayerNorm+LeFF", "dehaze_tpu_torch/csrc/leff.cu",
+              "dehaze_tpu/ops/pallas/leff.py:120", k2_res,
+              ("enc0", "bfloat16", "erf"), "k2", both),
     ]}
     print(f"card: {card}", flush=True)
     print(json.dumps(kernels), flush=True)

@@ -1,8 +1,10 @@
 """Shared argparse → config mapping and model loading for the port's CLIs.
 
-Counterpart of `dehaze_tpu/cli/common.py` for the flags the serving path
-uses; flag names are the same. `--weights` takes a `.pth` state_dict (the
-reference's checkpoint format or a bare state_dict).
+Counterpart of `dehaze_tpu/cli/common.py` for the flags the serving and
+training paths use; flag names are the same. `config_from_args` returns a
+`Config`; the serving CLI reads its `model`. `--weights` takes a `.pth`
+state_dict (the reference's checkpoint format or a bare state_dict).
+`--remat`, `--data_axis` and `--device_data` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from types import SimpleNamespace
 
 import torch
 
-from dehaze_tpu_torch.config import ModelConfig
+from dehaze_tpu_torch.config import (Config, DataConfig, LossConfig,
+                                     ModelConfig, TrainConfig)
 from dehaze_tpu_torch.models.uformer import Uformer
 from dehaze_tpu_torch.utils.convert import load_weights
 
@@ -32,19 +35,81 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="training patch size: the configured resolution "
                         "and the canvas multiple of whole-image inference")
     p.add_argument("--seed", type=int, default=1234,
-                   help="seed of the ProbSparse sampling generator, "
-                        "re-seeded at every forward")
+                   help="training: seed of the init, the data order and "
+                        "the random layers; serving: seed of the "
+                        "ProbSparse sampling, re-seeded at every forward")
     p.add_argument("--device", default="cuda",
                    help="torch device of the model (a missing GPU is an "
                         "error, not a fallback)")
+    p.add_argument("--remat", action="store_true",
+                   help="not ported yet (raises)")
+    # loss
+    p.add_argument("--is_ab", action="store_true",
+                   help="CR ablation: drop the negative term")
+    p.add_argument("--w_loss_vgg7", type=float, default=1.0)
+    p.add_argument("--w_loss_CharbonnierLoss", type=float, default=1.0)
+    p.add_argument("--vgg_weights", default=None,
+                   help="converted torchvision VGG19 weights (.npz)")
+    # data
+    p.add_argument("--train_dir", default="")
+    p.add_argument("--val_dir", default="")
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--train_workers", type=int, default=8)
+    p.add_argument("--u8_transfer", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="ship batches to the device as uint8 and /255 there")
+    p.add_argument("--device_data", action="store_true",
+                   help="not ported yet (raises)")
+    # train
+    p.add_argument("--nepoch", type=int, default=270)
+    p.add_argument("--optimizer", default="adamw")
+    p.add_argument("--lr_initial", type=float, default=2e-4)
+    p.add_argument("--weight_decay", type=float, default=0.02)
+    p.add_argument("--warmup", action="store_true", default=False)
+    p.add_argument("--warmup_epochs", type=int, default=3)
+    p.add_argument("--save_dir", default="./log")
+    p.add_argument("--env", default="_")
+    p.add_argument("--resume", action="store_true", default=False)
+    p.add_argument("--pretrain_weights", default="")
+    p.add_argument("--data_axis", type=int, default=None,
+                   help="not ported yet (raises)")
+    p.add_argument("--accum_steps", type=int, default=1,
+                   help="microbatches per optimizer update")
+    p.add_argument("--keep_ckpts", type=int, default=0,
+                   help="keep only the newest N per-epoch checkpoints "
+                        "(0 = all); model_best is never pruned")
+    p.add_argument("--exit_after", type=int, default=0,
+                   help="stop after N epochs in this process (0 = run to "
+                        "--nepoch); continue with --resume")
     return p
 
 
-def config_from_args(a: argparse.Namespace) -> ModelConfig:
-    return ModelConfig(arch=a.arch, img_size=a.train_ps,
-                       embed_dim=a.embed_dim, win_size=a.win_size,
-                       use_rel_pos_bias=not a.no_rel_pos_bias,
-                       dtype=_DTYPES[a.dtype], fast_gelu=a.fast_gelu)
+def config_from_args(a: argparse.Namespace) -> Config:
+    for flag in ("remat", "data_axis", "device_data"):
+        if getattr(a, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet")
+    return Config(
+        model=ModelConfig(arch=a.arch, img_size=a.train_ps,
+                          embed_dim=a.embed_dim, win_size=a.win_size,
+                          use_rel_pos_bias=not a.no_rel_pos_bias,
+                          dtype=_DTYPES[a.dtype], fast_gelu=a.fast_gelu),
+        loss=LossConfig(w_charbonnier=a.w_loss_CharbonnierLoss,
+                        w_contrast=a.w_loss_vgg7, contrast_ablation=a.is_ab,
+                        vgg_weights=a.vgg_weights),
+        data=DataConfig(train_dir=a.train_dir, val_dir=a.val_dir,
+                        train_ps=a.train_ps, batch_size=a.batch_size,
+                        num_workers=a.train_workers,
+                        u8_transfer=a.u8_transfer),
+        train=TrainConfig(nepoch=a.nepoch, optimizer=a.optimizer,
+                          lr_initial=a.lr_initial,
+                          weight_decay=a.weight_decay, warmup=a.warmup,
+                          warmup_epochs=a.warmup_epochs, seed=a.seed,
+                          save_dir=a.save_dir, env=a.env, resume=a.resume,
+                          pretrain_weights=a.pretrain_weights,
+                          accum_steps=a.accum_steps,
+                          keep_ckpts=a.keep_ckpts,
+                          exit_after=a.exit_after),
+    )
 
 
 def build_model_and_params(cfg: ModelConfig, weights: str, device

@@ -237,7 +237,7 @@ def warm_up(dehaze, info, spec: str) -> float:
 
 def main():
     args = build_parser().parse_args()
-    dehaze, info = build_dehaze_fn(args, config_from_args(args))
+    dehaze, info = build_dehaze_fn(args, config_from_args(args).model)
     if args.precompile:
         secs = warm_up(dehaze, info, args.precompile)
         print(f"warmed {args.precompile} in {secs:.1f}s", flush=True)

@@ -1,14 +1,17 @@
-"""Typed model configuration (counterpart of `dehaze_tpu/config.py`).
+"""Typed configuration (counterpart of `dehaze_tpu/config.py`).
 
-Same field names as the JAX `ModelConfig`, so the CLIs share flag names;
-dtypes are torch dtypes. The JAX flags `use_pallas`/`use_pallas_leff` have no
-counterpart: the tensor's device decides whether the kernels run.
+Same field names and defaults as the JAX dataclasses, so the CLIs share
+flag names; dtypes are torch dtypes. The JAX flags `use_pallas`/
+`use_pallas_leff` have no counterpart: the tensor's device decides whether
+the kernels run. Fields of mechanisms the port does not have yet (`remat`,
+`band_axis`, `act_store`, the FFA knobs, `device_data`, `data_axis`) are
+left out; their CLI flags raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,3 +50,80 @@ class ModelConfig:
     def num_enc_layers(self) -> int:
         return len(self.depths) // 2
 
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss recipe: Charbonnier plus the VGG19 contrastive (CR) loss."""
+
+    w_charbonnier: float = 1.0
+    w_contrast: float = 1.0
+    charbonnier_eps: float = 1e-3
+    # CR ablation: drop the negative term (`--is_ab`).
+    contrast_ablation: bool = False
+    # VGG19 feature weights of the CR loss.
+    contrast_weights: Tuple[float, ...] = (1 / 32, 1 / 16, 1 / 8, 1 / 4, 1.0)
+    # Converted torchvision VGG19 weights (.npz); without them the CR loss
+    # runs on a fixed-seed random VGG19 and warns.
+    vgg_weights: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Paired gt/hazy folders, crops and MixUp."""
+
+    train_dir: str = ""
+    val_dir: str = ""
+    train_ps: int = 128  # random crop size at load time
+    batch_size: int = 32
+    num_workers: int = 8
+    mixup_after_epoch: int = 5  # MixUp for epoch > 5
+    mixup_beta: float = 1.2  # lambda ~ Beta(1.2, 1.2)
+    # Batches leave the pipeline as uint8 and are divided by 255 on the
+    # device (4x fewer host-to-device bytes than float32).
+    u8_transfer: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training recipe: AdamW, warmup + cosine (or StepLR), eval 4x/epoch."""
+
+    nepoch: int = 270
+    optimizer: str = "adamw"
+    lr_initial: float = 2e-4
+    weight_decay: float = 0.02
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    warmup: bool = True
+    warmup_epochs: int = 3
+    cosine_eta_min: float = 1e-6
+    # StepLR when warmup is off.
+    step_size: int = 50
+    step_gamma: float = 0.5
+    seed: int = 1234
+    evals_per_epoch: int = 4
+    save_dir: str = "./log"
+    env: str = "_"
+    resume: bool = False
+    pretrain_weights: str = ""
+    # Microbatches per optimizer update; batch_size must divide evenly.
+    accum_steps: int = 1
+    # Keep only the newest N per-epoch checkpoints (0 = keep all);
+    # model_best is never pruned.
+    keep_ckpts: int = 0
+    # Stop after this many epochs in this process (0 = run to nepoch);
+    # continue with --resume.
+    exit_after: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+
+def replace(cfg, **kw):
+    """`dataclasses.replace` passthrough for terse config edits."""
+    return dataclasses.replace(cfg, **kw)

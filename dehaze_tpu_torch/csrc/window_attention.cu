@@ -1,6 +1,6 @@
-// K1: ProbSparse window attention, forward, for Hopper (sm_90a).
+// K1: ProbSparse window attention, forward and backward, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_kernel_v4` / `_fused_attn_v4_fwd` of
+// Forward: replaces the TPU kernel `_kernel_v4` / `_fused_attn_v4_fwd` of
 // dehaze_tpu/ops/pallas/window_attention.py (reached through
 // `fused_window_attention`, version 4). Same function as the plain twin
 // `dehaze_tpu_torch.ops.probsparse.probsparse_attention_bnc`:
@@ -10,18 +10,37 @@
 //   -> z = a1 + bias[h] (+ -100 where region ids differ) -> a2 = softmax(z)
 //   -> kept rows a2 @ V, the others mean(V).
 //
-// Layout: q/k/v/out are [B_ * N, C] token-major, heads are channel slices
-// of width D = C / H. One CTA per (window, head): the 64x64 score tile, the
-// count matrix, both softmaxes, the rank and PV all stay in shared memory,
-// so HBM traffic is q/k/v in and the context out.
+// Backward: replaces `_kernel_v4_bwd` / `_fused_attn_v4_bwd` (same file).
+// Same function as `probsparse_attention_bnc_bwd`: it recomputes the chain
+// (the two roundings of a1 and a2 pass the gradient straight through), then
+//   dv = a2^T g_sel + sum_i g_unsel / N,  da2 = g_sel V^T,
+//   dz = a2 * (da2 - rowsum(da2 * a2)),    ds = a1 * (dz - rowsum(dz * a1)),
+//   dq = scale * ds K,  dk = scale * ds^T Q,  dbias[h] = sum over windows dz.
+// The selection is recomputed with the forward's own device functions
+// (`scores`, `row_chain`, `select_rows`) on the same inputs, so it is
+// bit-identical to the forward's: S is summed in float64 and rounded once,
+// sum(cnt * S) is exact in float64, and the rank is a pure comparison. No
+// row mask has to be saved between the two passes.
 //
-// What bounds it: per window-head the kernel moves 4*N*D elements and does
-// 2*N*N*D multiply-adds twice, so it is bound by issue rate on the CUDA
-// cores, not by HBM. S is accumulated in float64 and rounded once, and
-// sum(cnt * S) is summed in float64: the row selection is discontinuous in
-// S, and exact sums make it independent of summation order, so the kernel
-// and its plain twin select the same rows. Tensor cores (wgmma), several
-// windows per CTA and warp-parallel row statistics are later work.
+// Layout: q/k/v/g/out/dq/dk/dv are [B_ * N, C] token-major, heads are
+// channel slices of width D = C / H. One CTA per (window, head) in the
+// forward; in the backward one CTA per (window group, head) walks its
+// windows one after another. The 64x64 score tiles, the count matrix, both
+// softmaxes, the rank and all products stay in shared memory, so HBM
+// traffic is q/k/v (and g) in and the outputs out.
+//
+// dbias is a sum over all windows. CTAs run in no order, so each backward
+// CTA sums dz over its own windows in registers, in window order, and
+// writes one partial [H, N, N] slice; a second kernel sums the partials in
+// block order. Both sums have a fixed order, so dbias is the same from run
+// to run (no float atomics).
+//
+// What bounds it: per window-head the forward moves 4*N*D elements and
+// does 2*N*N*D multiply-adds twice; the backward moves 7*N*D elements and
+// does about 7*N*N*D. Both are bound by instruction throughput on the CUDA
+// cores, not by HBM: the products run as scalar FMAs (QK^T in float64),
+// and the row statistics run one thread per row. Tensor cores (wgmma),
+// several windows per CTA and warp-parallel row statistics are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,6 +50,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxN = 64;
+constexpr int kAcc = kMaxN * kMaxN / kThreads;  // dbias elements per thread
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -52,6 +73,98 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
+// Load one (window, head) slice [N, D] of each tensor into padded smem rows.
+template <typename T>
+__device__ __forceinline__ void load_tiles(const T* const* src,
+                                           float* const* dst, int n_src,
+                                           size_t base, int N, int C, int D,
+                                           int ld) {
+  for (int e = threadIdx.x; e < N * D; e += kThreads) {
+    const int i = e / D, d = e - i * D;
+    const size_t g = base + static_cast<size_t>(i) * C + d;
+    for (int t = 0; t < n_src; ++t) dst[t][i * ld + d] = to_f(src[t][g]);
+  }
+}
+
+// S = Q K^T: float64 accumulation, one rounding to float, then to T.
+template <typename T>
+__device__ __forceinline__ void scores(const float* sQ, const float* sK,
+                                       float* sS, int N, int D, int ld,
+                                       int ls) {
+  for (int e = threadIdx.x; e < N * N; e += kThreads) {
+    const int i = e / N, j = e - i * N;
+    double acc = 0.0;
+    for (int d = 0; d < D; ++d) {
+      acc = fma(static_cast<double>(sQ[i * ld + d]),
+                static_cast<double>(sK[j * ld + d]), acc);
+    }
+    sS[i * ls + j] = round_to<T>(__double2float_rn(acc));
+  }
+}
+
+// Row i: sparsity measure into sM[i]; S row -> a1 (rounded) into a1row and
+// a2 into a2row (a2row may alias the S row). a2 is left unrounded; the
+// forward rounds it before PV, the backward uses it as is.
+template <typename T>
+__device__ __forceinline__ void row_chain(const float* srow, float* a1row,
+                                          float* a2row, float* sM,
+                                          const unsigned char* cntrow,
+                                          const float* brow,
+                                          const int32_t* reg, int i, int N,
+                                          float scale) {
+  float m_max = -1e30f;
+  double m_sum = 0.0;
+  for (int j = 0; j < N; ++j) {
+    const int c = cntrow[j];
+    if (c > 0) {
+      m_max = fmaxf(m_max, srow[j]);
+      m_sum += static_cast<double>(srow[j]) * c;
+    }
+  }
+  sM[i] = m_max - __double2float_rn(m_sum) / static_cast<float>(N);
+
+  float mx = -INFINITY;
+  for (int j = 0; j < N; ++j) mx = fmaxf(mx, srow[j] * scale);
+  float sum = 0.f;
+  for (int j = 0; j < N; ++j) {
+    const float e = expf(srow[j] * scale - mx);
+    a2row[j] = e;
+    sum += e;
+  }
+  mx = -INFINITY;
+  for (int j = 0; j < N; ++j) {
+    const float a1 = round_to<T>(a2row[j] / sum);
+    if (a1row != a2row) a1row[j] = a1;
+    float z = a1;
+    if (brow) z = z + brow[j];
+    if (reg) z = z + (reg[i] != reg[j] ? -100.f : 0.f);
+    a2row[j] = z;
+    mx = fmaxf(mx, z);
+  }
+  sum = 0.f;
+  for (int j = 0; j < N; ++j) {
+    const float e = expf(a2row[j] - mx);
+    a2row[j] = e;
+    sum += e;
+  }
+  for (int j = 0; j < N; ++j) a2row[j] = a2row[j] / sum;
+}
+
+// Top-u rows by lexicographic rank: (M descending, index ascending).
+__device__ __forceinline__ void select_rows(const float* sM, int* sSel, int N,
+                                            int u) {
+  if (threadIdx.x < N) {
+    const int t = threadIdx.x;
+    const float mi = sM[t];
+    int rank = 0;
+    for (int j = 0; j < N; ++j) {
+      const float mj = sM[j];
+      rank += (mj > mi) || (mj == mi && j < t);
+    }
+    sSel[t] = rank < u;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
@@ -64,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(
   float* sQ = smem;            // [N][ld]
   float* sK = sQ + N * ld;     // [N][ld]
   float* sV = sK + N * ld;     // [N][ld]
-  float* sS = sV + N * ld;     // [N][ls]: S, then a1, then a2
+  float* sS = sV + N * ld;     // [N][ls]: S, then a2
   float* sM = sS + N * ls;     // [N] sparsity measure
   int* sSel = reinterpret_cast<int*>(sM + N);                 // [N]
   unsigned char* sCnt = reinterpret_cast<unsigned char*>(sSel + N);  // [N*N]
@@ -74,83 +187,25 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(
   const int tid = threadIdx.x;
   const size_t base = static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * D;
 
-  for (int e = tid; e < N * D; e += kThreads) {
-    const int i = e / D, d = e - i * D;
-    const size_t g = base + static_cast<size_t>(i) * C + d;
-    sQ[i * ld + d] = to_f(q[g]);
-    sK[i * ld + d] = to_f(k[g]);
-    sV[i * ld + d] = to_f(v[g]);
-  }
+  const T* src[3] = {q, k, v};
+  float* dst[3] = {sQ, sK, sV};
+  load_tiles<T>(src, dst, 3, base, N, C, D, ld);
   for (int e = tid; e < N * N; e += kThreads) {
     sCnt[e] = static_cast<unsigned char>(cnt[e]);
   }
   __syncthreads();
-
-  // S = Q K^T: float64 accumulation, one rounding to float, then to T.
-  for (int e = tid; e < N * N; e += kThreads) {
-    const int i = e / N, j = e - i * N;
-    double acc = 0.0;
-    for (int d = 0; d < D; ++d) {
-      acc = fma(static_cast<double>(sQ[i * ld + d]),
-                static_cast<double>(sK[j * ld + d]), acc);
-    }
-    sS[i * ls + j] = round_to<T>(__double2float_rn(acc));
+  scores<T>(sQ, sK, sS, N, D, ld, ls);
+  __syncthreads();
+  if (tid < N) {
+    float* row = sS + tid * ls;
+    row_chain<T>(row, row, row, sM, sCnt + tid * N,
+                 bias ? bias + (static_cast<size_t>(h) * N + tid) * N : nullptr,
+                 region ? region + static_cast<size_t>(w % nW) * N : nullptr,
+                 tid, N, scale);
+    for (int j = 0; j < N; ++j) row[j] = round_to<T>(row[j]);
   }
   __syncthreads();
-
-  // Per row: sparsity measure, first softmax, bias and mask, second softmax.
-  if (tid < N) {
-    const int i = tid;
-    float* row = sS + i * ls;
-    float m_max = -1e30f;
-    double m_sum = 0.0;
-    for (int j = 0; j < N; ++j) {
-      const int c = sCnt[i * N + j];
-      if (c > 0) {
-        m_max = fmaxf(m_max, row[j]);
-        m_sum += static_cast<double>(row[j]) * c;
-      }
-    }
-    sM[i] = m_max - __double2float_rn(m_sum) / static_cast<float>(N);
-
-    float mx = -INFINITY;
-    for (int j = 0; j < N; ++j) mx = fmaxf(mx, row[j] * scale);
-    float sum = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float e = expf(row[j] * scale - mx);
-      row[j] = e;
-      sum += e;
-    }
-    const float* brow = bias ? bias + (static_cast<size_t>(h) * N + i) * N : nullptr;
-    const int32_t* reg = region ? region + static_cast<size_t>(w % nW) * N : nullptr;
-    mx = -INFINITY;
-    for (int j = 0; j < N; ++j) {
-      float z = round_to<T>(row[j] / sum);
-      if (brow) z = z + brow[j];
-      if (reg) z = z + (reg[i] != reg[j] ? -100.f : 0.f);
-      row[j] = z;
-      mx = fmaxf(mx, z);
-    }
-    sum = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float e = expf(row[j] - mx);
-      row[j] = e;
-      sum += e;
-    }
-    for (int j = 0; j < N; ++j) row[j] = round_to<T>(row[j] / sum);
-  }
-  __syncthreads();
-
-  // Top-u rows by lexicographic rank: (M descending, index ascending).
-  if (tid < N) {
-    const float mi = sM[tid];
-    int rank = 0;
-    for (int j = 0; j < N; ++j) {
-      const float mj = sM[j];
-      rank += (mj > mi) || (mj == mi && j < tid);
-    }
-    sSel[tid] = rank < u;
-  }
+  select_rows(sM, sSel, N, u);
   __syncthreads();
 
   // Kept rows: a2 @ V; the others: mean(V).
@@ -168,9 +223,163 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int32_t* cnt,
-           const float* bias, const int32_t* region, void* out, int B, int N,
-           int C, int H, int nW, int u, float scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ g,
+    const int32_t* __restrict__ cnt, const float* __restrict__ bias,
+    const int32_t* __restrict__ region, T* __restrict__ dq,
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ db_part,
+    int B, int N, int C, int D, int H, int nW, int u, float scale) {
+  extern __shared__ float smem[];
+  const int ld = D + 1;
+  const int ls = N + 1;
+  float* sQ = smem;            // [N][ld]
+  float* sK = sQ + N * ld;     // [N][ld]
+  float* sV = sK + N * ld;     // [N][ld]
+  float* sG = sV + N * ld;     // [N][ld]: g, then g_sel
+  float* sA1 = sG + N * ld;    // [N][ls]: S, then a1
+  float* sA2 = sA1 + N * ls;   // [N][ls]: a2
+  float* sD = sA2 + N * ls;    // [N][ls]: da2, then dz, then ds
+  float* sM = sD + N * ls;     // [N]
+  float* sGu = sM + N;         // [D]: sum over unselected rows of g
+  int* sSel = reinterpret_cast<int*>(sGu + D);                       // [N]
+  unsigned char* sCnt = reinterpret_cast<unsigned char*>(sSel + N);  // [N*N]
+
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  for (int e = tid; e < N * N; e += kThreads) {
+    sCnt[e] = static_cast<unsigned char>(cnt[e]);
+  }
+  float acc_db[kAcc];
+#pragma unroll
+  for (int r = 0; r < kAcc; ++r) acc_db[r] = 0.f;
+
+  for (int w = blockIdx.x; w < B; w += gridDim.x) {
+    const size_t base =
+        static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * D;
+    __syncthreads();  // previous window's smem reads are done
+    const T* src[4] = {q, k, v, g};
+    float* dst[4] = {sQ, sK, sV, sG};
+    load_tiles<T>(src, dst, 4, base, N, C, D, ld);
+    __syncthreads();
+    scores<T>(sQ, sK, sA1, N, D, ld, ls);
+    __syncthreads();
+    if (tid < N) {
+      row_chain<T>(sA1 + tid * ls, sA1 + tid * ls, sA2 + tid * ls, sM,
+                   sCnt + tid * N,
+                   bias ? bias + (static_cast<size_t>(h) * N + tid) * N
+                        : nullptr,
+                   region ? region + static_cast<size_t>(w % nW) * N : nullptr,
+                   tid, N, scale);
+    }
+    __syncthreads();
+    select_rows(sM, sSel, N, u);
+    __syncthreads();
+
+    // sum over unselected rows of g (the mean(V) term of dv), then zero
+    // those rows of g so that sG holds g_sel.
+    for (int d = tid; d < D; d += kThreads) {
+      float s = 0.f;
+      for (int i = 0; i < N; ++i) {
+        if (!sSel[i]) s += sG[i * ld + d];
+      }
+      sGu[d] = s;
+    }
+    __syncthreads();
+    for (int e = tid; e < N * D; e += kThreads) {
+      const int i = e / D, d = e - i * D;
+      if (!sSel[i]) sG[i * ld + d] = 0.f;
+    }
+    __syncthreads();
+
+    // dv[j, d] = sum_i a2[i, j] g_sel[i, d] + sum_i g_unsel[i, d] / N
+    for (int e = tid; e < N * D; e += kThreads) {
+      const int j = e / D, d = e - j * D;
+      float acc = 0.f;
+      for (int i = 0; i < N; ++i) {
+        acc = fmaf(sA2[i * ls + j], sG[i * ld + d], acc);
+      }
+      acc = acc + sGu[d] / static_cast<float>(N);
+      dv[base + static_cast<size_t>(j) * C + d] = from_f<T>(acc);
+    }
+    // da2[i, j] = sum_d g_sel[i, d] v[j, d]
+    for (int e = tid; e < N * N; e += kThreads) {
+      const int i = e / N, j = e - i * N;
+      float acc = 0.f;
+      if (sSel[i]) {
+        for (int d = 0; d < D; ++d) {
+          acc = fmaf(sG[i * ld + d], sV[j * ld + d], acc);
+        }
+      }
+      sD[i * ls + j] = acc;
+    }
+    __syncthreads();
+    // dz = a2 * (da2 - rowsum(da2 * a2))
+    if (tid < N) {
+      const float* a2 = sA2 + tid * ls;
+      float* dr = sD + tid * ls;
+      float s = 0.f;
+      for (int j = 0; j < N; ++j) s = fmaf(dr[j], a2[j], s);
+      for (int j = 0; j < N; ++j) dr[j] = a2[j] * (dr[j] - s);
+    }
+    __syncthreads();
+    if (db_part) {
+#pragma unroll
+      for (int r = 0; r < kAcc; ++r) {
+        const int e = tid + r * kThreads;
+        if (e < N * N) acc_db[r] += sD[(e / N) * ls + e % N];
+      }
+      __syncthreads();
+    }
+    // ds = a1 * (dz - rowsum(dz * a1))
+    if (tid < N) {
+      const float* a1 = sA1 + tid * ls;
+      float* dr = sD + tid * ls;
+      float s = 0.f;
+      for (int j = 0; j < N; ++j) s = fmaf(dr[j], a1[j], s);
+      for (int j = 0; j < N; ++j) dr[j] = a1[j] * (dr[j] - s);
+    }
+    __syncthreads();
+    // dq[i, d] = scale sum_j ds[i, j] k[j, d]
+    // dk[j, d] = scale sum_i ds[i, j] q[i, d]
+    for (int e = tid; e < N * D; e += kThreads) {
+      const int i = e / D, d = e - i * D;
+      float aq = 0.f, ak = 0.f;
+      for (int j = 0; j < N; ++j) {
+        aq = fmaf(sD[i * ls + j], sK[j * ld + d], aq);
+        ak = fmaf(sD[j * ls + i], sQ[j * ld + d], ak);
+      }
+      const size_t o = base + static_cast<size_t>(i) * C + d;
+      dq[o] = from_f<T>(aq * scale);
+      dk[o] = from_f<T>(ak * scale);
+    }
+  }
+  if (db_part) {
+    float* part = db_part + (static_cast<size_t>(blockIdx.x) * H + h) * N * N;
+#pragma unroll
+    for (int r = 0; r < kAcc; ++r) {
+      const int e = tid + r * kThreads;
+      if (e < N * N) part[e] = acc_db[r];
+    }
+  }
+}
+
+// dbias[e] = sum over blocks b (in order) of part[b][e], e over H * N * N.
+__global__ void __launch_bounds__(kThreads) dbias_reduce_kernel(
+    const float* __restrict__ part, float* __restrict__ dbias, int n_blocks,
+    int n) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int b = 0; b < n_blocks; ++b) s += part[static_cast<size_t>(b) * n + e];
+  dbias[e] = s;
+}
+
+template <typename T>
+int launch_fwd(const void* q, const void* k, const void* v, const int32_t* cnt,
+               const float* bias, const int32_t* region, void* out, int B,
+               int N, int C, int H, int nW, int u, float scale,
+               cudaStream_t stream) {
   const int D = C / H;
   const size_t smem = (3 * N * (D + 1) + N * (N + 1) + N) * sizeof(float) +
                       N * sizeof(int) + N * N;
@@ -182,6 +391,33 @@ int launch(const void* q, const void* k, const void* v, const int32_t* cnt,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), cnt, bias, region, static_cast<T*>(out), N, C,
       D, nW, u, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* g,
+               const int32_t* cnt, const float* bias, const int32_t* region,
+               void* dq, void* dk, void* dv, float* db_part, float* dbias,
+               int B, int N, int C, int H, int nW, int u, float scale,
+               int n_blocks, cudaStream_t stream) {
+  const int D = C / H;
+  const size_t smem =
+      (4 * N * (D + 1) + 3 * N * (N + 1) + N + D) * sizeof(float) +
+      N * sizeof(int) + N * N;
+  auto kernel = window_attention_bwd_kernel<T>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  dim3 grid(n_blocks, H);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g), cnt, bias, region,
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
+      bias ? db_part : nullptr, B, N, C, D, H, nW, u, scale);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || bias == nullptr) return err;
+  const int n = H * N * N;
+  dbias_reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      db_part, dbias, n_blocks, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -199,11 +435,33 @@ int window_attention_fwd(int dtype, const void* q, const void* k,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(q, k, v, cnt, bias, region, out, B, N, C, H, nW, u,
-                         scale, s);
+    return launch_fwd<float>(q, k, v, cnt, bias, region, out, B, N, C, H, nW,
+                             u, scale, s);
   }
-  return launch<__nv_bfloat16>(q, k, v, cnt, bias, region, out, B, N, C, H,
-                               nW, u, scale, s);
+  return launch_fwd<__nv_bfloat16>(q, k, v, cnt, bias, region, out, B, N, C,
+                                   H, nW, u, scale, s);
+}
+
+// Backward. q/k/v/g and dq/dk/dv: [B * N, C] contiguous, in the activation
+// type. With a bias, db_part is float32 scratch [n_blocks, H, N, N] and
+// dbias the float32 output [H, N, N]; both are ignored without one.
+// n_blocks (1..B) CTAs per head share the windows. Returns
+// cudaGetLastError() after the last launch.
+int window_attention_bwd(int dtype, const void* q, const void* k,
+                         const void* v, const void* g, const int32_t* cnt,
+                         const float* bias, const int32_t* region, void* dq,
+                         void* dk, void* dv, float* db_part, float* dbias,
+                         int B, int N, int C, int H, int nW, int u,
+                         float scale, int n_blocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_bwd<float>(q, k, v, g, cnt, bias, region, dq, dk, dv,
+                             db_part, dbias, B, N, C, H, nW, u, scale,
+                             n_blocks, s);
+  }
+  return launch_bwd<__nv_bfloat16>(q, k, v, g, cnt, bias, region, dq, dk, dv,
+                                   db_part, dbias, B, N, C, H, nW, u, scale,
+                                   n_blocks, s);
 }
 
 const char* cuda_error_string(int err) {

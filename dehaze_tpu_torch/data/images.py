@@ -118,6 +118,10 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
             + chunk(b"IEND", b""))
 
 
+def is_png_file(filename: str) -> bool:
+    return filename.lower().endswith(".png")
+
+
 def _to_u8(img: np.ndarray) -> np.ndarray:
     if img.dtype != np.uint8:
         img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)

@@ -1,0 +1,130 @@
+"""Host-side input pipeline: paired gt/hazy folders → fixed-shape batches.
+
+Counterpart of `dehaze_tpu/data/pipeline.py` (single process) and of the
+validation batches of `dehaze_tpu/train/loop.py`. A thread pool decodes PNGs
+with the port's codec, random-crops ps² patches and applies the 8-way
+dihedral on host NumPy; batches are NHWC uint8 (or float32) NumPy arrays
+that the trainer moves to the device. The random draws are the JAX
+package's, in the same order, so one seed gives the same batches.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+from collections import deque
+from dataclasses import dataclass
+from typing import Iterator, List, Tuple
+
+import numpy as np
+
+from dehaze_tpu_torch.data.augment import dihedral, random_crop_pair
+from dehaze_tpu_torch.data.images import is_png_file, load_img
+
+
+@dataclass
+class PairedFolder:
+    """Aligned gt/ and hazy/ PNG pairs under a root."""
+
+    root: str
+    gt_dir: str = "gt"
+    hazy_dir: str = "hazy"
+
+    def __post_init__(self):
+        gt = sorted(os.listdir(os.path.join(self.root, self.gt_dir)))
+        hz = sorted(os.listdir(os.path.join(self.root, self.hazy_dir)))
+        self.clean_files = [os.path.join(self.root, self.gt_dir, f)
+                            for f in gt if is_png_file(f)]
+        self.noisy_files = [os.path.join(self.root, self.hazy_dir, f)
+                            for f in hz if is_png_file(f)]
+        if len(self.clean_files) != len(self.noisy_files):
+            raise ValueError(
+                f"gt/hazy count mismatch: {len(self.clean_files)} vs "
+                f"{len(self.noisy_files)} under {self.root}")
+
+    def __len__(self) -> int:
+        return len(self.clean_files)
+
+
+def _load_train_item(pair: Tuple[str, str], ps: int, seed: int,
+                     u8: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    clean = load_img(pair[0], u8=u8)
+    noisy = load_img(pair[1], u8=u8)
+    clean, noisy = random_crop_pair(rng, clean, noisy, ps)
+    k = int(rng.integers(0, 8))
+    return dihedral(clean, k), dihedral(noisy, k)
+
+
+def _epoch_schedule(n: int, batch_size: int, seed: int, epoch: int,
+                    drop_last: bool) -> List[List[Tuple[int, int]]]:
+    """Deterministic per-epoch plan: a list of batches, each a list of
+    (folder_index, item_seed). A short last batch wrap-pads with its own
+    leading items, so every batch has exactly `batch_size` rows."""
+    rng = np.random.default_rng((seed, epoch))
+    order = rng.permutation(n)
+    item_seeds = rng.integers(0, 2**63 - 1, size=n)
+    items = [(int(order[i]), int(item_seeds[i])) for i in range(n)]
+    batches = [items[i:i + batch_size] for i in range(0, n, batch_size)]
+    if batches and len(batches[-1]) < batch_size:
+        if drop_last:
+            batches.pop()
+        else:
+            last, orig = batches[-1], len(batches[-1])
+            while len(last) < batch_size:
+                last.append(last[len(last) % orig])
+    return batches
+
+
+def train_batches(folder: PairedFolder, *, batch_size: int, patch_size: int,
+                  seed: int, epoch: int, num_workers: int = 8,
+                  drop_last: bool = False, u8: bool = False
+                  ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """One epoch of shuffled (clean, noisy) NHWC batches, float32 in [0, 1]
+    or, with `u8=True`, uint8. Deterministic given (seed, epoch). Decoding
+    runs `num_workers` items ahead of the consumer."""
+    plan = _epoch_schedule(len(folder), batch_size, seed, epoch, drop_last)
+    args = [((folder.clean_files[i], folder.noisy_files[i]), patch_size, s,
+             u8) for batch in plan for (i, s) in batch]
+    with cf.ThreadPoolExecutor(max_workers=num_workers) as ex:
+        lookahead = num_workers + 2
+        futs = deque(ex.submit(_load_train_item, *a)
+                     for a in args[:lookahead])
+        next_submit = lookahead
+        buf_c: List[np.ndarray] = []
+        buf_n: List[np.ndarray] = []
+        for _ in range(len(args)):
+            f = futs.popleft()
+            if next_submit < len(args):
+                futs.append(ex.submit(_load_train_item, *args[next_submit]))
+                next_submit += 1
+            c, x = f.result()
+            buf_c.append(c)
+            buf_n.append(x)
+            if len(buf_c) == batch_size:
+                yield np.stack(buf_c), np.stack(buf_n)
+                buf_c, buf_n = [], []
+
+
+def _val_batches(folder: PairedFolder, ps: int, batch_size: int,
+                 u8: bool = False):
+    """Validation batches: each image center-cropped to ps² (unless it is
+    ps² already). Returns (batches, n_images); a short last batch wraps to
+    index 0, so pass n_images as `Trainer.evaluate(n_valid=)`."""
+    items_c, items_n = [], []
+    for c, n in zip(folder.clean_files, folder.noisy_files):
+        ci, ni = load_img(c, u8=u8), load_img(n, u8=u8)
+        h, w = ci.shape[:2]
+        if (h, w) != (ps, ps):
+            r = max((h - ps) // 2, 0)
+            s = max((w - ps) // 2, 0)
+            ci, ni = ci[r:r + ps, s:s + ps], ni[r:r + ps, s:s + ps]
+        items_c.append(ci)
+        items_n.append(ni)
+    n_images = len(items_c)
+    batches = []
+    for i in range(0, n_images, batch_size):
+        idx = [(i + j) % n_images for j in range(batch_size)]
+        batches.append((np.stack([items_c[j] for j in idx]),
+                        np.stack([items_n[j] for j in idx])))
+    return batches, n_images

@@ -10,11 +10,14 @@ at use, as the JAX modules do.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from dehaze_tpu_torch.ops.kernels.leff import leff_fused
+from dehaze_tpu_torch.utils.transfer import to_device
 
 
 def cast(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -36,19 +39,42 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
                         norm.bias, norm.eps).to(x.dtype)
 
 
+def _keep_mask(shape, keep: float, generator: Optional[torch.Generator],
+               device) -> torch.Tensor:
+    """Bernoulli(keep) mask drawn from an explicit generator (on its device,
+    the CPU unless the caller gave a CUDA one), moved to `device`."""
+    if generator is None:
+        raise ValueError("a random layer in training needs an explicit "
+                         "torch.Generator")
+    return to_device(torch.rand(shape, generator=generator,
+                                device=generator.device) < keep, device)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Element-wise dropout scaled by 1/keep; the identity at eval or rate 0."""
+    if rate == 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    mask = _keep_mask(x.shape, keep, generator, x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class DropPath(nn.Module):
-    """Per-sample stochastic depth; the identity at eval or rate 0."""
+    """Per-sample stochastic depth scaled by 1/keep; the identity at eval or
+    rate 0. The mask comes from the generator passed to forward."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
-                          device=x.device) < keep
+        mask = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), keep,
+                          generator, x.device)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -114,9 +140,12 @@ class LeFF(nn.Module):
     """Locally-enhanced FFN: Linear(C→hidden) → GELU → depthwise conv3×3
     (a grouped `nn.Conv2d`) → GELU → Linear(hidden→C).
 
-    forward(x, norm) computes LeFF(norm(x)) in one call of kernel K2
-    (`ops.kernels.leff.leff_fused`): on CUDA the fused kernel, on CPU its
-    plain twin. The residual add stays with the block."""
+    forward(x, norm) computes LeFF(norm(x)). At eval it is one call of
+    kernel K2 (`ops.kernels.leff.leff_fused`): on CUDA the fused kernel, on
+    CPU its plain twin. In training it runs the unfused path the JAX package
+    trains with (K2 is inference only there too): LayerNorm, `F.linear`,
+    GELU, grouped `F.conv2d`, GELU, `F.linear`. The residual add stays with
+    the block."""
 
     def __init__(self, dim: int, hidden_dim: int, fast_gelu: bool = False,
                  device=None):
@@ -130,6 +159,15 @@ class LeFF(nn.Module):
 
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
         l1, dw, l2 = self.linear1[0], self.dwconv[0], self.linear2[0]
+        if self.training:
+            approx = "tanh" if self.fast_gelu else "none"
+            h = F.linear(layer_norm(x, norm), cast(l1.weight, x),
+                         cast(l1.bias, x))
+            h = F.gelu(h, approximate=approx)
+            h = F.conv2d(_nchw(h), cast(dw.weight, h), cast(dw.bias, h),
+                         padding=1, groups=h.shape[-1])
+            h = F.gelu(_nhwc(h), approximate=approx)
+            return F.linear(h, cast(l2.weight, h), cast(l2.bias, h))
         return leff_fused(
             x, ln_scale=norm.weight, ln_bias=norm.bias, w1=l1.weight.t(),
             b1=l1.bias, dw_kernel=dw.weight.permute(2, 3, 1, 0),

@@ -14,7 +14,11 @@ Module names follow the reference torch model's state_dict
 
 ProbSparse key sampling draws from the `generator` passed to forward: each
 attention layer draws its [N, U_part] table in module order, so a forward
-with a freshly seeded generator is deterministic.
+with a freshly seeded generator is deterministic. Serving re-seeds it per
+forward; training lets it advance from step to step. In train mode,
+DropPath and dropout draw their masks from the `droppath` and
+`dropout_gen` generators (none is needed at rate 0), never from torch's
+global RNG.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch.nn.functional as F
 from dehaze_tpu_torch.config import ModelConfig
 from dehaze_tpu_torch.models.layers import (DropPath, InputProj, LeFF,
                                             OutputProj, Downsample, Upsample,
-                                            cast, layer_norm)
+                                            cast, dropout, layer_norm)
 from dehaze_tpu_torch.ops import probsparse as ps_ops
 from dehaze_tpu_torch.ops import window as win_ops
 from dehaze_tpu_torch.ops.kernels.window_attention import (
@@ -128,7 +132,8 @@ class LeWinBlock(nn.Module):
                         device=device)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                droppath: Optional[torch.Generator] = None) -> torch.Tensor:
         B, H, W, C = x.shape
         win, shift = self.win, self.shift
         if H % win or W % win:
@@ -144,8 +149,8 @@ class LeWinBlock(nn.Module):
         y = win_ops.window_reverse(y, win, H, W)
         if shift > 0:
             y = win_ops.cyclic_unshift(y, shift)
-        x = x + self.drop_path(y)
-        return x + self.drop_path(self.mlp(x, self.norm2))
+        x = x + self.drop_path(y, droppath)
+        return x + self.drop_path(self.mlp(x, self.norm2), droppath)
 
 
 class UformerStage(nn.Module):
@@ -167,9 +172,10 @@ class UformerStage(nn.Module):
             for j in range(depth)])
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                droppath: Optional[torch.Generator] = None) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x, generator)
+            x = blk(x, generator, droppath)
         return x
 
 
@@ -202,7 +208,6 @@ class Uformer(nn.Module):
         dec_dpr = enc_dpr[::-1]
 
         self.input_proj = InputProj(cfg.in_chans, cfg.embed_dim, device=device)
-        self.pos_drop = nn.Dropout(cfg.drop_rate)
         dim, res, start = cfg.embed_dim, cfg.img_size, 0
         for i in range(n_enc):
             setattr(self, f"encoderlayer_{i}", UformerStage(
@@ -246,18 +251,22 @@ class Uformer(nn.Module):
             nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                droppath: Optional[torch.Generator] = None,
+                dropout_gen: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         n_enc = self.cfg.num_enc_layers
-        y = self.pos_drop(self.input_proj(x.to(self.cfg.dtype)))
+        y = dropout(self.input_proj(x.to(self.cfg.dtype)), self.cfg.drop_rate,
+                    self.training, dropout_gen)
         skips = []
         for i in range(n_enc):
-            y = getattr(self, f"encoderlayer_{i}")(y, generator)
+            y = getattr(self, f"encoderlayer_{i}")(y, generator, droppath)
             skips.append(y)
             y = getattr(self, f"dowsample_{i}")(y)
-        y = self.conv(y, generator)
+        y = self.conv(y, generator, droppath)
         for i in range(n_enc):
             y = getattr(self, f"upsample_{i}")(y)
             y = torch.cat([y, skips[n_enc - 1 - i]], dim=-1)
-            y = getattr(self, f"decoderlayer_{i}")(y, generator)
+            y = getattr(self, f"decoderlayer_{i}")(y, generator, droppath)
         out = self.output_proj(y)
         return x.float() + out.float()

@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}  # one build per source at a time
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent building, ptxas report); empty when loaded from disk
 build_info: Dict[str, Tuple[float, str]] = {}
@@ -61,8 +62,11 @@ def load_library(name: str,
                  signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu`; `signatures` maps each C
     entry point to its ctypes argtypes (every entry returns an int error
-    code, `cudaGetLastError()` after the launch)."""
+    code, `cudaGetLastError()` after the launch). Different sources build
+    in parallel when called from several threads."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_build(name)))

@@ -43,12 +43,22 @@ def relative_position_index(win_h: int, win_w: int) -> np.ndarray:
     return rel.sum(-1).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _relative_position_index_on(win_h: int, win_w: int,
+                                device: torch.device) -> torch.Tensor:
+    """relative_position_index flattened, as an int64 tensor on `device`
+    (copied once per device, not per call). Made outside inference mode, so
+    a training forward's index backward may save it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(relative_position_index(
+            win_h, win_w).reshape(-1).astype(np.int64)).to(device)
+
+
 def gather_rel_pos_bias(table: torch.Tensor, win_h: int, win_w: int
                         ) -> torch.Tensor:
     """Bias table [(2h-1)*(2w-1), nH] -> per-pair bias [nH, N, N]."""
-    idx = torch.from_numpy(relative_position_index(win_h, win_w).reshape(-1))
     n = win_h * win_w
-    bias = table[idx.to(device=table.device, dtype=torch.long)]
+    bias = table[_relative_position_index_on(win_h, win_w, table.device)]
     return bias.reshape(n, n, -1).permute(2, 0, 1)
 
 

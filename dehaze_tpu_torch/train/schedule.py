@@ -1,0 +1,60 @@
+"""Epoch learning-rate schedules (counterpart of `dehaze_tpu/train/schedule.py`).
+
+The reference's timeline, stepped at epoch end:
+- warmup + cosine: linear from 0 (epoch 1 trains at lr 0, a faithful quirk)
+  to the base lr over W epochs, then a cosine over nepoch - W epochs down to
+  eta_min;
+- StepLR when warmup is off: ×gamma every step_size epochs;
+- resume: a fresh cosine over the remaining epochs from the resumed lr.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import numpy as np
+
+from dehaze_tpu_torch.config import TrainConfig
+
+
+def make_epoch_lr(cfg: TrainConfig) -> Callable[[int], float]:
+    """epoch (0-based) -> lr."""
+    base = cfg.lr_initial
+    if cfg.warmup:
+        w = cfg.warmup_epochs
+        t_max = max(cfg.nepoch - w, 1)
+        eta = cfg.cosine_eta_min
+
+        def lr(epoch: int) -> float:
+            if epoch <= w:
+                return base * epoch / w
+            t = min(epoch - w - 1, t_max)
+            return eta + (base - eta) * (1 + math.cos(math.pi * t / t_max)) / 2
+
+        return lr
+
+    def lr_step(epoch: int) -> float:
+        return base * (cfg.step_gamma ** (epoch // cfg.step_size))
+
+    return lr_step
+
+
+def resume_cosine_lr(cfg: TrainConfig, start_epoch: int, resumed_lr: float):
+    """After a resume: a cosine over nepoch - start_epoch + 1 epochs from the
+    checkpointed lr."""
+    t_max = cfg.nepoch - start_epoch + 1
+    eta = cfg.cosine_eta_min
+
+    def lr(epoch: int) -> float:
+        t = min(epoch - start_epoch, t_max)
+        return eta + (resumed_lr - eta) * (1 + math.cos(math.pi * t / t_max)) / 2
+
+    return lr
+
+
+def epoch_lr_table(epoch_lr: Callable[[int], float], max_epochs: int = 4096
+                   ) -> np.ndarray:
+    """An epoch-lr function tabulated as [max_epochs] float32."""
+    return np.array([epoch_lr(e) for e in range(max_epochs)],
+                    dtype=np.float32)

@@ -8,8 +8,10 @@ imports jax):
     PYTHONPATH=. python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 Tolerances are chip_smoke.py's: K1 f32 1e-4 on every row, bf16 1.6e-2 on
-all but 0.1% of rows; K2 |Δ| <= tol·(1 + |ref|) with tol 1e-4 (f32) and
-1e-2 (bf16).
+all but 0.1% of rows; K1 backward, per gradient tensor, every element
+within tol·max|ref| with tol 1e-5 (f32) and 2^-7 (bf16, one ulp at the
+tensor's largest magnitude); K2 |Δ| <= tol·(1 + |ref|) with tol 1e-4 (f32)
+and 1e-2 (bf16).
 """
 
 import numpy as np
@@ -22,9 +24,10 @@ from dehaze_tpu_torch.ops import probsparse as TPS
 from dehaze_tpu_torch.ops import window as TW
 from dehaze_tpu_torch.ops.kernels.leff import leff_fused, leff_reference
 from dehaze_tpu_torch.ops.kernels.window_attention import (
-    fused_window_attention)
+    fused_window_attention, window_attention_bwd, window_attention_fwd)
 
 K1_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1.6e-2, 1e-3)}
+K1B_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
@@ -76,9 +79,9 @@ def _attn_inputs(dev, heads, win, D, shifted, dtype, seed, bias=True):
 def test_k1_matches_twin(cuda, heads, win, D, shifted, dtype, bias):
     q, k, v, kw, nW = _attn_inputs(cuda, heads, win, D, shifted, dtype,
                                    seed=heads * 10 + win, bias=bias)
-    before = fused_window_attention.launches
+    before = window_attention_fwd.launches
     got = fused_window_attention(q, k, v, num_windows=nW, **kw)
-    assert fused_window_attention.launches == before + 1
+    assert window_attention_fwd.launches == before + 1
     want = TPS.probsparse_attention_bnc(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -93,13 +96,52 @@ def test_k1_refuses_what_it_does_not_take(cuda):
     q, k, v, kw, nW = _attn_inputs(cuda, 2, 8, 32, False, torch.float32, 1)
     with pytest.raises(NotImplementedError):
         fused_window_attention(q, k, v, pad_flag=torch.zeros(1, 64), **kw)
-    with pytest.raises(NotImplementedError):
-        fused_window_attention(q.clone().requires_grad_(), k, v, **kw)
     with pytest.raises(ValueError):
         fused_window_attention(q.transpose(0, 1).contiguous().transpose(
             0, 1), k, v, **kw)
     with pytest.raises(TypeError):
         fused_window_attention(q.half(), k.half(), v.half(), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [1, 2, 16])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_backward_matches_twin(cuda, heads, shifted, bias, dtype):
+    q, k, v, kw, nW = _attn_inputs(cuda, heads, 8, 32, shifted, dtype,
+                                   seed=heads + 7 * shifted + 3 * bias,
+                                   bias=bias)
+    g = torch.from_numpy(_rng(heads).normal(size=q.shape).astype(
+        np.float32)).to(cuda, dtype)
+    before = window_attention_bwd.launches
+    got = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
+    assert window_attention_bwd.launches == before + 1
+    want = TPS.probsparse_attention_bnc_bwd(q, k, v, g, **kw)
+    torch.cuda.synchronize()
+    tol = K1B_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        assert a.dtype == dtype and a.shape == q.shape, name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), name
+    if not bias:
+        assert got[3] is None and want[3] is None
+        return
+    assert got[3].dtype == torch.float32
+    err = float((got[3] - want[3]).abs().max())
+    assert err <= tol * float(want[3].abs().max())
+
+
+@pytest.mark.cuda
+def test_k1_backward_is_deterministic(cuda):
+    """dbias is reduced in a fixed order: two runs agree bit for bit."""
+    q, k, v, kw, nW = _attn_inputs(cuda, 2, 8, 32, True, torch.float32, 4)
+    q, k, v = (t.repeat(64, 1, 1) for t in (q, k, v))
+    g = torch.randn_like(q)
+    a = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
+    b = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def _leff_inputs(dev, B, H, W, C, Ch, dtype, seed):
@@ -123,6 +165,8 @@ def _leff_inputs(dev, B, H, W, C, Ch, dtype, seed):
     (1, 8, 16, 512, 2048, torch.bfloat16, False),  # 4-row tiles
     (1, 24, 20, 96, 384, torch.float32, True),
     (1, 16, 24, 64, 256, torch.bfloat16, True),
+    (32, 8, 8, 512, 2048, torch.float32, False),   # training eval bottleneck
+    (32, 8, 8, 512, 2048, torch.bfloat16, False),
 ])
 def test_k2_matches_twin(cuda, B, H, W, C, Ch, dtype, fast):
     x, p = _leff_inputs(cuda, B, H, W, C, Ch, dtype, seed=C + W)
@@ -160,10 +204,38 @@ def test_model_cuda_matches_cpu(cuda):
     gpu_model.load_state_dict(cpu_model.state_dict())
     x = torch.from_numpy(_rng(3).uniform(size=(2, 128, 128, 3)).astype(
         np.float32))
-    k1, k2 = fused_window_attention.launches, leff_fused.launches
+    k1, k2 = window_attention_fwd.launches, leff_fused.launches
     with torch.inference_mode():
         want = cpu_model(x, generator=torch.Generator().manual_seed(5))
         got = gpu_model(x.to(cuda), generator=torch.Generator().manual_seed(5))
-    assert fused_window_attention.launches - k1 == 18
+    assert window_attention_fwd.launches - k1 == 18
     assert leff_fused.launches - k2 == 18
     assert float((got.cpu() - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_model_backward_launches_k1_backward(cuda):
+    """A training forward and backward of a small Uformer (embed 8, 64²,
+    f32) on CUDA runs K1 forward and backward 18 times each and no K2, and
+    its gradients match the CPU's (the twins) to 1e-3 (sum order of cuBLAS
+    and cuDNN against the CPU's, ~1e-6 relative per layer)."""
+    torch.manual_seed(0)
+    cfg = ModelConfig(img_size=64, embed_dim=8, dtype=torch.float32,
+                      drop_path_rate=0.0)
+    cpu_model = Uformer(cfg).train()
+    gpu_model = Uformer(cfg, device=cuda).train()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    x = torch.from_numpy(_rng(4).uniform(size=(2, 64, 64, 3)).astype(
+        np.float32))
+    counts = (window_attention_fwd.launches, window_attention_bwd.launches,
+              leff_fused.launches)
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda)):
+        model(x.to(dev), generator=torch.Generator().manual_seed(5)
+              ).square().mean().backward()
+    assert window_attention_fwd.launches - counts[0] == 18
+    assert window_attention_bwd.launches - counts[1] == 18
+    assert leff_fused.launches == counts[2]
+    gpu = dict(gpu_model.named_parameters())
+    for name, p in cpu_model.named_parameters():
+        err = (gpu[name].grad.cpu() - p.grad).abs().max()
+        assert float(err) <= 1e-3 * (1 + float(p.grad.abs().max())), name
