@@ -5,37 +5,54 @@
 
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit (nvidia-smi); a CUDA device is required;
-  2. build kernels K1 (ProbSparse window attention, forward and backward)
-     and K2 (fused LN+LeFF) from dehaze_tpu_torch/csrc/, one nvcc per
-     source, for sm_90a;
+  2. build kernels K1/K3 (ProbSparse window attention, forward and
+     backward, one source) and K2 (fused LN+LeFF) from
+     dehaze_tpu_torch/csrc/, one nvcc per source, for sm_90a;
   3. K1 forward against its plain twin at the serving path's shapes, f32
-     and bf16;
+     and bf16; then with padding flags at the any-resolution shapes of a
+     1200×1600 frame on the 1664² canvas (enc0 shifted, bottleneck), and
+     the backward with padding at the training enc0 shape;
   4. K1 backward against its plain twin at the training path's shapes
      (batch 32 × 128²: enc0, enc1, bottleneck, dec3), f32 and bf16;
-  5. K2 against its plain twin at the serving path's shapes and the
-     training eval forward's (batch 32 × 128²), f32 and bf16, exact and
-     tanh GELU;
-  6. a seeded random-init Uformer-32 saved as a .pth state_dict:
+  5. K3 (the older TPU variants, which round at other points) against
+     their twins: v1 and v2 head-major at the serving enc1 and bottleneck
+     shapes, the v3 forward and backward at the training enc0 and enc1
+     shapes, f32 and bf16; in bf16 each K1 and K3 case is also held to
+     its own rounding points (NUMERICS_SEP);
+  6. K2 against its plain twin at the serving path's shapes (rect canvas),
+     the evaluation path's (1664² square canvas, 1536² any-resolution)
+     and the training eval forward's (batch 32 × 128²), f32 and bf16,
+     exact and tanh GELU;
+  7. a seeded random-init Uformer-32 saved as a .pth state_dict:
      (a) CUDA forward (kernels) against the CPU forward (plain twins) at
          256², f32, same sampling seed; (b) the 1200×1600 uint8 frame
          through the whole-image function (rect canvas 1280×1664, bf16);
-  7. the serving path: the serving CLI's machinery in-process with
+         (c) a 200×240 image with its padding mask on the 256² canvas,
+         CUDA against CPU, f32;
+  8. the serving path: the serving CLI's machinery in-process with
      --weights, three PNG requests (two concurrent) and /healthz;
-  8. Uformer-32 at batch 2 × 128², f32, CUDA (kernels) against CPU
+  9. the evaluation path: `cli.test_long` (square canvas, then
+     --rect_canvas) and `cli.test_anyres` as `python -m` subprocesses on
+     synthetic 1200×1600 pairs (and one 1000×1500 for any-resolution),
+     Uformer-32 bf16: s/frame, launches per frame, peak memory, and each
+     per-image PSNR against the in-process function;
+ 10. Uformer-32 at batch 2 × 128², f32, CUDA (kernels) against CPU
      (twins): the model's backward for one fixed output gradient, then one
      train step with the CR loss on a random VGG19 (loss and every
      gradient leaf);
-  9. the training path: `python -m dehaze_tpu_torch.cli.train` semantics
+ 11. the training path: `python -m dehaze_tpu_torch.cli.train` semantics
      in a subprocess on synthetic pairs, Uformer-32, batch 32 × 128², bf16,
      CR on, one epoch of 8 steps with 4 evals; losses, launch counts per
      step, checkpoints, reload of model_best.pth, img/s and peak memory;
- 10. the full-width train step with its batches in memory (ms/step, the
+ 12. the full-width train step with its batches in memory (ms/step, the
      host's ms to queue it, the calls in it that wait for the card), the
      data pipeline alone (ms/batch), and torch.profiler over two steady
      steps: device time by kernel group, the top kernels, the idle share;
- 11. the kernels' JSON line, then the device's JSON line.
-The launch counts in the kernels line are those of the serving path (7)
-and the training path (9), each counted from 0 over its own run.
+ 13. the kernels' JSON line, then the device's JSON line.
+The launch counts in the kernels line are those of the serving path (8),
+the evaluation path (9, the three runs together) and the training path
+(11), each counted from 0 over its own run. No path runs K3 (no entry
+point of the JAX package runs its TPU kernels either): its launches are 0.
 Imports nothing of JAX.
 """
 
@@ -73,6 +90,14 @@ K2_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # (float64 S), but the softmax sums run in another order, which can move
 # the bf16 rounding of a1 (and of each output) by an ulp.
 K1B_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# K1 and K3 in bf16 must also round where their own TPU kernel rounds. The
+# variants ("v4" K1, "v1", "v23" K3-v2/v3; ops.probsparse) differ by about
+# one bf16 ulp on a few percent of the elements, inside K1_TOL, so K1_TOL
+# alone would pass one variant for another. So the kernel's mean gap to
+# its own twin must be at most NUMERICS_SEP × its gap to the twin of each
+# other numerics (mean |Δ| over the largest |own twin|, summed over the
+# output tensors). In f32 the variants differ only by f32 roundings.
+NUMERICS_SEP = 0.5
 # 6a: CUDA (kernels) vs CPU (twins), f32 with TF32 off, same weights and
 # sampling: summation order differs in every conv/Linear (cuDNN/cuBLAS vs
 # oneDNN), ~1e-6 relative per layer, so max |Δ| on the [0, 1] image <= 1e-3.
@@ -97,6 +122,9 @@ STEP_TOL = {"model": 1e-4, "loss": 1e-5, "step": 5e-3, "step_scores": 2e-2,
             "atol": 1e-9}
 # 9: PSNR of the reloaded model_best.pth against the PSNR the run logged.
 RELOAD_TOL = 1e-3
+# The eval CLIs' per-image PSNR (printed to 4 decimals) against the
+# in-process function with the same weights and seed, in dB.
+EVAL_PSNR_TOL = 1e-3
 TRAIN_BATCH, TRAIN_PS = 32, 128
 # H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM bytes/s and
 # dense FLOP/s by operand type (bf16 on tensor cores, f32 on CUDA cores).
@@ -169,8 +197,8 @@ def phase_build():
               flush=True)
 
 
-def _attn_case(g, dev, B, C, heads, win, reg_hw):
-    """(sample_idx, bias, region, nW) for one K1 case."""
+def _attn_case(g, dev, heads, win, reg_hw):
+    """(sample_idx, bias, region ids or None, nW) for one attention case."""
     import numpy as np
     import torch
 
@@ -189,6 +217,148 @@ def _attn_case(g, dev, B, C, heads, win, reg_hw):
     return si, bias, region, nW
 
 
+def _pad_case(X, h, w, H, W, win):
+    """Padding flags [nW, N] of an h×w frame centred on an X² canvas
+    (infer.anyres), at a stage of H×W with windows win×win: the model's own
+    resize (models.uformer.pad_flags)."""
+    import torch
+
+    from dehaze_tpu_torch.infer.anyres import expand2square
+    from dehaze_tpu_torch.models.uformer import pad_flags
+
+    _, pad, _ = expand2square(torch.zeros(1, h, w, 1, device="cuda"), X)
+    return pad_flags(pad, H, W, win)
+
+
+def _check_rows(label, got, want, D, dname, wrong):
+    """K1_TOL per row of D values; returns (max|d|, text)."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    row_err = diff.reshape(-1, D).amax(-1)
+    tol, share = K1_TOL[dname]
+    bad = int((row_err > tol).sum())
+    if not torch.isfinite(got.float()).all():
+        wrong.append(f"{label}: non-finite output")
+    elif bad > share * row_err.numel():
+        wrong.append(f"{label}: {bad} rows beyond {tol:g} (allowed "
+                     f"{share:.1%})")
+    err = float(diff.max())
+    return err, f"max|d|={err:.3e} rows>{tol:g}: {bad}/{row_err.numel()}"
+
+
+def _check_grads(label, got, want, dname, wrong):
+    """K1B_TOL per gradient tensor; returns (max|d|, text)."""
+    import torch
+
+    tol = K1B_TOL[dname]
+    stats, worst = [], 0.0
+    for gname, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if a is None and b is None:
+            continue
+        d = (a.float() - b.float()).abs()
+        ref = float(b.float().abs().max())
+        nb = int((d > tol * ref).sum())
+        if not torch.isfinite(a.float()).all():
+            wrong.append(f"{label}: non-finite {gname}")
+        elif nb:
+            wrong.append(f"{label}: {nb} {gname} elements beyond "
+                         f"{tol:g}·max|ref|")
+        worst = max(worst, float(d.max()))
+        stats.append(f"{gname} {float(d.max()):.3e}/{ref:.3e}")
+    return worst, "max|d|/max|ref| " + ", ".join(stats)
+
+
+def _check_numerics(label, got, want, twin_of, own, wrong):
+    """NUMERICS_SEP: the kernel's mean gap to its own twin (`want`, numerics
+    `own`) against its gaps to the twins of the other numerics; returns the
+    gaps as text."""
+    import torch
+
+    from dehaze_tpu_torch.ops.probsparse import NUMERICS
+
+    def parts(t):
+        return (t,) if torch.is_tensor(t) else [x for x in t if x is not None]
+
+    gaps = {}
+    for n in NUMERICS:
+        ref = want if n == own else twin_of(n)
+        gaps[n] = sum(float((a.float() - b.float()).abs().mean()
+                            / o.float().abs().max())
+                      for a, b, o in zip(parts(got), parts(ref), parts(want)))
+    nearest = min((n for n in NUMERICS if n != own), key=gaps.get)
+    if not gaps[own] <= NUMERICS_SEP * gaps[nearest]:
+        wrong.append(f"{label}: mean gap to its own twin ({own}) "
+                     f"{gaps[own]:.2e} is not below {NUMERICS_SEP:g} × its "
+                     f"gap to the {nearest} twin {gaps[nearest]:.2e}")
+    return "; mean gap by twin " + ", ".join(f"{n} {v:.2e}"
+                                             for n, v in gaps.items())
+
+
+def _run_case(label, kern, twin, check, nbytes, flops, dname, reps=10):
+    """One kernel case: the kernel and its twin on the same inputs,
+    check(got, want) -> (max|d|, text), the mean time of each (CUDA events)
+    and the bound. Prints one line; returns (max|d|, ms, twin ms, bound ms,
+    bound by)."""
+    import torch
+
+    got, want = kern(), twin()
+    torch.cuda.synchronize()
+    err, text = check(got, want)
+    del got, want
+    ms, plain_ms = cuda_ms(kern, reps), cuda_ms(twin, 3)
+    b_ms, b_by = bound(nbytes, flops, dname)
+    print(f"{label}: {text} kernel {ms:.3f} ms twin {plain_ms:.3f} ms bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return err, ms, plain_ms, b_ms, b_by
+
+
+def _attn_run(label, kern, twin_of, own, q, kw, nW, bwd, wrong):
+    """An attention kernel (K1 or K3) against `twin_of(own)`: K1_TOL per
+    row (forward) or K1B_TOL per gradient tensor (backward), and in bf16
+    NUMERICS_SEP against the twins of the other numerics. kw holds
+    num_heads for q/k/v [B_, N, C]; without it they are head-major [B, H,
+    N, D]. Bytes: q/k/v and the output (q/k/v/g and dq/dk/dv in a
+    backward), the bias (read, and written once more in a backward), the
+    count matrix and each [nW, N] mask; operations: S (2·N²·D per window
+    and head) and PV for the u kept rows (2·u·N·D; 8·u·N·D for dv, da2, dq
+    and dk in a backward)."""
+    from dehaze_tpu_torch.ops.probsparse import probsparse_u
+
+    dname = str(q.dtype).split(".")[1]
+    head_major = "num_heads" not in kw
+    B, N = q.shape[0], q.shape[-2]
+    heads = q.shape[1] if head_major else kw["num_heads"]
+    D = q.shape[-1] if head_major else q.shape[-1] // heads
+    bias = kw.get("rel_pos_bias")
+    masks = sum(kw.get(m) is not None for m in ("sw_region", "pad_flag"))
+    nbytes = ((7 if bwd else 4) * q.numel() * q.element_size()
+              + (0 if bias is None else (2 if bwd else 1) * bias.numel() * 4)
+              + N * N * 4 + (masks * nW * N * 4 if nW > 1 else 0))
+    flops = B * heads * (2 * N * N * D
+                         + (8 if bwd else 2) * probsparse_u(N) * N * D)
+
+    def check(got, want):
+        if bwd:
+            err, text = _check_grads(label, got, want, dname, wrong)
+        else:
+            err, text = _check_rows(label, got, want, D, dname, wrong)
+        if dname == "bfloat16":
+            text += _check_numerics(label, got, want, twin_of, own, wrong)
+        return err, text
+
+    return _run_case(label, kern, lambda: twin_of(own), check, nbytes,
+                     flops, dname)
+
+
+def _qkv(g, dev, shape, dtype, scales):
+    """Seeded normal tensors on the card, one per scale."""
+    import torch
+
+    return [torch.randn(*shape, generator=g, device=dev).mul_(s).to(dtype)
+            for s in scales]
+
+
 def phase_k1():
     import torch
 
@@ -205,49 +375,24 @@ def phase_k1():
              ("bottleneck", 130, 512, 16, 8, None),
              ("N16", 2080, 128, 4, 4, None),
              ("train_enc0", 8192, 32, 1, 8, (TRAIN_PS, TRAIN_PS))]
-    results = []
+    results, wrong = [], []
     for name, B, C, heads, win, reg_hw in cases:
         N = win * win
-        si, bias, region, nW = _attn_case(g, dev, B, C, heads, win, reg_hw)
+        si, bias, region, nW = _attn_case(g, dev, heads, win, reg_hw)
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn(B, N, C, generator=g, device=dev)
-                       .mul_(0.5).to(dtype) for _ in range(3))
+            q, k, v = _qkv(g, dev, (B, N, C), dtype, (0.5, 0.5, 0.5))
             kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
                       sw_region=region)
-
-            def kern():
-                return window_attention_fwd(q, k, v, num_windows=nW, **kw)
-
-            def twin():
-                return ps_ops.probsparse_attention_bnc(q, k, v, **kw)
-
-            got, want = kern(), twin()
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            row_err = diff.reshape(B, N, heads, C // heads).amax(-1)
             dname = str(dtype).split(".")[1]
-            tol, share = K1_TOL[dname]
-            bad = int((row_err > tol).sum())
-            n_rows = row_err.numel()
-            ms = cuda_ms(kern, 10)
-            plain_ms = cuda_ms(twin, 3)
-            u, D = ps_ops.probsparse_u(N), C // heads
-            nbytes = (4 * B * N * C * q.element_size() + bias.numel() * 4
-                      + N * N * 4 + (region.numel() * 4 if nW > 1 else 0))
-            b_ms, b_by = bound(nbytes, B * heads * (2 * N * N * D
-                                                   + 2 * u * N * D), dname)
-            print(f"K1 {name} {dname} B_={B} C={C} h={heads} N={N} "
-                  f"shifted={region is not None}: max|d|={float(diff.max()):.3e}"
-                  f" rows>{tol:g}: {bad}/{n_rows} kernel {ms:.3f} ms "
-                  f"twin {plain_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})",
-                  flush=True)
-            if not torch.isfinite(got.float()).all():
-                fail(f"K1 {name} {dname}: non-finite output")
-            if bad > share * n_rows:
-                fail(f"K1 {name} {dname}: {bad} rows beyond {tol:g} "
-                     f"(allowed {share:.1%})")
-            results.append((name, dname, float(diff.max()), ms, plain_ms,
-                            b_ms, b_by))
+            results.append((name, dname) + _attn_run(
+                f"K1 {name} {dname} B_={B} C={C} h={heads} N={N} "
+                f"shifted={region is not None}",
+                lambda: window_attention_fwd(q, k, v, num_windows=nW, **kw),
+                lambda n: ps_ops.probsparse_attention_bnc(
+                    q, k, v, numerics=n, **kw), "v4", q, kw, nW, False,
+                wrong))
+    if wrong:  # every case is printed before the first failure stops us
+        fail("; ".join(wrong))
     return results
 
 
@@ -269,59 +414,153 @@ def phase_k1_bwd():
     results, wrong = [], []
     before = window_attention_bwd.launches
     for name, B, C, heads, reg_hw in cases:
-        N = 64
-        si, bias, region, nW = _attn_case(g, dev, B, C, heads, 8, reg_hw)
+        si, bias, region, nW = _attn_case(g, dev, heads, 8, reg_hw)
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn(B, N, C, generator=g, device=dev)
-                       .mul_(0.5).to(dtype) for _ in range(3))
-            go = torch.randn(B, N, C, generator=g, device=dev).to(dtype)
+            q, k, v, go = _qkv(g, dev, (B, 64, C), dtype, (0.5, 0.5, 0.5, 1))
             kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
                       sw_region=region)
-
-            def kern():
-                return window_attention_bwd(q, k, v, go, num_windows=nW,
-                                            **kw)
-
-            def twin():
-                return ps_ops.probsparse_attention_bnc_bwd(q, k, v, go, **kw)
-
-            got, want = kern(), twin()
-            torch.cuda.synchronize()
             dname = str(dtype).split(".")[1]
-            tol = K1B_TOL[dname]
-            errs, stats, bad, n_el = {}, [], 0, 0
-            for gname, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
-                d = (a.float() - b.float()).abs()
-                ref = float(b.float().abs().max())
-                nb = int((d > tol * ref).sum())
-                if not torch.isfinite(a.float()).all():
-                    wrong.append(f"K1 bwd {name} {dname}: non-finite {gname}")
-                elif nb:
-                    wrong.append(f"K1 bwd {name} {dname}: {nb} {gname} "
-                                 f"elements beyond {tol:g}·max|ref|")
-                errs[gname] = float(d.max())
-                stats.append(f"{gname} {errs[gname]:.3e}/{ref:.3e}")
-                bad += nb
-                n_el += d.numel()
-            ms = cuda_ms(kern, 10)
-            plain_ms = cuda_ms(twin, 3)
-            u, D = ps_ops.probsparse_u(N), C // heads
-            nbytes = (7 * B * N * C * q.element_size()
-                      + 2 * bias.numel() * 4 + N * N * 4
-                      + (region.numel() * 4 if nW > 1 else 0))
-            b_ms, b_by = bound(nbytes, B * heads * (2 * N * N * D
-                                                   + 8 * u * N * D), dname)
-            print(f"K1 bwd {name} {dname} B_={B} C={C} h={heads} "
-                  f"shifted={region is not None}: max|d|/max|ref| "
-                  f"{', '.join(stats)}; elements beyond {tol:g}·max|ref| "
-                  f"{bad}/{n_el}; kernel {ms:.3f} ms twin {plain_ms:.3f} ms "
-                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-            results.append((name, dname, max(errs.values()), ms, plain_ms,
-                            b_ms, b_by))
+            results.append((name, dname) + _attn_run(
+                f"K1 bwd {name} {dname} B_={B} C={C} h={heads} "
+                f"shifted={region is not None}",
+                lambda: window_attention_bwd(q, k, v, go, num_windows=nW,
+                                             **kw),
+                lambda n: ps_ops.probsparse_attention_bnc_bwd(
+                    q, k, v, go, numerics=n, **kw), "v4", q, kw, nW, True,
+                wrong))
     if wrong:  # every case is printed before the first failure stops us
         fail("; ".join(wrong))
     if window_attention_bwd.launches == before:
         fail("the K1 backward launch counter did not move")
+    return results
+
+
+def phase_k1_pad():
+    """K1 with padding flags against its twin at the any-resolution shapes
+    of one 1200×1600 frame on the 1664² canvas (enc0 shifted and padded,
+    the bottleneck padded) and at enc0 of the 1000×1500 frame on 1536²,
+    f32 and bf16; then the backward with padding at the training enc0
+    shape (a 100×120 frame on each 128² crop). At enc0 the 1200×1600
+    frame's border lies on window edges (every window all padding or all
+    image, where the −100 cancels in the softmax); the 1000×1500 frame's
+    does not."""
+    import torch
+
+    from dehaze_tpu_torch.ops import probsparse as ps_ops
+    from dehaze_tpu_torch.ops.kernels.window_attention import (
+        window_attention_bwd, window_attention_fwd)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    X = 1664
+    # (name, B_, C, heads, region map or None, pad flags, backward): the
+    # backward's crops each hold a 100×120 frame (flags and region ids
+    # [256, 64], by window % 256)
+    cases = [("enc0", 43264, 32, 1, (X, X), _pad_case(X, *FRAME, X, X, 8),
+              False),
+             ("enc0_1536", 36864, 32, 1, (1536, 1536),
+              _pad_case(1536, 1000, 1500, 1536, 1536, 8), False),
+             ("bottleneck", 169, 512, 16, None,
+              _pad_case(X, *FRAME, X // 16, X // 16, 8), False),
+             ("train_enc0", TRAIN_BATCH * 256, 32, 1, (TRAIN_PS, TRAIN_PS),
+              _pad_case(TRAIN_PS, 100, 120, TRAIN_PS, TRAIN_PS, 8), True)]
+    results, wrong = [], []
+    for name, B, C, heads, reg_hw, pad, bwd in cases:
+        si, bias, region, _ = _attn_case(g, dev, heads, 8, reg_hw)
+        nW = pad.shape[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, go = _qkv(g, dev, (B, 64, C), dtype, (0.5, 0.5, 0.5, 1))
+            kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
+                      sw_region=region, pad_flag=pad)
+            dname = str(dtype).split(".")[1]
+            if bwd:
+                def kern():
+                    return window_attention_bwd(q, k, v, go, num_windows=nW,
+                                                **kw)
+
+                def twin_of(n):
+                    return ps_ops.probsparse_attention_bnc_bwd(
+                        q, k, v, go, numerics=n, **kw)
+            else:
+                def kern():
+                    return window_attention_fwd(q, k, v, num_windows=nW,
+                                                **kw)
+
+                def twin_of(n):
+                    return ps_ops.probsparse_attention_bnc(q, k, v,
+                                                           numerics=n, **kw)
+            results.append(((f"bwd pad {name}" if bwd else f"pad {name}"),
+                            dname) + _attn_run(
+                f"K1 {'bwd ' if bwd else ''}pad {name} {dname} B_={B} C={C} "
+                f"h={heads} shifted={region is not None} padded tokens "
+                f"{int(pad.sum())}/{pad.numel()}", kern, twin_of, "v4", q, kw,
+                nW, bwd, wrong))
+    if wrong:
+        fail("; ".join(wrong))
+    return results
+
+
+def phase_k3():
+    """The K3 kernels (older TPU variants, other rounding points) against
+    their twins: v1 and v2 head-major [B, H, N, D] at the serving shapes
+    (enc1 shifted, bottleneck); the v3 forward and backward at the
+    training enc0 and enc1 shapes; f32 and bf16. q and k have std 1, where
+    the rounding of S moves the output (NUMERICS_SEP)."""
+    import torch
+
+    from dehaze_tpu_torch.ops import probsparse as ps_ops
+    from dehaze_tpu_torch.ops.kernels.window_attention import (
+        probsparse_window_attention_v1, probsparse_window_attention_v2,
+        window_attention_v3_bwd, window_attention_v3_fwd)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    N, D = 64, 32
+    P = TRAIN_PS
+    results, wrong = {}, []
+    for vname, entry, own in (("v1", probsparse_window_attention_v1, "v1"),
+                              ("v2", probsparse_window_attention_v2, "v23")):
+        for name, B, heads, reg_hw in (("enc1", 8320, 2, (640, 832)),
+                                       ("bottleneck", 130, 16, None)):
+            si, bias, region, nW = _attn_case(g, dev, heads, 8, reg_hw)
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = _qkv(g, dev, (B, heads, N, D), dtype, (1, 1, 0.5))
+                kw = dict(sample_idx=si, rel_pos_bias=bias, sw_region=region)
+                dname = str(dtype).split(".")[1]
+                results.setdefault(vname, []).append((name, dname) + _attn_run(
+                    f"K3-{vname} {name} {dname} [B,H,N,D]=[{B},{heads},{N},"
+                    f"{D}] shifted={region is not None}",
+                    lambda: entry(q, k, v, num_windows=nW, **kw),
+                    lambda n: ps_ops.probsparse_attention_bhnd(
+                        q, k, v, numerics=n, **kw), own, q, kw, nW, False,
+                    wrong))
+    for name, B, C, heads, reg_hw in (("train_enc0", 8192, 32, 1, (P, P)),
+                                      ("train_enc1", 2048, 64, 2,
+                                       (P // 2, P // 2))):
+        si, bias, region, nW = _attn_case(g, dev, heads, 8, reg_hw)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, go = _qkv(g, dev, (B, N, C), dtype, (1, 1, 0.5, 1))
+            kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
+                      sw_region=region)
+            dname = str(dtype).split(".")[1]
+            label = (f"{name} {dname} B_={B} C={C} h={heads} "
+                     f"shifted={region is not None}")
+            results.setdefault("v3_fwd", []).append((name, dname) + _attn_run(
+                f"K3-v3 fwd {label}",
+                lambda: window_attention_v3_fwd(q, k, v, num_windows=nW,
+                                                **kw),
+                lambda n: ps_ops.probsparse_attention_bnc(
+                    q, k, v, numerics=n, **kw), "v23", q, kw, nW, False,
+                wrong))
+            results.setdefault("v3_bwd", []).append((name, dname) + _attn_run(
+                f"K3-v3 bwd {label}",
+                lambda: window_attention_v3_bwd(q, k, v, go, num_windows=nW,
+                                                **kw),
+                lambda n: ps_ops.probsparse_attention_bnc_bwd(
+                    q, k, v, go, numerics=n, **kw), "v23", q, kw, nW, True,
+                wrong))
+    if wrong:
+        fail("; ".join(wrong))
     return results
 
 
@@ -332,14 +571,19 @@ def phase_k2():
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    P = TRAIN_PS
-    # serving's enc0 and bottleneck, and the training eval forward's
-    # (batch 32, where the bottleneck's depthwise conv sees 8×8 images)
+    P, X = TRAIN_PS, 1664
+    # serving's enc0 and bottleneck (rect canvas 1280×1664), evaluation's
+    # on the 1664² square canvas and any-resolution's enc0 on 1536², and the
+    # training eval forward's (batch 32, where the bottleneck's depthwise
+    # conv sees 8×8 images)
     cases = [("enc0", (1, 1280, 1664, 32), 128),
              ("bottleneck", (1, 80, 104, 512), 2048),
+             ("eval_enc0", (1, X, X, 32), 128),
+             ("eval_bottleneck", (1, X // 16, X // 16, 512), 2048),
+             ("anyres_enc0_1536", (1, 1536, 1536, 32), 128),
              ("train_enc0", (TRAIN_BATCH, P, P, 32), 128),
              ("train_bottleneck", (TRAIN_BATCH, P // 16, P // 16, 512), 2048)]
-    results = []
+    results, wrong = [], []
     for name, shape, Ch in cases:
         C = shape[-1]
 
@@ -355,47 +599,46 @@ def phase_k2():
         x32 = rnd(*shape)
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
+            dname = str(dtype).split(".")[1]
+            tol = K2_TOL[dname]
             for fast in (False, True):
-                def kern():
-                    return leff_fused(x, fast_gelu=fast, **p)
-
-                def twin():
-                    return leff_reference(x, fast_gelu=fast, **p)
-
-                got, want = kern(), twin()
-                torch.cuda.synchronize()
-                dname = str(dtype).split(".")[1]
-                tol = K2_TOL[dname]
-                diff = (got.float() - want.float()).abs()
-                bad = int((diff > tol + tol * want.float().abs()).sum())
-                ms = cuda_ms(kern, 3)
-                plain_ms = cuda_ms(twin, 3)
                 gelu = "tanh" if fast else "erf"
-                px = x.numel() // C
+                label = (f"K2 {name} {dname} gelu={gelu} x={list(shape)} "
+                         f"hidden={Ch}")
+
+                def check(got, want):
+                    diff = (got.float() - want.float()).abs()
+                    bad = int((diff > tol + tol * want.float().abs()).sum())
+                    if not torch.isfinite(got.float()).all() or bad:
+                        wrong.append(f"{label}: {bad} elements beyond "
+                                     f"atol=rtol={tol:g}")
+                    err = float(diff.max())
+                    return err, (f"max|d|={err:.3e} elements beyond tol: "
+                                 f"{bad}")
+
                 nbytes = (2 * x.numel() * x.element_size()
                           + sum(t.numel() for t in p.values())
                           * x.element_size())
-                b_ms, b_by = bound(nbytes, px * (4 * C * Ch + 18 * Ch), dname)
-                print(f"K2 {name} {dname} gelu={gelu} x={list(shape)} "
-                      f"hidden={Ch}: max|d|={float(diff.max()):.3e} "
-                      f"elements beyond tol: {bad} kernel {ms:.3f} ms "
-                      f"twin {plain_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})",
-                      flush=True)
-                if not torch.isfinite(got.float()).all() or bad:
-                    fail(f"K2 {name} {dname} gelu={gelu}: {bad} elements "
-                         f"beyond atol=rtol={tol:g}")
-                results.append((name, dname, gelu, float(diff.max()), ms,
-                                plain_ms, b_ms, b_by))
+                results.append((name, dname, gelu) + _run_case(
+                    label, lambda: leff_fused(x, fast_gelu=fast, **p),
+                    lambda: leff_reference(x, fast_gelu=fast, **p), check,
+                    nbytes, x.numel() // C * (4 * C * Ch + 18 * Ch), dname,
+                    reps=3))
+    if wrong:
+        fail("; ".join(wrong))
     return results
 
 
 def _counters():
+    from dehaze_tpu_torch.ops.kernels import window_attention as wa
     from dehaze_tpu_torch.ops.kernels.leff import leff_fused
-    from dehaze_tpu_torch.ops.kernels.window_attention import (
-        window_attention_bwd, window_attention_fwd)
 
-    return {"k1_fwd": window_attention_fwd, "k1_bwd": window_attention_bwd,
-            "k2": leff_fused}
+    return {"k1_fwd": wa.window_attention_fwd,
+            "k1_bwd": wa.window_attention_bwd, "k2": leff_fused,
+            "k3_v1": wa.probsparse_window_attention_v1,
+            "k3_v2": wa.probsparse_window_attention_v2,
+            "k3_v3_fwd": wa.window_attention_v3_fwd,
+            "k3_v3_bwd": wa.window_attention_v3_bwd}
 
 
 def reset_counts():
@@ -471,6 +714,174 @@ def phase_model(tmp: str) -> str:
     if k1 == 0 or k2 == 0:
         fail("the whole-image forward did not launch both kernels")
     return pth
+
+
+def phase_model_pad(pth: str):
+    """Uformer-32 with a padding mask: a 200×240 image centred on the 256²
+    canvas (infer.anyres), f32 with TF32 off, the CUDA forward (kernels)
+    against the CPU forward (twins), same weights and sampling seed."""
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli.common import build_model_and_params
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.infer.anyres import expand2square
+
+    x = torch.from_numpy(np.random.default_rng(SEED + 1).uniform(
+        size=(1, 200, 240, 3)).astype(np.float32))
+    canvas, pad, _ = expand2square(x, 128)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model_and_params(ModelConfig(dtype=torch.float32), pth,
+                                       torch.device(dev))
+        reset_counts()
+        with torch.inference_mode():
+            outs[dev] = model(canvas.to(dev), pad_mask=pad.to(dev),
+                              generator=torch.Generator().manual_seed(SEED)
+                              ).cpu()
+    k1 = read_counts()["k1_fwd"]
+    d = (outs["cuda"] - outs["cpu"]).abs()
+    print(f"model with padding mask, 200x240 on the {canvas.shape[1]}² "
+          f"canvas, f32 CUDA vs CPU: max|d|={float(d.max()):.3e} "
+          f"mean|d|={float(d.mean()):.3e}; K1 launches {k1}", flush=True)
+    if not torch.isfinite(outs["cuda"]).all() or float(d.max()) > MODEL_TOL:
+        fail(f"model with padding mask: CUDA vs CPU beyond {MODEL_TOL:g}")
+    if k1 != 18:
+        fail("the padded forward did not run K1 18 times")
+
+
+def _write_eval_folders(tmp: str):
+    """Three 1200×1600 pairs for test_long; for test_anyres two of them and
+    a 1000×1500 pair (neither side a multiple of 128)."""
+    import shutil
+
+    from dehaze_tpu_torch.data.synth import write_dataset
+
+    long_dir = os.path.join(tmp, "eval_long")
+    any_dir = os.path.join(tmp, "eval_anyres")
+    odd_dir = os.path.join(tmp, "eval_odd")
+    write_dataset(long_dir, 3, FRAME, seed=5)
+    write_dataset(odd_dir, 1, (1000, 1500), seed=6)
+    for sub in ("gt", "hazy"):
+        os.makedirs(os.path.join(any_dir, sub))
+        for i in range(2):
+            shutil.copy(os.path.join(long_dir, sub, f"{i:05d}.png"),
+                        os.path.join(any_dir, sub))
+        shutil.copy(os.path.join(odd_dir, sub, "00000.png"),
+                    os.path.join(any_dir, sub, "00002.png"))
+    return long_dir, any_dir
+
+
+def phase_eval(tmp: str, pth: str):
+    """The evaluation path at full width (Uformer-32, bf16, the seeded
+    .pth): `python -m dehaze_tpu_torch.cli.test_long` on three 1200×1600
+    pairs (square canvas 1664², then --rect_canvas) and
+    `python -m dehaze_tpu_torch.cli.test_anyres` on two of them and a
+    1000×1500 pair, each in a subprocess that starts with every launch
+    count at 0; s/frame, launches per frame and peak device memory; each
+    per-image PSNR against the in-process function with the same weights
+    and seed. Returns the launches of the three runs together."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli.common import build_model_and_params
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.data.pipeline import PairedFolder, val_images
+    from dehaze_tpu_torch.infer.anyres import make_anyres_fn
+    from dehaze_tpu_torch.infer.tiled import make_whole_image_fn
+    from dehaze_tpu_torch.ops import metrics as M
+
+    t0 = time.perf_counter()
+    long_dir, any_dir = _write_eval_folders(tmp)
+    print(f"eval data: 3 pairs at {FRAME[0]}x{FRAME[1]}, 1 at 1000x1500, "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+    code = ("import json, runpy, sys, torch\n"
+            "mod = sys.argv.pop(1)\n"
+            "runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+            "from dehaze_tpu_torch.ops.kernels import leff, window_attention "
+            "as wa\n"
+            "print('STATS ' + json.dumps({'k1_fwd': "
+            "wa.window_attention_fwd.launches, 'k2': leff.leff_fused.launches,"
+            " 'peak_gib': torch.cuda.max_memory_allocated() / 2**30}))\n")
+    model = build_model_and_params(ModelConfig(), pth, torch.device("cuda"))
+
+    def apply_fn(x, pad_mask=None):
+        return model(x, generator=torch.Generator().manual_seed(SEED),
+                     pad_mask=pad_mask)
+
+    runs = [("test_long", long_dir, [], "square canvas 1664²"),
+            ("test_long", long_dir, ["--rect_canvas"],
+             "rect canvas 1280x1664"),
+            ("test_anyres", any_dir, [], "any-resolution, 1664² and 1536²")]
+    total = {}
+    for cli, folder, extra, what in runs:
+        args = ["--input_dir", folder, "--weights", pth, "--seed", str(SEED),
+                "--result_dir", os.path.join(tmp, f"res_{cli}")] + extra
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-c", code, f"dehaze_tpu_torch.cli.{cli}"]
+            + args, capture_output=True, text=True, timeout=900,
+            env={**os.environ, "PYTHONPATH": REPO})
+        secs = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"cli.{cli} {' '.join(extra)} exited {r.returncode}: "
+                 f"{r.stderr[-3000:]}")
+        lines = re.findall(r"^(\S+): PSNR (\S+) SSIM (\S+)$", r.stdout,
+                           re.M)
+        per_frame = float(re.search(r"frames: (\S+) s/frame",
+                                    r.stdout).group(1))
+        stats = json.loads(r.stdout.split("STATS ")[-1].splitlines()[0])
+        n = len(lines)
+        for ln in r.stdout.splitlines():
+            if not ln.startswith("STATS"):
+                print(f"  cli.{cli} | {ln}", flush=True)
+        # the same frames through the in-process function; the second call
+        # of each is timed (the frame already on the card)
+        worst, fns, timed = 0.0, {}, {}
+        for (name, psnr, _), (clean, hazy, fname) in zip(
+                lines, val_images(PairedFolder(folder))):
+            h, w = hazy.shape[:2]
+            if (h, w) not in fns:
+                fns[(h, w)] = (make_anyres_fn(apply_fn, h, w, 128)
+                               if cli == "test_anyres" else
+                               make_whole_image_fn(apply_fn, h, w, 128,
+                                                   square=not extra))
+            x = torch.from_numpy(hazy[None]).cuda()
+            y = fns[(h, w)](x)[0]
+            if not torch.isfinite(y).all() or name != fname:
+                fail(f"cli.{cli}: {fname} gives a non-finite output")
+            ref = M.psnr(y, torch.from_numpy(clean).cuda())
+            worst = max(worst, abs(float(ref) - float(psnr)))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fns[(h, w)](x)
+            torch.cuda.synchronize()
+            timed.setdefault(f"{h}x{w}", []).append(time.perf_counter() - t1)
+        print("  in-process s/frame by frame size: " + ", ".join(
+            f"{k} {np.mean(v):.4f}" for k, v in timed.items()), flush=True)
+        if cli == "test_long" and not extra:
+            x = torch.from_numpy(hazy[None]).cuda()
+            _profile(f"one {h}x{w} frame on the square canvas, bf16",
+                     lambda: fns[(h, w)](x), 1, np.mean(timed[f"{h}x{w}"])
+                     * 1e3)
+        print(f"cli.{cli} {what} Uformer-32 bf16: {n} frames, "
+              f"{per_frame:.4f} s/frame after the first, launches per frame "
+              f"K1 {stats['k1_fwd'] / n:g} K2 {stats['k2'] / n:g}, peak "
+              f"device memory {stats['peak_gib']:.2f} GiB, subprocess "
+              f"{secs:.1f}s; per-image PSNR vs the in-process function: max "
+              f"|d| {worst:.2e} dB", flush=True)
+        if n != 3 or not all(np.isfinite(float(p)) for _, p, _ in lines):
+            fail(f"cli.{cli}: expected 3 finite per-image lines")
+        if stats["k1_fwd"] != 18 * n or stats["k2"] != 18 * n:
+            fail(f"cli.{cli}: not 18 K1 and 18 K2 launches per frame")
+        if worst > EVAL_PSNR_TOL:
+            fail(f"cli.{cli}: per-image PSNR differs from the in-process "
+                 f"function by {worst:.2e} dB")
+        for key in ("k1_fwd", "k2"):
+            total[key] = total.get(key, 0) + stats[key]
+    return total
 
 
 def phase_serve(pth: str):
@@ -722,8 +1133,6 @@ def phase_train_profile(tmp: str):
     import warnings
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from dehaze_tpu_torch.config import (Config, DataConfig, ModelConfig,
                                          TrainConfig)
@@ -771,23 +1180,37 @@ def phase_train_profile(tmp: str):
           f"step; host waits for the card in a step: {len(syncs)} "
           f"{sorted(set(syncs))[:5]}; data pipeline alone (8 threads, PNG "
           f"decode, crop, dihedral): {load_ms:.2f} ms/batch", flush=True)
-    steps = 2
+    return _profile(f"train step b{TRAIN_BATCH}x{TRAIN_PS}² bf16 CR on",
+                    lambda: tr.train_step(clean, hazy, use_mixup=False),
+                    2, step_ms)
+
+
+_GROUPS = [("K1 bwd", ("window_attention_bwd", "dbias_reduce")),
+           ("K1 fwd", ("window_attention_fwd",)),
+           ("K2", ("leff_fwd",)),
+           ("GEMM (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
+           ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad",
+                             "fprop")),
+           ("optimizer", ("adam", "multi_tensor", "foreach")),
+           ("softmax/LN/reductions", ("softmax", "layer_norm", "reduce"))]
+
+
+def _profile(what: str, step, steps: int, step_ms: float):
+    """torch.profiler over `steps` calls of step(): device time by kernel
+    group and the top kernels, the idle share against the profiled wall
+    and against `step_ms` (the unprofiled ms per call). Returns (wall ms,
+    device ms, {group: ms}) per call, or None without device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            tr.train_step(clean, hazy, use_mixup=False)
+            step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
-    groups = [("K1 bwd", ("window_attention_bwd", "dbias_reduce")),
-              ("K1 fwd", ("window_attention_fwd",)),
-              ("K2", ("leff_fwd",)),
-              ("GEMM (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
-              ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad",
-                                "dgrad", "fprop")),
-              ("optimizer", ("adam", "multi_tensor", "foreach")),
-              ("softmax/LN/reductions", ("softmax", "layer_norm", "reduce")),
-              ]
     ms, by_kernel = {}, {}
     for evt in prof.key_averages():
         # user annotations (e.g. the optimizer's step range) span kernels
@@ -797,7 +1220,7 @@ def phase_train_profile(tmp: str):
             continue
         t = getattr(evt, "self_device_time_total", 0.0) / 1e3 / steps
         name = evt.key.lower()
-        g = next((gname for gname, keys in groups
+        g = next((gname for gname, keys in _GROUPS
                   if any(k in name for k in keys)), "other (elementwise, "
                   "copies, casts)")
         ms[g] = ms.get(g, 0.0) + t
@@ -806,14 +1229,13 @@ def phase_train_profile(tmp: str):
     if total <= 0:
         print("profile: torch.profiler saw no device time", flush=True)
         return None
-    print(f"profile train step b{TRAIN_BATCH}x{TRAIN_PS}² bf16 CR on: wall "
-          f"{wall:.2f} ms/step under the profiler, device {total:.2f} "
-          f"ms/step, idle {max(0.0, 1 - total / wall):.1%} (of the "
-          f"unprofiled step: {max(0.0, 1 - total / step_ms):.1%})",
+    print(f"profile {what}: wall {wall:.2f} ms per call under the profiler, "
+          f"device {total:.2f} ms, idle {max(0.0, 1 - total / wall):.1%} "
+          f"(of the unprofiled call: {max(0.0, 1 - total / step_ms):.1%})",
           flush=True)
     for g, t in sorted(ms.items(), key=lambda kv: -kv[1]):
         print(f"  {g:32s} {t:9.3f} ms  {t / total:6.1%}", flush=True)
-    print("  top kernels (ms/step, launches/step):", flush=True)
+    print("  top kernels (ms per call, launches per call):", flush=True)
     for k, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"    {t:8.3f} ms {n:5d}x  {k[:110]}", flush=True)
     return wall, total, ms
@@ -833,18 +1255,22 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     k1_res = phase_k1()
+    k1p_res = phase_k1_pad()
     k1b_res = phase_k1_bwd()
+    k3_res = phase_k3()
     k2_res = phase_k2()
     with tempfile.TemporaryDirectory() as tmp:
         pth = phase_model(tmp)
+        phase_model_pad(pth)
         serve = phase_serve(pth)
+        evals = phase_eval(tmp, pth)
         phase_train_parity()
         train, _ = phase_train_cli(tmp)
         phase_train_profile(tmp)
 
     def entry(name, source, replaces, res, main, key, paths):
         row = next(r for r in res if r[:len(main)] == main)
-        launches = {p: c[key] for p, c in paths.items()}
+        launches = {p: c.get(key, 0) for p, c in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches,
@@ -852,18 +1278,31 @@ def main() -> None:
                 "ms": row[-4], "plain_ms": row[-3], "bound_ms": row[-2],
                 "bound_by": row[-1], "library_ms": None}
 
-    both = {"serve": serve, "train": train}
+    paths = {"serve": serve, "train": train, "eval": evals}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
+    pw = "dehaze_tpu/ops/pallas/window_attention.py"
+    pad_fwd = [r for r in k1p_res if not r[0].startswith("bwd")]
+    pad_bwd = [r for r in k1p_res if r[0].startswith("bwd")]
     kernels = {"kernels": [
-        entry("K1 ProbSparse window attention fwd", wa,
-              "dehaze_tpu/ops/pallas/window_attention.py:912", k1_res,
-              ("enc0", "bfloat16"), "k1_fwd", both),
-        entry("K1 ProbSparse window attention bwd", wa,
-              "dehaze_tpu/ops/pallas/window_attention.py:938", k1b_res,
-              ("enc0", "bfloat16"), "k1_bwd", {"train": train}),
+        entry("K1 ProbSparse window attention fwd", wa, f"{pw}:912",
+              k1_res + pad_fwd, ("enc0", "bfloat16"), "k1_fwd", paths),
+        entry("K1 ProbSparse window attention bwd", wa, f"{pw}:938",
+              k1b_res + pad_bwd, ("enc0", "bfloat16"), "k1_bwd", paths),
         entry("K2 fused LayerNorm+LeFF", "dehaze_tpu_torch/csrc/leff.cu",
               "dehaze_tpu/ops/pallas/leff.py:120", k2_res,
-              ("enc0", "bfloat16", "erf"), "k2", both),
+              ("enc0", "bfloat16", "erf"), "k2", paths),
+        entry("K3-v1 ProbSparse window attention fwd, [B,H,N,D]", wa,
+              f"{pw}:317", k3_res["v1"], ("enc1", "bfloat16"), "k3_v1",
+              paths),
+        entry("K3-v2 ProbSparse window attention fwd, [B,H,N,D]", wa,
+              f"{pw}:220", k3_res["v2"], ("enc1", "bfloat16"), "k3_v2",
+              paths),
+        entry("K3-v3 ProbSparse window attention fwd", wa, f"{pw}:618",
+              k3_res["v3_fwd"], ("train_enc0", "bfloat16"), "k3_v3_fwd",
+              paths),
+        entry("K3-v3 ProbSparse window attention bwd", wa, f"{pw}:639",
+              k3_res["v3_bwd"], ("train_enc0", "bfloat16"), "k3_v3_bwd",
+              paths),
     ]}
     print(f"card: {card}", flush=True)
     print(json.dumps(kernels), flush=True)

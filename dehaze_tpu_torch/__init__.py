@@ -6,11 +6,12 @@ The port imports torch, numpy and the standard library only — never jax,
 flax or `dehaze_tpu`.
 
 Kernels: `ops/kernels/window_attention.py` (K1, ProbSparse window attention,
-forward and backward, a `torch.autograd.Function`) and `ops/kernels/leff.py`
-(K2, fused LayerNorm + LeFF, inference) launch hand-written CUDA C++ from
-`csrc/` on CUDA tensors and run their plain torch twins on CPU tensors.
-Dispatch is by device only.
+forward and backward, a `torch.autograd.Function`, and K3, the older
+variants of the same chain) and `ops/kernels/leff.py` (K2, fused LayerNorm +
+LeFF, inference) launch hand-written CUDA C++ from `csrc/` on CUDA tensors
+and run their plain torch twins on CPU tensors. Dispatch is by device only.
 
-Paths: whole-image serving (`infer/tiled.py`, `cli/serve.py`) and training
+Paths: whole-image serving (`infer/tiled.py`, `cli/serve.py`), evaluation
+(`infer/anyres.py`, `cli/test_long.py`, `cli/test_anyres.py`) and training
 (`train/`, `cli/train.py`).
 """

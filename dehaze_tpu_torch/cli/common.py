@@ -1,29 +1,39 @@
 """Shared argparse → config mapping and model loading for the port's CLIs.
 
-Counterpart of `dehaze_tpu/cli/common.py` for the flags the serving and
-training paths use; flag names are the same. `config_from_args` returns a
-`Config`; the serving CLI reads its `model`. `--weights` takes a `.pth`
-state_dict (the reference's checkpoint format or a bare state_dict).
-`--remat`, `--data_axis` and `--device_data` are not ported yet and raise.
+Counterpart of `dehaze_tpu/cli/common.py` for the flags the serving,
+training and evaluation paths use; flag names are the same. `config_from_args`
+returns a `Config`; the serving and evaluation CLIs read its `model`.
+`--weights` takes a `.pth` state_dict (the reference's checkpoint format or
+a bare state_dict). `--arch ffa|unet` parses and is refused by
+`models.uformer.check_config`; `--remat`, `--data_axis`, `--device_data`,
+`--exported` and `--bands` are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import time
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from dehaze_tpu_torch.config import (Config, DataConfig, LossConfig,
                                      ModelConfig, TrainConfig)
+from dehaze_tpu_torch.data.images import save_img
+from dehaze_tpu_torch.data.pipeline import PairedFolder, val_images
 from dehaze_tpu_torch.models.uformer import Uformer
+from dehaze_tpu_torch.ops import metrics as M
 from dehaze_tpu_torch.utils.convert import load_weights
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    p.add_argument("--arch", default="uformer", choices=["uformer"])
+    p.add_argument("--arch", default="uformer",
+                   choices=["uformer", "ffa", "unet"],
+                   help="only the Uformer is ported; the others raise")
     p.add_argument("--embed_dim", type=int, default=32)
     p.add_argument("--win_size", type=int, default=8)
     p.add_argument("--no_rel_pos_bias", action="store_true",
@@ -84,10 +94,31 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return p
 
 
+def add_eval_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags `cli.test_long` and `cli.test_anyres` share."""
+    p.add_argument("--input_dir", required=True,
+                   help="folder with gt/ and hazy/ PNG pairs")
+    p.add_argument("--weights", default=None, help=".pth state_dict")
+    p.add_argument("--exported", default=None,
+                   help="not ported yet (raises)")
+    p.add_argument("--result_dir", default="./results/long")
+    p.add_argument("--save_images",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="--no-save_images skips PNG encoding (metrics only)")
+    p.add_argument("--ssim_data_range", type=float, default=2.0,
+                   help="2.0 replicates skimage's float default used for the "
+                        "published numbers; 1.0 is physically correct")
+    p.add_argument("--bands", type=int, default=0,
+                   help="not ported yet (raises above 1)")
+    return p
+
+
 def config_from_args(a: argparse.Namespace) -> Config:
-    for flag in ("remat", "data_axis", "device_data"):
-        if getattr(a, flag):
+    for flag in ("remat", "data_axis", "device_data", "exported"):
+        if getattr(a, flag, None):
             raise NotImplementedError(f"--{flag} is not ported yet")
+    if (getattr(a, "bands", 0) or 0) > 1:
+        raise NotImplementedError("--bands is not ported yet")
     return Config(
         model=ModelConfig(arch=a.arch, img_size=a.train_ps,
                           embed_dim=a.embed_dim, win_size=a.win_size,
@@ -121,18 +152,54 @@ def build_model_and_params(cfg: ModelConfig, weights: str, device
 
 
 def resolve_forward(args, cfg: ModelConfig) -> SimpleNamespace:
-    """--weights scaffolding for the serving CLI. Returns a namespace with
-    `apply_fn` ([B, H, W, 3] float on the device → [B, H, W, 3] float32),
-    `model` and `device`. The ProbSparse generator is re-seeded from
-    `args.seed` at every forward, so a request's output is deterministic."""
+    """--weights scaffolding for the serving and evaluation CLIs. Returns a
+    namespace with `apply_fn` ([B, H, W, 3] float on the device, and an
+    optional padding mask → [B, H, W, 3] float32), `model` and `device`.
+    The ProbSparse generator is re-seeded from `args.seed` at every forward,
+    so a request's output is deterministic."""
     if not getattr(args, "weights", None):
         raise SystemExit("pass --weights <state_dict.pth>")
     device = torch.device(getattr(args, "device", "cuda"))
     model = build_model_and_params(cfg, args.weights, device)
     seed = getattr(args, "seed", 1234)
 
-    def apply_fn(x: torch.Tensor) -> torch.Tensor:
-        return model(x, generator=torch.Generator().manual_seed(seed))
+    def apply_fn(x: torch.Tensor, pad_mask=None) -> torch.Tensor:
+        return model(x, generator=torch.Generator().manual_seed(seed),
+                     pad_mask=pad_mask)
 
     return SimpleNamespace(mode="weights", apply_fn=apply_fn, model=model,
                            device=device)
+
+
+def evaluate(args, make_run) -> dict:
+    """The evaluation loop of `cli.test_long` and `cli.test_anyres`: every
+    gt/hazy pair of `args.input_dir`, in sorted order, through
+    `make_run(h, w)` (one function per geometry); a `name: PSNR p SSIM s`
+    line per image and the mean line, in the JAX CLIs' format; the outputs
+    as PNGs under `args.result_dir` unless --no-save_images. Returns the
+    per-image names, PSNRs, SSIMs and wall seconds (forward and metrics;
+    the first frame of a geometry includes the kernel builds)."""
+    folder = PairedFolder(args.input_dir)
+    os.makedirs(args.result_dir, exist_ok=True)
+    res = {"names": [], "psnr": [], "ssim": [], "secs": []}
+    run, geom = None, None
+    for clean, hazy, name in val_images(folder):
+        h, w = hazy.shape[:2]
+        if geom != (h, w):
+            run, geom = make_run(h, w), (h, w)
+        t0 = time.perf_counter()
+        out = run(hazy[None])[0]
+        ref = torch.from_numpy(clean).to(out.device)
+        psnr = float(M.psnr(out, ref))
+        ssim = float(M.ssim(out, ref, data_range=args.ssim_data_range))
+        res["secs"].append(time.perf_counter() - t0)
+        for key, val in (("names", name), ("psnr", psnr), ("ssim", ssim)):
+            res[key].append(val)
+        print(f"{name}: PSNR {psnr:.4f} SSIM {ssim:.4f}", flush=True)
+        if args.save_images:
+            save_img(os.path.join(args.result_dir, name), out.cpu().numpy())
+    secs = res["secs"]
+    print(f"PSNR: {np.mean(res['psnr']):.6f}, SSIM: {np.mean(res['ssim']):.6f}")
+    print(f"{len(secs)} frames: {np.mean(secs[1:] or secs):.4f} s/frame after "
+          f"the first ({secs[0]:.3f} s, kernel builds included)", flush=True)
+    return res

@@ -1,0 +1,42 @@
+"""Arbitrary-resolution evaluation (counterpart of
+`dehaze_tpu/cli/test_anyres.py`): each frame centred on a zero square
+canvas whose side is a multiple of win_size·16, with a padding mask for the
+attention; per-image PSNR/SSIM and their means.
+
+    python -m dehaze_tpu_torch.cli.test_anyres --input_dir DS/test \\
+        --weights model_best.pth [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from dehaze_tpu_torch.cli.common import (add_common_args, add_eval_args,
+                                         config_from_args, evaluate,
+                                         resolve_forward)
+from dehaze_tpu_torch.infer.anyres import make_anyres_fn
+from dehaze_tpu_torch.models.uformer import check_config
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = add_eval_args(add_common_args(argparse.ArgumentParser(
+        description="any-resolution eval (PyTorch/CUDA port)")))
+    p.set_defaults(result_dir="./results/anyres")
+    return p
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args).model
+    check_config(cfg)
+    fwd = resolve_forward(args, cfg)
+    factor = cfg.win_size * 16
+
+    def make_run(h, w):
+        return make_anyres_fn(fwd.apply_fn, h, w, factor, device=fwd.device)
+
+    return evaluate(args, make_run)
+
+
+if __name__ == "__main__":
+    main()

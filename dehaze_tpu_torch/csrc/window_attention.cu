@@ -1,4 +1,5 @@
-// K1: ProbSparse window attention, forward and backward, for Hopper (sm_90a).
+// K1 and K3: ProbSparse window attention, forward and backward, for Hopper
+// (sm_90a).
 //
 // Forward: replaces the TPU kernel `_kernel_v4` / `_fused_attn_v4_fwd` of
 // dehaze_tpu/ops/pallas/window_attention.py (reached through
@@ -7,12 +8,16 @@
 //   S = Q K^T (rounded to the activation type) -> sparsity measure
 //   M = max over sampled columns - sum(cnt * S) / N -> top-u rows by rank
 //   (value descending, index ascending) -> a1 = softmax(S * scale), rounded
-//   -> z = a1 + bias[h] (+ -100 where region ids differ) -> a2 = softmax(z)
+//   -> z = a1 + bias[h] + mask -> a2 = softmax(z)
 //   -> kept rows a2 @ V, the others mean(V).
+// The mask adds -100 where the SW region ids differ and -100 where both
+// tokens are padding (pad flags of any-resolution inputs, the reference's
+// m (x) m product mask), so a padded pair across regions gets -200. Region
+// ids and pad flags are [nW, N], indexed by window % nW.
 //
 // Backward: replaces `_kernel_v4_bwd` / `_fused_attn_v4_bwd` (same file).
 // Same function as `probsparse_attention_bnc_bwd`: it recomputes the chain
-// (the two roundings of a1 and a2 pass the gradient straight through), then
+// (the roundings of a1 and a2 pass the gradient straight through), then
 //   dv = a2^T g_sel + sum_i g_unsel / N,  da2 = g_sel V^T,
 //   dz = a2 * (da2 - rowsum(da2 * a2)),    ds = a1 * (dz - rowsum(dz * a1)),
 //   dq = scale * ds K,  dk = scale * ds^T Q,  dbias[h] = sum over windows dz.
@@ -22,12 +27,26 @@
 // sum(cnt * S) is exact in float64, and the rank is a pure comparison. No
 // row mask has to be saved between the two passes.
 //
-// Layout: q/k/v/g/out/dq/dk/dv are [B_ * N, C] token-major, heads are
-// channel slices of width D = C / H. One CTA per (window, head) in the
-// forward; in the backward one CTA per (window group, head) walks its
-// windows one after another. The 64x64 score tiles, the count matrix, both
-// softmaxes, the rank and all products stay in shared memory, so HBM
-// traffic is q/k/v (and g) in and the outputs out.
+// K3, the older TPU kernels of the same chain, are instantiations of the
+// same kernels with another `Numerics` (where the chain rounds):
+//   kV4  K1 (`_kernel_v4`): S, a1 rounded to T; a2 rounded before PV.
+//   kV1  `_kernel` of `probsparse_window_attention_pallas` (:317): nothing
+//        rounded, PV in float32. Forward only.
+//   kV23 `_kernel_v2` (:220) and `_kernel_v3` / `_kernel_v3_bwd` (:618,
+//        :639): q * scale rounded to T at load (the scale rounded to T
+//        first); S and a1 not rounded, M on the scaled S, the first softmax
+//        without a further scale; a2 rounded before PV. Backward:
+//        dq = (ds K) * scale, dk = ds^T (q * scale, rounded).
+// v1 and v2 take q/k/v/out head-major, [B, H, N, D] (`head_major`); the
+// others token-major.
+//
+// Layout: token-major q/k/v/g/out/dq/dk/dv are [B_ * N, C], heads are
+// channel slices of width D = C / H; head-major ones are [B_, H, N, D].
+// One CTA per (window, head) in the forward; in the backward one CTA per
+// (window group, head) walks its windows one after another. The 64x64
+// score tiles, the count matrix, both softmaxes, the rank and all products
+// stay in shared memory, so HBM traffic is q/k/v (and g) in and the
+// outputs out.
 //
 // dbias is a sum over all windows. CTAs run in no order, so each backward
 // CTA sums dz over its own windows in registers, in window order, and
@@ -53,6 +72,9 @@ constexpr int kThreads = 256;
 constexpr int kMaxN = 64;
 constexpr int kAcc = kMaxN * kMaxN / kThreads;  // dbias elements per thread
 
+// Where the chain rounds to the activation type (see the header).
+enum Numerics : int { kV4 = 0, kV1 = 1, kV23 = 2 };
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -73,21 +95,28 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// Load one (window, head) slice [N, D] of each tensor into padded smem rows.
+// Load one (window, head) slice [N, D] of each tensor (rows `rs` elements
+// apart) into padded smem rows. With q_scale != 0 the first tensor (q) is
+// multiplied by it and rounded to T, as `q * scale` in T does.
 template <typename T>
 __device__ __forceinline__ void load_tiles(const T* const* src,
                                            float* const* dst, int n_src,
-                                           size_t base, int N, int C, int D,
-                                           int ld) {
+                                           size_t base, int N, int rs, int D,
+                                           int ld, float q_scale) {
   for (int e = threadIdx.x; e < N * D; e += kThreads) {
     const int i = e / D, d = e - i * D;
-    const size_t g = base + static_cast<size_t>(i) * C + d;
-    for (int t = 0; t < n_src; ++t) dst[t][i * ld + d] = to_f(src[t][g]);
+    const size_t g = base + static_cast<size_t>(i) * rs + d;
+    for (int t = 0; t < n_src; ++t) {
+      float x = to_f(src[t][g]);
+      if (t == 0 && q_scale != 0.f) x = round_to<T>(x * q_scale);
+      dst[t][i * ld + d] = x;
+    }
   }
 }
 
-// S = Q K^T: float64 accumulation, one rounding to float, then to T.
-template <typename T>
+// S = Q K^T: float64 accumulation, one rounding to float (then, in kV4,
+// to T).
+template <typename T, int NUM>
 __device__ __forceinline__ void scores(const float* sQ, const float* sK,
                                        float* sS, int N, int D, int ld,
                                        int ls) {
@@ -98,19 +127,22 @@ __device__ __forceinline__ void scores(const float* sQ, const float* sK,
       acc = fma(static_cast<double>(sQ[i * ld + d]),
                 static_cast<double>(sK[j * ld + d]), acc);
     }
-    sS[i * ls + j] = round_to<T>(__double2float_rn(acc));
+    const float s = __double2float_rn(acc);
+    sS[i * ls + j] = NUM == kV4 ? round_to<T>(s) : s;
   }
 }
 
-// Row i: sparsity measure into sM[i]; S row -> a1 (rounded) into a1row and
-// a2 into a2row (a2row may alias the S row). a2 is left unrounded; the
-// forward rounds it before PV, the backward uses it as is.
-template <typename T>
+// Row i: sparsity measure into sM[i]; S row -> a1 (rounded in kV4) into
+// a1row and a2 into a2row (a2row may alias the S row). a2 is left
+// unrounded; the forward rounds it before PV, the backward uses it as is.
+// reg and pad are this window's [N] region ids and pad flags, or null.
+template <typename T, int NUM>
 __device__ __forceinline__ void row_chain(const float* srow, float* a1row,
                                           float* a2row, float* sM,
                                           const unsigned char* cntrow,
                                           const float* brow,
-                                          const int32_t* reg, int i, int N,
+                                          const int32_t* reg,
+                                          const int32_t* pad, int i, int N,
                                           float scale) {
   float m_max = -1e30f;
   double m_sum = 0.0;
@@ -123,21 +155,30 @@ __device__ __forceinline__ void row_chain(const float* srow, float* a1row,
   }
   sM[i] = m_max - __double2float_rn(m_sum) / static_cast<float>(N);
 
+  // kV23's S carries the scale already (q was scaled at load)
+  const float sc = NUM == kV23 ? 1.f : scale;
   float mx = -INFINITY;
-  for (int j = 0; j < N; ++j) mx = fmaxf(mx, srow[j] * scale);
+  for (int j = 0; j < N; ++j) mx = fmaxf(mx, srow[j] * sc);
   float sum = 0.f;
   for (int j = 0; j < N; ++j) {
-    const float e = expf(srow[j] * scale - mx);
+    const float e = expf(srow[j] * sc - mx);
     a2row[j] = e;
     sum += e;
   }
+  const bool pad_i = pad && pad[i];
   mx = -INFINITY;
   for (int j = 0; j < N; ++j) {
-    const float a1 = round_to<T>(a2row[j] / sum);
+    float a1 = a2row[j] / sum;
+    if (NUM == kV4) a1 = round_to<T>(a1);
     if (a1row != a2row) a1row[j] = a1;
     float z = a1;
     if (brow) z = z + brow[j];
-    if (reg) z = z + (reg[i] != reg[j] ? -100.f : 0.f);
+    if (reg || pad) {  // one add of the summed mask, as the twin does
+      float m = 0.f;
+      if (reg && reg[i] != reg[j]) m += -100.f;
+      if (pad_i && pad[j]) m += -100.f;
+      z = z + m;
+    }
     a2row[j] = z;
     mx = fmaxf(mx, z);
   }
@@ -166,11 +207,17 @@ __device__ __forceinline__ void select_rows(const float* sM, int* sSel, int N,
 }
 
 template <typename T>
+__device__ __forceinline__ float q_scale_of(int num, float scale) {
+  return num == kV23 ? round_to<T>(scale) : 0.f;
+}
+
+template <typename T, int NUM>
 __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int32_t* __restrict__ cnt,
     const float* __restrict__ bias, const int32_t* __restrict__ region,
-    T* __restrict__ out, int N, int C, int D, int nW, int u, float scale) {
+    const int32_t* __restrict__ pad, T* __restrict__ out, int N, int C,
+    int D, int nW, int u, float scale, int head_major) {
   extern __shared__ float smem[];
   const int ld = D + 1;  // padded rows: conflict-free column walks
   const int ls = N + 1;
@@ -185,24 +232,31 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(
   const int w = blockIdx.x;
   const int h = blockIdx.y;
   const int tid = threadIdx.x;
-  const size_t base = static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * D;
+  const size_t base =
+      head_major ? (static_cast<size_t>(w) * gridDim.y + h) * N * D
+                 : static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * D;
+  const int rs = head_major ? D : C;  // elements from one token to the next
 
   const T* src[3] = {q, k, v};
   float* dst[3] = {sQ, sK, sV};
-  load_tiles<T>(src, dst, 3, base, N, C, D, ld);
+  load_tiles<T>(src, dst, 3, base, N, rs, D, ld, q_scale_of<T>(NUM, scale));
   for (int e = tid; e < N * N; e += kThreads) {
     sCnt[e] = static_cast<unsigned char>(cnt[e]);
   }
   __syncthreads();
-  scores<T>(sQ, sK, sS, N, D, ld, ls);
+  scores<T, NUM>(sQ, sK, sS, N, D, ld, ls);
   __syncthreads();
   if (tid < N) {
     float* row = sS + tid * ls;
-    row_chain<T>(row, row, row, sM, sCnt + tid * N,
-                 bias ? bias + (static_cast<size_t>(h) * N + tid) * N : nullptr,
-                 region ? region + static_cast<size_t>(w % nW) * N : nullptr,
-                 tid, N, scale);
-    for (int j = 0; j < N; ++j) row[j] = round_to<T>(row[j]);
+    const size_t wn = static_cast<size_t>(w % nW) * N;
+    row_chain<T, NUM>(
+        row, row, row, sM, sCnt + tid * N,
+        bias ? bias + (static_cast<size_t>(h) * N + tid) * N : nullptr,
+        region ? region + wn : nullptr, pad ? pad + wn : nullptr, tid, N,
+        scale);
+    if (NUM != kV1) {
+      for (int j = 0; j < N; ++j) row[j] = round_to<T>(row[j]);
+    }
   }
   __syncthreads();
   select_rows(sM, sSel, N, u);
@@ -218,18 +272,19 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(
       for (int j = 0; j < N; ++j) acc += sV[j * ld + d];
       acc = acc / static_cast<float>(N);
     }
-    out[base + static_cast<size_t>(i) * C + d] = from_f<T>(acc);
+    out[base + static_cast<size_t>(i) * rs + d] = from_f<T>(acc);
   }
 }
 
-template <typename T>
+template <typename T, int NUM>
 __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ g,
     const int32_t* __restrict__ cnt, const float* __restrict__ bias,
-    const int32_t* __restrict__ region, T* __restrict__ dq,
-    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ db_part,
-    int B, int N, int C, int D, int H, int nW, int u, float scale) {
+    const int32_t* __restrict__ region, const int32_t* __restrict__ pad,
+    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ db_part, int B, int N, int C, int D, int H, int nW,
+    int u, float scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   const int ls = N + 1;
@@ -260,17 +315,17 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(
     __syncthreads();  // previous window's smem reads are done
     const T* src[4] = {q, k, v, g};
     float* dst[4] = {sQ, sK, sV, sG};
-    load_tiles<T>(src, dst, 4, base, N, C, D, ld);
+    load_tiles<T>(src, dst, 4, base, N, C, D, ld, q_scale_of<T>(NUM, scale));
     __syncthreads();
-    scores<T>(sQ, sK, sA1, N, D, ld, ls);
+    scores<T, NUM>(sQ, sK, sA1, N, D, ld, ls);
     __syncthreads();
     if (tid < N) {
-      row_chain<T>(sA1 + tid * ls, sA1 + tid * ls, sA2 + tid * ls, sM,
-                   sCnt + tid * N,
-                   bias ? bias + (static_cast<size_t>(h) * N + tid) * N
-                        : nullptr,
-                   region ? region + static_cast<size_t>(w % nW) * N : nullptr,
-                   tid, N, scale);
+      const size_t wn = static_cast<size_t>(w % nW) * N;
+      row_chain<T, NUM>(
+          sA1 + tid * ls, sA1 + tid * ls, sA2 + tid * ls, sM, sCnt + tid * N,
+          bias ? bias + (static_cast<size_t>(h) * N + tid) * N : nullptr,
+          region ? region + wn : nullptr, pad ? pad + wn : nullptr, tid, N,
+          scale);
     }
     __syncthreads();
     select_rows(sM, sSel, N, u);
@@ -341,7 +396,8 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(
     }
     __syncthreads();
     // dq[i, d] = scale sum_j ds[i, j] k[j, d]
-    // dk[j, d] = scale sum_i ds[i, j] q[i, d]
+    // dk[j, d] = scale sum_i ds[i, j] q[i, d]; in kV23 sQ holds q * scale
+    // (rounded) already
     for (int e = tid; e < N * D; e += kThreads) {
       const int i = e / D, d = e - i * D;
       float aq = 0.f, ak = 0.f;
@@ -351,7 +407,7 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(
       }
       const size_t o = base + static_cast<size_t>(i) * C + d;
       dq[o] = from_f<T>(aq * scale);
-      dk[o] = from_f<T>(ak * scale);
+      dk[o] = from_f<T>(NUM == kV23 ? ak : ak * scale);
     }
   }
   if (db_part) {
@@ -375,93 +431,129 @@ __global__ void __launch_bounds__(kThreads) dbias_reduce_kernel(
   dbias[e] = s;
 }
 
-template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, const int32_t* cnt,
-               const float* bias, const int32_t* region, void* out, int B,
-               int N, int C, int H, int nW, int u, float scale,
-               cudaStream_t stream) {
-  const int D = C / H;
+struct FwdArgs {
+  const void *q, *k, *v;
+  const int32_t* cnt;
+  const float* bias;
+  const int32_t *region, *pad;
+  void* out;
+  int B, N, C, H, nW, u;
+  float scale;
+  int head_major;
+};
+
+template <typename T, int NUM>
+int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  const int D = a.C / a.H;
+  const int N = a.N;
   const size_t smem = (3 * N * (D + 1) + N * (N + 1) + N) * sizeof(float) +
                       N * sizeof(int) + N * N;
-  auto kernel = window_attention_fwd_kernel<T>;
+  auto kernel = window_attention_fwd_kernel<T, NUM>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  dim3 grid(B, H);
+  dim3 grid(a.B, a.H);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), cnt, bias, region, static_cast<T*>(out), N, C,
-      D, nW, u, scale);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.cnt, a.bias, a.region, a.pad,
+      static_cast<T*>(a.out), N, a.C, D, a.nW, a.u, a.scale, a.head_major);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_bwd(const void* q, const void* k, const void* v, const void* g,
-               const int32_t* cnt, const float* bias, const int32_t* region,
-               void* dq, void* dk, void* dv, float* db_part, float* dbias,
-               int B, int N, int C, int H, int nW, int u, float scale,
-               int n_blocks, cudaStream_t stream) {
-  const int D = C / H;
+int launch_fwd_numerics(int numerics, const FwdArgs& a, cudaStream_t s) {
+  switch (numerics) {
+    case kV4: return launch_fwd<T, kV4>(a, s);
+    case kV1: return launch_fwd<T, kV1>(a, s);
+    case kV23: return launch_fwd<T, kV23>(a, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *g;
+  const int32_t* cnt;
+  const float* bias;
+  const int32_t *region, *pad;
+  void *dq, *dk, *dv;
+  float *db_part, *dbias;
+  int B, N, C, H, nW, u;
+  float scale;
+  int n_blocks;
+};
+
+template <typename T, int NUM>
+int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  const int D = a.C / a.H;
+  const int N = a.N;
   const size_t smem =
       (4 * N * (D + 1) + 3 * N * (N + 1) + N + D) * sizeof(float) +
       N * sizeof(int) + N * N;
-  auto kernel = window_attention_bwd_kernel<T>;
+  auto kernel = window_attention_bwd_kernel<T, NUM>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  dim3 grid(n_blocks, H);
+  dim3 grid(a.n_blocks, a.H);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), cnt, bias, region,
-      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-      bias ? db_part : nullptr, B, N, C, D, H, nW, u, scale);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.cnt, a.bias,
+      a.region, a.pad, static_cast<T*>(a.dq), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.bias ? a.db_part : nullptr, a.B, N, a.C, D,
+      a.H, a.nW, a.u, a.scale);
   int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || bias == nullptr) return err;
-  const int n = H * N * N;
+  if (err != 0 || a.bias == nullptr) return err;
+  const int n = a.H * N * N;
   dbias_reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      db_part, dbias, n_blocks, n);
+      a.db_part, a.dbias, a.n_blocks, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_numerics(int numerics, const BwdArgs& a, cudaStream_t s) {
+  switch (numerics) {
+    case kV4: return launch_bwd<T, kV4>(a, s);
+    case kV23: return launch_bwd<T, kV23>(a, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);  // kV1 has no backward
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q/k/v/out: [B * N, C] contiguous;
-// cnt: [N, N] int32; bias: [H, N, N] float32 or null; region: [nW, N] int32
-// or null. Returns cudaGetLastError() after the launch.
-int window_attention_fwd(int dtype, const void* q, const void* k,
-                         const void* v, const int32_t* cnt, const float* bias,
-                         const int32_t* region, void* out, int B, int N,
-                         int C, int H, int nW, int u, float scale,
-                         void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. numerics: 0 = K1 (v4), 1 = v1,
+// 2 = v2/v3. q/k/v/out contiguous: [B * N, C] token-major, or [B, H, N, D]
+// with head_major != 0. cnt: [N, N] int32; bias: [H, N, N] float32 or
+// null; region and pad: [nW, N] int32 or null. Returns cudaGetLastError()
+// after the launch.
+int window_attention_fwd(int dtype, int numerics, int head_major,
+                         const void* q, const void* k, const void* v,
+                         const int32_t* cnt, const float* bias,
+                         const int32_t* region, const int32_t* pad, void* out,
+                         int B, int N, int C, int H, int nW, int u,
+                         float scale, void* stream) {
+  const FwdArgs a{q, k, v, cnt, bias, region, pad, out, B, N, C, H, nW, u,
+                  scale, head_major};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_fwd<float>(q, k, v, cnt, bias, region, out, B, N, C, H, nW,
-                             u, scale, s);
-  }
-  return launch_fwd<__nv_bfloat16>(q, k, v, cnt, bias, region, out, B, N, C,
-                                   H, nW, u, scale, s);
+  if (dtype == 0) return launch_fwd_numerics<float>(numerics, a, s);
+  return launch_fwd_numerics<__nv_bfloat16>(numerics, a, s);
 }
 
-// Backward. q/k/v/g and dq/dk/dv: [B * N, C] contiguous, in the activation
-// type. With a bias, db_part is float32 scratch [n_blocks, H, N, N] and
-// dbias the float32 output [H, N, N]; both are ignored without one.
-// n_blocks (1..B) CTAs per head share the windows. Returns
-// cudaGetLastError() after the last launch.
-int window_attention_bwd(int dtype, const void* q, const void* k,
-                         const void* v, const void* g, const int32_t* cnt,
-                         const float* bias, const int32_t* region, void* dq,
+// Backward, token-major. numerics: 0 = K1 (v4), 2 = v3. q/k/v/g and
+// dq/dk/dv: [B * N, C] contiguous, in the activation type. With a bias,
+// db_part is float32 scratch [n_blocks, H, N, N] and dbias the float32
+// output [H, N, N]; both are ignored without one. n_blocks (1..B) CTAs per
+// head share the windows. Returns cudaGetLastError() after the last launch.
+int window_attention_bwd(int dtype, int numerics, const void* q,
+                         const void* k, const void* v, const void* g,
+                         const int32_t* cnt, const float* bias,
+                         const int32_t* region, const int32_t* pad, void* dq,
                          void* dk, void* dv, float* db_part, float* dbias,
                          int B, int N, int C, int H, int nW, int u,
                          float scale, int n_blocks, void* stream) {
+  const BwdArgs a{q, k, v, g, cnt, bias, region, pad, dq, dk, dv, db_part,
+                  dbias, B, N, C, H, nW, u, scale, n_blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_bwd<float>(q, k, v, g, cnt, bias, region, dq, dk, dv,
-                             db_part, dbias, B, N, C, H, nW, u, scale,
-                             n_blocks, s);
-  }
-  return launch_bwd<__nv_bfloat16>(q, k, v, g, cnt, bias, region, dq, dk, dv,
-                                   db_part, dbias, B, N, C, H, nW, u, scale,
-                                   n_blocks, s);
+  if (dtype == 0) return launch_bwd_numerics<float>(numerics, a, s);
+  return launch_bwd_numerics<__nv_bfloat16>(numerics, a, s);
 }
 
 const char* cuda_error_string(int err) {

@@ -1,7 +1,8 @@
 """Host-side input pipeline: paired gt/hazy folders → fixed-shape batches.
 
-Counterpart of `dehaze_tpu/data/pipeline.py` (single process) and of the
-validation batches of `dehaze_tpu/train/loop.py`. A thread pool decodes PNGs
+Counterpart of `dehaze_tpu/data/pipeline.py` (single process; `val_images`
+for evaluation) and of the validation batches of
+`dehaze_tpu/train/loop.py`. A thread pool decodes PNGs
 with the port's codec, random-crops ps² patches and applies the 8-way
 dihedral on host NumPy; batches are NHWC uint8 (or float32) NumPy arrays
 that the trainer moves to the device. The random draws are the JAX
@@ -128,3 +129,12 @@ def _val_batches(folder: PairedFolder, ps: int, batch_size: int,
         batches.append((np.stack([items_c[j] for j in idx]),
                         np.stack([items_n[j] for j in idx])))
     return batches, n_images
+
+
+def val_images(folder: PairedFolder
+               ) -> Iterator[Tuple[np.ndarray, np.ndarray, str]]:
+    """Whole (clean, hazy, file name) images, float32 [0, 1], unshuffled, in
+    the folder's sorted order; the name is the clean file's."""
+    for c, x in zip(folder.clean_files, folder.noisy_files):
+        yield load_img(c), load_img(x), os.path.basename(c)
+

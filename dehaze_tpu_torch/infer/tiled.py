@@ -60,10 +60,11 @@ def make_whole_image_fn(
     w: int,
     ps: int = 128,
     square: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """[B, H, W, C] (float in [0, 1] or raw uint8, tensor or ndarray) →
-    restored float32 [B, H, W, C] on `device`, for a fixed geometry.
+    restored float32 [B, H, W, C] on `device` (the card unless the caller
+    asks for the CPU), for a fixed geometry.
 
     square=True is the reference's L×L canvas; square=False pads H and W
     independently (1280×1664 instead of 1664² for a 1200×1600 frame)."""

@@ -49,6 +49,31 @@ def _region_ids(H: int, W: int, win: int, shift: int,
         device)
 
 
+@functools.lru_cache(maxsize=64)
+def _legacy_nearest(n_in: int, n_out: int,
+                    device: torch.device) -> torch.Tensor:
+    """torch F.interpolate's LEGACY nearest source indices for resizing
+    n_in to n_out, floor(dst · n_in / n_out), computed in float64 as the
+    JAX model does (`models/uformer.py:325-330`); F.interpolate's float32
+    scale can pick other rows. int64 on `device`."""
+    idx = np.minimum((np.arange(n_out) * (n_in / n_out)).astype(np.int32),
+                     n_in - 1)
+    with torch.inference_mode(False):  # cached: usable outside it too
+        return torch.from_numpy(idx.astype(np.int64)).to(device)
+
+
+def pad_flags(pad_mask: torch.Tensor, H: int, W: int,
+              win: int) -> torch.Tensor:
+    """The full-resolution padding mask [1, X, X', 1] (1 on padding) resized
+    to a stage's H × W with legacy nearest indices and windowed: [nW, N]
+    flags. Built from unshifted coordinates even for shifted blocks, as the
+    reference does."""
+    dev = pad_mask.device
+    pm = pad_mask[:, _legacy_nearest(pad_mask.shape[1], H, dev)]
+    pm = pm[:, :, _legacy_nearest(pad_mask.shape[2], W, dev)]
+    return win_ops.window_partition(pm, win)[..., 0]
+
+
 def _linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, cast(m.weight, x), cast(m.bias, x))
 
@@ -83,7 +108,8 @@ class WindowAttention(nn.Module):
         self.ProbSpare = AttentionLayer(dim, device=device)
 
     def forward(self, x: torch.Tensor, sw_region: Optional[torch.Tensor],
-                generator: Optional[torch.Generator]) -> torch.Tensor:
+                generator: Optional[torch.Generator],
+                pad_flag: Optional[torch.Tensor] = None) -> torch.Tensor:
         n = x.shape[1]
         p = self.ProbSpare
         q = _linear(p.query_projection, x)
@@ -96,10 +122,11 @@ class WindowAttention(nn.Module):
             bias = win_ops.gather_rel_pos_bias(
                 self.relative_position_bias_table, self.win_size,
                 self.win_size)
+        masks = [t for t in (sw_region, pad_flag) if t is not None]
         out = fused_window_attention(
             q, k, v, num_heads=self.num_heads, sample_idx=sample_idx,
-            rel_pos_bias=bias, sw_region=sw_region,
-            num_windows=sw_region.shape[0] if sw_region is not None else 1,
+            rel_pos_bias=bias, sw_region=sw_region, pad_flag=pad_flag,
+            num_windows=masks[0].shape[0] if masks else 1,
             factor=self.factor)
         return _linear(p.out_projection, out)
 
@@ -133,7 +160,8 @@ class LeWinBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                droppath: Optional[torch.Generator] = None) -> torch.Tensor:
+                droppath: Optional[torch.Generator] = None,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, H, W, C = x.shape
         win, shift = self.win, self.shift
         if H % win or W % win:
@@ -145,7 +173,10 @@ class LeWinBlock(nn.Module):
         if shift > 0:
             y = win_ops.cyclic_shift(y, shift)
             sw_region = _region_ids(H, W, win, shift, x.device)
-        y = self.attn(win_ops.window_partition(y, win), sw_region, generator)
+        pad_flag = (None if pad_mask is None
+                    else pad_flags(pad_mask, H, W, win))
+        y = self.attn(win_ops.window_partition(y, win), sw_region, generator,
+                      pad_flag)
         y = win_ops.window_reverse(y, win, H, W)
         if shift > 0:
             y = win_ops.cyclic_unshift(y, shift)
@@ -173,9 +204,10 @@ class UformerStage(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                droppath: Optional[torch.Generator] = None) -> torch.Tensor:
+                droppath: Optional[torch.Generator] = None,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x, generator, droppath)
+            x = blk(x, generator, droppath, pad_mask)
         return x
 
 
@@ -253,20 +285,24 @@ class Uformer(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 droppath: Optional[torch.Generator] = None,
-                dropout_gen: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                dropout_gen: Optional[torch.Generator] = None,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """pad_mask: [1, H, W, 1], 1 on padding (any-resolution inputs, see
+        `infer.anyres`), or None."""
         n_enc = self.cfg.num_enc_layers
         y = dropout(self.input_proj(x.to(self.cfg.dtype)), self.cfg.drop_rate,
                     self.training, dropout_gen)
         skips = []
         for i in range(n_enc):
-            y = getattr(self, f"encoderlayer_{i}")(y, generator, droppath)
+            y = getattr(self, f"encoderlayer_{i}")(y, generator, droppath,
+                                                   pad_mask)
             skips.append(y)
             y = getattr(self, f"dowsample_{i}")(y)
-        y = self.conv(y, generator, droppath)
+        y = self.conv(y, generator, droppath, pad_mask)
         for i in range(n_enc):
             y = getattr(self, f"upsample_{i}")(y)
             y = torch.cat([y, skips[n_enc - 1 - i]], dim=-1)
-            y = getattr(self, f"decoderlayer_{i}")(y, generator, droppath)
+            y = getattr(self, f"decoderlayer_{i}")(y, generator, droppath,
+                                                   pad_mask)
         out = self.output_proj(y)
         return x.float() + out.float()

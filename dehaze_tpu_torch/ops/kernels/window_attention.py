@@ -1,6 +1,6 @@
-"""K1: fused ProbSparse window attention, forward and backward.
+"""K1 and K3: fused ProbSparse window attention, forward and backward.
 
-Replaces `fused_window_attention` (version 4: `_prep_v4`, the custom VJP
+K1 replaces `fused_window_attention` (version 4: `_prep_v4`, the custom VJP
 `_fused_attn_v4` with `_fused_attn_v4_fwd` / `_kernel_v4` and
 `_fused_attn_v4_bwd` / `_kernel_v4_bwd`) of
 `dehaze_tpu/ops/pallas/window_attention.py`. `fused_window_attention` is a
@@ -11,10 +11,21 @@ run the plain twins `ops.probsparse.probsparse_attention_bnc` and
 launch raises. Gradients go to q, k, v and `rel_pos_bias`; the backward
 reuses the forward's `sample_idx`, so the selection is never redrawn.
 
+K3 are the older TPU kernels of the same chain, which round at other points
+(see `ops.probsparse`); the same CUDA kernels run them with another
+numerics argument:
+- `fused_window_attention(version=3)`: `_fused_attn_v3_fwd` / `_kernel_v3`
+  and `_fused_attn_v3_bwd` / `_kernel_v3_bwd` (`window_attention.py:618`,
+  `:639`), forward and backward;
+- `probsparse_window_attention_v1` and `_v2`: the forward-only
+  `probsparse_window_attention_pallas` (`:317`) and `..._pallas_v2`
+  (`:220`), on head-major q/k/v [B, H, N, D]. Their window tiling, padding
+  and packing transposes are TPU layout work and have no counterpart.
+
 The kernels cover any head count, N = win² ≤ 64 (win ≤ 8), head dim ≤ 64,
-shifted (region ids) and unshifted windows, float32 and bfloat16.
-`pad_flag` (any-resolution inputs) is not ported yet and raises on every
-device.
+shifted (region ids) and unshifted windows, padding flags (`pad_flag`,
+any-resolution inputs: −100 where both tokens are padding), float32 and
+bfloat16. Each public entry counts its kernel launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -32,11 +43,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "window_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _F, _P],
-    "window_attention_bwd": [_I] + [_P] * 12 + [_I] * 6 + [_F, _I, _P],
+    "window_attention_fwd": [_I, _I, _I] + [_P] * 8 + [_I] * 6 + [_F, _P],
+    "window_attention_bwd": [_I, _I] + [_P] * 13 + [_I] * 6 + [_F, _I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NUMERICS = {"v4": 0, "v1": 1, "v23": 2}
 MAX_N = 64
 MAX_HEAD_DIM = 64
 # Backward CTAs per head count share the windows, each writing one dbias
@@ -44,11 +55,32 @@ MAX_HEAD_DIM = 64
 BWD_CTAS_PER_SM = 4
 
 
-def _check(q, k, v, num_heads, rel_pos_bias, sw_region, num_windows):
+def _check_masks(B, N, sw_region, pad_flag, num_windows):
+    """Region ids and pad flags must be [num_windows, N], B_ a multiple of
+    num_windows; returns nW (1 without either)."""
+    nW = 1
+    for name, t in (("sw_region", sw_region), ("pad_flag", pad_flag)):
+        if t is None:
+            continue
+        if (t.dim() != 2 or tuple(t.shape) != (num_windows, N)
+                or B % num_windows):
+            raise ValueError(f"{name} must be [num_windows, N] = "
+                             f"[{num_windows}, {N}] with B_ a multiple of "
+                             f"num_windows; got {list(t.shape)}, B_={B}")
+        nW = num_windows
+    return nW
+
+
+def _check(q, k, v, num_heads, rel_pos_bias, sw_region, pad_flag,
+           num_windows, head_major):
     """Validate a CUDA call; returns the kernel's bias (float32 [H, N, N]
-    or None), region ids (int32 [nW, N] or None) and nW."""
-    B, N, C = q.shape
-    H = num_heads
+    or None), region ids and pad flags (int32 [nW, N] or None) and nW."""
+    if head_major:
+        B, H, N, D = q.shape
+    else:
+        B, N, C = q.shape
+        H = num_heads
+        D = C // H if C % H == 0 else 0
     if q.dtype not in _DTYPES:
         raise TypeError(f"K1 takes float32 or bfloat16, got {q.dtype}")
     for name, t in (("k", k), ("v", v)):
@@ -57,10 +89,11 @@ def _check(q, k, v, num_heads, rel_pos_bias, sw_region, num_windows):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if C % H or C // H > MAX_HEAD_DIM or N > MAX_N:
+    if not 0 < D <= MAX_HEAD_DIM or N > MAX_N:
         raise ValueError(f"K1 needs C % heads == 0, head dim <= "
-                         f"{MAX_HEAD_DIM} and N <= {MAX_N}; got C={C}, "
-                         f"heads={H}, N={N}")
+                         f"{MAX_HEAD_DIM} and N <= {MAX_N}; got "
+                         f"shape {list(q.shape)}, heads={H}")
+    nW = _check_masks(B, N, sw_region, pad_flag, num_windows)
     dev = q.device
     bias = None
     if rel_pos_bias is not None:
@@ -68,15 +101,12 @@ def _check(q, k, v, num_heads, rel_pos_bias, sw_region, num_windows):
             raise ValueError(f"rel_pos_bias must be [{H}, {N}, {N}]")
         bias = rel_pos_bias.detach().to(device=dev,
                                         dtype=torch.float32).contiguous()
-    region = None
-    nW = 1
+    region = pad = None
     if sw_region is not None:
-        nW = sw_region.shape[0]
-        if nW != num_windows or B % nW or sw_region.shape[1] != N:
-            raise ValueError("sw_region must be [num_windows, N] with B_ a "
-                             "multiple of num_windows")
         region = sw_region.to(device=dev, dtype=torch.int32).contiguous()
-    return bias, region, nW
+    if pad_flag is not None:
+        pad = (pad_flag.to(dev) != 0).to(torch.int32).contiguous()
+    return bias, region, pad, nW
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -91,24 +121,21 @@ def count_matrix(sample_idx: torch.Tensor, n: int,
         torch.int32), device)
 
 
-def window_attention_fwd(q, k, v, *, num_heads, sample_idx, rel_pos_bias=None,
-                         sw_region=None, num_windows=1, factor=5, scale=None,
-                         cnt=None):
-    """The forward alone, no autograd: the K1 kernel on CUDA, the twin on
-    the CPU. `cnt` is `count_matrix(sample_idx, ...)` when the caller has
-    it already. Counts its kernel launches in `.launches`."""
-    kw = dict(num_heads=num_heads, sample_idx=sample_idx,
-              rel_pos_bias=rel_pos_bias, sw_region=sw_region, factor=factor,
-              scale=scale)
-    if q.device.type == "cpu":
-        return ps_ops.probsparse_attention_bnc(q, k, v, **kw)
+def _launch_fwd(entry, numerics, head_major, q, k, v, *, num_heads,
+                sample_idx, rel_pos_bias, sw_region, pad_flag, num_windows,
+                factor, scale, cnt):
+    """Launch the forward kernel with `numerics` on CUDA tensors and count
+    it on `entry`."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    bias, region, nW = _check(q, k, v, num_heads, rel_pos_bias, sw_region,
-                              num_windows)
-    B, N, C = q.shape
+    bias, region, pad, nW = _check(q, k, v, num_heads, rel_pos_bias,
+                                   sw_region, pad_flag, num_windows,
+                                   head_major)
+    B, N = q.shape[0], q.shape[-2]
+    C = q.shape[1] * q.shape[3] if head_major else q.shape[2]
+    H = q.shape[1] if head_major else num_heads
     dev = q.device
-    scale = ps_ops._scale(q, num_heads, scale)
+    scale = ps_ops._scale(q, 1 if head_major else num_heads, scale)
     if cnt is None:
         cnt = count_matrix(sample_idx, N, dev)
     out = torch.empty_like(q)
@@ -116,33 +143,45 @@ def window_attention_fwd(q, k, v, *, num_heads, sample_idx, rel_pos_bias=None,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.window_attention_fwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            cnt.data_ptr(), _ptr(bias), _ptr(region), out.data_ptr(), B, N, C,
-            num_heads, nW, ps_ops.probsparse_u(N, factor), float(scale),
-            stream)
-    _build.check(lib, err, "window_attention_fwd")
-    window_attention_fwd.launches += 1
+            _DTYPES[q.dtype], _NUMERICS[numerics], int(head_major),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), cnt.data_ptr(),
+            _ptr(bias), _ptr(region), _ptr(pad), out.data_ptr(), B, N, C, H,
+            nW, ps_ops.probsparse_u(N, factor), float(scale), stream)
+    _build.check(lib, err, f"window_attention_fwd ({numerics})")
+    entry.launches += 1
     return out
 
 
-def window_attention_bwd(q, k, v, g, *, num_heads, sample_idx,
-                         rel_pos_bias=None, sw_region=None, num_windows=1,
-                         factor=5, scale=None, cnt=None):
-    """(dq, dk, dv, dbias) for the output gradient g: the K1 backward kernel
-    on CUDA, `probsparse_attention_bnc_bwd` on the CPU. dbias is float32
-    [H, N, N], summed over windows, or None without a bias. `cnt` as for
-    the forward. Counts its calls on CUDA in `.launches`: each call
-    launches the backward kernel and, with a bias, the dbias reduction
-    kernel after it."""
+def _attention_fwd(entry, numerics, q, k, v, *, num_heads, sample_idx,
+                   rel_pos_bias=None, sw_region=None, pad_flag=None,
+                   num_windows=1, factor=5, scale=None, cnt=None):
     kw = dict(num_heads=num_heads, sample_idx=sample_idx,
-              rel_pos_bias=rel_pos_bias, sw_region=sw_region, factor=factor,
-              scale=scale)
+              rel_pos_bias=rel_pos_bias, sw_region=sw_region,
+              pad_flag=pad_flag, factor=factor, scale=scale)
     if q.device.type == "cpu":
-        return ps_ops.probsparse_attention_bnc_bwd(q, k, v, g, **kw)
+        _check_masks(q.shape[0], q.shape[1], sw_region, pad_flag,
+                     num_windows)
+        return ps_ops.probsparse_attention_bnc(q, k, v, numerics=numerics,
+                                               **kw)
+    return _launch_fwd(entry, numerics, False, q, k, v,
+                       num_windows=num_windows, cnt=cnt, **kw)
+
+
+def _attention_bwd(entry, numerics, q, k, v, g, *, num_heads, sample_idx,
+                   rel_pos_bias=None, sw_region=None, pad_flag=None,
+                   num_windows=1, factor=5, scale=None, cnt=None):
+    kw = dict(num_heads=num_heads, sample_idx=sample_idx,
+              rel_pos_bias=rel_pos_bias, sw_region=sw_region,
+              pad_flag=pad_flag, factor=factor, scale=scale)
+    if q.device.type == "cpu":
+        _check_masks(q.shape[0], q.shape[1], sw_region, pad_flag,
+                     num_windows)
+        return ps_ops.probsparse_attention_bnc_bwd(q, k, v, g,
+                                                   numerics=numerics, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    bias, region, nW = _check(q, k, v, num_heads, rel_pos_bias, sw_region,
-                              num_windows)
+    bias, region, pad, nW = _check(q, k, v, num_heads, rel_pos_bias,
+                                   sw_region, pad_flag, num_windows, False)
     B, N, C = q.shape
     H = num_heads
     dev = q.device
@@ -164,48 +203,138 @@ def window_attention_bwd(q, k, v, g, *, num_heads, sample_idx,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.window_attention_bwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            g.data_ptr(), cnt.data_ptr(), _ptr(bias), _ptr(region),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(db_part),
-            _ptr(dbias), B, N, C, H, nW, ps_ops.probsparse_u(N, factor),
-            float(scale), n_blocks, stream)
-    _build.check(lib, err, "window_attention_bwd")
-    window_attention_bwd.launches += 1
+            _DTYPES[q.dtype], _NUMERICS[numerics], q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), g.data_ptr(), cnt.data_ptr(),
+            _ptr(bias), _ptr(region), _ptr(pad), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _ptr(db_part), _ptr(dbias), B, N,
+            C, H, nW, ps_ops.probsparse_u(N, factor), float(scale), n_blocks,
+            stream)
+    _build.check(lib, err, f"window_attention_bwd ({numerics})")
+    entry.launches += 1
     return dq, dk, dv, dbias
 
 
-window_attention_fwd.launches = 0
-window_attention_bwd.launches = 0
+def window_attention_fwd(q, k, v, **kw):
+    """The K1 forward alone, no autograd: the kernel on CUDA, the twin on
+    the CPU. Keywords as `fused_window_attention`'s, plus `cnt`,
+    `count_matrix(sample_idx, ...)` when the caller has it already. Counts
+    its kernel launches in `.launches`."""
+    return _attention_fwd(window_attention_fwd, "v4", q, k, v, **kw)
+
+
+def window_attention_bwd(q, k, v, g, **kw):
+    """(dq, dk, dv, dbias) of K1 for the output gradient g: the K1 backward
+    kernel on CUDA, `probsparse_attention_bnc_bwd` on the CPU. dbias is
+    float32 [H, N, N], summed over windows, or None without a bias. `cnt`
+    as for the forward. Counts its calls on CUDA in `.launches`: each call
+    launches the backward kernel and, with a bias, the dbias reduction
+    kernel after it."""
+    return _attention_bwd(window_attention_bwd, "v4", q, k, v, g, **kw)
+
+
+def window_attention_v3_fwd(q, k, v, **kw):
+    """K3-v3 forward (`_fused_attn_v3_fwd`, "v23" numerics), as
+    `window_attention_fwd`."""
+    return _attention_fwd(window_attention_v3_fwd, "v23", q, k, v, **kw)
+
+
+def window_attention_v3_bwd(q, k, v, g, **kw):
+    """K3-v3 backward (`_fused_attn_v3_bwd`, "v23" numerics: dk from the
+    rounded q·scale), as `window_attention_bwd`."""
+    return _attention_bwd(window_attention_v3_bwd, "v23", q, k, v, g, **kw)
+
+
+def _head_major_fwd(entry, numerics, twin, q, k, v, sample_idx,
+                     rel_pos_bias, sw_region, num_windows, factor, scale):
+    if q.device.type == "cpu":
+        _check_masks(q.shape[0], q.shape[2], sw_region, None, num_windows)
+        return twin(q, k, v, sample_idx=sample_idx,
+                    rel_pos_bias=rel_pos_bias, sw_region=sw_region,
+                    factor=factor, scale=scale)
+    return _launch_fwd(entry, numerics, True, q, k, v,
+                       num_heads=q.shape[1], sample_idx=sample_idx,
+                       rel_pos_bias=rel_pos_bias, sw_region=sw_region,
+                       pad_flag=None, num_windows=num_windows, factor=factor,
+                       scale=scale, cnt=None)
+
+
+def probsparse_window_attention_v1(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    sample_idx: torch.Tensor, rel_pos_bias: Optional[torch.Tensor] = None,
+    sw_region: Optional[torch.Tensor] = None, num_windows: int = 1,
+    factor: int = 5, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """K3-v1, the counterpart of `probsparse_window_attention_pallas`
+    (`dehaze_tpu/ops/pallas/window_attention.py:317`): ProbSparse window
+    attention over q/k/v [B, H, N, D] (B = nB·nW window-major) -> [B, H, N,
+    D], forward only, with nothing rounded inside the chain ("v1"
+    numerics). The kernel on CUDA, `ops.probsparse.probsparse_attention_v1`
+    on the CPU. Counts its launches in `.launches`."""
+    return _head_major_fwd(probsparse_window_attention_v1, "v1",
+                            ps_ops.probsparse_attention_v1, q, k, v,
+                            sample_idx, rel_pos_bias, sw_region, num_windows,
+                            factor, scale)
+
+
+def probsparse_window_attention_v2(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    sample_idx: torch.Tensor, rel_pos_bias: Optional[torch.Tensor] = None,
+    sw_region: Optional[torch.Tensor] = None, num_windows: int = 1,
+    factor: int = 5, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """K3-v2, the counterpart of `probsparse_window_attention_pallas_v2`
+    (`dehaze_tpu/ops/pallas/window_attention.py:220`): as
+    `probsparse_window_attention_v1` with "v23" numerics (q·scale rounded,
+    S and a1 not rounded, a2 rounded before PV). The kernel on CUDA,
+    `ops.probsparse.probsparse_attention_v2` on the CPU."""
+    return _head_major_fwd(probsparse_window_attention_v2, "v23",
+                            ps_ops.probsparse_attention_v2, q, k, v,
+                            sample_idx, rel_pos_bias, sw_region, num_windows,
+                            factor, scale)
+
+
+for _entry in (window_attention_fwd, window_attention_bwd,
+               window_attention_v3_fwd, window_attention_v3_bwd,
+               probsparse_window_attention_v1,
+               probsparse_window_attention_v2):
+    _entry.launches = 0
+
+_VERSIONS = {4: (window_attention_fwd, window_attention_bwd),
+             3: (window_attention_v3_fwd, window_attention_v3_bwd)}
 
 
 class _FusedWindowAttention(torch.autograd.Function):
-    """The custom VJP `_fused_attn_v4`: forward through K1, backward through
-    the K1 backward, both recomputing from the same saved inputs."""
+    """The custom VJPs `_fused_attn_v4` and `_fused_attn_v3`: forward and
+    backward through the kernels of one version, both recomputing from the
+    same saved inputs."""
 
     @staticmethod
-    def forward(ctx, q, k, v, rel_pos_bias, sample_idx, sw_region, kw):
+    def forward(ctx, q, k, v, rel_pos_bias, sample_idx, sw_region, pad_flag,
+                version, kw):
+        fwd, _ = _VERSIONS[version]
         # built once per forward and reused by the backward
         cnt = (count_matrix(sample_idx, q.shape[1], q.device)
                if q.device.type == "cuda" else None)
-        out = window_attention_fwd(q, k, v, rel_pos_bias=rel_pos_bias,
-                                   sample_idx=sample_idx, sw_region=sw_region,
-                                   cnt=cnt, **kw)
+        out = fwd(q, k, v, rel_pos_bias=rel_pos_bias, sample_idx=sample_idx,
+                  sw_region=sw_region, pad_flag=pad_flag, cnt=cnt, **kw)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(q, k, v, rel_pos_bias)
             # constants, not differentiable: kept as they are (they may be
             # cached tensors made under inference mode)
+            ctx.version = version
             ctx.consts = dict(sample_idx=sample_idx, sw_region=sw_region,
-                              cnt=cnt, **kw)
+                              pad_flag=pad_flag, cnt=cnt, **kw)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, rel_pos_bias = ctx.saved_tensors
-        dq, dk, dv, dbias = window_attention_bwd(
-            q, k, v, g, rel_pos_bias=rel_pos_bias, **ctx.consts)
+        _, bwd = _VERSIONS[ctx.version]
+        dq, dk, dv, dbias = bwd(q, k, v, g, rel_pos_bias=rel_pos_bias,
+                                **ctx.consts)
         if dbias is not None:
             dbias = dbias.to(rel_pos_bias.dtype)
-        return dq, dk, dv, dbias, None, None, None
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 def fused_window_attention(
@@ -221,15 +350,17 @@ def fused_window_attention(
     factor: int = 5,
     scale: Optional[float] = None,
     pad_flag: Optional[torch.Tensor] = None,
+    version: int = 4,
 ) -> torch.Tensor:
     """ProbSparse window attention over q/k/v [B_, N, C] (heads as channel
     slices) -> context [B_, N, C], differentiable in q, k, v and
     rel_pos_bias. sample_idx [N, U_part]; rel_pos_bias [H, N, N] or None;
-    sw_region [num_windows, N] region ids or None."""
-    if pad_flag is not None:
-        raise NotImplementedError("pad_flag (any-resolution inference) is "
-                                  "not ported yet")
+    sw_region and pad_flag [num_windows, N] region ids and padding flags
+    (nonzero on padding), or None. version 4 is K1; version 3 runs the
+    K3-v3 kernels, which round as `_kernel_v3` does."""
+    if version not in _VERSIONS:
+        raise ValueError(f"version must be 3 or 4, got {version!r}")
     kw = dict(num_heads=num_heads, num_windows=num_windows, factor=factor,
               scale=scale)
     return _FusedWindowAttention.apply(q, k, v, rel_pos_bias, sample_idx,
-                                       sw_region, kw)
+                                       sw_region, pad_flag, version, kw)

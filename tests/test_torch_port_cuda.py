@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain twins, on an NVIDIA GPU.
+"""The port's CUDA kernels (K1 with and without padding flags, the K3
+variants v1, v2 and v3, K2) against their plain twins, on an NVIDIA GPU.
 
 Every test here needs the card and skips without one (the kernels have no
 CPU mode). The file imports neither jax nor the JAX package, so it runs on
@@ -11,7 +12,8 @@ Tolerances are chip_smoke.py's: K1 f32 1e-4 on every row, bf16 1.6e-2 on
 all but 0.1% of rows; K1 backward, per gradient tensor, every element
 within tol·max|ref| with tol 1e-5 (f32) and 2^-7 (bf16, one ulp at the
 tensor's largest magnitude); K2 |Δ| <= tol·(1 + |ref|) with tol 1e-4 (f32)
-and 1e-2 (bf16).
+and 1e-2 (bf16). In bf16 each K1 and K3 kernel is also held to its own
+rounding points (nearer its own twin than the other numerics' twins).
 """
 
 import numpy as np
@@ -24,7 +26,9 @@ from dehaze_tpu_torch.ops import probsparse as TPS
 from dehaze_tpu_torch.ops import window as TW
 from dehaze_tpu_torch.ops.kernels.leff import leff_fused, leff_reference
 from dehaze_tpu_torch.ops.kernels.window_attention import (
-    fused_window_attention, window_attention_bwd, window_attention_fwd)
+    fused_window_attention, probsparse_window_attention_v1,
+    probsparse_window_attention_v2, window_attention_bwd,
+    window_attention_fwd, window_attention_v3_bwd, window_attention_v3_fwd)
 
 K1_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1.6e-2, 1e-3)}
 K1B_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
@@ -44,10 +48,21 @@ def _rng(seed):
     return np.random.default_rng(seed)
 
 
-def _attn_inputs(dev, heads, win, D, shifted, dtype, seed, bias=True):
+def _pad_flags(rng, nW, N):
+    """[nW, N] flags: whole windows of padding, partly padded ones and
+    clean ones."""
+    flags = (rng.uniform(size=(nW, N)) < 0.5).astype(np.float32)
+    flags[0] = 1.0
+    if nW > 2:
+        flags[1] = 0.0
+    return torch.from_numpy(flags)
+
+
+def _attn_inputs(dev, heads, win, D, shifted, dtype, seed, bias=True,
+                 pad=False):
     N = win * win
     rng = _rng(seed)
-    nW = 8 if shifted else 1
+    nW = 8 if shifted or pad else 1
     region = None
     if shifted:
         region = torch.from_numpy(TW.shift_region_ids(4 * win, 2 * win, win,
@@ -63,7 +78,30 @@ def _attn_inputs(dev, heads, win, D, shifted, dtype, seed, bias=True):
                   size=(heads, N, N)).astype(np.float32) * 0.1).to(dev)
               if bias else None,
               sw_region=None if region is None else region.to(dev))
+    if pad:
+        kw["pad_flag"] = _pad_flags(rng, nW, N).to(dev)
     return q, k, v, kw, nW
+
+
+def _assert_rows_close(got, want, heads, D, dtype):
+    """K1_TOL on every row of D values (all but `share` of them)."""
+    tol, share = K1_TOL[dtype]
+    rows = (got.float() - want.float()).abs().reshape(-1, D).amax(-1)
+    assert int((rows > tol).sum()) <= share * rows.numel()
+
+
+def _assert_grads_close(got, want, dtype, shape, bias):
+    tol = K1B_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        assert a.dtype == dtype and a.shape == shape, name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), name
+    if not bias:
+        assert got[3] is None and want[3] is None
+        return
+    assert got[3].dtype == torch.float32
+    err = float((got[3] - want[3]).abs().max())
+    assert err <= tol * float(want[3].abs().max())
 
 
 @pytest.mark.cuda
@@ -94,8 +132,10 @@ def test_k1_matches_twin(cuda, heads, win, D, shifted, dtype, bias):
 @pytest.mark.cuda
 def test_k1_refuses_what_it_does_not_take(cuda):
     q, k, v, kw, nW = _attn_inputs(cuda, 2, 8, 32, False, torch.float32, 1)
-    with pytest.raises(NotImplementedError):
-        fused_window_attention(q, k, v, pad_flag=torch.zeros(1, 64), **kw)
+    with pytest.raises(ValueError, match="pad_flag"):
+        fused_window_attention(q, k, v, pad_flag=torch.zeros(2, 64), **kw)
+    with pytest.raises(ValueError, match="version"):
+        fused_window_attention(q, k, v, version=1, **kw)
     with pytest.raises(ValueError):
         fused_window_attention(q.transpose(0, 1).contiguous().transpose(
             0, 1), k, v, **kw)
@@ -142,6 +182,139 @@ def test_k1_backward_is_deterministic(cuda):
     b = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,shifted,dtype", [
+    (1, True, torch.float32), (1, True, torch.bfloat16),
+    (2, False, torch.float32), (16, False, torch.bfloat16),
+    (4, True, torch.float32)])
+def test_k1_pad_flag_matches_twin(cuda, heads, shifted, dtype):
+    """Padding flags (−100 between padded tokens, on top of the region
+    mask), forward and backward."""
+    q, k, v, kw, nW = _attn_inputs(cuda, heads, 8, 32, shifted, dtype,
+                                   seed=40 + heads, pad=True)
+    got = fused_window_attention(q, k, v, num_windows=nW, **kw)
+    want = TPS.probsparse_attention_bnc(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_rows_close(got, want, heads, 32, dtype)
+    g = torch.from_numpy(_rng(heads).normal(size=q.shape).astype(
+        np.float32)).to(cuda, dtype)
+    got = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
+    want = TPS.probsparse_attention_bnc_bwd(q, k, v, g, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, dtype, q.shape, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["v1", "v2"])
+@pytest.mark.parametrize("heads,win,shifted,dtype,bias", [
+    (2, 8, True, torch.float32, True), (2, 8, True, torch.bfloat16, True),
+    (16, 8, False, torch.float32, True), (4, 4, False, torch.bfloat16, False)])
+def test_k3_v1_v2_match_twins(cuda, version, heads, win, shifted, dtype,
+                              bias):
+    """The head-major K3 forwards ([B, H, N, D]) against their twins."""
+    entry, twin = {
+        "v1": (probsparse_window_attention_v1, TPS.probsparse_attention_v1),
+        "v2": (probsparse_window_attention_v2, TPS.probsparse_attention_v2),
+    }[version]
+    q, k, v, kw, nW = _attn_inputs(cuda, heads, win, 32, shifted, dtype,
+                                   seed=50 + heads, bias=bias)
+    B, N = q.shape[:2]
+    q, k, v = (t.reshape(B, N, heads, 32).transpose(1, 2).contiguous()
+               for t in (q, k, v))
+    kw.pop("num_heads")
+    before = entry.launches
+    got = entry(q, k, v, num_windows=nW, **kw)
+    assert entry.launches == before + 1
+    want = twin(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_rows_close(got, want, heads, 32, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,shifted,dtype,bias", [
+    (1, True, torch.float32, True), (2, True, torch.bfloat16, True),
+    (16, False, torch.float32, True), (2, False, torch.bfloat16, False)])
+def test_k3_v3_matches_twin(cuda, heads, shifted, dtype, bias):
+    """fused_window_attention(version=3): the v3 forward and backward
+    kernels against the twins with "v23" numerics."""
+    q, k, v, kw, nW = _attn_inputs(cuda, heads, 8, 32, shifted, dtype,
+                                   seed=60 + heads, bias=bias)
+    counts = (window_attention_v3_fwd.launches,
+              window_attention_v3_bwd.launches)
+    got = fused_window_attention(q, k, v, num_windows=nW, version=3, **kw)
+    want = TPS.probsparse_attention_bnc(q, k, v, numerics="v23", **kw)
+    torch.cuda.synchronize()
+    _assert_rows_close(got, want, heads, 32, dtype)
+    g = torch.from_numpy(_rng(heads + 1).normal(size=q.shape).astype(
+        np.float32)).to(cuda, dtype)
+    got = window_attention_v3_bwd(q, k, v, g, num_windows=nW, **kw)
+    want = TPS.probsparse_attention_bnc_bwd(q, k, v, g, numerics="v23", **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, dtype, q.shape, bias)
+    assert (window_attention_v3_fwd.launches,
+            window_attention_v3_bwd.launches) == (counts[0] + 1,
+                                                  counts[1] + 1)
+
+
+def _gap(got, ref, own):
+    """Σ over output tensors of mean |got − ref| over the largest |own|."""
+    if torch.is_tensor(got):
+        got, ref, own = (got,), (ref,), (own,)
+    return sum(float((a.float() - b.float()).abs().mean()
+                     / o.float().abs().max())
+               for a, b, o in zip(got, ref, own) if a is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,own", [
+    ("k1_fwd", "v4"), ("k1_bwd", "v4"), ("v1", "v1"), ("v2", "v23"),
+    ("v3_fwd", "v23"), ("v3_bwd", "v23")])
+def test_kernels_round_where_their_own_twin_does(cuda, kernel, own):
+    """bf16, q and k at std 1 (where the rounding of S moves the output):
+    each kernel lies nearer its own twin than the twins of the other
+    numerics, mean gap at most NUMERICS_SEP (0.5, as chip_smoke.py) of
+    each other's; the variants differ by about one bf16 ulp, inside
+    K1_TOL."""
+    q, k, v, kw, nW = _attn_inputs(cuda, 2, 8, 32, True, torch.bfloat16,
+                                   seed=70)
+    q, k = q * 2, k * 2
+    g = torch.from_numpy(_rng(71).normal(size=q.shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    if kernel in ("v1", "v2"):
+        B, N = q.shape[:2]
+        q, k, v = (t.reshape(B, N, 2, 32).transpose(1, 2).contiguous()
+                   for t in (q, k, v))
+        kw.pop("num_heads")
+        entry = {"v1": probsparse_window_attention_v1,
+                 "v2": probsparse_window_attention_v2}[kernel]
+        got = entry(q, k, v, num_windows=nW, **kw)
+
+        def twin(n):
+            return TPS.probsparse_attention_bhnd(q, k, v, numerics=n, **kw)
+    elif kernel.endswith("fwd"):
+        entry = {"k1_fwd": window_attention_fwd,
+                 "v3_fwd": window_attention_v3_fwd}[kernel]
+        got = entry(q, k, v, num_windows=nW, **kw)
+
+        def twin(n):
+            return TPS.probsparse_attention_bnc(q, k, v, numerics=n, **kw)
+    else:
+        entry = {"k1_bwd": window_attention_bwd,
+                 "v3_bwd": window_attention_v3_bwd}[kernel]
+        got = entry(q, k, v, g, num_windows=nW, **kw)
+
+        def twin(n):
+            return TPS.probsparse_attention_bnc_bwd(q, k, v, g, numerics=n,
+                                                    **kw)
+    want = twin(own)
+    torch.cuda.synchronize()
+    for other in TPS.NUMERICS:
+        if other != own:
+            assert _gap(got, want, want) <= 0.5 * _gap(got, twin(other),
+                                                       want), other
 
 
 def _leff_inputs(dev, B, H, W, C, Ch, dtype, seed):
@@ -239,3 +412,28 @@ def test_model_backward_launches_k1_backward(cuda):
     for name, p in cpu_model.named_parameters():
         err = (gpu[name].grad.cpu() - p.grad).abs().max()
         assert float(err) <= 1e-3 * (1 + float(p.grad.abs().max())), name
+
+
+@pytest.mark.cuda
+def test_model_with_pad_mask_cuda_matches_cpu(cuda):
+    """A small Uformer (embed 8) on a 128² canvas with a centred 100×120
+    image and its padding mask, f32: CUDA (kernels) against the CPU
+    (twins)."""
+    from dehaze_tpu_torch.infer.anyres import expand2square
+
+    torch.manual_seed(0)
+    cfg = ModelConfig(img_size=64, embed_dim=8, dtype=torch.float32)
+    cpu_model = Uformer(cfg).eval()
+    gpu_model = Uformer(cfg, device=cuda).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    x = torch.from_numpy(_rng(6).uniform(size=(1, 100, 120, 3)).astype(
+        np.float32))
+    canvas, pad, _ = expand2square(x, 128)
+    k1 = window_attention_fwd.launches
+    with torch.inference_mode():
+        want = cpu_model(canvas, generator=torch.Generator().manual_seed(5),
+                         pad_mask=pad)
+        got = gpu_model(canvas.to(cuda), pad_mask=pad.to(cuda),
+                        generator=torch.Generator().manual_seed(5))
+    assert window_attention_fwd.launches - k1 == 18
+    assert float((got.cpu() - want).abs().max()) <= 1e-3

@@ -134,7 +134,8 @@ def test_whole_image_u8_matches_jax(jax_params, pinned, square):
                                    square=square)
     want = np.asarray(jrun(jnp.asarray(img)))
     model = _port(jax_params)
-    trun = ttiled.make_whole_image_fn(model, h, w, ps, square=square)
+    trun = ttiled.make_whole_image_fn(model, h, w, ps, square=square,
+                                      device="cpu")
     got = trun(img).numpy()
     assert got.shape == (1, h, w, 3)
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)

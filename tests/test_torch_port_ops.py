@@ -139,11 +139,17 @@ def test_k1_twin_bf16():
 
 
 def test_k1_cpu_rejects_pad_flag():
+    """A pad_flag that is not [num_windows, N] is refused on the CPU as on
+    the card (here 2 windows' flags against num_windows=1), and so is a
+    version other than 3 or 4."""
     q, k, v, si, _ = _attn_data(2, 64, 32, seed=3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="pad_flag"):
         fused_window_attention(_t(q), _t(k), _t(v), num_heads=1,
                                sample_idx=_t(si),
                                pad_flag=torch.zeros(2, 64))
+    with pytest.raises(ValueError, match="version"):
+        fused_window_attention(_t(q), _t(k), _t(v), num_heads=1,
+                               sample_idx=_t(si), version=2)
 
 
 def _leff_params(C, Ch, seed=0):

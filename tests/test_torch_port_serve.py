@@ -164,7 +164,7 @@ def test_serve_answers_post_like_the_library_path(server, weights):
     model = weights[1]
     run = quantize_u8(make_whole_image_fn(
         lambda x: model(x, generator=torch.Generator().manual_seed(SEED)),
-        40, 56, 32, square=False))
+        40, 56, 32, square=False, device="cpu"))
     np.testing.assert_array_equal(got, run(img[None])[0].numpy())
 
     with urllib.request.urlopen(server + "/healthz", timeout=60) as r:
