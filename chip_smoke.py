@@ -22,11 +22,14 @@ Phases, in order; any failure exits non-zero before the final line:
   6. K2 against its plain twin at the serving path's shapes (rect canvas),
      the evaluation path's (1664² square canvas, 1536² any-resolution)
      and the training eval forward's (batch 32 × 128²), f32 and bf16,
-     exact and tanh GELU;
+     exact and tanh GELU; the other seven stages of the serving frame
+     (K2_STAGES) in bf16 with exact GELU; the planner's shared-memory
+     count against the kernel's at every C;
   7. a seeded random-init Uformer-32 saved as a .pth state_dict:
      (a) CUDA forward (kernels) against the CPU forward (plain twins) at
          256², f32, same sampling seed; (b) the 1200×1600 uint8 frame
-         through the whole-image function (rect canvas 1280×1664, bf16);
+         through the whole-image function (rect canvas 1280×1664, bf16)
+         and a profile of one such frame;
          (c) a 200×240 image with its padding mask on the 256² canvas,
          CUDA against CPU, f32;
   8. the serving path: the serving CLI's machinery in-process with
@@ -126,6 +129,14 @@ RELOAD_TOL = 1e-3
 # in-process function with the same weights and seed, in dB.
 EVAL_PSNR_TOL = 1e-3
 TRAIN_BATCH, TRAIN_PS = 32, 128
+# The nine stages of Uformer-32 (ModelConfig defaults) on the serving rect
+# canvas 1280×1664: K2's x, with hidden width 4C; two K2 launches each per
+# frame. The decoder stages see twice the encoder's C (the skip concat).
+K2_STAGES = [("enc0", (1, 1280, 1664, 32)), ("enc1", (1, 640, 832, 64)),
+             ("enc2", (1, 320, 416, 128)), ("enc3", (1, 160, 208, 256)),
+             ("bottleneck", (1, 80, 104, 512)), ("dec0", (1, 160, 208, 512)),
+             ("dec1", (1, 320, 416, 256)), ("dec2", (1, 640, 832, 128)),
+             ("dec3", (1, 1280, 1664, 64))]
 # H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM bytes/s and
 # dense FLOP/s by operand type (bf16 on tensor cores, f32 on CUDA cores).
 HBM_BPS = 3.35e12
@@ -567,7 +578,9 @@ def phase_k3():
 def phase_k2():
     import torch
 
-    from dehaze_tpu_torch.ops.kernels.leff import leff_fused, leff_reference
+    from dehaze_tpu_torch.ops.kernels.leff import (kernel_smem_bytes,
+                                                   leff_fused, leff_reference,
+                                                   plan_tile)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -575,7 +588,7 @@ def phase_k2():
     # serving's enc0 and bottleneck (rect canvas 1280×1664), evaluation's
     # on the 1664² square canvas and any-resolution's enc0 on 1536², and the
     # training eval forward's (batch 32, where the bottleneck's depthwise
-    # conv sees 8×8 images)
+    # conv sees 8×8 images): f32 and bf16, erf and tanh GELU
     cases = [("enc0", (1, 1280, 1664, 32), 128),
              ("bottleneck", (1, 80, 104, 512), 2048),
              ("eval_enc0", (1, X, X, 32), 128),
@@ -583,8 +596,21 @@ def phase_k2():
              ("anyres_enc0_1536", (1, 1536, 1536, 32), 128),
              ("train_enc0", (TRAIN_BATCH, P, P, 32), 128),
              ("train_bottleneck", (TRAIN_BATCH, P // 16, P // 16, 512), 2048)]
+    sweep = [(d, f) for d in (torch.float32, torch.bfloat16)
+             for f in (False, True)]
+    # the other seven stages of the serving frame (K2_STAGES), in the
+    # serving configuration only: bf16, exact GELU
+    cases = [c + (sweep,) for c in cases] + [
+        (name, shape, 4 * shape[-1], [(torch.bfloat16, False)])
+        for name, shape in K2_STAGES if name not in ("enc0", "bottleneck")]
+    for dtype in (torch.float32, torch.bfloat16):
+        for C in sorted({c[1][-1] for c in cases}):
+            got, want = kernel_smem_bytes(C, dtype), plan_tile(C, dtype).smem
+            if got != want:
+                fail(f"K2 C={C} {dtype}: the kernel allocates {got} bytes of "
+                     f"shared memory, the planner counts {want}")
     results, wrong = [], []
-    for name, shape, Ch in cases:
+    for name, shape, Ch, runs in cases:
         C = shape[-1]
 
         def rnd(*s, std=1.0, mean=0.0):
@@ -597,33 +623,32 @@ def phase_k2():
              "dw_bias": rnd(Ch, std=0.1),
              "w2": rnd(Ch, C, std=1 / math.sqrt(Ch)), "b2": rnd(C, std=0.1)}
         x32 = rnd(*shape)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, fast in runs:
             x = x32.to(dtype)
             dname = str(dtype).split(".")[1]
             tol = K2_TOL[dname]
-            for fast in (False, True):
-                gelu = "tanh" if fast else "erf"
-                label = (f"K2 {name} {dname} gelu={gelu} x={list(shape)} "
-                         f"hidden={Ch}")
+            gelu = "tanh" if fast else "erf"
+            label = (f"K2 {name} {dname} gelu={gelu} x={list(shape)} "
+                     f"hidden={Ch}")
 
-                def check(got, want):
-                    diff = (got.float() - want.float()).abs()
-                    bad = int((diff > tol + tol * want.float().abs()).sum())
-                    if not torch.isfinite(got.float()).all() or bad:
-                        wrong.append(f"{label}: {bad} elements beyond "
-                                     f"atol=rtol={tol:g}")
-                    err = float(diff.max())
-                    return err, (f"max|d|={err:.3e} elements beyond tol: "
-                                 f"{bad}")
+            def check(got, want):
+                diff = (got.float() - want.float()).abs()
+                bad = int((diff > tol + tol * want.float().abs()).sum())
+                if not torch.isfinite(got.float()).all() or bad:
+                    wrong.append(f"{label}: {bad} elements beyond "
+                                 f"atol=rtol={tol:g}")
+                err = float(diff.max())
+                return err, (f"max|d|={err:.3e} elements beyond tol: "
+                             f"{bad}")
 
-                nbytes = (2 * x.numel() * x.element_size()
-                          + sum(t.numel() for t in p.values())
-                          * x.element_size())
-                results.append((name, dname, gelu) + _run_case(
-                    label, lambda: leff_fused(x, fast_gelu=fast, **p),
-                    lambda: leff_reference(x, fast_gelu=fast, **p), check,
-                    nbytes, x.numel() // C * (4 * C * Ch + 18 * Ch), dname,
-                    reps=3))
+            nbytes = (2 * x.numel() * x.element_size()
+                      + sum(t.numel() for t in p.values())
+                      * x.element_size())
+            results.append((name, dname, gelu) + _run_case(
+                label, lambda: leff_fused(x, fast_gelu=fast, **p),
+                lambda: leff_reference(x, fast_gelu=fast, **p), check,
+                nbytes, x.numel() // C * (4 * C * Ch + 18 * Ch), dname,
+                reps=20))
     if wrong:
         fail("; ".join(wrong))
     return results
@@ -713,6 +738,8 @@ def phase_model(tmp: str) -> str:
         fail("whole-image output has the wrong shape or leaves [0, 1]")
     if k1 == 0 or k2 == 0:
         fail("the whole-image forward did not launch both kernels")
+    _profile(f"one {FRAME[0]}x{FRAME[1]} serving frame on the rect canvas, "
+             "bf16", lambda: run(frame), 1, secs * 1e3)
     return pth
 
 
@@ -1288,9 +1315,12 @@ def main() -> None:
               k1_res + pad_fwd, ("enc0", "bfloat16"), "k1_fwd", paths),
         entry("K1 ProbSparse window attention bwd", wa, f"{pw}:938",
               k1b_res + pad_bwd, ("enc0", "bfloat16"), "k1_bwd", paths),
-        entry("K2 fused LayerNorm+LeFF", "dehaze_tpu_torch/csrc/leff.cu",
-              "dehaze_tpu/ops/pallas/leff.py:120", k2_res,
-              ("enc0", "bfloat16", "erf"), "k2", paths),
+        dict(entry("K2 fused LayerNorm+LeFF", "dehaze_tpu_torch/csrc/leff.cu",
+                   "dehaze_tpu/ops/pallas/leff.py:120", k2_res,
+                   ("enc0", "bfloat16", "erf"), "k2", paths),
+             cases=[dict(zip(("case", "dtype", "gelu", "max_abs_err", "ms",
+                              "plain_ms", "bound_ms", "bound_by"), r))
+                    for r in k2_res]),
         entry("K3-v1 ProbSparse window attention fwd, [B,H,N,D]", wa,
               f"{pw}:317", k3_res["v1"], ("enc1", "bfloat16"), "k3_v1",
               paths),

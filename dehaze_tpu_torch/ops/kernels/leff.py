@@ -4,7 +4,10 @@ Replaces `leff_fused` / `_kernel` of `dehaze_tpu/ops/pallas/leff.py`:
 LN (norm2 of the LeWin block) -> Dense(C -> Ch) -> GELU -> depthwise 3×3
 (SAME, zero padding) -> GELU -> Dense(Ch -> C). The residual add stays with
 the caller. On a CUDA tensor it launches `csrc/leff.cu`; on a CPU tensor it
-runs the plain twin `leff_reference`. There is no other path.
+runs the plain twin `leff_reference`. There is no other path. In bf16 the
+kernel runs both Dense layers on the tensor cores with their weights staged
+in shared memory, tiled per C by `plan_tile`; in float32 it stays on the
+CUDA cores (csrc/leff.cu says why).
 
 Public layouts are the JAX kernel's: x [B, H, W, C]; w1 [C, Ch]; dw_kernel
 [3, 3, 1, Ch] (HWIO); w2 [Ch, C]. All parameters are cast to x.dtype, as the
@@ -14,6 +17,7 @@ JAX kernel does.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -27,9 +31,70 @@ _SIGNATURES = {
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROW_MULTIPLE = 8
-TILE_W = 8
-SMEM_BUDGET = 200 * 1024  # of the 227 KB a CTA may use on Hopper
-_CHUNK = 32  # hidden channels per chunk, as in csrc/leff.cu
+SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+_F32_SMEM_BUDGET = 200 * 1024  # the float32 path's planning budget
+_F32_CHUNK = 32  # hidden channels per chunk of the float32 path
+# bf16 tile classes of csrc/leff.cu (Tile32 ... Tile512), by the largest C
+# each takes: (largest C, tile width TW, hidden chunk KC). Every class has 8
+# tile rows and holds `largest C` output channels in registers.
+_MMA_CLASSES = ((32, 32, 32), (64, 32, 64), (128, 32, 64), (256, 16, 64),
+                (512, 8, 32))
+
+
+class TilePlan(NamedTuple):
+    """K2's output tile for one (C, dtype): th x tw pixels per CTA and the
+    bytes of shared memory the kernel allocates."""
+    th: int
+    tw: int
+    smem: int
+
+    @property
+    def halo_ratio(self) -> float:
+        """Haloed pixels per output pixel: how often dense1 is computed."""
+        return (self.th + 2) * (self.tw + 2) / (self.th * self.tw)
+
+
+def _f32_smem_bytes(C: int, TH: int, TW: int) -> int:
+    HP, TP = (TH + 2) * (TW + 2), TH * TW
+    return (TP * C + HP * _F32_CHUNK + TP * _F32_CHUNK + HP * C) * 4 + HP
+
+
+def _mma_smem_bytes(C: int, tw: int, nc: int, kc: int) -> int:
+    """csrc/leff.cu Tile<...>::smem_bytes: bf16 LN tile [HPP][Kp+8], the W1
+    chunk [Kp][KC+8], the W2 chunk [KC][NC+8], two buffers of the chunk's
+    11 parameter rows [11][KC], hidden [HPP][KC+8] and dense2's A
+    [TP][KC+8]; a byte per haloed pixel."""
+    hp = 10 * (tw + 2)
+    hpp = -(-hp // 16) * 16
+    kp = -(-C // 16) * 16
+    hs = kc + 8
+    return (2 * (hpp * (kp + 8) + kp * hs + kc * (nc + 8) + 2 * 11 * kc
+                 + hpp * hs + 8 * tw * hs) + hpp)
+
+
+def _f32_tile_rows(C: int) -> int:
+    """Rows of the float32 path's 8-wide tile (the plan K2 had for both
+    types before its bf16 path moved onto tensor cores)."""
+    for th in (8, 4, 2, 1):
+        if _f32_smem_bytes(C, th, 8) <= _F32_SMEM_BUDGET:
+            return th
+    raise ValueError(f"K2 cannot tile C={C} within {_F32_SMEM_BUDGET} bytes "
+                     "of shared memory")
+
+
+def plan_tile(C: int, dtype: torch.dtype) -> TilePlan:
+    """The tile csrc/leff.cu runs for channel width C in `dtype`. bf16: the
+    tensor-core class of C (8 rows; 32, 16 or 8 columns as C grows, the
+    widest whose LN tile, weight buffers and register accumulator fit).
+    float32: 8 columns, rows by `_f32_tile_rows`."""
+    if dtype == torch.bfloat16:
+        for cmax, tw, kc in _MMA_CLASSES:
+            if C <= cmax:
+                return TilePlan(8, tw, _mma_smem_bytes(C, tw, cmax, kc))
+        raise ValueError(f"K2 takes C <= {_MMA_CLASSES[-1][0]} in bfloat16, "
+                         f"got {C}")
+    th = _f32_tile_rows(C)
+    return TilePlan(th, 8, _f32_smem_bytes(C, th, 8))
 
 
 def leff_reference(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
@@ -62,17 +127,14 @@ def leff_reference(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
     return F.linear(h.float(), cast(w2).t(), cast(b2)).to(dt)
 
 
-def _smem_bytes(C: int, TH: int, TW: int, itemsize: int) -> int:
-    HP, TP = (TH + 2) * (TW + 2), TH * TW
-    return (TP * C + HP * _CHUNK + TP * _CHUNK) * 4 + HP * C * itemsize + HP
-
-
-def _tile_rows(C: int, itemsize: int) -> int:
-    for th in (8, 4, 2, 1):
-        if _smem_bytes(C, th, TILE_W, itemsize) <= SMEM_BUDGET:
-            return th
-    raise ValueError(f"K2 cannot tile C={C} within {SMEM_BUDGET} bytes of "
-                     "shared memory")
+def kernel_smem_bytes(C: int, dtype: torch.dtype) -> int:
+    """The bytes of shared memory csrc/leff.cu allocates for plan_tile(C,
+    dtype), as the compiled kernel counts them (builds it; needs nvcc)."""
+    plan = plan_tile(C, dtype)
+    lib = _build.load_library("leff", _SIGNATURES)
+    fn = lib.leff_smem_bytes
+    fn.argtypes, fn.restype = [_I] * 4, ctypes.c_long
+    return fn(_DTYPES[dtype], C, plan.th, plan.tw)
 
 
 def leff_fused(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
@@ -105,7 +167,7 @@ def leff_fused(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
     p = {name: kw[name].to(device=x.device, dtype=x.dtype).contiguous()
          for name in shapes}
     dw = p["dw_kernel"].reshape(9, Ch)
-    TH = _tile_rows(C, x.element_size())
+    plan = plan_tile(C, x.dtype)
     out = torch.empty_like(x)
     lib = _build.load_library("leff", _SIGNATURES)
     with torch.cuda.device(x.device):
@@ -114,8 +176,8 @@ def leff_fused(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
             _DTYPES[x.dtype], x.data_ptr(), p["ln_scale"].data_ptr(),
             p["ln_bias"].data_ptr(), p["w1"].data_ptr(), p["b1"].data_ptr(),
             dw.data_ptr(), p["dw_bias"].data_ptr(), p["w2"].data_ptr(),
-            p["b2"].data_ptr(), out.data_ptr(), B, H, W, C, Ch, TH, TILE_W,
-            float(eps), int(fast_gelu), stream)
+            p["b2"].data_ptr(), out.data_ptr(), B, H, W, C, Ch, plan.th,
+            plan.tw, float(eps), int(fast_gelu), stream)
     _build.check(lib, err, "leff_fwd")
     leff_fused.launches += 1
     return out

@@ -24,7 +24,8 @@ from dehaze_tpu_torch.config import ModelConfig
 from dehaze_tpu_torch.models.uformer import Uformer
 from dehaze_tpu_torch.ops import probsparse as TPS
 from dehaze_tpu_torch.ops import window as TW
-from dehaze_tpu_torch.ops.kernels.leff import leff_fused, leff_reference
+from dehaze_tpu_torch.ops.kernels.leff import (kernel_smem_bytes, leff_fused,
+                                               leff_reference, plan_tile)
 from dehaze_tpu_torch.ops.kernels.window_attention import (
     fused_window_attention, probsparse_window_attention_v1,
     probsparse_window_attention_v2, window_attention_bwd,
@@ -331,18 +332,25 @@ def _leff_inputs(dev, B, H, W, C, Ch, dtype, seed):
     return n(0, 1, B, H, W, C).to(dtype), p
 
 
+# Every bf16 tile class of plan_tile (C 8 ... 512, 8x32, 8x16 and 8x8
+# tiles), and the float32 path's plans, with Ch = 4C: each C in both types
+# and both GELUs; W ragged against every tile width (13, 37 and 21 leave a
+# partial tile of 8, 16 and 32 columns); batches of 1 to 3; H = 8 (one tile
+# row) and H = 24.
+_K2_SHAPES = [  # B, H, W, C
+    (1, 8, 37, 8), (2, 16, 13, 16), (1, 24, 70, 32), (3, 8, 21, 64),
+    (1, 16, 40, 96), (2, 8, 37, 128), (1, 16, 24, 256), (1, 8, 13, 512),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,W,C,Ch,dtype,fast", [
-    (1, 16, 40, 32, 128, torch.float32, False),
-    (2, 8, 13, 8, 32, torch.float32, False),      # ragged W edge
-    (1, 8, 16, 512, 2048, torch.bfloat16, False),  # 4-row tiles
-    (1, 24, 20, 96, 384, torch.float32, True),
-    (1, 16, 24, 64, 256, torch.bfloat16, True),
-    (32, 8, 8, 512, 2048, torch.float32, False),   # training eval bottleneck
-    (32, 8, 8, 512, 2048, torch.bfloat16, False),
-])
-def test_k2_matches_twin(cuda, B, H, W, C, Ch, dtype, fast):
-    x, p = _leff_inputs(cuda, B, H, W, C, Ch, dtype, seed=C + W)
+@pytest.mark.parametrize("fast", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,W,C", _K2_SHAPES,
+                         ids=[f"C{s[3]}" for s in _K2_SHAPES])
+def test_k2_matches_twin(cuda, B, H, W, C, dtype, fast):
+    x, p = _leff_inputs(cuda, B, H, W, C, 4 * C, dtype, seed=C + W)
     before = leff_fused.launches
     got = leff_fused(x, fast_gelu=fast, **p)
     assert leff_fused.launches == before + 1
@@ -352,6 +360,32 @@ def test_k2_matches_twin(cuda, B, H, W, C, Ch, dtype, fast):
     tol = K2_TOL[dtype]
     err = (got.float() - want.float()).abs() - tol * (1 + want.float().abs())
     assert float(err.max()) <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,Ch,dtype", [
+    (32, 8, 8, 512, 2048, torch.float32),   # training eval bottleneck
+    (32, 8, 8, 512, 2048, torch.bfloat16),
+    (1, 8, 19, 20, 100, torch.bfloat16),    # C, Ch off the MMA tiles
+    (1, 8, 9, 40, 52, torch.bfloat16),      # Ch not a multiple of 8
+    (1, 8, 21, 40, 160, torch.bfloat16),    # cp.async path, ragged chunk
+])
+def test_k2_matches_twin_at_other_widths(cuda, B, H, W, C, Ch, dtype):
+    x, p = _leff_inputs(cuda, B, H, W, C, Ch, dtype, seed=C + Ch)
+    got = leff_fused(x, **p)
+    want = leff_reference(x, **p)
+    torch.cuda.synchronize()
+    tol = K2_TOL[dtype]
+    err = (got.float() - want.float()).abs() - tol * (1 + want.float().abs())
+    assert float(err.max()) <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [s[3] for s in _K2_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k2_plan_is_what_the_kernel_allocates(cuda, C, dtype):
+    assert kernel_smem_bytes(C, dtype) == plan_tile(C, dtype).smem
 
 
 @pytest.mark.cuda

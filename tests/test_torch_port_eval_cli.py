@@ -19,6 +19,17 @@ from dehaze_tpu_torch.models.uformer import Uformer
 from dehaze_tpu_torch.ops import probsparse as TPS
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these tiny CPU tensors: with several test
+    workers on the host, torch's thread pools stall each other in
+    hand-offs (a small op then takes tens of times as long)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tables():
     rng = np.random.default_rng(42)

@@ -1,6 +1,6 @@
 """The port's Uformer and whole-image function against the JAX package.
 
-The same JAX init params go to both packages through the weight bridge
+The same params go to both packages through the weight bridge
 (`dehaze_tpu_torch.utils.convert.state_dict_from_jax_params`), and the
 ProbSparse key sampling is pinned on both sides with one table per window
 size N (deep stages of a model configured at 32² run N = 16 and N = 4).
@@ -31,14 +31,36 @@ TOL = 2e-4
 IMG = 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these tiny CPU tensors: with several test
+    workers on the host, torch's thread pools stall each other in
+    hand-offs (a small op then takes tens of times as long)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_params():
+    """Uformer params (32², embed 8, f32) in the JAX package's layout: a
+    seeded port init (the reference's truncated-normal scheme, as the JAX
+    model's) through the JAX package's own converter. Their tree, shapes
+    and dtypes are those of the JAX model's init, traced but not compiled."""
+    torch.manual_seed(0)
+    sd = Uformer(ModelConfig(img_size=IMG, embed_dim=8,
+                             dtype=torch.float32)).state_dict()
+    params = jax.tree.map(np.asarray, convert_uformer_state_dict(sd))
     model = JaxUformer(JaxModelConfig(img_size=IMG, embed_dim=8,
                                       dtype=jnp.float32))
     k = jax.random.PRNGKey(0)
-    v = jax.jit(lambda: model.init({"params": k, "sample": k},
-                                   jnp.zeros((1, IMG, IMG, 3))))()
-    return jax.tree.map(np.asarray, v["params"])
+    want = jax.eval_shape(lambda: model.init(
+        {"params": k, "sample": k}, jnp.zeros((1, IMG, IMG, 3))))["params"]
+    assert jax.tree.structure(params) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    return params
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +94,7 @@ def _jax_apply(dtype=jnp.float32):
 
 
 def test_weight_bridge_round_trip_exact(jax_params):
-    """JAX init → port state_dict → load → state_dict() → the JAX
+    """JAX-layout params → port state_dict → load → state_dict() → the JAX
     package's own converter → the same params, leaf for leaf, exactly."""
     sd = _port(jax_params).state_dict()
     back = convert_uformer_state_dict(sd)

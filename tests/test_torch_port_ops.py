@@ -20,11 +20,24 @@ from dehaze_tpu.ops.pallas.window_attention import (
     fused_window_attention as jax_fused_window_attention)
 from dehaze_tpu_torch.ops import probsparse as TPS
 from dehaze_tpu_torch.ops import window as TW
-from dehaze_tpu_torch.ops.kernels.leff import leff_fused, leff_reference
+from dehaze_tpu_torch.ops.kernels.leff import (ROW_MULTIPLE, SMEM_LIMIT,
+                                               leff_fused, leff_reference,
+                                               plan_tile)
 from dehaze_tpu_torch.ops.kernels.window_attention import (
     fused_window_attention)
 
 TOL = 2e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these tiny CPU tensors: with several test
+    workers on the host, torch's thread pools stall each other in
+    hand-offs (a small op then takes tens of times as long)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _t(a):
@@ -212,3 +225,33 @@ def test_k2_reference_is_the_cpu_path():
     p = {n: _t(a) for n, a in _leff_params(8, 32, seed=2).items()}
     assert torch.equal(leff_fused(x, **p), leff_reference(x, **p))
 
+
+
+def _k2_plan_before(C, itemsize):
+    """K2's tile before its bf16 path moved onto the tensor cores: 8
+    columns, the most rows of 8, 4, 2, 1 whose float accumulator, hidden
+    chunks and LN tile fit 200 KiB. Returns its halo ratio."""
+    for th in (8, 4, 2, 1):
+        hp, tp = (th + 2) * 10, th * 8
+        if (tp * C + 32 * (hp + tp)) * 4 + hp * C * itemsize + hp \
+                <= 200 * 1024:
+            return hp / tp
+    raise AssertionError(f"no earlier plan for C={C}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [8, 16, 32, 64, 96, 128, 256, 512])
+def test_k2_tile_plan(C, dtype):
+    """The planned K2 tile fits a Hopper CTA's shared memory (the bytes
+    the kernel allocates, checked against the compiled kernel on the card),
+    covers every H % 8 == 0 in whole tile rows, and computes dense1 on the
+    halo no more often than the earlier plan did."""
+    plan = plan_tile(C, dtype)
+    assert 0 < plan.smem <= SMEM_LIMIT == 232448
+    assert ROW_MULTIPLE % plan.th == 0
+    for H in (8, 16, 24, 80, 1280):
+        assert H % plan.th == 0
+    assert plan.halo_ratio <= _k2_plan_before(C, dtype.itemsize) + 1e-12
+    if dtype == torch.bfloat16:  # the tensor-core classes: 8 rows
+        assert plan.th == 8 and plan.tw in (8, 16, 32)

@@ -50,6 +50,17 @@ TOL = 2e-4
 IMG = 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these tiny CPU tensors: with several test
+    workers on the host, torch's thread pools stall each other in
+    hand-offs (a small op then takes tens of times as long)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tables():
     rng = np.random.default_rng(42)
@@ -106,7 +117,9 @@ def test_k1_backward_twin_matches_jax_vjp(heads, use_mask):
                                    atol=TOL, err_msg=name)
 
 
-def _k1_inputs(dtype, heads=2, shifted=True, seed=0):
+def _k1_inputs(dtype, heads=2, shifted=True, seed=0, images=2):
+    """q, k, v [images · nW, 16, heads · 4] and the bias, with nW = 4
+    shifted windows (or 1 unshifted) per image."""
     from dehaze_tpu_torch.ops import window as TW
 
     rng = np.random.default_rng(seed)
@@ -114,7 +127,7 @@ def _k1_inputs(dtype, heads=2, shifted=True, seed=0):
     region = torch.from_numpy(TW.shift_region_ids(8, 8, 4, 2)) \
         if shifted else None
     nW = 4 if shifted else 1
-    q, k, v = (torch.tensor(rng.normal(size=(2 * nW, N, heads * D)),
+    q, k, v = (torch.tensor(rng.normal(size=(images * nW, N, heads * D)),
                             dtype=dtype, requires_grad=True)
                for _ in range(3))
     bias = torch.tensor(rng.normal(size=(heads, N, N)) * 0.1, dtype=dtype,
@@ -150,9 +163,11 @@ def test_autograd_function_gives_twin_gradients(shifted):
 
 
 def test_k1_gradcheck_float64():
-    """Finite differences in float64 agree with the backward (the inputs
-    are far from ties in the sparsity measure, so the selection holds)."""
-    q, k, v, bias, kw = _k1_inputs(torch.float64, seed=3)
+    """Finite differences in float64 agree with the backward over every
+    element of q, k, v and the bias: one image of four shifted windows, two
+    heads (the inputs are far from ties in the sparsity measure, so the
+    selection holds)."""
+    q, k, v, bias, kw = _k1_inputs(torch.float64, seed=3, images=1)
     assert torch.autograd.gradcheck(
         lambda q, k, v, b: fused_window_attention(q, k, v, rel_pos_bias=b,
                                                   **kw),
@@ -182,6 +197,20 @@ def _batch(seed=0, b=2):
     return clean, hazy
 
 
+def _jax_state(jt):
+    """The JAX trainer's step-0 state for a seeded port init (the JAX
+    package's own converter gives the params; no init is compiled)."""
+    from dehaze_tpu.train.trainer import TrainState
+    from dehaze_tpu.utils.convert_torch import convert_uformer_state_dict
+    from dehaze_tpu_torch.models.uformer import Uformer
+
+    torch.manual_seed(0)
+    sd = Uformer(_port_cfg(drop_path_rate=0.0).model).state_dict()
+    params = jax.tree.map(jnp.asarray, convert_uformer_state_dict(sd))
+    return TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                      opt_state=jt.tx.init(params))
+
+
 def test_train_step_matches_jax(pinned):
     """One Trainer.train_step against the JAX trainer's step: drop_path 0,
     no MixUp, Charbonnier only. Loss within 1e-5 relative; every gradient
@@ -191,7 +220,7 @@ def test_train_step_matches_jax(pinned):
     away."""
     clean, hazy = _batch()
     jt = JaxTrainer(_jax_cfg(drop_path_rate=0.0), steps_per_epoch=1)
-    state = jt.init_state(jax.random.PRNGKey(0), clean[:1])
+    state = _jax_state(jt)
     params = jax.tree.map(np.asarray, state.params)
 
     new_state, jm = jt.train_step(state, clean, hazy, jax.random.PRNGKey(1),
