@@ -5,13 +5,18 @@
 
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit (nvidia-smi); a CUDA device is required;
-  2. build kernels K1/K3 (ProbSparse window attention, forward and
-     backward, one source) and K2 (fused LN+LeFF) from
-     dehaze_tpu_torch/csrc/, one nvcc per source, for sm_90a;
-  3. K1 forward against its plain twin at the serving path's shapes, f32
-     and bf16; then with padding flags at the any-resolution shapes of a
-     1200×1600 frame on the 1664² canvas (enc0 shifted, bottleneck), and
-     the backward with padding at the training enc0 shape;
+  2. build kernels K1/K3 (ProbSparse window attention on the CUDA cores,
+     forward and backward, one source), K1's tensor-core forward and K2
+     (fused LN+LeFF) from dehaze_tpu_torch/csrc/, one nvcc per source, all
+     at once, for sm_90a;
+  3. K1 forward against its plain twin at the nine stages of the serving
+     frame, N = 16, the training enc0 and 16×16 windows (N = 256), f32
+     and bf16 (bf16 at N <= 64 runs the tensor-core kernel, the rest the
+     CUDA-core one), in bf16 with q and k at std 0.5 and 2 and 0 rows
+     flipped between a2 @ V and mean(V); then with padding flags at the
+     any-resolution shapes of a 1200×1600 frame on the 1664² canvas (enc0
+     shifted, bottleneck), and the backward with padding at the training
+     enc0 shape;
   4. K1 backward against its plain twin at the training path's shapes
      (batch 32 × 128²: enc0, enc1, bottleneck, dec3), f32 and bf16;
   5. K3 (the older TPU variants, which round at other points) against
@@ -20,8 +25,9 @@ Phases, in order; any failure exits non-zero before the final line:
      shapes, f32 and bf16; in bf16 each K1 and K3 case is also held to
      its own rounding points (NUMERICS_SEP);
   6. K2 against its plain twin at the serving path's shapes (rect canvas),
-     the evaluation path's (1664² square canvas, 1536² any-resolution)
-     and the training eval forward's (batch 32 × 128²), f32 and bf16,
+     the evaluation path's (1664² square canvas, 1536² any-resolution),
+     the training eval forward's (batch 32 × 128²) and the 76-row
+     bottleneck of a 1216×1664 canvas (--train_ps 64), f32 and bf16,
      exact and tanh GELU; the other seven stages of the serving frame
      (K2_STAGES) in bf16 with exact GELU; the planner's shared-memory
      count against the kernel's at every C;
@@ -54,8 +60,10 @@ Phases, in order; any failure exits non-zero before the final line:
  13. the kernels' JSON line, then the device's JSON line.
 The launch counts in the kernels line are those of the serving path (8),
 the evaluation path (9, the three runs together) and the training path
-(11), each counted from 0 over its own run. No path runs K3 (no entry
-point of the JAX package runs its TPU kernels either): its launches are 0.
+(11), each counted from 0 over its own run. Every path runs bf16, so K1's
+forward goes to the tensor-core kernel there and the CUDA-core forward has
+0 launches. No path runs K3 (no entry point of the JAX package runs its
+TPU kernels either): its launches are 0.
 Imports nothing of JAX.
 """
 
@@ -193,6 +201,7 @@ def phase_build():
     from dehaze_tpu_torch.ops.kernels import _build, leff, window_attention
 
     libs = (("window_attention", window_attention._SIGNATURES),
+            ("window_attention_tc", window_attention._TC_SIGNATURES),
             ("leff", leff._SIGNATURES))
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source
@@ -280,6 +289,31 @@ def _check_grads(label, got, want, dname, wrong):
     return worst, "max|d|/max|ref| " + ", ".join(stats)
 
 
+def _flipped_rows(got, q, k, v, kw):
+    """Rows where a K1 forward's choice between a2 @ V and mean(V) differs
+    from the twin's selection. Both K1 kernels write mean(V) as the float32
+    sum over tokens in token order, divided by N and rounded, so a row is
+    a mean(V) row iff it equals that bit for bit."""
+    import torch
+
+    from dehaze_tpu_torch.ops import probsparse as ps
+
+    heads = kw["num_heads"]
+    B, N, C = q.shape
+    row_mask = ps._chain_bhnd(
+        ps._heads(q, heads), ps._heads(k, heads), ps._heads(v, heads),
+        kw["sample_idx"], kw.get("rel_pos_bias"),
+        ps.attention_mask(kw.get("sw_region"), kw.get("pad_flag")), 5,
+        ps._scale(q, heads, None), "v4")[3]
+    s = torch.zeros(B, C, device=v.device)
+    for j in range(N):
+        s = s + v[:, j].float()
+    mean = (s / N).to(v.dtype)
+    is_mean = (ps._heads(got, heads) == ps._heads(mean[:, None], heads)
+               ).all(-1)
+    return int((is_mean == row_mask).sum())
+
+
 def _check_numerics(label, got, want, twin_of, own, wrong):
     """NUMERICS_SEP: the kernel's mean gap to its own twin (`want`, numerics
     `own`) against its gaps to the twins of the other numerics; returns the
@@ -324,7 +358,7 @@ def _run_case(label, kern, twin, check, nbytes, flops, dname, reps=10):
     return err, ms, plain_ms, b_ms, b_by
 
 
-def _attn_run(label, kern, twin_of, own, q, kw, nW, bwd, wrong):
+def _attn_run(label, kern, twin_of, own, q, kw, nW, bwd, wrong, kv=None):
     """An attention kernel (K1 or K3) against `twin_of(own)`: K1_TOL per
     row (forward) or K1B_TOL per gradient tensor (backward), and in bf16
     NUMERICS_SEP against the twins of the other numerics. kw holds
@@ -354,6 +388,12 @@ def _attn_run(label, kern, twin_of, own, q, kw, nW, bwd, wrong):
             err, text = _check_grads(label, got, want, dname, wrong)
         else:
             err, text = _check_rows(label, got, want, D, dname, wrong)
+        if kv is not None:  # (k, v) of a K1 forward: the selection
+            flips = _flipped_rows(got, q, kv[0], kv[1], kw)
+            text += f" flipped rows {flips}"
+            if flips:
+                wrong.append(f"{label}: {flips} rows flipped between "
+                             "a2 @ V and mean(V)")
         if dname == "bfloat16":
             text += _check_numerics(label, got, want, twin_of, own, wrong)
         return err, text
@@ -370,7 +410,20 @@ def _qkv(g, dev, shape, dtype, scales):
             for s in scales]
 
 
+def _k1_kernel(q, heads):
+    """Which K1 forward kernel takes q: "tc" or "cuda_core"."""
+    from dehaze_tpu_torch.ops.kernels.window_attention import fwd_kernel_for
+
+    return fwd_kernel_for(q.dtype, "v4", q.shape[1], q.shape[2] // heads)
+
+
 def phase_k1():
+    """K1 forward at the serving frame's nine stages (shifted), N = 16, the
+    training enc0 and 16×16 windows (N = 256, training enc0 at
+    --win_size 16): f32 (the CUDA-core kernel) at five of them, bf16 at
+    all, with q and k at std 0.5 and, where the tensor-core kernel runs,
+    also at std 2. Returns rows (case, dtype, kernel, max|d|, ms, twin ms,
+    bound ms, bound by)."""
     import torch
 
     from dehaze_tpu_torch.ops import probsparse as ps_ops
@@ -380,28 +433,42 @@ def phase_k1():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     H0, W0 = 1280, 1664
-    # (name, windows B_, C, heads, win, region-map H x W or None)
-    cases = [("enc0", 33280, 32, 1, 8, (H0, W0)),
-             ("enc1", 8320, 64, 2, 8, (H0 // 2, W0 // 2)),
-             ("bottleneck", 130, 512, 16, 8, None),
-             ("N16", 2080, 128, 4, 4, None),
-             ("train_enc0", 8192, 32, 1, 8, (TRAIN_PS, TRAIN_PS))]
+    # (name, windows B_, C, heads, win, region-map H x W or None, f32 too)
+    cases = [("enc0", 33280, 32, 1, 8, (H0, W0), True),
+             ("enc1", 8320, 64, 2, 8, (H0 // 2, W0 // 2), True),
+             ("enc2", 2080, 128, 4, 8, (H0 // 4, W0 // 4), False),
+             ("enc3", 520, 256, 8, 8, (H0 // 8, W0 // 8), False),
+             ("bottleneck", 130, 512, 16, 8, None, True),
+             ("dec0", 520, 512, 16, 8, (H0 // 8, W0 // 8), False),
+             ("dec1", 2080, 256, 8, 8, (H0 // 4, W0 // 4), False),
+             ("dec2", 8320, 128, 4, 8, (H0 // 2, W0 // 2), False),
+             ("dec3", 33280, 64, 2, 8, (H0, W0), False),
+             ("N16", 2080, 128, 4, 4, None, True),
+             ("train_enc0", 8192, 32, 1, 8, (TRAIN_PS, TRAIN_PS), True),
+             ("N256", 2048, 32, 1, 16, (TRAIN_PS, TRAIN_PS), True)]
     results, wrong = [], []
-    for name, B, C, heads, win, reg_hw in cases:
+    for name, B, C, heads, win, reg_hw, f32 in cases:
         N = win * win
         si, bias, region, nW = _attn_case(g, dev, heads, win, reg_hw)
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = _qkv(g, dev, (B, N, C), dtype, (0.5, 0.5, 0.5))
+        runs = [(torch.float32, 0.5)] if f32 else []
+        runs += [(torch.bfloat16, 0.5), (torch.bfloat16, 2.0)]
+        for dtype, std in runs:
+            q, k, v = _qkv(g, dev, (B, N, C), dtype, (std, std, 0.5))
+            kern = _k1_kernel(q, heads)
+            if kern == "cuda_core" and std != 0.5:
+                continue
             kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
                       sw_region=region)
             dname = str(dtype).split(".")[1]
-            results.append((name, dname) + _attn_run(
-                f"K1 {name} {dname} B_={B} C={C} h={heads} N={N} "
-                f"shifted={region is not None}",
+            results.append((name if std == 0.5 else f"{name} std{std:g}",
+                            dname, kern) + _attn_run(
+                f"K1 {kern} {name} {dname} B_={B} C={C} h={heads} N={N} "
+                f"shifted={region is not None} q,k std {std:g}",
                 lambda: window_attention_fwd(q, k, v, num_windows=nW, **kw),
                 lambda n: ps_ops.probsparse_attention_bnc(
                     q, k, v, numerics=n, **kw), "v4", q, kw, nW, False,
-                wrong))
+                wrong, kv=(k, v)))
+            del q, k, v
     if wrong:  # every case is printed before the first failure stops us
         fail("; ".join(wrong))
     return results
@@ -476,11 +543,13 @@ def phase_k1_pad():
              ("train_enc0", TRAIN_BATCH * 256, 32, 1, (TRAIN_PS, TRAIN_PS),
               _pad_case(TRAIN_PS, 100, 120, TRAIN_PS, TRAIN_PS, 8), True)]
     results, wrong = [], []
+    runs = [(torch.float32, 0.5), (torch.bfloat16, 0.5),
+            (torch.bfloat16, 2.0)]
     for name, B, C, heads, reg_hw, pad, bwd in cases:
         si, bias, region, _ = _attn_case(g, dev, heads, 8, reg_hw)
         nW = pad.shape[0]
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, go = _qkv(g, dev, (B, 64, C), dtype, (0.5, 0.5, 0.5, 1))
+        for dtype, std in runs[:2] if bwd else runs:
+            q, k, v, go = _qkv(g, dev, (B, 64, C), dtype, (std, std, 0.5, 1))
             kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
                       sw_region=region, pad_flag=pad)
             dname = str(dtype).split(".")[1]
@@ -500,12 +569,15 @@ def phase_k1_pad():
                 def twin_of(n):
                     return ps_ops.probsparse_attention_bnc(q, k, v,
                                                            numerics=n, **kw)
-            results.append(((f"bwd pad {name}" if bwd else f"pad {name}"),
-                            dname) + _attn_run(
-                f"K1 {'bwd ' if bwd else ''}pad {name} {dname} B_={B} C={C} "
+            kname = "bwd" if bwd else _k1_kernel(q, heads)
+            case = (f"bwd pad {name}" if bwd else f"pad {name}") + (
+                "" if std == 0.5 else f" std{std:g}")
+            results.append((case, dname, kname) + _attn_run(
+                f"K1 {kname} pad {name} {dname} B_={B} C={C} "
                 f"h={heads} shifted={region is not None} padded tokens "
-                f"{int(pad.sum())}/{pad.numel()}", kern, twin_of, "v4", q, kw,
-                nW, bwd, wrong))
+                f"{int(pad.sum())}/{pad.numel()} q,k std {std:g}", kern,
+                twin_of, "v4", q, kw, nW, bwd, wrong,
+                kv=None if bwd else (k, v)))
     if wrong:
         fail("; ".join(wrong))
     return results
@@ -595,7 +667,10 @@ def phase_k2():
              ("eval_bottleneck", (1, X // 16, X // 16, 512), 2048),
              ("anyres_enc0_1536", (1, 1536, 1536, 32), 128),
              ("train_enc0", (TRAIN_BATCH, P, P, 32), 128),
-             ("train_bottleneck", (TRAIN_BATCH, P // 16, P // 16, 512), 2048)]
+             ("train_bottleneck", (TRAIN_BATCH, P // 16, P // 16, 512), 2048),
+             # --train_ps 64: the 1216×1664 canvas, a 76-row bottleneck
+             # (a ragged last row tile)
+             ("bottleneck_1216", (1, 76, 104, 512), 2048)]
     sweep = [(d, f) for d in (torch.float32, torch.bfloat16)
              for f in (False, True)]
     # the other seven stages of the serving frame (K2_STAGES), in the
@@ -655,24 +730,27 @@ def phase_k2():
 
 
 def _counters():
+    """{key: (entry point, counter attribute)} of every kernel."""
     from dehaze_tpu_torch.ops.kernels import window_attention as wa
     from dehaze_tpu_torch.ops.kernels.leff import leff_fused
 
-    return {"k1_fwd": wa.window_attention_fwd,
-            "k1_bwd": wa.window_attention_bwd, "k2": leff_fused,
-            "k3_v1": wa.probsparse_window_attention_v1,
-            "k3_v2": wa.probsparse_window_attention_v2,
-            "k3_v3_fwd": wa.window_attention_v3_fwd,
-            "k3_v3_bwd": wa.window_attention_v3_bwd}
+    return {"k1_fwd_tc": (wa.window_attention_fwd, "launches_tc"),
+            "k1_fwd": (wa.window_attention_fwd, "launches"),
+            "k1_bwd": (wa.window_attention_bwd, "launches"),
+            "k2": (leff_fused, "launches"),
+            "k3_v1": (wa.probsparse_window_attention_v1, "launches"),
+            "k3_v2": (wa.probsparse_window_attention_v2, "launches"),
+            "k3_v3_fwd": (wa.window_attention_v3_fwd, "launches"),
+            "k3_v3_bwd": (wa.window_attention_v3_bwd, "launches")}
 
 
 def reset_counts():
-    for fn in _counters().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in _counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def phase_model(tmp: str) -> str:
@@ -724,20 +802,22 @@ def phase_model(tmp: str) -> str:
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t0) / reps
     counts = read_counts()
-    k1, k2 = counts["k1_fwd"], counts["k2"]
+    k1, k2 = counts["k1_fwd_tc"], counts["k2"]
     ok = bool(torch.isfinite(y).all()) and float(y.min()) >= 0.0 \
         and float(y.max()) <= 1.0
     mpix = FRAME[0] * FRAME[1] / 1e6
     print(f"whole image {FRAME[0]}x{FRAME[1]} rect canvas 1280x1664 bf16: "
           f"{secs:.4f} s/frame {mpix / secs:.3f} Mpix/s "
           f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"launches over {reps} frames K1={k1} K2={k2} "
+          f"launches over {reps} frames K1 (tensor cores)={k1} K1 (CUDA "
+          f"cores)={counts['k1_fwd']} K2={k2} "
           f"out shape {tuple(y.shape)} range [{float(y.min()):.4f}, "
           f"{float(y.max()):.4f}]", flush=True)
     if tuple(y.shape) != (1,) + FRAME + (3,) or not ok:
         fail("whole-image output has the wrong shape or leaves [0, 1]")
-    if k1 == 0 or k2 == 0:
-        fail("the whole-image forward did not launch both kernels")
+    if k1 != 18 * reps or counts["k1_fwd"] or k2 != 18 * reps:
+        fail("the whole-image forward did not launch K1's tensor-core "
+             "forward and K2 18 times each per frame")
     _profile(f"one {FRAME[0]}x{FRAME[1]} serving frame on the rect canvas, "
              "bf16", lambda: run(frame), 1, secs * 1e3)
     return pth
@@ -830,8 +910,10 @@ def phase_eval(tmp: str, pth: str):
             "from dehaze_tpu_torch.ops.kernels import leff, window_attention "
             "as wa\n"
             "print('STATS ' + json.dumps({'k1_fwd': "
-            "wa.window_attention_fwd.launches, 'k2': leff.leff_fused.launches,"
-            " 'peak_gib': torch.cuda.max_memory_allocated() / 2**30}))\n")
+            "wa.window_attention_fwd.launches, 'k1_fwd_tc': "
+            "wa.window_attention_fwd.launches_tc, 'k2': "
+            "leff.leff_fused.launches, 'peak_gib': "
+            "torch.cuda.max_memory_allocated() / 2**30}))\n")
     model = build_model_and_params(ModelConfig(), pth, torch.device("cuda"))
 
     def apply_fn(x, pad_mask=None):
@@ -895,18 +977,21 @@ def phase_eval(tmp: str, pth: str):
                      * 1e3)
         print(f"cli.{cli} {what} Uformer-32 bf16: {n} frames, "
               f"{per_frame:.4f} s/frame after the first, launches per frame "
-              f"K1 {stats['k1_fwd'] / n:g} K2 {stats['k2'] / n:g}, peak "
+              f"K1 tensor cores {stats['k1_fwd_tc'] / n:g} CUDA cores "
+              f"{stats['k1_fwd'] / n:g} K2 {stats['k2'] / n:g}, peak "
               f"device memory {stats['peak_gib']:.2f} GiB, subprocess "
               f"{secs:.1f}s; per-image PSNR vs the in-process function: max "
               f"|d| {worst:.2e} dB", flush=True)
         if n != 3 or not all(np.isfinite(float(p)) for _, p, _ in lines):
             fail(f"cli.{cli}: expected 3 finite per-image lines")
-        if stats["k1_fwd"] != 18 * n or stats["k2"] != 18 * n:
-            fail(f"cli.{cli}: not 18 K1 and 18 K2 launches per frame")
+        if (stats["k1_fwd_tc"] != 18 * n or stats["k1_fwd"]
+                or stats["k2"] != 18 * n):
+            fail(f"cli.{cli}: not 18 K1 (tensor-core forward) and 18 K2 "
+                 "launches per frame")
         if worst > EVAL_PSNR_TOL:
             fail(f"cli.{cli}: per-image PSNR differs from the in-process "
                  f"function by {worst:.2e} dB")
-        for key in ("k1_fwd", "k2"):
+        for key in ("k1_fwd", "k1_fwd_tc", "k2"):
             total[key] = total.get(key, 0) + stats[key]
     return total
 
@@ -955,7 +1040,7 @@ def phase_serve(pth: str):
         thread.join(timeout=30)
         dehaze.batcher.close()
     counts = read_counts()
-    k1, k2 = counts["k1_fwd"], counts["k2"]
+    k1, k2 = counts["k1_fwd_tc"], counts["k2"]
     for i, (status, out, secs) in enumerate(results):
         shape = decode_img(out, u8=True).shape if status == 200 else None
         print(f"request {i}: status {status} latency {secs:.3f}s "
@@ -965,8 +1050,10 @@ def phase_serve(pth: str):
     print(f"healthz: served={health['served']} batch_hist="
           f"{health['batch_hist']}; launches during serving K1={k1} K2={k2}",
           flush=True)
-    if health["served"] != 3 or k1 == 0 or k2 == 0:
-        fail("serving did not run through both kernels")
+    if (health["served"] != 3 or k1 == 0 or k2 == 0 or k1 != k2
+            or counts["k1_fwd"]):
+        fail("serving did not run through K1's tensor-core forward and K2 "
+             "alike")
     return counts
 
 
@@ -1086,7 +1173,8 @@ def phase_train_cli(tmp: str):
             "from dehaze_tpu_torch.ops.kernels import leff, window_attention "
             "as wa\n"
             "print('LAUNCHES ' + json.dumps({'k1_fwd': "
-            "wa.window_attention_fwd.launches, 'k1_bwd': "
+            "wa.window_attention_fwd.launches, 'k1_fwd_tc': "
+            "wa.window_attention_fwd.launches_tc, 'k1_bwd': "
             "wa.window_attention_bwd.launches, 'k2': "
             "leff.leff_fused.launches}))\n")
     save = os.path.join(tmp, "log")
@@ -1115,7 +1203,7 @@ def phase_train_cli(tmp: str):
     losses = epoch["step_losses"]
     steps = n_train // TRAIN_BATCH
     val_batches = -(-n_val // TRAIN_BATCH)
-    want = {"k1_fwd": 18 * (steps + len(evals) * val_batches),
+    want = {"k1_fwd": 0, "k1_fwd_tc": 18 * (steps + len(evals) * val_batches),
             "k1_bwd": 18 * steps, "k2": 18 * len(evals) * val_batches}
     models = os.path.join(log_dir, "models")
     best = os.path.join(models, "model_best.pth")
@@ -1128,8 +1216,8 @@ def phase_train_cli(tmp: str):
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         fail("cli.train: a step's loss is missing or not finite")
     if counts != want:
-        fail("cli.train: kernel launches per step are not 18 K1 forward + "
-             "18 K1 backward (and 18 K2 per eval forward)")
+        fail("cli.train: kernel launches per step are not 18 K1 forward "
+             "(tensor cores) + 18 K1 backward (and 18 K2 per eval forward)")
     for f in (best, os.path.join(models, "epoch_model_1.pth")):
         if not os.path.exists(f):
             fail(f"cli.train did not write {f}")
@@ -1213,7 +1301,8 @@ def phase_train_profile(tmp: str):
 
 
 _GROUPS = [("K1 bwd", ("window_attention_bwd", "dbias_reduce")),
-           ("K1 fwd", ("window_attention_fwd",)),
+           ("K1 fwd (tensor cores)", ("window_attention_tc",)),
+           ("K1 fwd (CUDA cores)", ("window_attention_fwd",)),
            ("K2", ("leff_fwd",)),
            ("GEMM (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
            ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad",
@@ -1297,22 +1386,30 @@ def main() -> None:
 
     def entry(name, source, replaces, res, main, key, paths):
         row = next(r for r in res if r[:len(main)] == main)
+        res = [r for r in res if r[1] == "bfloat16"] or res
         launches = {p: c.get(key, 0) for p, c in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches,
-                "max_abs_err": max(r[-5] for r in res if r[1] == "bfloat16"),
+                "max_abs_err": max(r[-5] for r in res),
                 "ms": row[-4], "plain_ms": row[-3], "bound_ms": row[-2],
                 "bound_by": row[-1], "library_ms": None}
 
     paths = {"serve": serve, "train": train, "eval": evals}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
-    pad_fwd = [r for r in k1p_res if not r[0].startswith("bwd")]
-    pad_bwd = [r for r in k1p_res if r[0].startswith("bwd")]
+    # K1 forward rows by kernel, without the kernel column
+    k1_all = k1_res + [r for r in k1p_res if r[2] != "bwd"]
+    tc = [r[:2] + r[3:] for r in k1_all if r[2] == "tc"]
+    cc = [r[:2] + r[3:] for r in k1_all if r[2] == "cuda_core"]
+    pad_bwd = [r[:2] + r[3:] for r in k1p_res if r[2] == "bwd"]
     kernels = {"kernels": [
-        entry("K1 ProbSparse window attention fwd", wa, f"{pw}:912",
-              k1_res + pad_fwd, ("enc0", "bfloat16"), "k1_fwd", paths),
+        entry("K1 ProbSparse window attention fwd, tensor cores (bf16, "
+              "N <= 64)", "dehaze_tpu_torch/csrc/window_attention_tc.cu",
+              f"{pw}:912", tc, ("enc0", "bfloat16"), "k1_fwd_tc", paths),
+        entry("K1 ProbSparse window attention fwd, CUDA cores (f32, "
+              "N > 64, other head dims)", wa, f"{pw}:912", cc,
+              ("N256", "bfloat16"), "k1_fwd", paths),
         entry("K1 ProbSparse window attention bwd", wa, f"{pw}:938",
               k1b_res + pad_bwd, ("enc0", "bfloat16"), "k1_bwd", paths),
         dict(entry("K2 fused LayerNorm+LeFF", "dehaze_tpu_torch/csrc/leff.cu",

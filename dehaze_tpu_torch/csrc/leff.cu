@@ -12,7 +12,7 @@
 // value, as in the twin.
 //
 // bf16 (the serving type): one CTA per output tile of 8 x TW pixels of one
-// image. The haloed (8+2) x (TW+2) input tile is layer-normed once into
+// image; the last tile row and column may be ragged (any H and W). The haloed (8+2) x (TW+2) input tile is layer-normed once into
 // shared memory (bf16; rows padded to 16 for the MMA, K padded to 16 with
 // zeros; one to sixteen lanes per pixel, so small C needs no shuffles). The
 // CTA then walks the hidden width in chunks of KC channels:
@@ -645,7 +645,7 @@ int launch_mma(const void* x, const void* gamma, const void* beta,
                         reinterpret_cast<uintptr_t>(dw) |
                         reinterpret_cast<uintptr_t>(dwb);
   const int vec = C % 8 == 0 && Ch % 8 == 0 && any % 16 == 0;
-  dim3 grid((W + L::TW - 1) / L::TW, H / L::TH, B);
+  dim3 grid((W + L::TW - 1) / L::TW, (H + L::TH - 1) / L::TH, B);
   kernel<<<grid, L::kThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(gamma),
       static_cast<const bf16*>(beta), static_cast<const bf16*>(w1),
@@ -681,8 +681,10 @@ long leff_smem_bytes(int dtype, int C, int TH, int TW) {
 
 // dtype: 0 = float32, 1 = bfloat16. x/out: [B, H, W, C] contiguous;
 // gamma/beta/b2: [C]; w1: [C, Ch]; b1/dwb: [Ch]; dw: [9, Ch]; w2: [Ch, C];
-// all of the activation type. H % TH == 0; the tile (TH, TW) is the
-// wrapper's plan (for bf16, the class of C). Returns cudaGetLastError().
+// all of the activation type. Any H and W: the last row and column tiles
+// are ragged (pixels past the image load as zero, the conv's halo, and are
+// never stored). The tile (TH, TW) is the wrapper's plan (for bf16, the
+// class of C). Returns cudaGetLastError().
 int leff_fwd(int dtype, const void* x, const void* gamma, const void* beta,
              const void* w1, const void* b1, const void* dw, const void* dwb,
              const void* w2, const void* b2, void* out, int B, int H, int W,
@@ -695,7 +697,7 @@ int leff_fwd(int dtype, const void* x, const void* gamma, const void* beta,
         leff_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((W + TW - 1) / TW, H / TH, B);
+    dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
     leff_fwd_f32_kernel<<<grid, kF32Threads, smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(gamma),
         static_cast<const float*>(beta), static_cast<const float*>(w1),

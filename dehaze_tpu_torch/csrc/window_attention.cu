@@ -21,11 +21,16 @@
 //   dv = a2^T g_sel + sum_i g_unsel / N,  da2 = g_sel V^T,
 //   dz = a2 * (da2 - rowsum(da2 * a2)),    ds = a1 * (dz - rowsum(dz * a1)),
 //   dq = scale * ds K,  dk = scale * ds^T Q,  dbias[h] = sum over windows dz.
-// The selection is recomputed with the forward's own device functions
-// (`scores`, `row_chain`, `select_rows`) on the same inputs, so it is
-// bit-identical to the forward's: S is summed in float64 and rounded once,
-// sum(cnt * S) is exact in float64, and the rank is a pure comparison. No
-// row mask has to be saved between the two passes.
+// The selection is recomputed with the scalar device functions `scores`,
+// `row_chain` and `select_rows` on the same inputs; no row mask is saved
+// between the two passes. In bf16 the forward runs on the tensor cores
+// (csrc/window_attention_tc.cu: QK^T as mma.sync in float64, sum(cnt * S)
+// split over lanes), not through these functions, so the two passes select
+// the same rows only because both compute S and M exactly: a sum of bf16
+// products, and of bf16 values times small counts, is exact in float64 and
+// so the same in any order, and both round it once to float and once to
+// bf16 (see that file's note). The float32 forward runs the functions here
+// and is bit-identical to the backward's recomputation.
 //
 // K3, the older TPU kernels of the same chain, are instantiations of the
 // same kernels with another `Numerics` (where the chain rounds):
@@ -43,10 +48,16 @@
 // Layout: token-major q/k/v/g/out/dq/dk/dv are [B_ * N, C], heads are
 // channel slices of width D = C / H; head-major ones are [B_, H, N, D].
 // One CTA per (window, head) in the forward; in the backward one CTA per
-// (window group, head) walks its windows one after another. The 64x64
+// (window group, head) walks its windows one after another. The N x N
 // score tiles, the count matrix, both softmaxes, the rank and all products
 // stay in shared memory, so HBM traffic is q/k/v (and g) in and the
-// outputs out.
+// outputs out. Where they do not fit in shared memory (N = 256 for 16 x 16
+// windows, or a wide head), the same tiles live in a global-memory
+// workspace, one slice per CTA, that the wrapper allocates; the forward's
+// CTAs then walk their windows as the backward's do, so the workspace is
+// sized by the CTAs, not the windows, and the backward keeps its dbias
+// partial there too instead of in registers. Rows are strided over the
+// threads when N exceeds them.
 //
 // dbias is a sum over all windows. CTAs run in no order, so each backward
 // CTA sums dz over its own windows in registers, in window order, and
@@ -58,8 +69,9 @@
 // does 2*N*N*D multiply-adds twice; the backward moves 7*N*D elements and
 // does about 7*N*N*D. Both are bound by instruction throughput on the CUDA
 // cores, not by HBM: the products run as scalar FMAs (QK^T in float64),
-// and the row statistics run one thread per row. Tensor cores (wgmma),
-// several windows per CTA and warp-parallel row statistics are later work.
+// and the row statistics run one thread per row. The bf16 forward of the
+// model's shapes has its own kernel on the tensor cores
+// (csrc/window_attention_tc.cu); the backward's is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +83,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxN = 64;
 constexpr int kAcc = kMaxN * kMaxN / kThreads;  // dbias elements per thread
+// Shared memory one CTA may use on Hopper; larger tiles go to a workspace.
+constexpr size_t kSmemMax = 232448;
 
 // Where the chain rounds to the activation type (see the header).
 enum Numerics : int { kV4 = 0, kV1 = 1, kV23 = 2 };
@@ -194,8 +208,7 @@ __device__ __forceinline__ void row_chain(const float* srow, float* a1row,
 // Top-u rows by lexicographic rank: (M descending, index ascending).
 __device__ __forceinline__ void select_rows(const float* sM, int* sSel, int N,
                                             int u) {
-  if (threadIdx.x < N) {
-    const int t = threadIdx.x;
+  for (int t = threadIdx.x; t < N; t += kThreads) {
     const float mi = sM[t];
     int rank = 0;
     for (int j = 0; j < N; ++j) {
@@ -211,17 +224,24 @@ __device__ __forceinline__ float q_scale_of(int num, float scale) {
   return num == kV23 ? round_to<T>(scale) : 0.f;
 }
 
-template <typename T, int NUM>
+template <typename T, int NUM, bool WS>
 __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int32_t* __restrict__ cnt,
     const float* __restrict__ bias, const int32_t* __restrict__ region,
-    const int32_t* __restrict__ pad, T* __restrict__ out, int N, int C,
-    int D, int nW, int u, float scale, int head_major) {
+    const int32_t* __restrict__ pad, T* __restrict__ out, int B, int N,
+    int C, int D, int nW, int u, float scale, int head_major,
+    float* __restrict__ ws, size_t ws_floats) {
   extern __shared__ float smem[];
   const int ld = D + 1;  // padded rows: conflict-free column walks
   const int ls = N + 1;
-  float* sQ = smem;            // [N][ld]
+  // the tiles: shared memory, or (WS) this CTA's slice of the workspace; a
+  // compile-time choice, so that shared-memory tiles keep shared loads
+  float* tiles =
+      WS ? ws + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                    ws_floats
+         : smem;
+  float* sQ = tiles;           // [N][ld]
   float* sK = sQ + N * ld;     // [N][ld]
   float* sV = sK + N * ld;     // [N][ld]
   float* sS = sV + N * ld;     // [N][ls]: S, then a2
@@ -229,54 +249,61 @@ __global__ void __launch_bounds__(kThreads) window_attention_fwd_kernel(
   int* sSel = reinterpret_cast<int*>(sM + N);                 // [N]
   unsigned char* sCnt = reinterpret_cast<unsigned char*>(sSel + N);  // [N*N]
 
-  const int w = blockIdx.x;
   const int h = blockIdx.y;
   const int tid = threadIdx.x;
-  const size_t base =
-      head_major ? (static_cast<size_t>(w) * gridDim.y + h) * N * D
-                 : static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * D;
   const int rs = head_major ? D : C;  // elements from one token to the next
-
-  const T* src[3] = {q, k, v};
-  float* dst[3] = {sQ, sK, sV};
-  load_tiles<T>(src, dst, 3, base, N, rs, D, ld, q_scale_of<T>(NUM, scale));
   for (int e = tid; e < N * N; e += kThreads) {
     sCnt[e] = static_cast<unsigned char>(cnt[e]);
   }
-  __syncthreads();
-  scores<T, NUM>(sQ, sK, sS, N, D, ld, ls);
-  __syncthreads();
-  if (tid < N) {
-    float* row = sS + tid * ls;
-    const size_t wn = static_cast<size_t>(w % nW) * N;
-    row_chain<T, NUM>(
-        row, row, row, sM, sCnt + tid * N,
-        bias ? bias + (static_cast<size_t>(h) * N + tid) * N : nullptr,
-        region ? region + wn : nullptr, pad ? pad + wn : nullptr, tid, N,
-        scale);
-    if (NUM != kV1) {
-      for (int j = 0; j < N; ++j) row[j] = round_to<T>(row[j]);
-    }
-  }
-  __syncthreads();
-  select_rows(sM, sSel, N, u);
-  __syncthreads();
 
-  // Kept rows: a2 @ V; the others: mean(V).
-  for (int e = tid; e < N * D; e += kThreads) {
-    const int i = e / D, d = e - i * D;
-    float acc = 0.f;
-    if (sSel[i]) {
-      for (int j = 0; j < N; ++j) acc = fmaf(sS[i * ls + j], sV[j * ld + d], acc);
-    } else {
-      for (int j = 0; j < N; ++j) acc += sV[j * ld + d];
-      acc = acc / static_cast<float>(N);
+  // One window when the tiles are in shared memory (gridDim.x == B); the
+  // workspace's CTAs walk theirs.
+  for (int w = blockIdx.x; w < B; w += gridDim.x) {
+    const size_t base =
+        head_major
+            ? (static_cast<size_t>(w) * gridDim.y + h) * N * D
+            : static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * D;
+    __syncthreads();  // previous window's tile reads are done
+    const T* src[3] = {q, k, v};
+    float* dst[3] = {sQ, sK, sV};
+    load_tiles<T>(src, dst, 3, base, N, rs, D, ld, q_scale_of<T>(NUM, scale));
+    __syncthreads();
+    scores<T, NUM>(sQ, sK, sS, N, D, ld, ls);
+    __syncthreads();
+    for (int i = tid; i < N; i += kThreads) {
+      float* row = sS + i * ls;
+      const size_t wn = static_cast<size_t>(w % nW) * N;
+      row_chain<T, NUM>(
+          row, row, row, sM, sCnt + i * N,
+          bias ? bias + (static_cast<size_t>(h) * N + i) * N : nullptr,
+          region ? region + wn : nullptr, pad ? pad + wn : nullptr, i, N,
+          scale);
+      if (NUM != kV1) {
+        for (int j = 0; j < N; ++j) row[j] = round_to<T>(row[j]);
+      }
     }
-    out[base + static_cast<size_t>(i) * rs + d] = from_f<T>(acc);
+    __syncthreads();
+    select_rows(sM, sSel, N, u);
+    __syncthreads();
+
+    // Kept rows: a2 @ V; the others: mean(V).
+    for (int e = tid; e < N * D; e += kThreads) {
+      const int i = e / D, d = e - i * D;
+      float acc = 0.f;
+      if (sSel[i]) {
+        for (int j = 0; j < N; ++j) {
+          acc = fmaf(sS[i * ls + j], sV[j * ld + d], acc);
+        }
+      } else {
+        for (int j = 0; j < N; ++j) acc += sV[j * ld + d];
+        acc = acc / static_cast<float>(N);
+      }
+      out[base + static_cast<size_t>(i) * rs + d] = from_f<T>(acc);
+    }
   }
 }
 
-template <typename T, int NUM>
+template <typename T, int NUM, bool WS>
 __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ g,
@@ -284,11 +311,17 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(
     const int32_t* __restrict__ region, const int32_t* __restrict__ pad,
     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
     float* __restrict__ db_part, int B, int N, int C, int D, int H, int nW,
-    int u, float scale) {
+    int u, float scale, float* __restrict__ ws, size_t ws_floats) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   const int ls = N + 1;
-  float* sQ = smem;            // [N][ld]
+  // the tiles: shared memory, or (WS) this CTA's slice of the workspace; a
+  // compile-time choice, so that shared-memory tiles keep shared loads
+  float* tiles =
+      WS ? ws + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                    ws_floats
+         : smem;
+  float* sQ = tiles;           // [N][ld]
   float* sK = sQ + N * ld;     // [N][ld]
   float* sV = sK + N * ld;     // [N][ld]
   float* sG = sV + N * ld;     // [N][ld]: g, then g_sel
@@ -305,9 +338,18 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(
   for (int e = tid; e < N * N; e += kThreads) {
     sCnt[e] = static_cast<unsigned char>(cnt[e]);
   }
+  // This CTA's dbias partial: in registers up to kMaxN; beyond, summed in
+  // place in its db_part slice, each element by one thread in window order.
+  const bool db_regs = N <= kMaxN;
+  float* part =
+      db_part ? db_part + (static_cast<size_t>(blockIdx.x) * H + h) * N * N
+              : nullptr;
   float acc_db[kAcc];
 #pragma unroll
   for (int r = 0; r < kAcc; ++r) acc_db[r] = 0.f;
+  if (part && !db_regs) {
+    for (int e = tid; e < N * N; e += kThreads) part[e] = 0.f;
+  }
 
   for (int w = blockIdx.x; w < B; w += gridDim.x) {
     const size_t base =
@@ -319,12 +361,12 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(
     __syncthreads();
     scores<T, NUM>(sQ, sK, sA1, N, D, ld, ls);
     __syncthreads();
-    if (tid < N) {
+    for (int i = tid; i < N; i += kThreads) {
       const size_t wn = static_cast<size_t>(w % nW) * N;
       row_chain<T, NUM>(
-          sA1 + tid * ls, sA1 + tid * ls, sA2 + tid * ls, sM, sCnt + tid * N,
-          bias ? bias + (static_cast<size_t>(h) * N + tid) * N : nullptr,
-          region ? region + wn : nullptr, pad ? pad + wn : nullptr, tid, N,
+          sA1 + i * ls, sA1 + i * ls, sA2 + i * ls, sM, sCnt + i * N,
+          bias ? bias + (static_cast<size_t>(h) * N + i) * N : nullptr,
+          region ? region + wn : nullptr, pad ? pad + wn : nullptr, i, N,
           scale);
     }
     __syncthreads();
@@ -370,26 +412,32 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(
     }
     __syncthreads();
     // dz = a2 * (da2 - rowsum(da2 * a2))
-    if (tid < N) {
-      const float* a2 = sA2 + tid * ls;
-      float* dr = sD + tid * ls;
+    for (int i = tid; i < N; i += kThreads) {
+      const float* a2 = sA2 + i * ls;
+      float* dr = sD + i * ls;
       float s = 0.f;
       for (int j = 0; j < N; ++j) s = fmaf(dr[j], a2[j], s);
       for (int j = 0; j < N; ++j) dr[j] = a2[j] * (dr[j] - s);
     }
     __syncthreads();
-    if (db_part) {
+    if (part) {
+      if (db_regs) {
 #pragma unroll
-      for (int r = 0; r < kAcc; ++r) {
-        const int e = tid + r * kThreads;
-        if (e < N * N) acc_db[r] += sD[(e / N) * ls + e % N];
+        for (int r = 0; r < kAcc; ++r) {
+          const int e = tid + r * kThreads;
+          if (e < N * N) acc_db[r] += sD[(e / N) * ls + e % N];
+        }
+      } else {
+        for (int e = tid; e < N * N; e += kThreads) {
+          part[e] += sD[(e / N) * ls + e % N];
+        }
       }
       __syncthreads();
     }
     // ds = a1 * (dz - rowsum(dz * a1))
-    if (tid < N) {
-      const float* a1 = sA1 + tid * ls;
-      float* dr = sD + tid * ls;
+    for (int i = tid; i < N; i += kThreads) {
+      const float* a1 = sA1 + i * ls;
+      float* dr = sD + i * ls;
       float s = 0.f;
       for (int j = 0; j < N; ++j) s = fmaf(dr[j], a1[j], s);
       for (int j = 0; j < N; ++j) dr[j] = a1[j] * (dr[j] - s);
@@ -410,8 +458,7 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(
       dk[o] = from_f<T>(NUM == kV23 ? ak : ak * scale);
     }
   }
-  if (db_part) {
-    float* part = db_part + (static_cast<size_t>(blockIdx.x) * H + h) * N * N;
+  if (part && db_regs) {
 #pragma unroll
     for (int r = 0; r < kAcc; ++r) {
       const int e = tid + r * kThreads;
@@ -431,6 +478,24 @@ __global__ void __launch_bounds__(kThreads) dbias_reduce_kernel(
   dbias[e] = s;
 }
 
+// Bytes of one CTA's tiles (see the kernels' carve-outs).
+size_t fwd_tile_bytes(int N, int D) {
+  return (3 * static_cast<size_t>(N) * (D + 1) + N * (N + 1) + N) *
+             sizeof(float) +
+         N * sizeof(int) + static_cast<size_t>(N) * N;
+}
+
+size_t bwd_tile_bytes(int N, int D) {
+  return (4 * static_cast<size_t>(N) * (D + 1) + 3 * N * (N + 1) + N + D) *
+             sizeof(float) +
+         N * sizeof(int) + static_cast<size_t>(N) * N;
+}
+
+// Floats of workspace per CTA: 0 when the tiles fit in shared memory.
+size_t ws_floats_of(size_t bytes) {
+  return bytes <= kSmemMax ? 0 : (bytes + sizeof(float) - 1) / sizeof(float);
+}
+
 struct FwdArgs {
   const void *q, *k, *v;
   const int32_t* cnt;
@@ -440,22 +505,32 @@ struct FwdArgs {
   int B, N, C, H, nW, u;
   float scale;
   int head_major;
+  float* ws;
+  int ws_blocks;
 };
 
 template <typename T, int NUM>
 int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   const int D = a.C / a.H;
   const int N = a.N;
-  const size_t smem = (3 * N * (D + 1) + N * (N + 1) + N) * sizeof(float) +
-                      N * sizeof(int) + N * N;
-  auto kernel = window_attention_fwd_kernel<T, NUM>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  dim3 grid(a.B, a.H);
+  const size_t bytes = fwd_tile_bytes(N, D);
+  const size_t ws_floats = ws_floats_of(bytes);
+  if (ws_floats && (a.ws == nullptr || a.ws_blocks < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = ws_floats ? 0 : bytes;
+  auto kernel = ws_floats ? window_attention_fwd_kernel<T, NUM, true>
+                          : window_attention_fwd_kernel<T, NUM, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(ws_floats ? a.ws_blocks : a.B, a.H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.cnt, a.bias, a.region, a.pad,
-      static_cast<T*>(a.out), N, a.C, D, a.nW, a.u, a.scale, a.head_major);
+      static_cast<T*>(a.out), a.B, N, a.C, D, a.nW, a.u, a.scale,
+      a.head_major, ws_floats ? a.ws : nullptr, ws_floats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -479,25 +554,32 @@ struct BwdArgs {
   int B, N, C, H, nW, u;
   float scale;
   int n_blocks;
+  float* ws;
 };
 
 template <typename T, int NUM>
 int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const int D = a.C / a.H;
   const int N = a.N;
-  const size_t smem =
-      (4 * N * (D + 1) + 3 * N * (N + 1) + N + D) * sizeof(float) +
-      N * sizeof(int) + N * N;
-  auto kernel = window_attention_bwd_kernel<T, NUM>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
+  const size_t bytes = bwd_tile_bytes(N, D);
+  const size_t ws_floats = ws_floats_of(bytes);
+  if (ws_floats && a.ws == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = ws_floats ? 0 : bytes;
+  auto kernel = ws_floats ? window_attention_bwd_kernel<T, NUM, true>
+                          : window_attention_bwd_kernel<T, NUM, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(a.n_blocks, a.H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.cnt, a.bias,
       a.region, a.pad, static_cast<T*>(a.dq), static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), a.bias ? a.db_part : nullptr, a.B, N, a.C, D,
-      a.H, a.nW, a.u, a.scale);
+      a.H, a.nW, a.u, a.scale, ws_floats ? a.ws : nullptr, ws_floats);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || a.bias == nullptr) return err;
   const int n = a.H * N * N;
@@ -519,19 +601,30 @@ int launch_bwd_numerics(int numerics, const BwdArgs& a, cudaStream_t s) {
 
 extern "C" {
 
+// Bytes of global-memory workspace one CTA needs for these tiles (bwd = 0:
+// the forward, 1: the backward); 0 when they fit in shared memory.
+int window_attention_ws_bytes(int bwd, int N, int D) {
+  const size_t bytes = bwd ? bwd_tile_bytes(N, D) : fwd_tile_bytes(N, D);
+  return static_cast<int>(ws_floats_of(bytes) * sizeof(float));
+}
+
 // dtype: 0 = float32, 1 = bfloat16. numerics: 0 = K1 (v4), 1 = v1,
 // 2 = v2/v3. q/k/v/out contiguous: [B * N, C] token-major, or [B, H, N, D]
 // with head_major != 0. cnt: [N, N] int32; bias: [H, N, N] float32 or
-// null; region and pad: [nW, N] int32 or null. Returns cudaGetLastError()
-// after the launch.
+// null; region and pad: [nW, N] int32 or null. Where
+// window_attention_ws_bytes(0, N, D) > 0, ws is float32 scratch of that
+// many bytes for each of ws_blocks * H CTAs, which then walk the B
+// windows (1 <= ws_blocks <= B); otherwise ws is ignored. Returns
+// cudaGetLastError() after the launch.
 int window_attention_fwd(int dtype, int numerics, int head_major,
                          const void* q, const void* k, const void* v,
                          const int32_t* cnt, const float* bias,
                          const int32_t* region, const int32_t* pad, void* out,
                          int B, int N, int C, int H, int nW, int u,
-                         float scale, void* stream) {
+                         float scale, float* ws, int ws_blocks,
+                         void* stream) {
   const FwdArgs a{q, k, v, cnt, bias, region, pad, out, B, N, C, H, nW, u,
-                  scale, head_major};
+                  scale, head_major, ws, ws_blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fwd_numerics<float>(numerics, a, s);
   return launch_fwd_numerics<__nv_bfloat16>(numerics, a, s);
@@ -541,16 +634,18 @@ int window_attention_fwd(int dtype, int numerics, int head_major,
 // dq/dk/dv: [B * N, C] contiguous, in the activation type. With a bias,
 // db_part is float32 scratch [n_blocks, H, N, N] and dbias the float32
 // output [H, N, N]; both are ignored without one. n_blocks (1..B) CTAs per
-// head share the windows. Returns cudaGetLastError() after the last launch.
+// head share the windows. Where window_attention_ws_bytes(1, N, D) > 0, ws
+// is float32 scratch of that many bytes for each of n_blocks * H CTAs.
+// Returns cudaGetLastError() after the last launch.
 int window_attention_bwd(int dtype, int numerics, const void* q,
                          const void* k, const void* v, const void* g,
                          const int32_t* cnt, const float* bias,
                          const int32_t* region, const int32_t* pad, void* dq,
                          void* dk, void* dv, float* db_part, float* dbias,
                          int B, int N, int C, int H, int nW, int u,
-                         float scale, int n_blocks, void* stream) {
+                         float scale, int n_blocks, float* ws, void* stream) {
   const BwdArgs a{q, k, v, g, cnt, bias, region, pad, dq, dk, dv, db_part,
-                  dbias, B, N, C, H, nW, u, scale, n_blocks};
+                  dbias, B, N, C, H, nW, u, scale, n_blocks, ws};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_bwd_numerics<float>(numerics, a, s);
   return launch_bwd_numerics<__nv_bfloat16>(numerics, a, s);

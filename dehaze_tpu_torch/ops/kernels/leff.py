@@ -30,7 +30,6 @@ _SIGNATURES = {
     "leff_fwd": [_I] + [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROW_MULTIPLE = 8
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 _F32_SMEM_BUDGET = 200 * 1024  # the float32 path's planning budget
 _F32_CHUNK = 32  # hidden channels per chunk of the float32 path
@@ -139,7 +138,7 @@ def kernel_smem_bytes(C: int, dtype: torch.dtype) -> int:
 
 def leff_fused(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
                eps: float = 1e-5, fast_gelu: bool = False) -> torch.Tensor:
-    """LeFF(LN(x)) for x [B, H, W, C]. On CUDA, H must be a multiple of 8."""
+    """LeFF(LN(x)) for x [B, H, W, C], any H and W."""
     kw = dict(ln_scale=ln_scale, ln_bias=ln_bias, w1=w1, b1=b1,
               dw_kernel=dw_kernel, dw_bias=dw_bias, w2=w2, b2=b2, eps=eps,
               fast_gelu=fast_gelu)
@@ -155,8 +154,6 @@ def leff_fused(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
         raise ValueError("x must be contiguous")
     B, H, W, C = x.shape
     Ch = w1.shape[1]
-    if H % ROW_MULTIPLE:
-        raise ValueError(f"K2 needs H % {ROW_MULTIPLE} == 0, got {H}x{W}")
     shapes = {"ln_scale": (C,), "ln_bias": (C,), "w1": (C, Ch), "b1": (Ch,),
               "dw_kernel": (3, 3, 1, Ch), "dw_bias": (Ch,), "w2": (Ch, C),
               "b2": (C,)}

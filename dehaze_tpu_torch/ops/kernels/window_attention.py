@@ -5,11 +5,22 @@ K1 replaces `fused_window_attention` (version 4: `_prep_v4`, the custom VJP
 `_fused_attn_v4_bwd` / `_kernel_v4_bwd`) of
 `dehaze_tpu/ops/pallas/window_attention.py`. `fused_window_attention` is a
 `torch.autograd.Function`: on CUDA tensors its forward and backward launch
-the hand-written kernels in `csrc/window_attention.cu`; on CPU tensors they
-run the plain twins `ops.probsparse.probsparse_attention_bnc` and
-`probsparse_attention_bnc_bwd`. There is no other path: a failed build or
-launch raises. Gradients go to q, k, v and `rel_pos_bias`; the backward
-reuses the forward's `sample_idx`, so the selection is never redrawn.
+hand-written kernels; on CPU tensors they run the plain twins
+`ops.probsparse.probsparse_attention_bnc` and `probsparse_attention_bnc_bwd`.
+There is no other path: a failed build or launch raises. Gradients go to q,
+k, v and `rel_pos_bias`; the backward reuses the forward's `sample_idx`, so
+the selection is never redrawn.
+
+Two forward kernels, chosen by shape and dtype alone (`fwd_kernel_for`):
+- "tc", `csrc/window_attention_tc.cu`: bf16, K1's numerics, N <= 64, head
+  dim 16, 32, 48 or 64 — every shape of the model's default configuration.
+  QK^T on the float64 tensor cores, PV on the bf16 ones, a warp per
+  window-head; counted in `window_attention_fwd.launches_tc`;
+- "cuda_core", `window_attention_fwd_kernel` of `csrc/window_attention.cu`:
+  everything else (float32, K3's numerics, larger windows or heads);
+  counted in `.launches` of its entry point.
+Both select exactly the rows the twin selects (see the sources' notes). The
+backward has one kernel, in `csrc/window_attention.cu`.
 
 K3 are the older TPU kernels of the same chain, which round at other points
 (see `ops.probsparse`); the same CUDA kernels run them with another
@@ -22,10 +33,13 @@ numerics argument:
   (`:220`), on head-major q/k/v [B, H, N, D]. Their window tiling, padding
   and packing transposes are TPU layout work and have no counterpart.
 
-The kernels cover any head count, N = win² ≤ 64 (win ≤ 8), head dim ≤ 64,
-shifted (region ids) and unshifted windows, padding flags (`pad_flag`,
+The kernels cover any head count, any N = win² and head dim, shifted
+(region ids) and unshifted windows, padding flags (`pad_flag`,
 any-resolution inputs: −100 where both tokens are padding), float32 and
-bfloat16. Each public entry counts its kernel launches in `.launches`.
+bfloat16. Where the CUDA-core kernels' tiles do not fit in shared memory
+(N = 256 for 16×16 windows, wide heads) they live in a workspace the
+wrapper allocates (`_workspace`). Each public entry counts its kernel
+launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -43,16 +57,35 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "window_attention_fwd": [_I, _I, _I] + [_P] * 8 + [_I] * 6 + [_F, _P],
-    "window_attention_bwd": [_I, _I] + [_P] * 13 + [_I] * 6 + [_F, _I, _P],
+    "window_attention_fwd": ([_I, _I, _I] + [_P] * 8 + [_I] * 6
+                             + [_F, _P, _I, _P]),
+    "window_attention_bwd": ([_I, _I] + [_P] * 13 + [_I] * 6
+                             + [_F, _I, _P, _P]),
+    "window_attention_ws_bytes": [_I] * 3,
+}
+_TC_SIGNATURES = {
+    "window_attention_tc_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NUMERICS = {"v4": 0, "v1": 1, "v23": 2}
-MAX_N = 64
-MAX_HEAD_DIM = 64
+# What the tensor-core forward takes (csrc/window_attention_tc.cu).
+TC_MAX_N = 64
+TC_HEAD_DIMS = (16, 32, 48, 64)
 # Backward CTAs per head count share the windows, each writing one dbias
-# partial: 4 per SM (two are resident at N=64, D=32).
+# partial: 4 per SM (two are resident at N=64, D=32). A CUDA-core forward
+# whose tiles live in a workspace has as many CTAs walking its windows.
 BWD_CTAS_PER_SM = 4
+
+
+def fwd_kernel_for(dtype: torch.dtype, numerics: str, n: int,
+                   head_dim: int) -> str:
+    """Which forward kernel a CUDA call launches: "tc" (the tensor-core
+    kernel: bf16, K1's numerics, N <= 64, head dim 16, 32, 48 or 64) or
+    "cuda_core" (everything else, K3's head-major variants among it)."""
+    if (dtype == torch.bfloat16 and numerics == "v4" and n <= TC_MAX_N
+            and head_dim in TC_HEAD_DIMS):
+        return "tc"
+    return "cuda_core"
 
 
 def _check_masks(B, N, sw_region, pad_flag, num_windows):
@@ -89,10 +122,9 @@ def _check(q, k, v, num_heads, rel_pos_bias, sw_region, pad_flag,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 0 < D <= MAX_HEAD_DIM or N > MAX_N:
-        raise ValueError(f"K1 needs C % heads == 0, head dim <= "
-                         f"{MAX_HEAD_DIM} and N <= {MAX_N}; got "
-                         f"shape {list(q.shape)}, heads={H}")
+    if D <= 0:
+        raise ValueError(f"K1 needs C % heads == 0; got shape "
+                         f"{list(q.shape)}, heads={H}")
     nW = _check_masks(B, N, sw_region, pad_flag, num_windows)
     dev = q.device
     bias = None
@@ -121,11 +153,21 @@ def count_matrix(sample_idx: torch.Tensor, n: int,
         torch.int32), device)
 
 
+def _workspace(lib, bwd, N, D, ctas, dev):
+    """The float32 workspace of `ctas` CTAs of a CUDA-core kernel, or None
+    when its tiles fit in shared memory."""
+    nbytes = lib.window_attention_ws_bytes(int(bwd), N, D)
+    if nbytes <= 0:
+        return None
+    return torch.empty(ctas * nbytes // 4, device=dev, dtype=torch.float32)
+
+
 def _launch_fwd(entry, numerics, head_major, q, k, v, *, num_heads,
                 sample_idx, rel_pos_bias, sw_region, pad_flag, num_windows,
                 factor, scale, cnt):
-    """Launch the forward kernel with `numerics` on CUDA tensors and count
-    it on `entry`."""
+    """Launch the forward kernel that `fwd_kernel_for` names on CUDA
+    tensors and count it on `entry` (`.launches_tc` for the tensor-core
+    kernel, `.launches` for the CUDA-core one)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     bias, region, pad, nW = _check(q, k, v, num_heads, rel_pos_bias,
@@ -136,17 +178,32 @@ def _launch_fwd(entry, numerics, head_major, q, k, v, *, num_heads,
     H = q.shape[1] if head_major else num_heads
     dev = q.device
     scale = ps_ops._scale(q, 1 if head_major else num_heads, scale)
+    u = ps_ops.probsparse_u(N, factor)
     if cnt is None:
         cnt = count_matrix(sample_idx, N, dev)
     out = torch.empty_like(q)
+    if fwd_kernel_for(q.dtype, numerics, N, C // H) == "tc":
+        lib = _build.load_library("window_attention_tc", _TC_SIGNATURES)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.window_attention_tc_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), cnt.data_ptr(),
+                _ptr(bias), _ptr(region), _ptr(pad), out.data_ptr(), B, N, C,
+                H, nW, u, float(scale), stream)
+        _build.check(lib, err, "window_attention_tc_fwd")
+        entry.launches_tc += 1
+        return out
     lib = _build.load_library("window_attention", _SIGNATURES)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ws_blocks = max(1, min(B, BWD_CTAS_PER_SM * sms // H))
+    ws = _workspace(lib, False, N, C // H, ws_blocks * H, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.window_attention_fwd(
             _DTYPES[q.dtype], _NUMERICS[numerics], int(head_major),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cnt.data_ptr(),
             _ptr(bias), _ptr(region), _ptr(pad), out.data_ptr(), B, N, C, H,
-            nW, ps_ops.probsparse_u(N, factor), float(scale), stream)
+            nW, u, float(scale), _ptr(ws), ws_blocks, stream)
     _build.check(lib, err, f"window_attention_fwd ({numerics})")
     entry.launches += 1
     return out
@@ -200,6 +257,7 @@ def _attention_bwd(entry, numerics, q, k, v, g, *, num_heads, sample_idx,
                               dtype=torch.float32)
         dbias = torch.empty(H, N, N, device=dev, dtype=torch.float32)
     lib = _build.load_library("window_attention", _SIGNATURES)
+    ws = _workspace(lib, True, N, C // H, n_blocks * H, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.window_attention_bwd(
@@ -208,17 +266,18 @@ def _attention_bwd(entry, numerics, q, k, v, g, *, num_heads, sample_idx,
             _ptr(bias), _ptr(region), _ptr(pad), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _ptr(db_part), _ptr(dbias), B, N,
             C, H, nW, ps_ops.probsparse_u(N, factor), float(scale), n_blocks,
-            stream)
+            _ptr(ws), stream)
     _build.check(lib, err, f"window_attention_bwd ({numerics})")
     entry.launches += 1
     return dq, dk, dv, dbias
 
 
 def window_attention_fwd(q, k, v, **kw):
-    """The K1 forward alone, no autograd: the kernel on CUDA, the twin on
+    """The K1 forward alone, no autograd: a kernel on CUDA, the twin on
     the CPU. Keywords as `fused_window_attention`'s, plus `cnt`,
     `count_matrix(sample_idx, ...)` when the caller has it already. Counts
-    its kernel launches in `.launches`."""
+    the tensor-core kernel's launches in `.launches_tc` and the CUDA-core
+    kernel's in `.launches` (`fwd_kernel_for` says which runs)."""
     return _attention_fwd(window_attention_fwd, "v4", q, k, v, **kw)
 
 
@@ -298,6 +357,7 @@ for _entry in (window_attention_fwd, window_attention_bwd,
                probsparse_window_attention_v1,
                probsparse_window_attention_v2):
     _entry.launches = 0
+window_attention_fwd.launches_tc = 0
 
 _VERSIONS = {4: (window_attention_fwd, window_attention_bwd),
              3: (window_attention_v3_fwd, window_attention_v3_bwd)}

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels (K1 with and without padding flags, the K3
-variants v1, v2 and v3, K2) against their plain twins, on an NVIDIA GPU.
+"""The port's CUDA kernels (K1's tensor-core and CUDA-core forwards and its
+backward, with and without padding flags, at every window size and head
+width; the K3 variants v1, v2 and v3; K2 at any stage height) against their
+plain twins, on an NVIDIA GPU.
 
 Every test here needs the card and skips without one (the kernels have no
 CPU mode). The file imports neither jax nor the JAX package, so it runs on
@@ -13,7 +15,8 @@ all but 0.1% of rows; K1 backward, per gradient tensor, every element
 within tol·max|ref| with tol 1e-5 (f32) and 2^-7 (bf16, one ulp at the
 tensor's largest magnitude); K2 |Δ| <= tol·(1 + |ref|) with tol 1e-4 (f32)
 and 1e-2 (bf16). In bf16 each K1 and K3 kernel is also held to its own
-rounding points (nearer its own twin than the other numerics' twins).
+rounding points (nearer its own twin than the other numerics' twins). The
+tensor-core K1 forward selects exactly the twin's rows: 0 flipped rows.
 """
 
 import numpy as np
@@ -27,7 +30,7 @@ from dehaze_tpu_torch.ops import window as TW
 from dehaze_tpu_torch.ops.kernels.leff import (kernel_smem_bytes, leff_fused,
                                                leff_reference, plan_tile)
 from dehaze_tpu_torch.ops.kernels.window_attention import (
-    fused_window_attention, probsparse_window_attention_v1,
+    fused_window_attention, fwd_kernel_for, probsparse_window_attention_v1,
     probsparse_window_attention_v2, window_attention_bwd,
     window_attention_fwd, window_attention_v3_bwd, window_attention_v3_fwd)
 
@@ -84,6 +87,34 @@ def _attn_inputs(dev, heads, win, D, shifted, dtype, seed, bias=True,
     return q, k, v, kw, nW
 
 
+def _fwd_count(dtype, N, D):
+    """The launch counter of the forward kernel that a K1 call takes."""
+    attr = ("launches_tc" if fwd_kernel_for(dtype, "v4", N, D) == "tc"
+            else "launches")
+    return lambda: getattr(window_attention_fwd, attr)
+
+
+def _flipped_rows(got, q, k, v, kw):
+    """Rows where the kernel's choice between a2 @ V and mean(V) differs
+    from the twin's selection. The kernels' mean(V) is the float32 sum over
+    tokens in token order, divided by N and rounded: a row is the kernel's
+    mean(V) row iff it equals that bit for bit."""
+    heads = kw["num_heads"]
+    B, N, C = q.shape
+    mask = TPS.attention_mask(kw.get("sw_region"), kw.get("pad_flag"))
+    row_mask = TPS._chain_bhnd(
+        TPS._heads(q, heads), TPS._heads(k, heads), TPS._heads(v, heads),
+        kw["sample_idx"], kw.get("rel_pos_bias"), mask, 5,
+        TPS._scale(q, heads, None), "v4")[3]                  # [B, H, N]
+    s = torch.zeros(B, C, device=v.device)
+    for j in range(N):
+        s = s + v[:, j].float()
+    mean = (s / N).to(v.dtype)                                # [B, C]
+    is_mean = (TPS._heads(got, heads) == TPS._heads(mean[:, None], heads)
+               ).all(-1)                                      # [B, H, N]
+    return int((is_mean == row_mask).sum())
+
+
 def _assert_rows_close(got, want, heads, D, dtype):
     """K1_TOL on every row of D values (all but `share` of them)."""
     tol, share = K1_TOL[dtype]
@@ -114,13 +145,25 @@ def _assert_grads_close(got, want, dtype, shape, bias):
     (4, 4, 32, False, torch.bfloat16, True),
     (8, 2, 32, False, torch.float32, True),
     (2, 8, 32, True, torch.float32, False),  # rel-pos-bias ablation
+    # the tensor-core kernel at N off the MMA tiles and every head dim
+    (3, 6, 64, True, torch.bfloat16, True),  # N=36
+    (8, 2, 32, False, torch.bfloat16, True),  # N=4
+    (2, 8, 16, True, torch.bfloat16, True),
+    (1, 8, 48, True, torch.bfloat16, True),
+    (2, 7, 32, False, torch.bfloat16, False),  # N=49, odd
+    # the CUDA-core kernel from its workspace: 16x16 windows, wide heads
+    (1, 16, 32, True, torch.float32, True),
+    (2, 16, 32, False, torch.bfloat16, True),
+    (1, 8, 96, True, torch.float32, True),
+    (1, 8, 128, False, torch.bfloat16, True),
 ])
 def test_k1_matches_twin(cuda, heads, win, D, shifted, dtype, bias):
     q, k, v, kw, nW = _attn_inputs(cuda, heads, win, D, shifted, dtype,
                                    seed=heads * 10 + win, bias=bias)
-    before = window_attention_fwd.launches
+    count = _fwd_count(dtype, win * win, D)
+    before = count()
     got = fused_window_attention(q, k, v, num_windows=nW, **kw)
-    assert window_attention_fwd.launches == before + 1
+    assert count() == before + 1
     want = TPS.probsparse_attention_bnc(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -128,6 +171,30 @@ def test_k1_matches_twin(cuda, heads, win, D, shifted, dtype, bias):
     rows = (got.float() - want.float()).abs().reshape(
         q.shape[0], q.shape[1], heads, D).amax(-1)
     assert int((rows > tol).sum()) <= share * rows.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("std", [0.5, 2.0])
+@pytest.mark.parametrize("heads,win,shifted,pad", [
+    (1, 8, True, False), (2, 8, False, True), (16, 8, True, True),
+    (4, 4, True, False), (3, 6, False, True), (8, 2, False, False)])
+def test_k1_tc_selects_the_twins_rows(cuda, heads, win, shifted, pad, std):
+    """The tensor-core forward (bf16) keeps exactly the twin's rows, q and
+    k at std 0.5 and 2, over 64 windows: its S and M are exact in float64
+    (csrc/window_attention_tc.cu)."""
+    q, k, v, kw, nW = _attn_inputs(cuda, heads, win, 32, shifted,
+                                   torch.bfloat16, seed=80 + heads + win,
+                                   pad=pad)
+    q, k, v = (t.repeat(8, 1, 1) for t in (q, k, v))
+    q = (q.float() * (std / 0.5) + torch.randn_like(q.float()) * 0.01
+         ).bfloat16()
+    k = (k.float() * (std / 0.5)).bfloat16()
+    assert fwd_kernel_for(torch.bfloat16, "v4", win * win, 32) == "tc"
+    got = window_attention_fwd(q, k, v, num_windows=nW, **kw)
+    want = TPS.probsparse_attention_bnc(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _flipped_rows(got, q, k, v, kw) == 0
+    _assert_rows_close(got, want, heads, 32, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -171,6 +238,25 @@ def test_k1_backward_matches_twin(cuda, heads, shifted, bias, dtype):
     assert got[3].dtype == torch.float32
     err = float((got[3] - want[3]).abs().max())
     assert err <= tol * float(want[3].abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,win,D,shifted,dtype", [
+    (1, 16, 32, True, torch.float32), (1, 16, 32, True, torch.bfloat16),
+    (2, 16, 32, False, torch.float32), (1, 8, 96, True, torch.float32),
+    (1, 8, 128, False, torch.bfloat16)])
+def test_k1_backward_matches_twin_at_large_shapes(cuda, heads, win, D,
+                                                  shifted, dtype):
+    """16x16 windows (N = 256) and head dims 96 and 128: the backward's
+    tiles and its dbias partials in the workspace."""
+    q, k, v, kw, nW = _attn_inputs(cuda, heads, win, D, shifted, dtype,
+                                   seed=90 + win + D)
+    g = torch.from_numpy(_rng(91).normal(size=q.shape).astype(
+        np.float32)).to(cuda, dtype)
+    got = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
+    want = TPS.probsparse_attention_bnc_bwd(q, k, v, g, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, dtype, q.shape, True)
 
 
 @pytest.mark.cuda
@@ -381,6 +467,25 @@ def test_k2_matches_twin_at_other_widths(cuda, B, H, W, C, Ch, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("C,W", [(32, 20), (512, 13)])
+@pytest.mark.parametrize("H", [4, 12, 76])
+def test_k2_matches_twin_at_ragged_heights(cuda, H, C, W, dtype):
+    """Stage heights that are not a multiple of the tile's 8 rows (a ragged
+    last row tile), e.g. the 76-row bottleneck of a 1216x1664 canvas."""
+    x, p = _leff_inputs(cuda, 1, H, W, C, 4 * C, dtype, seed=H + C)
+    before = leff_fused.launches
+    got = leff_fused(x, **p)
+    assert leff_fused.launches == before + 1
+    want = leff_reference(x, **p)
+    torch.cuda.synchronize()
+    tol = K2_TOL[dtype]
+    err = (got.float() - want.float()).abs() - tol * (1 + want.float().abs())
+    assert float(err.max()) <= 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("C", [s[3] for s in _K2_SHAPES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -390,9 +495,6 @@ def test_k2_plan_is_what_the_kernel_allocates(cuda, C, dtype):
 
 @pytest.mark.cuda
 def test_k2_refuses_what_it_does_not_take(cuda):
-    x, p = _leff_inputs(cuda, 1, 12, 16, 16, 64, torch.float32, 0)
-    with pytest.raises(ValueError, match="H % 8"):
-        leff_fused(x, **p)
     x, p = _leff_inputs(cuda, 1, 8, 16, 16, 64, torch.float32, 0)
     with pytest.raises(NotImplementedError):
         leff_fused(x.clone().requires_grad_(), **p)
@@ -418,6 +520,35 @@ def test_model_cuda_matches_cpu(cuda):
     assert window_attention_fwd.launches - k1 == 18
     assert leff_fused.launches - k2 == 18
     assert float((got.cpu() - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_model_ragged_stage_heights_cuda_matches_cpu(cuda):
+    """A small Uformer configured at 32² (embed 8) on a 96x64 input: enc3,
+    the bottleneck and dec0 have 12, 6 and 12 rows (K2's ragged last row
+    tile; windows 4, 2, 4). f32 CUDA (kernels) against the CPU (twins); and
+    in bf16 at embed 16 (head dim 16 at every stage) every K1 forward goes
+    to the tensor-core kernel."""
+    torch.manual_seed(0)
+    cfg = ModelConfig(img_size=32, embed_dim=8, dtype=torch.float32)
+    cpu_model = Uformer(cfg).eval()
+    gpu_model = Uformer(cfg, device=cuda).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    x = torch.from_numpy(_rng(7).uniform(size=(1, 96, 64, 3)).astype(
+        np.float32))
+    k2 = leff_fused.launches
+    with torch.inference_mode():
+        want = cpu_model(x, generator=torch.Generator().manual_seed(5))
+        got = gpu_model(x.to(cuda), generator=torch.Generator().manual_seed(5))
+    assert leff_fused.launches - k2 == 18
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
+    bf = Uformer(ModelConfig(img_size=32, embed_dim=16), device=cuda).eval()
+    k1 = (window_attention_fwd.launches, window_attention_fwd.launches_tc)
+    with torch.inference_mode():
+        y = bf(x.to(cuda), generator=torch.Generator().manual_seed(5))
+    assert (window_attention_fwd.launches - k1[0],
+            window_attention_fwd.launches_tc - k1[1]) == (0, 18)
+    assert bool(torch.isfinite(y).all())
 
 
 @pytest.mark.cuda

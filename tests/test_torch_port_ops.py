@@ -20,9 +20,8 @@ from dehaze_tpu.ops.pallas.window_attention import (
     fused_window_attention as jax_fused_window_attention)
 from dehaze_tpu_torch.ops import probsparse as TPS
 from dehaze_tpu_torch.ops import window as TW
-from dehaze_tpu_torch.ops.kernels.leff import (ROW_MULTIPLE, SMEM_LIMIT,
-                                               leff_fused, leff_reference,
-                                               plan_tile)
+from dehaze_tpu_torch.ops.kernels.leff import (SMEM_LIMIT, leff_fused,
+                                               leff_reference, plan_tile)
 from dehaze_tpu_torch.ops.kernels.window_attention import (
     fused_window_attention)
 
@@ -245,13 +244,11 @@ def _k2_plan_before(C, itemsize):
 def test_k2_tile_plan(C, dtype):
     """The planned K2 tile fits a Hopper CTA's shared memory (the bytes
     the kernel allocates, checked against the compiled kernel on the card),
-    covers every H % 8 == 0 in whole tile rows, and computes dense1 on the
-    halo no more often than the earlier plan did."""
+    has at most 8 rows (any H is covered, the last row tile ragged), and
+    computes dense1 on the halo no more often than the earlier plan did."""
     plan = plan_tile(C, dtype)
     assert 0 < plan.smem <= SMEM_LIMIT == 232448
-    assert ROW_MULTIPLE % plan.th == 0
-    for H in (8, 16, 24, 80, 1280):
-        assert H % plan.th == 0
+    assert plan.th in (1, 2, 4, 8)
     assert plan.halo_ratio <= _k2_plan_before(C, dtype.itemsize) + 1e-12
     if dtype == torch.bfloat16:  # the tensor-core classes: 8 rows
         assert plan.th == 8 and plan.tw in (8, 16, 32)
