@@ -6,9 +6,13 @@
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit (nvidia-smi); a CUDA device is required;
   2. build kernels K1/K3 (ProbSparse window attention on the CUDA cores,
-     forward and backward, one source), K1's tensor-core forward and K2
-     (fused LN+LeFF) from dehaze_tpu_torch/csrc/, one nvcc per source, all
-     at once, for sm_90a;
+     forward and backward, one source), K1's tensor-core forward and
+     backward (one source) and K2 (fused LN+LeFF) from
+     dehaze_tpu_torch/csrc/, one nvcc per source, all at once, for sm_90a,
+     and the PNG unfilter (host C) beside them;
+  2b. the image codec on the host: a 1200×1600 textured frame through the
+     port's PNG encoder (per-row filters) and decoder, and as a 24-bit BMP,
+     each against the pixels; encode and decode ms;
   3. K1 forward against its plain twin at the nine stages of the serving
      frame, N = 16, the training enc0 and 16×16 windows (N = 256), f32
      and bf16 (bf16 at N <= 64 runs the tensor-core kernel, the rest the
@@ -18,7 +22,10 @@ Phases, in order; any failure exits non-zero before the final line:
      shifted, bottleneck), and the backward with padding at the training
      enc0 shape;
   4. K1 backward against its plain twin at the training path's shapes
-     (batch 32 × 128²: enc0, enc1, bottleneck, dec3), f32 and bf16;
+     (batch 32 × 128²: enc0, enc1, bottleneck, dec3), f32 (the CUDA-core
+     kernel) and bf16 (the tensor-core kernel, q and k at std 0.5 and 2,
+     0 flipped rows: dq is exactly zero on the twin's unselected rows and
+     only there), and at 16×16 windows (N = 256, the CUDA-core kernel);
   5. K3 (the older TPU variants, which round at other points) against
      their twins: v1 and v2 head-major at the serving enc1 and bottleneck
      shapes, the v3 forward and backward at the training enc0 and enc1
@@ -39,7 +46,8 @@ Phases, in order; any failure exits non-zero before the final line:
          (c) a 200×240 image with its padding mask on the 256² canvas,
          CUDA against CPU, f32;
   8. the serving path: the serving CLI's machinery in-process with
-     --weights, three PNG requests (two concurrent) and /healthz;
+     --weights, three PNG requests of synthetic hazy scenes (two
+     concurrent) and /healthz;
   9. the evaluation path: `cli.test_long` (square canvas, then
      --rect_canvas) and `cli.test_anyres` as `python -m` subprocesses on
      synthetic 1200×1600 pairs (and one 1000×1500 for any-resolution),
@@ -61,9 +69,9 @@ Phases, in order; any failure exits non-zero before the final line:
 The launch counts in the kernels line are those of the serving path (8),
 the evaluation path (9, the three runs together) and the training path
 (11), each counted from 0 over its own run. Every path runs bf16, so K1's
-forward goes to the tensor-core kernel there and the CUDA-core forward has
-0 launches. No path runs K3 (no entry point of the JAX package runs its
-TPU kernels either): its launches are 0.
+forward and backward go to the tensor-core kernels there and the CUDA-core
+ones have 0 launches. No path runs K3 (no entry point of the JAX package
+runs its TPU kernels either): its launches are 0.
 Imports nothing of JAX.
 """
 
@@ -198,16 +206,20 @@ def bound(nbytes: float, flops: float, dname: str):
 
 
 def phase_build():
+    from dehaze_tpu_torch.data import images
     from dehaze_tpu_torch.ops.kernels import _build, leff, window_attention
 
     libs = (("window_attention", window_attention._SIGNATURES),
             ("window_attention_tc", window_attention._TC_SIGNATURES),
             ("leff", leff._SIGNATURES))
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source
+    with cf.ThreadPoolExecutor(len(libs) + 1) as ex:  # one nvcc per source
+        host = ex.submit(_build.load_host_library, "png_unfilter",
+                         images._UNFILTER)
         list(ex.map(lambda a: _build.load_library(*a), libs))
-    print(f"built {len(libs)} kernel libraries in "
-          f"{time.perf_counter() - t0:.1f}s (parallel nvcc)", flush=True)
+        host.result()
+    print(f"built {len(libs)} kernel libraries and the PNG unfilter in "
+          f"{time.perf_counter() - t0:.1f}s (parallel nvcc, cc)", flush=True)
     for name, _ in libs:
         secs, report = _build.build_info.get(name, (0.0, ""))
         usage = [ln.strip() for ln in report.splitlines()
@@ -215,6 +227,79 @@ def phase_build():
         print(f"build {name}: {secs:.1f}s nvcc sm_90a from "
               f"dehaze_tpu_torch/csrc/{name}.cu; " + " | ".join(usage),
               flush=True)
+
+
+def _textured_frame(seed: int):
+    """A synthetic hazy 1200×1600 scene with sensor-like noise, uint8."""
+    import numpy as np
+
+    from dehaze_tpu_torch.data.synth import make_scene
+
+    rng = np.random.default_rng(seed)
+    _, hazy = make_scene(rng, FRAME)
+    noisy = hazy * 255.0 + rng.normal(0.0, 2.0, size=hazy.shape)
+    return np.clip(noisy + 0.5, 0, 255).astype(np.uint8)
+
+
+def _bmp24(img) -> bytes:
+    """uint8 RGB [H, W, 3] as an uncompressed bottom-up 24-bit BMP."""
+    import struct
+
+    import numpy as np
+
+    h, w, _ = img.shape
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = img[::-1, :, ::-1].reshape(h, 3 * w)
+    head = struct.pack("<2sIHHIIiiHHIIiiII", b"BM", 54 + rows.size, 0, 0,
+                       54, 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    return head + rows.tobytes()
+
+
+def phase_codec():
+    """The port's image codec on the host at 1200×1600: the PNG encoder's
+    per-row filters, its decoder (the compiled unfilter) and the BMP
+    decoder, each against the pixels."""
+    import zlib
+
+    import numpy as np
+
+    from dehaze_tpu_torch.data import images
+
+    from dehaze_tpu_torch.data.synth import make_scene
+
+    def filters_of(png):
+        raw = zlib.decompress(b"".join(b for k, b in images._chunks(png)
+                                       if k == b"IDAT"))
+        return np.bincount(np.frombuffer(raw, np.uint8).reshape(
+            FRAME[0], -1)[:, 0], minlength=5)
+
+    img = _textured_frame(SEED)
+    t0 = time.perf_counter()
+    png = images.encode_img(img)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    filters = filters_of(png)
+    # a scene as the eval and training sets hold them (no noise)
+    scene = filters_of(images.encode_img(make_scene(
+        np.random.default_rng(SEED), FRAME)[1]))
+    bmp = _bmp24(img)
+    ms = {}
+    for name, data in (("png", png), ("bmp", bmp)):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = images.decode_img(data, u8=True)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(out, img):
+            fail(f"codec: the {name} decode differs from the pixels")
+        ms[name] = float(np.median(times))
+    print(f"codec {FRAME[0]}x{FRAME[1]} (host): PNG encode {enc_ms:.1f} ms, "
+          f"{len(png) / 1e6:.2f} MB, rows by filter None/Sub/Up/Average/"
+          f"Paeth {filters.tolist()} (a noise-free synthetic scene: "
+          f"{scene.tolist()}); decode PNG {ms['png']:.1f} ms, 24-bit BMP "
+          f"{ms['bmp']:.1f} ms (median of 5); pixels equal", flush=True)
+    if int((filters > 0).sum()) < 2 or int((scene > 0).sum()) < 2:
+        fail("codec: the PNG encoder wrote one filter type on every row")
 
 
 def _attn_case(g, dev, heads, win, reg_hw):
@@ -388,8 +473,9 @@ def _attn_run(label, kern, twin_of, own, q, kw, nW, bwd, wrong, kv=None):
             err, text = _check_grads(label, got, want, dname, wrong)
         else:
             err, text = _check_rows(label, got, want, D, dname, wrong)
-        if kv is not None:  # (k, v) of a K1 forward: the selection
-            flips = _flipped_rows(got, q, kv[0], kv[1], kw)
+        if kv is not None:  # (k, v) of a K1 call: the selection
+            flips = (_bwd_flipped_rows(got, want, q, kv[0], kv[1], kw) if bwd
+                     else _flipped_rows(got, q, kv[0], kv[1], kw))
             text += f" flipped rows {flips}"
             if flips:
                 wrong.append(f"{label}: {flips} rows flipped between "
@@ -474,7 +560,39 @@ def phase_k1():
     return results
 
 
+def _bwd_kernel(q, heads):
+    """Which K1 backward kernel takes q: "tc" or "cuda_core"."""
+    from dehaze_tpu_torch.ops.kernels.window_attention import bwd_kernel_for
+
+    return bwd_kernel_for(q.dtype, "v4", q.shape[1], q.shape[2] // heads)
+
+
+def _bwd_flipped_rows(got, want, q, k, v, kw):
+    """Rows where a K1 backward's kept rows differ from the twin's
+    selection, as dq shows them: a kernel's dq is exactly zero on the rows
+    it did not keep. So a flip is a nonzero dq on a row the twin does not
+    keep, or a zero dq on a kept row where the twin's dq is far from zero
+    (above 1e-30; a kept row whose softmax saturates under the -100 masks
+    has a dq that rounds to zero in the twin too)."""
+    from dehaze_tpu_torch.ops import probsparse as ps
+
+    heads = kw["num_heads"]
+    row_mask = ps._chain_bhnd(
+        ps._heads(q, heads), ps._heads(k, heads), ps._heads(v, heads),
+        kw["sample_idx"], kw.get("rel_pos_bias"),
+        ps.attention_mask(kw.get("sw_region"), kw.get("pad_flag")), 5,
+        ps._scale(q, heads, None), "v4")[3]
+    zero = (ps._heads(got[0], heads) == 0).all(-1)
+    clear = ps._heads(want[0].float(), heads).abs().amax(-1) > 1e-30
+    return int((~row_mask & ~zero).sum() + (row_mask & clear & zero).sum())
+
+
 def phase_k1_bwd():
+    """K1 backward at the training path's shapes (batch 32 × 128²), f32
+    (the CUDA-core kernel) and bf16 (the tensor-core kernel) with q and k
+    at std 0.5 and 2, and at 16×16 windows (N = 256, the CUDA-core kernel,
+    bf16). Returns rows (case, dtype, kernel, max|d|, ms, twin ms, bound
+    ms, bound by)."""
     import torch
 
     from dehaze_tpu_torch.ops import probsparse as ps_ops
@@ -484,32 +602,44 @@ def phase_k1_bwd():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     P = TRAIN_PS
-    # the training path's shapes at batch 32 × 128² (N = 64, D = 32)
-    cases = [("enc0", 8192, 32, 1, (P, P)),
-             ("enc1", 2048, 64, 2, (P // 2, P // 2)),
-             ("bottleneck", 32, 512, 16, None),
-             ("dec3", 8192, 64, 2, (P, P))]
+    # the training path's shapes at batch 32 × 128² (N = 64, D = 32), and
+    # enc0 at --win_size 16
+    cases = [("enc0", 8192, 32, 1, 8, (P, P)),
+             ("enc1", 2048, 64, 2, 8, (P // 2, P // 2)),
+             ("bottleneck", 32, 512, 16, 8, None),
+             ("dec3", 8192, 64, 2, 8, (P, P)),
+             ("N256", 2048, 32, 1, 16, (P, P))]
     results, wrong = [], []
-    before = window_attention_bwd.launches
-    for name, B, C, heads, reg_hw in cases:
-        si, bias, region, nW = _attn_case(g, dev, heads, 8, reg_hw)
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, go = _qkv(g, dev, (B, 64, C), dtype, (0.5, 0.5, 0.5, 1))
+    before = (window_attention_bwd.launches, window_attention_bwd.launches_tc)
+    for name, B, C, heads, win, reg_hw in cases:
+        N = win * win
+        si, bias, region, nW = _attn_case(g, dev, heads, win, reg_hw)
+        runs = [(torch.float32, 0.5)] if win == 8 else []
+        runs += [(torch.bfloat16, 0.5), (torch.bfloat16, 2.0)]
+        for dtype, std in runs:
+            q, k, v, go = _qkv(g, dev, (B, N, C), dtype, (std, std, 0.5, 1))
+            kern = _bwd_kernel(q, heads)
+            if kern == "cuda_core" and std != 0.5:
+                continue
             kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
                       sw_region=region)
             dname = str(dtype).split(".")[1]
-            results.append((name, dname) + _attn_run(
-                f"K1 bwd {name} {dname} B_={B} C={C} h={heads} "
-                f"shifted={region is not None}",
+            results.append((name if std == 0.5 else f"{name} std{std:g}",
+                            dname, kern) + _attn_run(
+                f"K1 bwd {kern} {name} {dname} B_={B} C={C} h={heads} N={N} "
+                f"shifted={region is not None} q,k std {std:g}",
                 lambda: window_attention_bwd(q, k, v, go, num_windows=nW,
                                              **kw),
                 lambda n: ps_ops.probsparse_attention_bnc_bwd(
                     q, k, v, go, numerics=n, **kw), "v4", q, kw, nW, True,
-                wrong))
+                wrong, kv=(k, v) if kern == "tc" else None))
+            del q, k, v, go
     if wrong:  # every case is printed before the first failure stops us
         fail("; ".join(wrong))
-    if window_attention_bwd.launches == before:
-        fail("the K1 backward launch counter did not move")
+    if (window_attention_bwd.launches == before[0]
+            or window_attention_bwd.launches_tc == before[1]):
+        fail("a K1 backward launch counter (CUDA cores, tensor cores) did "
+             "not move")
     return results
 
 
@@ -548,7 +678,7 @@ def phase_k1_pad():
     for name, B, C, heads, reg_hw, pad, bwd in cases:
         si, bias, region, _ = _attn_case(g, dev, heads, 8, reg_hw)
         nW = pad.shape[0]
-        for dtype, std in runs[:2] if bwd else runs:
+        for dtype, std in runs:
             q, k, v, go = _qkv(g, dev, (B, 64, C), dtype, (std, std, 0.5, 1))
             kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
                       sw_region=region, pad_flag=pad)
@@ -569,7 +699,8 @@ def phase_k1_pad():
                 def twin_of(n):
                     return ps_ops.probsparse_attention_bnc(q, k, v,
                                                            numerics=n, **kw)
-            kname = "bwd" if bwd else _k1_kernel(q, heads)
+            kname = (f"{_bwd_kernel(q, heads)}_bwd" if bwd
+                     else _k1_kernel(q, heads))
             case = (f"bwd pad {name}" if bwd else f"pad {name}") + (
                 "" if std == 0.5 else f" std{std:g}")
             results.append((case, dname, kname) + _attn_run(
@@ -577,7 +708,7 @@ def phase_k1_pad():
                 f"h={heads} shifted={region is not None} padded tokens "
                 f"{int(pad.sum())}/{pad.numel()} q,k std {std:g}", kern,
                 twin_of, "v4", q, kw, nW, bwd, wrong,
-                kv=None if bwd else (k, v)))
+                kv=None if kname == "cuda_core_bwd" else (k, v)))
     if wrong:
         fail("; ".join(wrong))
     return results
@@ -736,6 +867,7 @@ def _counters():
 
     return {"k1_fwd_tc": (wa.window_attention_fwd, "launches_tc"),
             "k1_fwd": (wa.window_attention_fwd, "launches"),
+            "k1_bwd_tc": (wa.window_attention_bwd, "launches_tc"),
             "k1_bwd": (wa.window_attention_bwd, "launches"),
             "k2": (leff_fused, "launches"),
             "k3_v1": (wa.probsparse_window_attention_v1, "launches"),
@@ -1016,9 +1148,7 @@ def phase_serve(pth: str):
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     url = f"http://{args.host}:{srv.server_port}"
-    rng = np.random.default_rng(SEED)
-    bodies = [encode_img(rng.integers(0, 256, size=FRAME + (3,),
-                                      dtype=np.uint8)) for _ in range(3)]
+    bodies = [encode_img(_textured_frame(SEED + i)) for i in range(3)]
 
     def post(body):
         t0 = time.perf_counter()
@@ -1175,7 +1305,8 @@ def phase_train_cli(tmp: str):
             "print('LAUNCHES ' + json.dumps({'k1_fwd': "
             "wa.window_attention_fwd.launches, 'k1_fwd_tc': "
             "wa.window_attention_fwd.launches_tc, 'k1_bwd': "
-            "wa.window_attention_bwd.launches, 'k2': "
+            "wa.window_attention_bwd.launches, 'k1_bwd_tc': "
+            "wa.window_attention_bwd.launches_tc, 'k2': "
             "leff.leff_fused.launches}))\n")
     save = os.path.join(tmp, "log")
     args = ["--train_dir", os.path.join(tmp, "train"),
@@ -1204,7 +1335,8 @@ def phase_train_cli(tmp: str):
     steps = n_train // TRAIN_BATCH
     val_batches = -(-n_val // TRAIN_BATCH)
     want = {"k1_fwd": 0, "k1_fwd_tc": 18 * (steps + len(evals) * val_batches),
-            "k1_bwd": 18 * steps, "k2": 18 * len(evals) * val_batches}
+            "k1_bwd": 0, "k1_bwd_tc": 18 * steps,
+            "k2": 18 * len(evals) * val_batches}
     models = os.path.join(log_dir, "models")
     best = os.path.join(models, "model_best.pth")
     print(f"cli.train Uformer-32 b{TRAIN_BATCH}x{TRAIN_PS}² bf16 CR on: "
@@ -1217,7 +1349,8 @@ def phase_train_cli(tmp: str):
         fail("cli.train: a step's loss is missing or not finite")
     if counts != want:
         fail("cli.train: kernel launches per step are not 18 K1 forward "
-             "(tensor cores) + 18 K1 backward (and 18 K2 per eval forward)")
+             "and 18 K1 backward, all on the tensor cores (and 18 K2 per "
+             "eval forward)")
     for f in (best, os.path.join(models, "epoch_model_1.pth")):
         if not os.path.exists(f):
             fail(f"cli.train did not write {f}")
@@ -1270,6 +1403,7 @@ def phase_train_profile(tmp: str):
         tr.train_step(clean, hazy, use_mixup=False)
     torch.cuda.synchronize()
     host = 0.0
+    reset_counts()
     t0 = time.perf_counter()
     for clean, hazy in batches[:4]:
         h0 = time.perf_counter()
@@ -1277,6 +1411,11 @@ def phase_train_profile(tmp: str):
         host += time.perf_counter() - h0
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 4 * 1e3
+    counts = read_counts()
+    if (counts["k1_bwd_tc"], counts["k1_bwd"], counts["k1_fwd_tc"],
+            counts["k1_fwd"]) != (18 * 4, 0, 18 * 4, 0):
+        fail(f"train steps: K1 launches {counts}, not 18 forward and 18 "
+             "backward per step, all on the tensor cores")
     # calls that make the host wait for the card (a blocking copy, .item())
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1300,7 +1439,9 @@ def phase_train_profile(tmp: str):
                     2, step_ms)
 
 
-_GROUPS = [("K1 bwd", ("window_attention_bwd", "dbias_reduce")),
+_GROUPS = [("K1 bwd (tensor cores)", ("window_attention_tc_bwd",
+                                       "dbias_reduce")),
+           ("K1 bwd (CUDA cores)", ("window_attention_bwd",)),
            ("K1 fwd (tensor cores)", ("window_attention_tc",)),
            ("K1 fwd (CUDA cores)", ("window_attention_fwd",)),
            ("K2", ("leff_fwd",)),
@@ -1370,6 +1511,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    phase_codec()
     k1_res = phase_k1()
     k1p_res = phase_k1_pad()
     k1b_res = phase_k1_bwd()
@@ -1398,11 +1540,14 @@ def main() -> None:
     paths = {"serve": serve, "train": train, "eval": evals}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
-    # K1 forward rows by kernel, without the kernel column
-    k1_all = k1_res + [r for r in k1p_res if r[2] != "bwd"]
+    # K1 rows by kernel, without the kernel column
+    k1_all = k1_res + k1p_res
     tc = [r[:2] + r[3:] for r in k1_all if r[2] == "tc"]
     cc = [r[:2] + r[3:] for r in k1_all if r[2] == "cuda_core"]
-    pad_bwd = [r[:2] + r[3:] for r in k1p_res if r[2] == "bwd"]
+    bwd_all = k1b_res + [r[:2] + (r[2][:-4],) + r[3:] for r in k1p_res
+                         if r[2].endswith("_bwd")]
+    tc_bwd = [r[:2] + r[3:] for r in bwd_all if r[2] == "tc"]
+    cc_bwd = [r[:2] + r[3:] for r in bwd_all if r[2] == "cuda_core"]
     kernels = {"kernels": [
         entry("K1 ProbSparse window attention fwd, tensor cores (bf16, "
               "N <= 64)", "dehaze_tpu_torch/csrc/window_attention_tc.cu",
@@ -1410,8 +1555,12 @@ def main() -> None:
         entry("K1 ProbSparse window attention fwd, CUDA cores (f32, "
               "N > 64, other head dims)", wa, f"{pw}:912", cc,
               ("N256", "bfloat16"), "k1_fwd", paths),
-        entry("K1 ProbSparse window attention bwd", wa, f"{pw}:938",
-              k1b_res + pad_bwd, ("enc0", "bfloat16"), "k1_bwd", paths),
+        entry("K1 ProbSparse window attention bwd, tensor cores (bf16, "
+              "N <= 64)", "dehaze_tpu_torch/csrc/window_attention_tc.cu",
+              f"{pw}:938", tc_bwd, ("enc0", "bfloat16"), "k1_bwd_tc", paths),
+        entry("K1 ProbSparse window attention bwd, CUDA cores (f32, "
+              "N > 64, other head dims)", wa, f"{pw}:938", cc_bwd,
+              ("N256", "bfloat16"), "k1_bwd", paths),
         dict(entry("K2 fused LayerNorm+LeFF", "dehaze_tpu_torch/csrc/leff.cu",
                    "dehaze_tpu/ops/pallas/leff.py:120", k2_res,
                    ("enc0", "bfloat16", "erf"), "k2", paths),

@@ -1,8 +1,8 @@
-// K1 forward on Hopper's tensor cores (sm_90a): ProbSparse window
-// attention for bf16 activations, N <= 64 tokens per window, head dim D in
-// {16, 32, 48, 64}.
+// K1 on Hopper's tensor cores (sm_90a), forward and backward: ProbSparse
+// window attention for bf16 activations, N <= 64 tokens per window, head dim
+// D in {16, 32, 48, 64}.
 //
-// Replaces the TPU kernel `_kernel_v4` / `_fused_attn_v4_fwd` of
+// Forward: replaces the TPU kernel `_kernel_v4` / `_fused_attn_v4_fwd` of
 // dehaze_tpu/ops/pallas/window_attention.py (`fused_window_attention`,
 // version 4) for those shapes; `window_attention_fwd_kernel<bf16, kV4>` of
 // csrc/window_attention.cu computes the same function on the CUDA cores and
@@ -15,35 +15,54 @@
 //   ascending) -> a1 = softmax(S * scale), rounded -> z = (a1 + bias[h]) +
 //   mask (one add of the summed -100 / -200) -> a2 = softmax(z), rounded ->
 //   kept rows a2 @ V, the others mean(V).
-// q/k/v/out are token-major [B_ * N, C] with heads as channel slices; region
-// ids and pad flags are [nW, N], indexed by window % nW.
+// Backward: replaces `_kernel_v4_bwd` / `_fused_attn_v4_bwd` (same file,
+// :822 and :938) for the same shapes with u <= 32 kept rows;
+// `window_attention_bwd_kernel` of csrc/window_attention.cu takes the rest.
+// Same function as `probsparse_attention_bnc_bwd`: the chain recomputed
+// (the roundings of a1 and a2 pass the gradient straight through; a2 is
+// used unrounded), then, with g_sel the output gradient on the kept rows,
+//   dv = a2^T g_sel + sum_i g_unsel / N,  da2 = g_sel V^T,
+//   dz = a2 * (da2 - rowsum(da2 * a2)),    ds = a1 * (dz - rowsum(dz * a1)),
+//   dq = scale * ds K,  dk = scale * ds^T Q,  dbias[h] = sum over windows dz.
+// q/k/v/g/out/dq/dk/dv are token-major [B_ * N, C] with heads as channel
+// slices; region ids and pad flags are [nW, N], indexed by window % nW.
 //
-// What bounds it. Per window-head it moves 4 * N * D bf16 (q, k, v in, out
-// out: 16 KB at N = 64, D = 32) and does N * N * D multiply-adds for QK^T
-// in float64 plus u * N * D for PV in bf16. HBM is the bound of the work
-// (0.165 ms for the 33,280 window-heads of the serving frame's first
-// stage); QK^T on the FP64 tensor cores (67 TFLOP/s) is of the same order
-// (0.14 ms there), and the row statistics, 2 * u * N accurate expf per
-// window-head, come next.
+// What bounds it. Per window-head the forward moves 4 * N * D bf16 (q, k,
+// v in, out out: 16 KB at N = 64, D = 32) and the backward 7 * N * D (q,
+// k, v, g in, dq, dk, dv out); both do N * N * D multiply-adds for QK^T in
+// float64, and the kept rows' products in bf16 (u * N * D for PV; about
+// 10 * u * N * D for da2, dq, dk and dv, the f32 operands in two terms).
+// HBM is the bound of the work (0.165 ms for the 33,280 window-heads of the
+// serving frame's first stage, 0.07 ms for the 8,192 of a train step's);
+// QK^T on the FP64 tensor cores (67 TFLOP/s) is of the same order, and the
+// row statistics, 2 * u * N accurate expf per window-head, come next.
 //
-// Design. A CTA holds kWarps warps of one head h, so the count matrix and
-// bias[h] are staged in shared memory once per CTA; there is one wave of
-// CTAs, and each warp walks its window-heads one after another, on its own:
-//   load   k and v of the window-head by 16-byte cp.async into bf16 shared
-//          tiles (rows past N zero-filled); q goes straight from global
-//          memory into registers, one m16 block ahead of its use;
+// Design, shared by both kernels. A CTA holds warps of one head h, so the
+// count matrix and bias[h] are staged in shared memory once per CTA; there
+// is one wave of CTAs. In the forward each warp walks its window-heads one
+// after another, on its own; in the backward a pair of warps shares each
+// window-head's tiles and splits its work (m16 blocks of S, tiles of kept
+// slots, tiles of dv/dk rows, the loads and stores), meeting at a named
+// barrier between phases: the backward's tiles leave room for one CTA of
+// 3-5 pairs per SM, and a pair halves each warp's serial chain while two
+// warps per scheduler hide each other's latency.
+//   load   k and v (and, in the backward, q and g) of the window-head by
+//          16-byte cp.async into bf16 shared tiles (rows past N
+//          zero-filled); q also goes straight from global memory into
+//          registers, one m16 block ahead of its use;
 //   QK^T   mma.sync m16n8k16 in float64 (Hopper's shape, one
 //          instruction for eight of m8n8k4), the bf16 operands widened on
-//          the way in, 16 rows x N columns at a time (32 double accumulators per
-//          lane); the head dim is walked in a permuted order (lane quad t
-//          takes the contiguous columns t*D/4 ... t*D/4 + D/4 - 1), so
-//          every fragment is one contiguous load. S is rounded to float
-//          and then to bf16 into shared memory right after each block, and
-//          the measure (max and float64 sum(cnt * S) over a row) is taken
-//          from the rounded values in registers, reduced over the lane quad
-//          that holds the row;
+//          the way in, 16 rows x N columns at a time (32 double
+//          accumulators per lane); the head dim is walked in a permuted
+//          order (lane quad t takes the contiguous columns t*D/4 ...
+//          t*D/4 + D/4 - 1), so every fragment is one contiguous load.
+//          S is rounded to float and then to bf16 into shared memory
+//          right after each block, and the measure (max and float64
+//          sum(cnt * S) over a row) is taken from the rounded values in
+//          registers, reduced over the lane quad that holds the row;
 //   rank   a lane per row compares its M with all N; the kept rows are
-//          compacted into a list by ballot (exactly u of them);
+//          compacted into a list by ballot (exactly u of them).
+// Forward, past the selection:
 //   chain  only the u kept rows, two lanes per row (32 columns each, in
 //          registers), sixteen rows at a time: both softmaxes with accurate
 //          expf, bias and mask from shared memory; a2, rounded to bf16, is
@@ -53,24 +72,44 @@
 //          the k tile, which QK^T no longer needs;
 //   mean   one column sum of V per window-head;
 //   store  16-byte stores of each row: the staged row if kept, else mean.
-// Unselected rows (39 of 64 at N = 64) never run a softmax. N = 64 is
-// compiled as a constant (FULL); other N run the same code with a runtime
-// N and branch-free masks past it.
+// Backward, past the selection, on the kept rows only (u = 25 of 64: two
+// m16 tiles of kept slots, one per warp of the pair; slots past u read a
+// zero row):
+//   chain  per m16 tile, in the mma accumulator layout (a lane holds rows
+//          g and g + 8 of the tile, sixteen columns each; row sums over
+//          the lane quad): a1 (rounded to bf16, as kV4 does) and a2 (f32);
+//   da2    g_sel V^T as bf16 mma.sync (both operands exact bf16 inputs,
+//          f32 sums), g_sel rows gathered by ldmatrix row addresses;
+//   dz, ds in registers; dz is added into the pair's own float32 [N, N]
+//          dbias partial (global memory; each element by one thread in a
+//          window, windows ordered by the pair's barriers; the tile's
+//          partial rows are loaded before its chain, so the L2 round trip
+//          is hidden);
+//   dq     ds K on the tensor cores, ds split into bf16 hi + lo (two mmas;
+//          about 16 significand bits kept), staged in the S tile's row;
+//   dv, dk after both tiles, from a2 and ds staged as hi + lo bf16 tiles:
+//          a2^T g_sel + sum(g_unsel) / N and scale * ds^T q_sel, the
+//          transposes by ldmatrix.trans, staged in the v and k tiles;
+//   store  16-byte stores of dq (zero rows for unselected tokens), dk, dv.
+// A second kernel sums the pairs' dbias partials in slot order. Every sum
+// has a fixed order, so dbias is the same from run to run (no float
+// atomics). Unselected rows (39 of 64 at N = 64) never run a softmax. N =
+// 64 is compiled as a constant (FULL); other N run the same code with a
+// runtime N and branch-free masks past it.
 //
 // Exactness of the selection. The rows kept depend discontinuously on S,
-// so S and M must come out bit-identical to the twin's (and to the
-// backward's, which recomputes them with the scalar `scores` / `row_chain`
-// of csrc/window_attention.cu). A product of two bf16 values has a 16-bit
-// significand and is exact in float64; the sum of D such products is exact
-// in float64 whenever their exponents span fewer than about 32 binades, and
-// an exact sum is the same double in any order: the FP64 tensor cores here,
-// the scalar fma chain of the CUDA-core kernels and the twin's float64
-// matmul all give it, and all round it once to float and once to bf16.
-// sum(cnt * S) over bf16 values and small integer counts is exact in
-// float64 as well, so the lane-split sum is order-free; the max is. The
-// rank is a pure comparison. The softmax sums are float32 and run in
-// another order than the twin's; that moves a1 and a2 by about an ulp and
-// never the selection.
+// so S and M must come out bit-identical to the twin's in both passes. A
+// product of two bf16 values has a 16-bit significand and is exact in
+// float64; the sum of D such products is exact in float64 whenever their
+// exponents span fewer than about 32 binades, and an exact sum is the same
+// double in any order: the FP64 tensor cores here, the scalar fma chain of
+// the CUDA-core kernels and the twin's float64 matmul all give it, and all
+// round it once to float and once to bf16. sum(cnt * S) over bf16 values
+// and small integer counts is exact in float64 as well, so the lane-split
+// sum is order-free; the max is. The rank is a pure comparison. Both
+// kernels run the same device functions for all of it. The softmax sums
+// are float32 and run in another order than the twin's; that moves a1 and
+// a2 by about an ulp and never the selection.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,8 +120,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;               // window-heads per CTA, a warp each
-constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxN = 64;
 constexpr int kLS = kMaxN + 8;          // row stride of the S / a2 tile
 // Row strides of the staged bias (floats) and counts (bytes), padded so
@@ -91,6 +128,12 @@ constexpr int kBS = kMaxN + 1;
 constexpr int kCS = kMaxN + 8;
 constexpr int kShared = kMaxN * kBS * 4 + kMaxN * kCS;  // bias + counts
 static_assert(kShared % 16 == 0, "16-byte aligned warp slices");
+constexpr int kSmemMax = 232448;        // shared memory a CTA may use
+constexpr int kMaxKept = 32;            // kept rows the backward takes
+
+// Forward: four warps per CTA, two CTAs per SM.
+constexpr int kWarps = 4;               // window-heads per CTA, a warp each
+constexpr int kThreads = 32 * kWarps;
 
 template <int D>
 struct Cfg {
@@ -104,6 +147,27 @@ struct Cfg {
   static constexpr int kSmem = kShared + kWarps * kWarpBytes;
   static_assert(D % 16 == 0 && D <= 64, "head dim 16, 32, 48 or 64");
   static_assert(kWarpBytes % 16 == 0, "16-byte aligned warp slices");
+};
+
+// Backward: one CTA per SM, as many pairs of warps as their tiles allow
+// (5, 4, 3, 3 at D = 16, 32, 48, 64); a pair shares one set of tiles.
+template <int D>
+struct BwdCfg {
+  static constexpr int LD = D + 8;
+  static constexpr int kPairBytes =
+      4 * kMaxN * LD * 2 +              // k (then dk), v (then dv), q, g
+      kMaxN * kLS * 2 +                 // S (then dq of the kept rows)
+      4 * kMaxKept * kLS * 2 +          // a2 hi, a2 lo, ds hi, ds lo
+      3 * kMaxN * 4 +                   // M, region ids, pad flags
+      kMaxN * 4 +                       // sum(g_unsel) / N
+      kLS * 2 + kMaxN +                 // a zero row, kept-row list
+      16;                               // the pair's keep bits
+  static constexpr int kPairsRaw = (kSmemMax - kShared) / kPairBytes;
+  static constexpr int kPairs = kPairsRaw < 8 ? kPairsRaw : 8;
+  static constexpr int kThreads = 64 * kPairs;
+  static constexpr int kSmem = kShared + kPairs * kPairBytes;
+  static_assert(kPairBytes % 16 == 0, "16-byte aligned pair slices");
+  static_assert(kPairs >= 1, "a pair's tiles fit in shared memory");
 };
 
 __device__ __forceinline__ float bf2f(bf16 x) { return __bfloat162float(x); }
@@ -180,6 +244,232 @@ __device__ __forceinline__ void load_wide(const bf16* p, double* dst) {
   }
 }
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x0, x1 as bf16 pairs hi = RN(x) and lo = RN(x - hi): hi + lo keeps about
+// 16 significand bits of x.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// ---- shared by the forward and the backward ----------------------------
+
+// The count matrix and bias[h], once per CTA (zero past N), by the CTA's
+// THREADS threads (a compile-time stride, so the loads are unrolled and in
+// flight together).
+template <int THREADS>
+__device__ __forceinline__ void stage_bias_counts(
+    float* sBias, unsigned char* sCnt, const int32_t* __restrict__ cnt,
+    const float* __restrict__ bias, int h, int N) {
+  for (int e = threadIdx.x; e < kMaxN * kMaxN; e += THREADS) {
+    const int i = e >> 6, j = e & 63;
+    const bool in = i < N && j < N;
+    sCnt[i * kCS + j] = in ? static_cast<unsigned char>(cnt[i * N + j]) : 0;
+    if (bias != nullptr) {
+      sBias[i * kBS + j] =
+          in ? bias[(static_cast<size_t>(h) * N + i) * N + j] : 0.f;
+    }
+  }
+}
+
+// One [N, D] slice (rows C elements apart) into a [N16][LD] shared tile by
+// 16-byte cp.async, rows N ... N16 zero, by threads i of n. Not committed
+// here.
+template <int D, int LD>
+__device__ __forceinline__ void cp_tile(bf16* dst,
+                                        const bf16* __restrict__ src,
+                                        int N, int N16, int C, int i, int n) {
+  for (int e = i; e < N16 * (D / 8); e += n) {
+    const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+    const bool ok = r < N;
+    cp_async16(smem_addr(dst + r * LD + c),
+               src + static_cast<size_t>(ok ? r : 0) * C + c, ok);
+  }
+}
+
+// This window's region ids and pad flags (zero past N or without them),
+// by threads i of n.
+__device__ __forceinline__ void load_masks(int* sReg, int* sPad,
+                                           const int32_t* __restrict__ region,
+                                           const int32_t* __restrict__ pad,
+                                           size_t wn, int N, int i, int n) {
+  for (int j = i; j < kMaxN; j += n) {
+    sReg[j] = region != nullptr && j < N ? region[wn + j] : 0;
+    sPad[j] = pad != nullptr && j < N ? pad[wn + j] : 0;
+  }
+}
+
+// q rows m0 + g and m0 + 8 + g, columns t*DQ ... t*DQ + DQ - 1, in
+// registers (zero past N), loaded one m16 block ahead of their use.
+template <int D>
+struct QRows {
+  static constexpr int DQ = D / 4;
+  uint2 raw[2][DQ / 4];
+  __device__ __forceinline__ void load(const bf16* __restrict__ qw, int C,
+                                       int N, int m0, int g, int t) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int r = m0 + 8 * b + g;
+      const uint2* p = reinterpret_cast<const uint2*>(
+          qw + static_cast<size_t>(r < N ? r : 0) * C + t * DQ);
+#pragma unroll
+      for (int c = 0; c < DQ / 4; ++c) {
+        raw[b][c] = r < N ? __ldg(p + c) : make_uint2(0u, 0u);
+      }
+    }
+  }
+};
+
+// QK^T in float64 on the tensor cores, 16 rows at a time (rows m_first,
+// m_first + STEP, ...), from q rows in registers (`qr` holds rows m_first
+// ... m_first + 15 on entry) and the k tile. S, rounded to float and then
+// bf16, goes to sS; the measure of each row is taken from the rounded
+// values in registers (the lane quad t = 0..3 holds a row's columns;
+// counts past N are zero).
+template <int D, bool FULL, int STEP>
+__device__ __forceinline__ void qk_measure(QRows<D>& qr,
+                                           const bf16* __restrict__ qw, int C,
+                                           const bf16* sK, bf16* sS,
+                                           float* sM,
+                                           const unsigned char* sCnt,
+                                           int n_tokens, int m_first,
+                                           int lane) {
+  constexpr int LD = D + 8, DQ = D / 4;
+  const int N = FULL ? kMaxN : n_tokens;
+  const int g = lane >> 2, t = lane & 3;
+  const int NT = (N + 7) >> 3;
+  for (int m0 = m_first; m0 < N; m0 += STEP) {
+    double qa[2][DQ];
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+      for (int c = 0; c < DQ / 4; ++c) {
+        const bf16* e = reinterpret_cast<const bf16*>(&qr.raw[b][c]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[b][4 * c + i] = bf2f(e[i]);
+      }
+    }
+    if (m0 + STEP < N) qr.load(qw, C, N, m0 + STEP, g, t);
+    // k-slot t + 4j of k-block kk is column t*DQ + 4kk + j, in A and B
+    double acc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0;
+      if (nt < NT) {
+        double kb[DQ];
+        load_wide<DQ>(sK + (nt * 8 + g) * LD + t * DQ, kb);
+#pragma unroll
+        for (int kk = 0; kk < DQ / 4; ++kk) {
+          dmma16(acc[nt], qa[0] + 4 * kk, qa[1] + 4 * kk, kb + 4 * kk);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int r = m0 + 8 * b + g;
+      float m_max = -1e30f;
+      double m_sum = 0.0;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt < NT) {
+          const int c = nt * 8 + 2 * t;
+          const __nv_bfloat162 s2 =
+              __floats2bfloat162_rn(__double2float_rn(acc[nt][2 * b]),
+                                    __double2float_rn(acc[nt][2 * b + 1]));
+          *reinterpret_cast<__nv_bfloat162*>(sS + r * kLS + c) = s2;
+          const float2 s = __bfloat1622float2(s2);
+          const unsigned cc = *reinterpret_cast<const unsigned short*>(
+              sCnt + r * kCS + c);
+          // count c < 256 as float (exact, without a conversion unit);
+          // S * c is exact in float: an 8-bit significand times 8 bits
+          const float c0 = __int_as_float(0x4b000000 | (cc & 0xffu)) -
+                           8388608.f;
+          const float c1 = __int_as_float(0x4b000000 | (cc >> 8)) -
+                           8388608.f;
+          // branch-free: unsampled columns add 0 and leave the max
+          m_max = fmaxf(m_max, fmaxf(c0 > 0.f ? s.x : -1e30f,
+                                     c1 > 0.f ? s.y : -1e30f));
+          m_sum += static_cast<double>(s.x * c0);
+          m_sum += static_cast<double>(s.y * c1);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        m_max = fmaxf(m_max, __shfl_xor_sync(~0u, m_max, o));
+        m_sum += __shfl_xor_sync(~0u, m_sum, o);
+      }
+      if (t == 0 && r < N) {
+        sM[r] = m_max - __double2float_rn(m_sum) / static_cast<float>(N);
+      }
+    }
+  }
+}
+
+// rank: (M descending, index ascending) < u; the kept rows listed in index
+// order in sIdx, the keep bits of rows 0..31 and 32..63 in keep_lo /
+// keep_hi. Returns the number kept.
+__device__ __forceinline__ int rank_rows(const float* sM, unsigned char* sIdx,
+                                         int N, int u, int lane,
+                                         unsigned& keep_lo,
+                                         unsigned& keep_hi) {
+  bool keep[2];
+  const int i0 = lane, i1 = lane + 32;
+  const float m0 = i0 < N ? sM[i0] : 0.f, m1 = i1 < N ? sM[i1] : 0.f;
+  int rank0 = 0, rank1 = 0;
+#pragma unroll 4
+  for (int j = 0; j < N; ++j) {
+    const float mj = sM[j];
+    rank0 += (mj > m0) || (mj == m0 && j < i0);
+    rank1 += (mj > m1) || (mj == m1 && j < i1);
+  }
+  keep[0] = i0 < N && rank0 < u;
+  keep[1] = i1 < N && rank1 < u;
+  keep_lo = __ballot_sync(~0u, keep[0]);
+  keep_hi = __ballot_sync(~0u, keep[1]);
+  const unsigned below = (1u << lane) - 1u;
+  const int n_lo = __popc(keep_lo);
+  if (keep[0]) sIdx[__popc(keep_lo & below)] = lane;
+  if (keep[1]) sIdx[n_lo + __popc(keep_hi & below)] = lane + 32;
+  return n_lo + __popc(keep_hi);
+}
+
+// The backward's rank, split over a pair: the keep bits of rows
+// 32*half ... 32*half + 31, by the same comparison as rank_rows (a lane per
+// row, the measures read 16 bytes at a time).
+template <bool FULL>
+__device__ __forceinline__ unsigned rank_half(const float* sM, int N, int u,
+                                              int half, int lane) {
+  const int i = 32 * half + lane;
+  const float mi = i < N ? sM[i] : 0.f;
+  int rank = 0;
+  const float4* m4 = reinterpret_cast<const float4*>(sM);
+#pragma unroll 4
+  for (int j4 = 0; j4 < (N + 3) / 4; ++j4) {
+    const float4 m = m4[j4];
+    const float mj[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = 4 * j4 + c;
+      if (FULL || j < N) rank += (mj[c] > mi) || (mj[c] == mi && j < i);
+    }
+  }
+  return __ballot_sync(~0u, i < N && rank < u);
+}
+
+__device__ __forceinline__ bool kept_row(unsigned keep_lo, unsigned keep_hi,
+                                         int i) {
+  return ((i < 32 ? keep_lo >> i : keep_hi >> (i - 32)) & 1u) != 0;
+}
+
+// ---- forward ------------------------------------------------------------
+
 // FULL: N = 64 (8x8 windows, every stage of the default model), a
 // compile-time constant, so no loop or select depends on a runtime N.
 template <int D, bool FULL>
@@ -191,7 +481,7 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
     int n_tokens, int C, int nW, int u, float scale) {
   using L = Cfg<D>;
   const int N = FULL ? kMaxN : n_tokens;
-  constexpr int LD = L::LD, DQ = L::DQ;
+  constexpr int LD = L::LD;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sBias = reinterpret_cast<float*>(smem);        // [64][kBS] bias[h]
   unsigned char* sCnt = smem + kMaxN * kBS * 4;          // [64][kCS] counts
@@ -209,22 +499,12 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
   const bool has_bias = bias != nullptr, has_reg = region != nullptr,
              has_pad = pad != nullptr;
 
-  // The count matrix and bias[h], once per CTA (zero past N).
-  for (int e = threadIdx.x; e < kMaxN * kMaxN; e += kThreads) {
-    const int i = e >> 6, j = e & 63;
-    const bool in = i < N && j < N;
-    sCnt[i * kCS + j] = in ? static_cast<unsigned char>(cnt[i * N + j]) : 0;
-    if (has_bias) {
-      sBias[i * kBS + j] =
-          in ? bias[(static_cast<size_t>(h) * N + i) * N + j] : 0.f;
-    }
-  }
+  stage_bias_counts<kThreads>(sBias, sCnt, cnt, bias, h, N);
   __syncthreads();
   // phase: stage
 
   const int g = lane >> 2, t = lane & 3;
   const int N16 = (N + 15) & ~15;
-  const int NT = (N + 7) >> 3;
   // Each warp walks window-heads w, w + kWarps * gridDim.x, ... of head h
   // on its own; no CTA-wide barrier follows.
   for (int w = blockIdx.x * kWarps + warp; w < B;
@@ -232,135 +512,25 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
     const size_t base =
         static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * D;
 
-    // load: k and v by cp.async (rows N ... N16 zero), this window's masks.
-    for (int e = lane; e < N16 * (D / 8); e += 32) {
-      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
-      const bool ok = r < N;
-      const size_t o = base + static_cast<size_t>(ok ? r : 0) * C + c;
-      cp_async16(smem_addr(sK + r * LD + c), k + o, ok);
-      cp_async16(smem_addr(sV + r * LD + c), v + o, ok);
-    }
+    // load: k and v by cp.async (rows N ... N16 zero), this window's masks,
+    // q rows 0..15 into registers.
+    cp_tile<D, LD>(sK, k + base, N, N16, C, lane, 32);
+    cp_tile<D, LD>(sV, v + base, N, N16, C, lane, 32);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const size_t wn = static_cast<size_t>(w % nW) * N;
-    for (int j = lane; j < kMaxN; j += 32) {
-      sReg[j] = has_reg && j < N ? region[wn + j] : 0;
-      sPad[j] = has_pad && j < N ? pad[wn + j] : 0;
-    }
-    // q rows m0 + g and m0 + 8 + g, columns t*DQ ... t*DQ + DQ - 1,
-    // straight into registers (zero past N)
-    uint2 qraw[2][DQ / 4];
-    auto load_q = [&](int m0) {
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int r = m0 + 8 * b + g;
-        const uint2* p = reinterpret_cast<const uint2*>(
-            q + base + static_cast<size_t>(r < N ? r : 0) * C + t * DQ);
-#pragma unroll
-        for (int c = 0; c < DQ / 4; ++c) {
-          qraw[b][c] = r < N ? __ldg(p + c) : make_uint2(0u, 0u);
-        }
-      }
-    };
-    load_q(0);
+    load_masks(sReg, sPad, region, pad, static_cast<size_t>(w % nW) * N, N,
+               lane, 32);
+    QRows<D> qr;
+    qr.load(q + base, C, N, 0, g, t);
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncwarp();
     // phase: load
 
-    // QK^T in float64 on the tensor cores, 16 rows at a time. S, rounded
-    // to float and then bf16, goes to sS; the measure of each row is taken
-    // from the rounded values in registers (the lane quad t = 0..3 holds a
-    // row's columns; counts past N are zero).
-    for (int m0 = 0; m0 < N; m0 += 16) {
-      double qa[2][DQ];
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-#pragma unroll
-        for (int c = 0; c < DQ / 4; ++c) {
-          const bf16* e = reinterpret_cast<const bf16*>(&qraw[b][c]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) qa[b][4 * c + i] = bf2f(e[i]);
-        }
-      }
-      if (m0 + 16 < N) load_q(m0 + 16);
-      // k-slot t + 4j of k-block kk is column t*DQ + 4kk + j, in A and B
-      double acc[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0;
-        if (nt < NT) {
-          double kb[DQ];
-          load_wide<DQ>(sK + (nt * 8 + g) * LD + t * DQ, kb);
-#pragma unroll
-          for (int kk = 0; kk < DQ / 4; ++kk) {
-            dmma16(acc[nt], qa[0] + 4 * kk, qa[1] + 4 * kk, kb + 4 * kk);
-          }
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int r = m0 + 8 * b + g;
-        float m_max = -1e30f;
-        double m_sum = 0.0;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          if (nt < NT) {
-            const int c = nt * 8 + 2 * t;
-            const __nv_bfloat162 s2 =
-                __floats2bfloat162_rn(__double2float_rn(acc[nt][2 * b]),
-                                      __double2float_rn(acc[nt][2 * b + 1]));
-            *reinterpret_cast<__nv_bfloat162*>(sS + r * kLS + c) = s2;
-            const float2 s = __bfloat1622float2(s2);
-            const unsigned cc = *reinterpret_cast<const unsigned short*>(
-                sCnt + r * kCS + c);
-            // count c < 256 as float (exact, without a conversion unit);
-            // S * c is exact in float: an 8-bit significand times 8 bits
-            const float c0 = __int_as_float(0x4b000000 | (cc & 0xffu)) -
-                             8388608.f;
-            const float c1 = __int_as_float(0x4b000000 | (cc >> 8)) -
-                             8388608.f;
-            // branch-free: unsampled columns add 0 and leave the max
-            m_max = fmaxf(m_max, fmaxf(c0 > 0.f ? s.x : -1e30f,
-                                       c1 > 0.f ? s.y : -1e30f));
-            m_sum += static_cast<double>(s.x * c0);
-            m_sum += static_cast<double>(s.y * c1);
-          }
-        }
-#pragma unroll
-        for (int o = 1; o < 4; o <<= 1) {
-          m_max = fmaxf(m_max, __shfl_xor_sync(~0u, m_max, o));
-          m_sum += __shfl_xor_sync(~0u, m_sum, o);
-        }
-        if (t == 0 && r < N) {
-          sM[r] = m_max - __double2float_rn(m_sum) / static_cast<float>(N);
-        }
-      }
-    }
+    qk_measure<D, FULL, 16>(qr, q + base, C, sK, sS, sM, sCnt, N, 0, lane);
     __syncwarp();
     // phase: QK^T+measure
 
-    // rank: (M descending, index ascending) < u; the kept rows listed in
-    // index order.
-    bool keep[2];
-    {
-      const int i0 = lane, i1 = lane + 32;
-      const float m0 = i0 < N ? sM[i0] : 0.f, m1 = i1 < N ? sM[i1] : 0.f;
-      int rank0 = 0, rank1 = 0;
-#pragma unroll 4
-      for (int j = 0; j < N; ++j) {
-        const float mj = sM[j];
-        rank0 += (mj > m0) || (mj == m0 && j < i0);
-        rank1 += (mj > m1) || (mj == m1 && j < i1);
-      }
-      keep[0] = i0 < N && rank0 < u;
-      keep[1] = i1 < N && rank1 < u;
-    }
-    const unsigned keep_lo = __ballot_sync(~0u, keep[0]);
-    const unsigned keep_hi = __ballot_sync(~0u, keep[1]);
-    const unsigned below = (1u << lane) - 1u;
-    const int n_lo = __popc(keep_lo);
-    if (keep[0]) sIdx[__popc(keep_lo & below)] = lane;
-    if (keep[1]) sIdx[n_lo + __popc(keep_hi & below)] = lane + 32;
-    const int nk = n_lo + __popc(keep_hi);
+    unsigned keep_lo, keep_hi;
+    const int nk = rank_rows(sM, sIdx, N, u, lane, keep_lo, keep_hi);
     __syncwarp();
     // phase: rank
 
@@ -493,16 +663,506 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
     // store: 16 bytes at a time, the staged row if kept, else mean(V).
     for (int e = lane; e < N * (D / 8); e += 32) {
       const int i = e / (D / 8), c = (e % (D / 8)) * 8;
-      const bool kept = (i < 32 ? keep_lo >> i : keep_hi >> (i - 32)) & 1u;
       const uint4 val =
-          kept ? *reinterpret_cast<const uint4*>(sO + i * LD + c)
-               : *reinterpret_cast<const uint4*>(sMean + c);
+          kept_row(keep_lo, keep_hi, i)
+              ? *reinterpret_cast<const uint4*>(sO + i * LD + c)
+              : *reinterpret_cast<const uint4*>(sMean + c);
       *reinterpret_cast<uint4*>(out + base + static_cast<size_t>(i) * C +
                                 c) = val;
     }
     __syncwarp();  // the tiles are free for the next window-head
     // phase: store
   }
+}
+
+// ---- backward -----------------------------------------------------------
+
+template <int D, bool FULL>
+__global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
+    window_attention_tc_bwd_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const bf16* __restrict__ go,
+        const int32_t* __restrict__ cnt, const float* __restrict__ bias,
+        const int32_t* __restrict__ region, const int32_t* __restrict__ pad,
+        bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+        float* __restrict__ db_part, int B, int n_tokens, int C, int nW,
+        int u, float scale) {
+  using L = BwdCfg<D>;
+  constexpr int LD = L::LD, kP = L::kPairs;
+  const int N = FULL ? kMaxN : n_tokens;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sBias = reinterpret_cast<float*>(smem);        // [64][kBS] bias[h]
+  unsigned char* sCnt = smem + kMaxN * kBS * 4;          // [64][kCS] counts
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // warps 2p and 2p + 1 share window-head tiles: half (= 0 or 1) is this
+  // warp's side of the pair, pl its thread index in the pair
+  const int pair = warp >> 1, half = warp & 1, pl = threadIdx.x & 63;
+  auto pair_sync = [&]() {
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+  };
+  unsigned char* ws = smem + kShared + pair * L::kPairBytes;
+  bf16* sK = reinterpret_cast<bf16*>(ws);    // [64][LD]: k, then dk
+  bf16* sV = sK + kMaxN * LD;                // [64][LD]: v, then dv
+  bf16* sQ = sV + kMaxN * LD;                // [64][LD]
+  bf16* sG = sQ + kMaxN * LD;                // [64][LD]: the output grad
+  bf16* sS = sG + kMaxN * LD;                // [64][kLS]: S, then dq rows
+  bf16* sA2h = sS + kMaxN * kLS;             // [32][kLS] by kept slot
+  bf16* sA2l = sA2h + kMaxKept * kLS;
+  bf16* sDsh = sA2l + kMaxKept * kLS;
+  bf16* sDsl = sDsh + kMaxKept * kLS;
+  float* sM = reinterpret_cast<float*>(sDsl + kMaxKept * kLS);  // [64]
+  int* sReg = reinterpret_cast<int*>(sM + kMaxN);               // [64]
+  int* sPad = sReg + kMaxN;                                     // [64]
+  float* sGu = reinterpret_cast<float*>(sPad + kMaxN);  // [64] g_unsel / N
+  bf16* sZero = reinterpret_cast<bf16*>(sGu + kMaxN);   // [kLS] zeros
+  unsigned char* sIdx = reinterpret_cast<unsigned char*>(sZero + kLS);
+  unsigned* sKeep = reinterpret_cast<unsigned*>(sIdx + kMaxN);  // [2]
+  const int h = blockIdx.y;
+  const bool has_bias = bias != nullptr, has_reg = region != nullptr,
+             has_pad = pad != nullptr;
+
+  stage_bias_counts<L::kThreads>(sBias, sCnt, cnt, bias, h, N);
+  for (int e = pl; e < kLS; e += 64) sZero[e] = __float2bfloat16_rn(0.f);
+  // This pair's dbias partial [N, N]: slot blockIdx.x * kP + pair of head
+  // h, zeroed here, then summed into window after window; within a window
+  // the two warps add disjoint rows, and the pair's barriers order the
+  // windows.
+  const int slot = blockIdx.x * kP + pair;
+  float* part = db_part == nullptr
+                    ? nullptr
+                    : db_part + (static_cast<size_t>(slot) * gridDim.y + h) *
+                                    N * N;
+  if (part != nullptr) {
+    for (int e = pl; e < N * N; e += 64) __stcg(part + e, 0.f);
+  }
+  __syncthreads();
+  // phase: stage
+
+  const int g = lane >> 2, t = lane & 3;
+  const int N16 = (N + 15) & ~15;
+  for (int w = slot; w < B; w += gridDim.x * kP) {
+    const size_t base =
+        static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * D;
+
+    // load: k, v, q and g by cp.async (rows N ... N16 zero), this window's
+    // masks, this warp's first q block into registers for QK^T.
+    cp_tile<D, LD>(sK, k + base, N, N16, C, pl, 64);
+    cp_tile<D, LD>(sV, v + base, N, N16, C, pl, 64);
+    cp_tile<D, LD>(sQ, q + base, N, N16, C, pl, 64);
+    cp_tile<D, LD>(sG, go + base, N, N16, C, pl, 64);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    load_masks(sReg, sPad, region, pad, static_cast<size_t>(w % nW) * N, N,
+               pl, 64);
+    QRows<D> qr;
+    qr.load(q + base, C, N, 16 * half, g, t);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    pair_sync();
+    // phase: load
+
+    // the pair's warps take the m16 blocks of S in turn
+    qk_measure<D, FULL, 32>(qr, q + base, C, sK, sS, sM, sCnt, N, 16 * half,
+                            lane);
+    pair_sync();
+    // phase: QK^T+measure
+
+    // each warp ranks its 32 rows; the first lists the kept rows
+    const unsigned mine = rank_half<FULL>(sM, N, u, half, lane);
+    if (lane == 0) sKeep[half] = mine;
+    pair_sync();
+    const unsigned keep_lo = sKeep[0], keep_hi = sKeep[1];
+    const int n_lo = __popc(keep_lo), nk = n_lo + __popc(keep_hi);
+    if (half == 0) {
+      const unsigned below = (1u << lane) - 1u;
+      if ((keep_lo >> lane) & 1u) sIdx[__popc(keep_lo & below)] = lane;
+      if ((keep_hi >> lane) & 1u) {
+        sIdx[n_lo + __popc(keep_hi & below)] = lane + 32;
+      }
+    }
+    // sum of g over the unselected rows, in token order, / N
+    for (int d = pl; d < D; d += 64) {
+      float s = 0.f;
+      for (int i = 0; i < N; ++i) {
+        if (!kept_row(keep_lo, keep_hi, i)) s += bf2f(sG[i * LD + d]);
+      }
+      sGu[d] = s / static_cast<float>(N);
+    }
+    // a kept slot's g row (the zero row past nk), as ldmatrix reads it
+    auto sel_row = [&](const bf16* tile, int r) -> const bf16* {
+      return r < nk ? tile + sIdx[r] * LD : sZero;
+    };
+    pair_sync();
+    // phase: rank
+
+    // the pair's warps take the m16 tiles of kept slots in turn
+    const int KT = (nk + 15) >> 4;
+    for (int mt = half; mt < KT; mt += 2) {
+      // chain on kept slots mt*16 + g and mt*16 + g + 8 (token rows ri[b];
+      // row 0 stands in past nk: finite values, never stored), columns
+      // nt*8 + 2t, nt*8 + 2t + 1 in x[nt][2b], x[nt][2b + 1]: the mma
+      // accumulator layout.
+      int ri[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int r = mt * 16 + g + 8 * b;
+        ri[b] = r < nk ? sIdx[r] : 0;
+      }
+      // this tile's dbias partial rows, loaded now: the L2 round trip
+      // hides behind the chain and da2 (zero for slots past nk)
+      float pold[2][8][2];
+      if (part != nullptr) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const bool ok = mt * 16 + g + 8 * b < nk;
+          const float* prow = part + ri[b] * N;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const int c = nt * 8 + 2 * t;
+            if (FULL) {
+              const float2 o =
+                  ok ? __ldcg(reinterpret_cast<const float2*>(prow + c))
+                     : make_float2(0.f, 0.f);
+              pold[b][nt][0] = o.x;
+              pold[b][nt][1] = o.y;
+            } else {
+              pold[b][nt][0] = ok && c < N ? __ldcg(prow + c) : 0.f;
+              pold[b][nt][1] = ok && c + 1 < N ? __ldcg(prow + c + 1) : 0.f;
+            }
+          }
+        }
+      }
+      float x[8][4];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int c = nt * 8 + 2 * t;
+          const float2 s = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(sS + ri[b] * kLS +
+                                                       c));
+          // branch-free: columns past N enter as -inf, so exp gives 0
+          x[nt][2 * b] = FULL || c < N ? s.x * scale : -INFINITY;
+          x[nt][2 * b + 1] = FULL || c + 1 < N ? s.y * scale : -INFINITY;
+        }
+      }
+      uint32_t a1p[8][2];  // a1, rounded to bf16 (exact), packed
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          mx = fmaxf(mx, fmaxf(x[nt][2 * b], x[nt][2 * b + 1]));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 2));
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            x[nt][2 * b + e] = expf(x[nt][2 * b + e] - mx);
+            sum += x[nt][2 * b + e];
+          }
+        }
+        sum += __shfl_xor_sync(~0u, sum, 1);
+        sum += __shfl_xor_sync(~0u, sum, 2);
+        float rsum = __frcp_rn(sum);
+        const int i = ri[b];
+        const bool pad_i = has_pad && sPad[i];
+        const int reg_i = sReg[i];
+        mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          float a1[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = nt * 8 + 2 * t + e;
+            a1[e] = bf2f(__float2bfloat16_rn(
+                div_rn(x[nt][2 * b + e], sum, rsum)));
+            float z = a1[e];
+            if (has_bias) z = z + sBias[i * kBS + j];
+            if (has_reg || has_pad) {  // one add of the summed mask
+              float m = 0.f;
+              if (has_reg && reg_i != sReg[j]) m += -100.f;
+              if (pad_i && sPad[j]) m += -100.f;
+              z = z + m;
+            }
+            x[nt][2 * b + e] = FULL || j < N ? z : -INFINITY;
+            mx = fmaxf(mx, x[nt][2 * b + e]);
+          }
+          a1p[nt][b] = pack_bf16(a1[0], a1[1]);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 2));
+        sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            x[nt][2 * b + e] = expf(x[nt][2 * b + e] - mx);
+            sum += x[nt][2 * b + e];
+          }
+        }
+        sum += __shfl_xor_sync(~0u, sum, 1);
+        sum += __shfl_xor_sync(~0u, sum, 2);
+        // a2, unrounded: the backward needs it to about float's precision,
+        // not correctly rounded (a1's rounding above must match the twin's)
+        rsum = __frcp_rn(sum);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          x[nt][2 * b] *= rsum;
+          x[nt][2 * b + 1] *= rsum;
+        }
+      }
+      // phase: chain
+
+      // da2 = g_sel V^T: A rows are kept slots (g rows by ldmatrix row
+      // address), B = V as [n = token][k = d] rows.
+      float acc[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(smem_addr(sel_row(sG, mt * 16 + (lane & 15)) + kk * 16 +
+                          (lane >> 4) * 8),
+                a);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          if (FULL || np * 16 < N) {
+            uint32_t bv[4];
+            ldsm_x4(smem_addr(sV + (np * 16 + (lane & 7) +
+                                    ((lane >> 4) << 3)) * LD +
+                              kk * 16 + ((lane >> 3) & 1) * 8),
+                    bv);
+            mma_bf16(acc[2 * np], a, bv[0], bv[1]);
+            mma_bf16(acc[2 * np + 1], a, bv[2], bv[3]);
+          }
+        }
+      }
+      // phase: da2
+
+      // dz = a2 (da2 - rowsum(da2 a2)), into the dbias partial; then
+      // ds = a1 (dz - rowsum(dz a1)). Slots past nk have da2 = 0 (zero g
+      // rows), so dz = ds = 0 there.
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        float dot = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          dot = fmaf(acc[nt][2 * b], x[nt][2 * b], dot);
+          dot = fmaf(acc[nt][2 * b + 1], x[nt][2 * b + 1], dot);
+        }
+        dot += __shfl_xor_sync(~0u, dot, 1);
+        dot += __shfl_xor_sync(~0u, dot, 2);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          acc[nt][2 * b] = x[nt][2 * b] * (acc[nt][2 * b] - dot);
+          acc[nt][2 * b + 1] = x[nt][2 * b + 1] * (acc[nt][2 * b + 1] - dot);
+        }
+        if (part != nullptr && mt * 16 + g + 8 * b < nk) {
+          float* prow = part + ri[b] * N;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const int c = nt * 8 + 2 * t;
+            const float p0 = pold[b][nt][0] + acc[nt][2 * b];
+            const float p1 = pold[b][nt][1] + acc[nt][2 * b + 1];
+            if (FULL) {
+              __stcg(reinterpret_cast<float2*>(prow + c), make_float2(p0, p1));
+            } else {
+              if (c < N) __stcg(prow + c, p0);
+              if (c + 1 < N) __stcg(prow + c + 1, p1);
+            }
+          }
+        }
+        dot = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float2 a1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&a1p[nt][b]));
+          dot = fmaf(acc[nt][2 * b], a1.x, dot);
+          dot = fmaf(acc[nt][2 * b + 1], a1.y, dot);
+        }
+        dot += __shfl_xor_sync(~0u, dot, 1);
+        dot += __shfl_xor_sync(~0u, dot, 2);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float2 a1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&a1p[nt][b]));
+          acc[nt][2 * b] = a1.x * (acc[nt][2 * b] - dot);
+          acc[nt][2 * b + 1] = a1.y * (acc[nt][2 * b + 1] - dot);
+        }
+      }
+      // phase: dz+dbias+ds
+
+      // stage a2 and ds of these slots as bf16 hi + lo, by slot row
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int r = mt * 16 + g + 8 * b;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int o = r * kLS + nt * 8 + 2 * t;
+          uint32_t hi, lo;
+          split_bf16(x[nt][2 * b], x[nt][2 * b + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(sA2h + o) = hi;
+          *reinterpret_cast<uint32_t*>(sA2l + o) = lo;
+          split_bf16(acc[nt][2 * b], acc[nt][2 * b + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(sDsh + o) = hi;
+          *reinterpret_cast<uint32_t*>(sDsl + o) = lo;
+        }
+      }
+      // dq = scale * ds K: the ds accumulators are the A fragments (tiles
+      // 2kk and 2kk + 1 form k-block kk), split hi + lo; B = K by
+      // ldmatrix.trans.
+      float dacc[D / 8][4];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        dacc[n][0] = dacc[n][1] = dacc[n][2] = dacc[n][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (FULL || kk * 16 < N) {
+          uint32_t ah[4], al[4];
+          split_bf16(acc[2 * kk][0], acc[2 * kk][1], ah[0], al[0]);
+          split_bf16(acc[2 * kk][2], acc[2 * kk][3], ah[1], al[1]);
+          split_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1], ah[2], al[2]);
+          split_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+          for (int n = 0; n < D / 16; ++n) {
+            uint32_t bk[4];
+            ldsm_x4_t(smem_addr(sK + (kk * 16 + (lane & 15)) * LD + n * 16 +
+                                (lane >> 4) * 8),
+                      bk);
+            mma_bf16(dacc[2 * n], ah, bk[0], bk[1]);
+            mma_bf16(dacc[2 * n], al, bk[0], bk[1]);
+            mma_bf16(dacc[2 * n + 1], ah, bk[2], bk[3]);
+            mma_bf16(dacc[2 * n + 1], al, bk[2], bk[3]);
+          }
+        }
+      }
+      __syncwarp();  // every lane has read its S rows
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        if (mt * 16 + g + 8 * b < nk) {
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            *reinterpret_cast<__nv_bfloat162*>(sS + ri[b] * kLS + n * 8 +
+                                               2 * t) =
+                __floats2bfloat162_rn(dacc[n][2 * b] * scale,
+                                      dacc[n][2 * b + 1] * scale);
+          }
+        }
+      }
+      // phase: dq
+    }
+    pair_sync();
+
+    // dv = a2^T g_sel + sum(g_unsel) / N and dk = scale * ds^T q_sel, 16
+    // token rows j at a time, side by side (two independent sums): A = the
+    // staged [slot][j] tiles by ldmatrix.trans, B = the kept slots' g / q
+    // rows by ldmatrix.trans. Written into the v and k tiles, which no
+    // product needs any more.
+    const int JT = N16 >> 4;
+    for (int J = half; J < JT; J += 2) {
+      float vacc[D / 8][4], kacc[D / 8][4];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) vacc[n][e] = kacc[n][e] = 0.f;
+      }
+      for (int kk = 0; kk < KT; ++kk) {
+        const int o = (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLS +
+                      J * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t ah[4], al[4], dh[4], dl[4];
+        ldsm_x4_t(smem_addr(sA2h + o), ah);
+        ldsm_x4_t(smem_addr(sA2l + o), al);
+        ldsm_x4_t(smem_addr(sDsh + o), dh);
+        ldsm_x4_t(smem_addr(sDsl + o), dl);
+        const bf16* grow = sel_row(sG, kk * 16 + (lane & 15));
+        const bf16* qrow = sel_row(sQ, kk * 16 + (lane & 15));
+#pragma unroll
+        for (int n = 0; n < D / 16; ++n) {
+          uint32_t bg[4], bq[4];
+          ldsm_x4_t(smem_addr(grow + n * 16 + (lane >> 4) * 8), bg);
+          ldsm_x4_t(smem_addr(qrow + n * 16 + (lane >> 4) * 8), bq);
+          mma_bf16(vacc[2 * n], ah, bg[0], bg[1]);
+          mma_bf16(kacc[2 * n], dh, bq[0], bq[1]);
+          mma_bf16(vacc[2 * n + 1], ah, bg[2], bg[3]);
+          mma_bf16(kacc[2 * n + 1], dh, bq[2], bq[3]);
+          mma_bf16(vacc[2 * n], al, bg[0], bg[1]);
+          mma_bf16(kacc[2 * n], dl, bq[0], bq[1]);
+          mma_bf16(vacc[2 * n + 1], al, bg[2], bg[3]);
+          mma_bf16(kacc[2 * n + 1], dl, bq[2], bq[3]);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int j = J * 16 + g + 8 * hh;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const int c = n * 8 + 2 * t;
+          *reinterpret_cast<__nv_bfloat162*>(sV + j * LD + c) =
+              __floats2bfloat162_rn(vacc[n][2 * hh] + sGu[c],
+                                    vacc[n][2 * hh + 1] + sGu[c + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(sK + j * LD + c) =
+              __floats2bfloat162_rn(kacc[n][2 * hh] * scale,
+                                    kacc[n][2 * hh + 1] * scale);
+        }
+      }
+    }
+    pair_sync();
+    // phase: dv+dk
+
+    // store: 16 bytes at a time; dq is zero on the unselected rows.
+    for (int e = pl; e < N * (D / 8); e += 64) {
+      const int i = e / (D / 8), c = (e % (D / 8)) * 8;
+      const size_t o = base + static_cast<size_t>(i) * C + c;
+      *reinterpret_cast<uint4*>(dq + o) =
+          kept_row(keep_lo, keep_hi, i)
+              ? *reinterpret_cast<const uint4*>(sS + i * kLS + c)
+              : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dk + o) =
+          *reinterpret_cast<const uint4*>(sK + i * LD + c);
+      *reinterpret_cast<uint4*>(dv + o) =
+          *reinterpret_cast<const uint4*>(sV + i * LD + c);
+    }
+    pair_sync();  // the tiles are free for the next window-head
+    // phase: store
+  }
+}
+
+// dbias[e] = sum over slots s (in order) of part[s][e], e over H * N * N.
+__global__ void __launch_bounds__(256) dbias_reduce_kernel(
+    const float* __restrict__ part, float* __restrict__ dbias, int n_slots,
+    int n) {
+  const int e = blockIdx.x * 256 + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int b = 0; b < n_slots; ++b) s += part[static_cast<size_t>(b) * n + e];
+  dbias[e] = s;
+}
+
+// ---- launches -----------------------------------------------------------
+
+// One wave of CTAs at most: min(groups of window-heads, CTAs the card holds
+// at once / H) along x, H along y.
+int wave_ctas(const void* kernel, int threads, int smem, int B, int per_cta,
+              int H, int* grid_x) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int groups = (B + per_cta - 1) / per_cta;
+  const int wave = (max(per_sm, 1) * sms + H - 1) / H;
+  *grid_x = max(1, min(groups, wave));
+  return 0;
 }
 
 template <int D, bool FULL>
@@ -514,22 +1174,11 @@ int launch_n(const void* q, const void* k, const void* v, const int32_t* cnt,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // One wave of CTAs at most; each warp then walks its window-heads.
-  int dev = 0, sms = 0, per_sm = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads,
-                                                      Cfg<D>::kSmem);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int groups = (B + kWarps - 1) / kWarps;
-  const int wave = (max(per_sm, 1) * sms + H - 1) / H;
-  dim3 grid(max(1, min(groups, wave)), H);
-  kernel<<<grid, kThreads, Cfg<D>::kSmem, stream>>>(
+  int gx = 0;
+  const int err = wave_ctas(reinterpret_cast<const void*>(kernel), kThreads,
+                            Cfg<D>::kSmem, B, kWarps, H, &gx);
+  if (err != 0) return err;
+  kernel<<<dim3(gx, H), kThreads, Cfg<D>::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), cnt, bias, region, pad,
       static_cast<bf16*>(out), B, N, C, nW, u, scale);
@@ -548,6 +1197,71 @@ int launch(const void* q, const void* k, const void* v, const int32_t* cnt,
                                   C, H, nW, u, scale, stream);
 }
 
+struct BwdArgs {
+  const void *q, *k, *v, *g;
+  const int32_t* cnt;
+  const float* bias;
+  const int32_t *region, *pad;
+  void *dq, *dk, *dv;
+  float *db_part, *dbias;
+  int B, N, C, H, nW, u;
+  float scale;
+  int n_slots;
+};
+
+template <int D, bool FULL>
+int bwd_grid(int B, int H, int* grid_x) {
+  auto kernel = window_attention_tc_bwd_kernel<D, FULL>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BwdCfg<D>::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return wave_ctas(reinterpret_cast<const void*>(kernel),
+                   BwdCfg<D>::kThreads, BwdCfg<D>::kSmem, B,
+                   BwdCfg<D>::kPairs, H, grid_x);
+}
+
+template <int D, bool FULL>
+int launch_bwd_n(const BwdArgs& a, cudaStream_t stream) {
+  int gx = 0;
+  int err = bwd_grid<D, FULL>(a.B, a.H, &gx);
+  if (err != 0) return err;
+  if (a.bias != nullptr && gx * BwdCfg<D>::kPairs > a.n_slots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  window_attention_tc_bwd_kernel<D, FULL>
+      <<<dim3(gx, a.H), BwdCfg<D>::kThreads, BwdCfg<D>::kSmem, stream>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+          static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
+          a.cnt, a.bias, a.region, a.pad, static_cast<bf16*>(a.dq),
+          static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+          a.bias != nullptr ? a.db_part : nullptr, a.B, a.N, a.C, a.nW, a.u,
+          a.scale);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || a.bias == nullptr) return err;
+  const int n = a.H * a.N * a.N;
+  dbias_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      a.db_part, a.dbias, gx * BwdCfg<D>::kPairs, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd(const BwdArgs& a, cudaStream_t s) {
+  return a.N == kMaxN ? launch_bwd_n<D, true>(a, s)
+                      : launch_bwd_n<D, false>(a, s);
+}
+
+template <int D>
+int slots_of(int B, int N, int H) {
+  int gx = 0;
+  const int err = N == kMaxN ? bwd_grid<D, true>(B, H, &gx)
+                             : bwd_grid<D, false>(B, H, &gx);
+  return err != 0 ? -err : gx * BwdCfg<D>::kPairs;
+}
+
+bool takes(int N, int C, int H, int B, int nW) {
+  return H >= 1 && C % H == 0 && N >= 1 && N <= kMaxN && B >= 1 && nW >= 1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -562,9 +1276,7 @@ int window_attention_tc_fwd(const void* q, const void* k, const void* v,
                             const int32_t* region, const int32_t* pad,
                             void* out, int B, int N, int C, int H, int nW,
                             int u, float scale, void* stream) {
-  if (H < 1 || C % H != 0 || N < 1 || N > kMaxN || B < 1 || nW < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!takes(N, C, H, B, nW)) return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
                         reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) |
@@ -580,6 +1292,53 @@ int window_attention_tc_fwd(const void* q, const void* k, const void* v,
                                H, nW, u, scale, s);
     case 64: return launch<64>(q, k, v, cnt, bias, region, pad, out, B, N, C,
                                H, nW, u, scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dbias partial slots of one head that window_attention_tc_bwd fills
+// for these shapes (> 0), or minus a CUDA error code.
+int window_attention_tc_bwd_slots(int B, int N, int C, int H) {
+  if (!takes(N, C, H, B, 1)) return -static_cast<int>(cudaErrorInvalidValue);
+  switch (C / H) {
+    case 16: return slots_of<16>(B, N, H);
+    case 32: return slots_of<32>(B, N, H);
+    case 48: return slots_of<48>(B, N, H);
+    case 64: return slots_of<64>(B, N, H);
+  }
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Backward of window_attention_tc_fwd for the output gradient g: q/k/v/g
+// and dq/dk/dv bf16 [B * N, C] as there; u <= 32 kept rows. With a bias,
+// db_part is float32 scratch [n_slots, H, N, N] (n_slots from
+// window_attention_tc_bwd_slots) and dbias the float32 output [H, N, N];
+// both are ignored without one. Returns cudaGetLastError() after the last
+// launch, or an error code for a shape the kernel does not take.
+int window_attention_tc_bwd(const void* q, const void* k, const void* v,
+                            const void* g, const int32_t* cnt,
+                            const float* bias, const int32_t* region,
+                            const int32_t* pad, void* dq, void* dk, void* dv,
+                            float* db_part, float* dbias, int B, int N, int C,
+                            int H, int nW, int u, float scale, int n_slots,
+                            void* stream) {
+  if (!takes(N, C, H, B, nW) || u < 1 || u > kMaxKept) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uintptr_t any =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g) |
+      reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+      reinterpret_cast<uintptr_t>(dv);
+  if (any % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  const BwdArgs a{q, k, v, g, cnt, bias, region, pad, dq, dk, dv, db_part,
+                  dbias, B, N, C, H, nW, u, scale, n_slots};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C / H) {
+    case 16: return launch_bwd<16>(a, s);
+    case 32: return launch_bwd<32>(a, s);
+    case 48: return launch_bwd<48>(a, s);
+    case 64: return launch_bwd<64>(a, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,8 +19,15 @@ Two forward kernels, chosen by shape and dtype alone (`fwd_kernel_for`):
 - "cuda_core", `window_attention_fwd_kernel` of `csrc/window_attention.cu`:
   everything else (float32, K3's numerics, larger windows or heads);
   counted in `.launches` of its entry point.
-Both select exactly the rows the twin selects (see the sources' notes). The
-backward has one kernel, in `csrc/window_attention.cu`.
+Both select exactly the rows the twin selects (see the sources' notes).
+Two backward kernels, chosen the same way (`bwd_kernel_for`):
+- "tc", `window_attention_tc_bwd_kernel` of `csrc/window_attention_tc.cu`:
+  the forward's shapes with u <= 32 kept rows (every shape of the default
+  configuration); it runs the forward's selection code, then only the kept
+  rows' products on the bf16 tensor cores; counted in
+  `window_attention_bwd.launches_tc`;
+- "cuda_core", `window_attention_bwd_kernel` of `csrc/window_attention.cu`:
+  everything else; counted in `.launches`.
 
 K3 are the older TPU kernels of the same chain, which round at other points
 (see `ops.probsparse`); the same CUDA kernels run them with another
@@ -65,12 +72,16 @@ _SIGNATURES = {
 }
 _TC_SIGNATURES = {
     "window_attention_tc_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "window_attention_tc_bwd": [_P] * 13 + [_I] * 6 + [_F, _I, _P],
+    "window_attention_tc_bwd_slots": [_I] * 4,
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NUMERICS = {"v4": 0, "v1": 1, "v23": 2}
-# What the tensor-core forward takes (csrc/window_attention_tc.cu).
+# What the tensor-core kernels take (csrc/window_attention_tc.cu); the
+# backward also needs u <= TC_BWD_MAX_KEPT.
 TC_MAX_N = 64
 TC_HEAD_DIMS = (16, 32, 48, 64)
+TC_BWD_MAX_KEPT = 32
 # Backward CTAs per head count share the windows, each writing one dbias
 # partial: 4 per SM (two are resident at N=64, D=32). A CUDA-core forward
 # whose tiles live in a workspace has as many CTAs walking its windows.
@@ -84,6 +95,17 @@ def fwd_kernel_for(dtype: torch.dtype, numerics: str, n: int,
     "cuda_core" (everything else, K3's head-major variants among it)."""
     if (dtype == torch.bfloat16 and numerics == "v4" and n <= TC_MAX_N
             and head_dim in TC_HEAD_DIMS):
+        return "tc"
+    return "cuda_core"
+
+
+def bwd_kernel_for(dtype: torch.dtype, numerics: str, n: int,
+                   head_dim: int, factor: int = 5) -> str:
+    """Which backward kernel a CUDA call launches: "tc" (the tensor-core
+    kernel: the forward's shapes, with u = probsparse_u(n, factor) <= 32
+    kept rows) or "cuda_core" (everything else, K3-v3 among it)."""
+    if (fwd_kernel_for(dtype, numerics, n, head_dim) == "tc"
+            and ps_ops.probsparse_u(n, factor) <= TC_BWD_MAX_KEPT):
         return "tc"
     return "cuda_core"
 
@@ -249,6 +271,27 @@ def _attention_bwd(entry, numerics, q, k, v, g, *, num_heads, sample_idx,
     if cnt is None:
         cnt = count_matrix(sample_idx, N, dev)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    u = ps_ops.probsparse_u(N, factor)
+    if bwd_kernel_for(q.dtype, numerics, N, C // H, factor) == "tc":
+        lib = _build.load_library("window_attention_tc", _TC_SIGNATURES)
+        with torch.cuda.device(dev):
+            # the dbias partials the kernel fills; minus a CUDA error
+            slots = lib.window_attention_tc_bwd_slots(B, N, C, H)
+            _build.check(lib, max(0, -slots), "window_attention_tc_bwd_slots")
+            db_part = dbias = None
+            if bias is not None:
+                db_part = torch.empty(slots, H, N, N, device=dev,
+                                      dtype=torch.float32)
+                dbias = torch.empty(H, N, N, device=dev, dtype=torch.float32)
+            err = lib.window_attention_tc_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                cnt.data_ptr(), _ptr(bias), _ptr(region), _ptr(pad),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(db_part),
+                _ptr(dbias), B, N, C, H, nW, u, float(scale), slots,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, err, "window_attention_tc_bwd")
+        entry.launches_tc += 1
+        return dq, dk, dv, dbias
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_blocks = max(1, min(B, BWD_CTAS_PER_SM * sms // H))
     db_part = dbias = None
@@ -265,8 +308,7 @@ def _attention_bwd(entry, numerics, q, k, v, g, *, num_heads, sample_idx,
             k.data_ptr(), v.data_ptr(), g.data_ptr(), cnt.data_ptr(),
             _ptr(bias), _ptr(region), _ptr(pad), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _ptr(db_part), _ptr(dbias), B, N,
-            C, H, nW, ps_ops.probsparse_u(N, factor), float(scale), n_blocks,
-            _ptr(ws), stream)
+            C, H, nW, u, float(scale), n_blocks, _ptr(ws), stream)
     _build.check(lib, err, f"window_attention_bwd ({numerics})")
     entry.launches += 1
     return dq, dk, dv, dbias
@@ -282,12 +324,13 @@ def window_attention_fwd(q, k, v, **kw):
 
 
 def window_attention_bwd(q, k, v, g, **kw):
-    """(dq, dk, dv, dbias) of K1 for the output gradient g: the K1 backward
+    """(dq, dk, dv, dbias) of K1 for the output gradient g: a K1 backward
     kernel on CUDA, `probsparse_attention_bnc_bwd` on the CPU. dbias is
     float32 [H, N, N], summed over windows, or None without a bias. `cnt`
-    as for the forward. Counts its calls on CUDA in `.launches`: each call
-    launches the backward kernel and, with a bias, the dbias reduction
-    kernel after it."""
+    as for the forward. Counts its calls on CUDA, the tensor-core kernel's
+    in `.launches_tc` and the CUDA-core kernel's in `.launches`
+    (`bwd_kernel_for` says which runs): each call launches the backward
+    kernel and, with a bias, the dbias reduction kernel after it."""
     return _attention_bwd(window_attention_bwd, "v4", q, k, v, g, **kw)
 
 
@@ -358,6 +401,7 @@ for _entry in (window_attention_fwd, window_attention_bwd,
                probsparse_window_attention_v2):
     _entry.launches = 0
 window_attention_fwd.launches_tc = 0
+window_attention_bwd.launches_tc = 0
 
 _VERSIONS = {4: (window_attention_fwd, window_attention_bwd),
              3: (window_attention_v3_fwd, window_attention_v3_bwd)}

@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
-"""Where K1's forward spends its time, phase by phase, on one NVIDIA GPU.
+"""Where K1 spends its time, phase by phase, on one NVIDIA GPU.
 
-    python3 scripts/k1_phases.py [--root DIR] [--kernel cuda_core|tc]
+    python3 scripts/k1_phases.py [--root DIR]
+        [--kernel cuda_core|tc|cuda_core_bwd|tc_bwd]
 
-Builds an instrumented copy of one K1 forward source of the port found
-under --root (default: this repository), in a temporary directory; the
-source itself is not touched. Thread 0 of every CTA reads clock64() at the
-end of each phase and adds the cycles since the last one to a per-phase
-counter. Runs the K1 forward once at four stage shapes of the serving frame
-(bf16, N = 64, head dim 32, seeded inputs, rel-pos bias; enc0 and dec3
-shifted) and prints the cycles per CTA of each phase.
+Builds an instrumented copy of one K1 source of the port found under
+--root (default: this repository), in a temporary directory; the source
+itself is not touched. Thread 0 of every CTA reads clock64() at the end of
+each phase and adds the cycles since the last one to a per-phase counter.
+The forward kernels run once at four stage shapes of the serving frame,
+the backward kernels at four stage shapes of a train step (batch 32 ×
+128²) (bf16, N = 64, seeded inputs, rel-pos bias; enc0 and dec3 shifted);
+prints the cycles per CTA of each phase.
 
 --kernel cuda_core: `window_attention_fwd_kernel` of
   csrc/window_attention.cu (one CTA per window-head); its phases end at
-  its barriers: load (q/k/v and the count matrix), QK^T (float64, scalar),
-  row chain (one thread per row), select (rank), PV / mean(V). bf16 calls
-  reach it only in a tree without the tensor-core kernel (the parent of
-  that kernel's commit, given by --root); elsewhere its counters stay 0.
+  its barriers: stage (the count matrix), load (q/k/v), QK^T (float64,
+  scalar), row chain (one thread per row), select (rank), PV / mean(V).
+  bf16 calls reach it only in a tree without the tensor-core kernel (the
+  parent of that kernel's commit, given by --root); elsewhere its counters
+  stay 0.
 --kernel tc: `window_attention_tc_kernel` of csrc/window_attention_tc.cu
   (a warp per window-head, several per CTA); its phases end at the lines
   marked `// phase: <name>`, as warp 0 of each CTA sees them.
+--kernel cuda_core_bwd: `window_attention_bwd_kernel` of
+  csrc/window_attention.cu (a CTA per window group and head, walking its
+  windows); phases end at its barriers. The first phase ("dq/dk") is the
+  previous window's dq and dk (the first window's: the count staging), the
+  last ("end") the last window's and the dbias partial's store. bf16 calls
+  reach it only in a tree without the tensor-core backward.
+--kernel tc_bwd: `window_attention_tc_bwd_kernel` of
+  csrc/window_attention_tc.cu, by its `// phase:` lines as for tc.
 The counters and clock reads slow the kernel somewhat; shares are what they
 show. Imports nothing of JAX.
 """
@@ -40,7 +51,24 @@ STAGES = [("enc0", 33280, 32, 1, (1280, 1664)),
           ("enc1", 8320, 64, 2, None),
           ("bottleneck", 130, 512, 16, None),
           ("dec3", 33280, 64, 2, (1280, 1664))]
-CUDA_CORE_PHASES = ["load", "QK^T", "row chain", "select", "PV/mean"]
+BWD_STAGES = [("enc0", 8192, 32, 1, (128, 128)),
+              ("enc1", 2048, 64, 2, None),
+              ("bottleneck", 32, 512, 16, None),
+              ("dec3", 8192, 64, 2, (128, 128))]
+# kernel -> (source, __global__ name, phase names where the phases end at
+# barriers (None: at `// phase:` lines))
+KERNELS = {
+    "cuda_core": ("window_attention", "window_attention_fwd_kernel",
+                  ["stage", "load", "QK^T", "row chain", "select",
+                   "PV/mean"]),
+    "tc": ("window_attention_tc", "window_attention_tc_kernel", None),
+    "cuda_core_bwd": ("window_attention", "window_attention_bwd_kernel",
+                      ["dq/dk", "load", "QK^T", "row chain", "select",
+                       "g_unsel", "g_sel", "dv+da2", "dz", "dbias", "ds",
+                       "end"]),
+    "tc_bwd": ("window_attention_tc", "window_attention_tc_bwd_kernel",
+               None),
+}
 COUNTERS = """
 __device__ unsigned long long g_phase[16];
 #define PHASE(i) do { if (threadIdx.x == 0) { long long t_ = clock64(); \\
@@ -71,26 +99,25 @@ def _body(src: str, name: str):
 
 def instrument(src: str, kernel: str):
     """The source with phase counters; returns (source, phase names)."""
-    name = ("window_attention_fwd_kernel" if kernel == "cuda_core"
-            else "window_attention_tc_kernel")
+    _, name, fixed = KERNELS[kernel]
     a, b = _body(src, name)
     body = src[a:b]
     names = []
-    if kernel == "cuda_core":
+    if fixed:
         pat = re.compile(r"(__syncthreads\(\);[^\n]*\n)")
     else:
         pat = re.compile(r"(// phase: ([^\n]+)\n)")
 
     def mark(m):
-        names.append(m.group(2).strip() if kernel == "tc"
-                     else f"phase {len(names)}")
+        names.append(f"phase {len(names)}" if fixed
+                     else m.group(2).strip())
         return m.group(1) + f"  PHASE({len(names) - 1});\n"
 
     body = pat.sub(mark, body)
     tail = len(names)
     names.append("end")
-    if kernel == "cuda_core" and len(names) == len(CUDA_CORE_PHASES):
-        names = list(CUDA_CORE_PHASES)
+    if fixed and len(names) == len(fixed):
+        names = list(fixed)
     body = ("\n  long long t_prev = clock64();\n" + body
             + f"  PHASE({tail});\n  if (threadIdx.x == 0) "
             "atomicAdd(&g_phase[15], 1ull);\n")
@@ -102,7 +129,7 @@ def instrument(src: str, kernel: str):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--kernel", choices=("cuda_core", "tc"), default="tc")
+    ap.add_argument("--kernel", choices=tuple(KERNELS), default="tc")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -115,10 +142,10 @@ def main() -> None:
     from dehaze_tpu_torch.ops.kernels import _build
     from dehaze_tpu_torch.ops.kernels import window_attention as K1
 
-    lib_name = ("window_attention" if args.kernel == "cuda_core"
-                else "window_attention_tc")
-    sigs = (K1._SIGNATURES if args.kernel == "cuda_core"
+    lib_name = KERNELS[args.kernel][0]
+    sigs = (K1._SIGNATURES if lib_name == "window_attention"
             else K1._TC_SIGNATURES)
+    bwd = args.kernel.endswith("_bwd")
     with tempfile.TemporaryDirectory() as tmp:
         cu, so = os.path.join(tmp, "k1.cu"), os.path.join(tmp, "k1.so")
         with open(_build.CSRC / f"{lib_name}.cu") as f:
@@ -141,9 +168,10 @@ def main() -> None:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1237)
-    print(f"K1 forward, {args.kernel} kernel, from {lib_name}.cu under "
-          f"{os.path.abspath(args.root)}", flush=True)
-    for name, B, C, heads, reg_hw in STAGES:
+    print(f"K1 {'backward' if bwd else 'forward'}, {args.kernel} kernel, "
+          f"from {lib_name}.cu under {os.path.abspath(args.root)}",
+          flush=True)
+    for name, B, C, heads, reg_hw in BWD_STAGES if bwd else STAGES:
         N = 64
         si = torch.from_numpy(np.random.default_rng(1234).integers(
             0, N, size=(N, ps_ops.probsparse_u(N))).astype(np.int32))
@@ -154,16 +182,23 @@ def main() -> None:
                 reg_hw[0], reg_hw[1], 8, 4)).to(dev)
         q, k, v = (torch.randn(B, N, C, generator=g, device=dev).mul_(0.5)
                    .bfloat16() for _ in range(3))
+        go = torch.randn(B, N, C, generator=g, device=dev).bfloat16()
         kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
                   sw_region=region,
                   num_windows=1 if region is None else region.shape[0])
-        K1.window_attention_fwd(q, k, v, **kw)
+
+        def run():
+            if bwd:
+                return K1.window_attention_bwd(q, k, v, go, **kw)
+            return K1.window_attention_fwd(q, k, v, **kw)
+
+        run()
         torch.cuda.synchronize()
         lib.k1_phases(None, 1)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        K1.window_attention_fwd(q, k, v, **kw)
+        run()
         end.record()
         torch.cuda.synchronize()
         out = (ctypes.c_ulonglong * 16)()

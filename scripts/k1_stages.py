@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Time K1's forward (ProbSparse window attention) at the nine stages of one
-serving frame, on one NVIDIA GPU, from the port found under --root.
+"""Time K1 (ProbSparse window attention) at the nine stages of one serving
+frame (forward) or of one train step (backward, --bwd), on one NVIDIA GPU,
+from the port found under --root.
 
-    python3 scripts/k1_stages.py [--root DIR] [--reps N] [--twin]
+    python3 scripts/k1_stages.py [--root DIR] [--reps N] [--twin] [--bwd]
 
-The shapes are Uformer-32's on the rect canvas 1280×1664: at each stage one
-unshifted and one shifted block (region ids of the stage's map), N = 64,
-head dim 32, bf16, q/k/v at std 0.5, a rel-pos bias, seeded inputs. These
-are the 18 K1 forward launches of a serving frame. --root names a checkout
-holding `dehaze_tpu_torch/` (default: this repository), so that two trees'
-kernels are timed on the same card in one call. Prints one line per stage,
-then a JSON line with each launch's kernel ms (CUDA events, mean of --reps
-calls after a warm-up) and its bound and, with --twin, the plain twin's ms
-and the largest |kernel - twin|. Imports nothing of JAX.
+The shapes are Uformer-32's, N = 64, head dim 32, bf16, q/k/v at std 0.5
+(the output gradient at std 1), a rel-pos bias, seeded inputs: at each
+stage one unshifted and one shifted block (region ids of the stage's map;
+the 8×8 bottleneck of a 128² crop does not shift). Forward: the rect
+canvas 1280×1664, the 18 K1 forward launches of a serving frame. --bwd:
+batch 32 × 128², the 18 K1 backward calls of a train step. --root names a
+checkout holding `dehaze_tpu_torch/` (default: this repository), so that
+two trees' kernels are timed on the same card in one call. Prints one line
+per stage, then a JSON line with each call's kernel ms (CUDA events, mean
+of --reps calls after a warm-up) and its bound and, with --twin, the plain
+twin's ms and the largest |kernel - twin| (over dq, dk and dv in the
+backward, relative to each tensor's largest |twin|). The sample-count
+matrix is built once, as the model builds it once per forward. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +39,16 @@ STAGES = [("enc0", 33280, 32, 1, (1280, 1664)),
           ("dec1", 2080, 256, 8, (320, 416)),
           ("dec2", 8320, 128, 4, (640, 832)),
           ("dec3", 33280, 64, 2, (1280, 1664))]
+# a train step at batch 32 × 128²
+BWD_STAGES = [("enc0", 8192, 32, 1, (128, 128)),
+              ("enc1", 2048, 64, 2, (64, 64)),
+              ("enc2", 512, 128, 4, (32, 32)),
+              ("enc3", 128, 256, 8, (16, 16)),
+              ("bottleneck", 32, 512, 16, None),
+              ("dec0", 128, 512, 16, (16, 16)),
+              ("dec1", 512, 256, 8, (32, 32)),
+              ("dec2", 2048, 128, 4, (64, 64)),
+              ("dec3", 8192, 64, 2, (128, 128))]
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
 
 
@@ -56,6 +72,7 @@ def main() -> None:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--twin", action="store_true")
+    ap.add_argument("--bwd", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -66,57 +83,90 @@ def main() -> None:
     from dehaze_tpu_torch.ops import probsparse as ps_ops
     from dehaze_tpu_torch.ops import window as win_ops
     from dehaze_tpu_torch.ops.kernels.window_attention import (
-        window_attention_fwd)
+        count_matrix, window_attention_bwd, window_attention_fwd)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1238)
     N, u = 64, ps_ops.probsparse_u(64)
     si = torch.from_numpy(np.random.default_rng(1234).integers(
         0, N, size=(N, u)).astype(np.int32))
+    # the sample counts, built once as the model's forward builds them for
+    # its kernel calls (and not on the host for every timed call)
+    cnt = count_matrix(si, N, dev)
     rows = []
-    for name, B, C, heads, (H, W) in STAGES:
+    for name, B, C, heads, hw in BWD_STAGES if args.bwd else STAGES:
         bias = torch.randn(heads, N, N, generator=g, device=dev) * 0.1
         q, k, v = (torch.randn(B, N, C, generator=g, device=dev).mul_(0.5)
                    .bfloat16() for _ in range(3))
-        for region in (None, torch.from_numpy(win_ops.shift_region_ids(
-                H, W, 8, 4)).to(dev)):
+        go = (torch.randn(B, N, C, generator=g, device=dev).bfloat16()
+              if args.bwd else None)
+        regions = (None, None if hw is None else torch.from_numpy(
+            win_ops.shift_region_ids(hw[0], hw[1], 8, 4)).to(dev))
+        for region in regions:
             kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
                       sw_region=region)
             nW = 1 if region is None else region.shape[0]
-            nbytes = (4 * q.numel() * 2 + bias.numel() * 4 + N * N * 4
-                      + (0 if region is None else nW * N * 4))
+            if args.bwd:
+                def kern():
+                    return window_attention_bwd(q, k, v, go, num_windows=nW,
+                                                cnt=cnt, **kw)
+
+                def twin():
+                    return ps_ops.probsparse_attention_bnc_bwd(q, k, v, go,
+                                                               **kw)
+            else:
+                def kern():
+                    return window_attention_fwd(q, k, v, num_windows=nW,
+                                                cnt=cnt, **kw)
+
+                def twin():
+                    return ps_ops.probsparse_attention_bnc(q, k, v, **kw)
+            # bytes: q/k/v and out (q/k/v/g and dq/dk/dv, the bias read and
+            # dbias written in a backward), the counts, the region ids;
+            # operations: S and the kept rows' products (PV; dv, da2, dq
+            # and dk in a backward)
+            nbytes = ((7 if args.bwd else 4) * q.numel() * 2
+                      + (2 if args.bwd else 1) * bias.numel() * 4
+                      + N * N * 4 + (0 if region is None else nW * N * 4))
             flops = B * heads * (2 * N * N * (C // heads)
-                                 + 2 * u * N * (C // heads))
+                                 + (8 if args.bwd else 2) * u * N
+                                 * (C // heads))
             b_bytes = nbytes / HBM_BPS * 1e3
             b_ops = flops / BF16_FLOPS * 1e3
             row = {"stage": name, "shifted": region is not None,
                    "windows": B, "C": C, "heads": heads,
-                   "ms": cuda_ms(lambda: window_attention_fwd(
-                       q, k, v, num_windows=nW, **kw), args.reps),
+                   "ms": cuda_ms(kern, args.reps),
                    "bound_ms": max(b_bytes, b_ops),
                    "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
             if args.twin:
-                got = window_attention_fwd(q, k, v, num_windows=nW, **kw)
-                want = ps_ops.probsparse_attention_bnc(q, k, v, **kw)
-                row["max_abs_err"] = float((got.float() - want.float())
-                                           .abs().max())
-                row["plain_ms"] = cuda_ms(
-                    lambda: ps_ops.probsparse_attention_bnc(q, k, v, **kw), 2)
+                got, want = kern(), twin()
+                if args.bwd:
+                    row["max_rel_err"] = max(
+                        float((a.float() - b.float()).abs().max()
+                              / b.float().abs().max())
+                        for a, b in zip(got[:3], want[:3]))
+                else:
+                    row["max_abs_err"] = float((got.float() - want.float())
+                                               .abs().max())
+                row["plain_ms"] = cuda_ms(twin, 2)
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             rows.append(row)
+            err = ("" if not args.twin else
+                   f"; twin {row['plain_ms']:.3f} ms, max|d| "
+                   + (f"{row['max_rel_err']:.3e} of max|ref|" if args.bwd
+                      else f"{row['max_abs_err']:.3e}"))
             print(f"{name} B_={B} C={C} h={heads} shifted="
                   f"{region is not None}: {row['ms']:.4f} ms, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                  f"{row['share_of_bound']:.2%} of it"
-                  + (f"; twin {row['plain_ms']:.3f} ms, max|d| "
-                     f"{row['max_abs_err']:.3e}" if args.twin else ""),
-                  flush=True)
-        del q, k, v
+                  f"{row['share_of_bound']:.2%} of it" + err, flush=True)
+        del q, k, v, go
     total = sum(r["ms"] for r in rows)
-    print(f"18 K1 forward launches of a serving frame: {total:.3f} ms",
-          flush=True)
+    what = ("backward calls of a train step" if args.bwd
+            else "forward launches of a serving frame")
+    print(f"18 K1 {what}: {total:.3f} ms", flush=True)
     print(json.dumps({"root": os.path.abspath(args.root),
-                      "frame_ms": total, "stages": rows}), flush=True)
+                      "step_ms" if args.bwd else "frame_ms": total,
+                      "stages": rows}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1's tensor-core and CUDA-core forwards and its
-backward, with and without padding flags, at every window size and head
+"""The port's CUDA kernels (K1's tensor-core and CUDA-core forwards and
+backwards, with and without padding flags, at every window size and head
 width; the K3 variants v1, v2 and v3; K2 at any stage height) against their
 plain twins, on an NVIDIA GPU.
 
@@ -16,7 +16,8 @@ within tol·max|ref| with tol 1e-5 (f32) and 2^-7 (bf16, one ulp at the
 tensor's largest magnitude); K2 |Δ| <= tol·(1 + |ref|) with tol 1e-4 (f32)
 and 1e-2 (bf16). In bf16 each K1 and K3 kernel is also held to its own
 rounding points (nearer its own twin than the other numerics' twins). The
-tensor-core K1 forward selects exactly the twin's rows: 0 flipped rows.
+tensor-core K1 forward and backward select exactly the twin's rows: 0
+flipped rows.
 """
 
 import numpy as np
@@ -30,9 +31,10 @@ from dehaze_tpu_torch.ops import window as TW
 from dehaze_tpu_torch.ops.kernels.leff import (kernel_smem_bytes, leff_fused,
                                                leff_reference, plan_tile)
 from dehaze_tpu_torch.ops.kernels.window_attention import (
-    fused_window_attention, fwd_kernel_for, probsparse_window_attention_v1,
-    probsparse_window_attention_v2, window_attention_bwd,
-    window_attention_fwd, window_attention_v3_bwd, window_attention_v3_fwd)
+    bwd_kernel_for, fused_window_attention, fwd_kernel_for,
+    probsparse_window_attention_v1, probsparse_window_attention_v2,
+    window_attention_bwd, window_attention_fwd, window_attention_v3_bwd,
+    window_attention_v3_fwd)
 
 K1_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1.6e-2, 1e-3)}
 K1B_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
@@ -92,6 +94,13 @@ def _fwd_count(dtype, N, D):
     attr = ("launches_tc" if fwd_kernel_for(dtype, "v4", N, D) == "tc"
             else "launches")
     return lambda: getattr(window_attention_fwd, attr)
+
+
+def _bwd_count(dtype, N, D):
+    """The launch counter of the backward kernel that a K1 call takes."""
+    attr = ("launches_tc" if bwd_kernel_for(dtype, "v4", N, D) == "tc"
+            else "launches")
+    return lambda: getattr(window_attention_bwd, attr)
 
 
 def _flipped_rows(got, q, k, v, kw):
@@ -222,9 +231,10 @@ def test_k1_backward_matches_twin(cuda, heads, shifted, bias, dtype):
                                    bias=bias)
     g = torch.from_numpy(_rng(heads).normal(size=q.shape).astype(
         np.float32)).to(cuda, dtype)
-    before = window_attention_bwd.launches
+    count = _bwd_count(dtype, 64, 32)
+    before = count()
     got = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
-    assert window_attention_bwd.launches == before + 1
+    assert count() == before + 1
     want = TPS.probsparse_attention_bnc_bwd(q, k, v, g, **kw)
     torch.cuda.synchronize()
     tol = K1B_TOL[dtype]
@@ -269,6 +279,129 @@ def test_k1_backward_is_deterministic(cuda):
     b = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def _bwd_flipped_rows(dq, want_dq, q, k, v, kw):
+    """Rows where the backward's kept rows differ from the twin's
+    selection, as dq shows them: a kernel's dq is exactly zero on the rows
+    it did not keep. So a flip is a nonzero dq on a row the twin does not
+    keep, or a zero dq on a kept row where the twin's dq is far from zero
+    (above 1e-30; a kept row whose softmax saturates under the -100 masks
+    has a dq that rounds to zero in the twin too)."""
+    heads = kw["num_heads"]
+    mask = TPS.attention_mask(kw.get("sw_region"), kw.get("pad_flag"))
+    row_mask = TPS._chain_bhnd(
+        TPS._heads(q, heads), TPS._heads(k, heads), TPS._heads(v, heads),
+        kw["sample_idx"], kw.get("rel_pos_bias"), mask, 5,
+        TPS._scale(q, heads, None), "v4")[3]                  # [B, H, N]
+    zero = (TPS._heads(dq, heads) == 0).all(-1)
+    clear = TPS._heads(want_dq.float(), heads).abs().amax(-1) > 1e-30
+    return int((~row_mask & ~zero).sum() + (row_mask & clear & zero).sum())
+
+
+# (heads, win, D, shifted, pad, bias): N 16, 49 and 64 at every head dim,
+# with and without bias, region ids and pad flags; and N = 4
+_TC_BWD_CASES = [
+    (1, 8, 32, True, False, True), (2, 8, 64, True, True, True),
+    (4, 8, 16, False, False, False), (1, 8, 48, False, True, True),
+    (2, 7, 32, False, False, True), (1, 7, 64, False, True, False),
+    (3, 7, 16, False, False, True), (1, 7, 48, False, False, True),
+    (2, 4, 32, True, False, True), (1, 4, 64, False, True, True),
+    (4, 4, 16, True, True, False), (2, 4, 48, False, False, True),
+    (8, 2, 32, False, False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("std", [0.5, 2.0])
+@pytest.mark.parametrize("heads,win,D,shifted,pad,bias", _TC_BWD_CASES)
+def test_k1_tc_backward_matches_twin(cuda, heads, win, D, shifted, pad, bias,
+                                     std):
+    """The tensor-core backward (bf16) against the twin, q and k at std 0.5
+    and 2, over 64 windows: K1B_TOL per gradient tensor, and it keeps
+    exactly the twin's rows (0 flipped)."""
+    q, k, v, kw, nW = _attn_inputs(cuda, heads, win, D, shifted,
+                                   torch.bfloat16, seed=60 + heads + win + D,
+                                   bias=bias, pad=pad)
+    reps = 64 // q.shape[0]
+    q, k, v = (t.repeat(reps, 1, 1) for t in (q, k, v))
+    q = (q.float() * (std / 0.5) + torch.randn_like(q.float()) * 0.01
+         ).bfloat16()
+    k = (k.float() * (std / 0.5)).bfloat16()
+    g = torch.from_numpy(_rng(win + D).normal(size=q.shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    assert bwd_kernel_for(torch.bfloat16, "v4", win * win, D) == "tc"
+    before = (window_attention_bwd.launches_tc, window_attention_bwd.launches)
+    got = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
+    assert (window_attention_bwd.launches_tc - before[0],
+            window_attention_bwd.launches - before[1]) == (1, 0)
+    want = TPS.probsparse_attention_bnc_bwd(q, k, v, g, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, torch.bfloat16, q.shape, bias)
+    assert _bwd_flipped_rows(got[0], want[0], q, k, v, kw) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 37, 130])
+def test_k1_tc_backward_ragged_window_counts(cuda, B):
+    """Window counts below the warps of a CTA and off its multiple: every
+    warp's dbias slot is zeroed, the idle ones' too."""
+    q, k, v, kw, _ = _attn_inputs(cuda, 2, 8, 32, False, torch.bfloat16,
+                                  seed=70 + B)
+    q, k, v = (t.repeat(B, 1, 1)[:B] for t in (q, k, v))
+    q = q + (torch.randn_like(q.float()) * 0.05).bfloat16()
+    g = torch.randn_like(q.float()).bfloat16()
+    got = window_attention_bwd(q, k, v, g, **kw)
+    want = TPS.probsparse_attention_bnc_bwd(q, k, v, g, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, torch.bfloat16, q.shape, True)
+    assert _bwd_flipped_rows(got[0], want[0], q, k, v, kw) == 0
+
+
+@pytest.mark.cuda
+def test_k1_tc_backward_is_deterministic(cuda):
+    """The tensor-core backward's dbias (per-warp partials summed in slot
+    order) and gradients agree bit for bit between two runs."""
+    q, k, v, kw, nW = _attn_inputs(cuda, 2, 8, 32, True, torch.bfloat16, 5)
+    q, k, v = (t.repeat(256, 1, 1) for t in (q, k, v))
+    q = q + (torch.randn_like(q.float()) * 0.05).bfloat16()
+    g = torch.randn_like(q.float()).bfloat16()
+    before = window_attention_bwd.launches_tc
+    a = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
+    b = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
+    assert window_attention_bwd.launches_tc == before + 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_bwd_kernel_for_routes_by_shape_and_dtype():
+    """bf16, K1's numerics, N <= 64, head dim 16/32/48/64 and u <= 32 go
+    to the tensor-core backward; f32, K3-v3, N = 256, head dim 96 and
+    u > 32 (a larger ProbSparse factor) to the CUDA-core one."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for n, d in ((64, 32), (64, 16), (49, 48), (16, 64), (4, 32)):
+        assert bwd_kernel_for(bf, "v4", n, d) == "tc", (n, d)
+    for args in ((f32, "v4", 64, 32), (bf, "v23", 64, 32),
+                 (bf, "v4", 256, 32), (bf, "v4", 64, 96),
+                 (bf, "v4", 64, 128)):
+        assert bwd_kernel_for(*args) == "cuda_core", args
+    assert TPS.probsparse_u(64, 7) > 32
+    assert bwd_kernel_for(bf, "v4", 64, 32, factor=7) == "cuda_core"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("win,D,dtype", [(8, 32, torch.float32),
+                                         (16, 32, torch.bfloat16),
+                                         (8, 96, torch.bfloat16)])
+def test_k1_backward_routes_to_the_cuda_core_kernel(cuda, win, D, dtype):
+    q, k, v, kw, nW = _attn_inputs(cuda, 1, win, D, True, dtype, seed=3)
+    g = torch.randn_like(q.float()).to(dtype)
+    before = (window_attention_bwd.launches_tc, window_attention_bwd.launches)
+    got = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)
+    assert (window_attention_bwd.launches_tc - before[0],
+            window_attention_bwd.launches - before[1]) == (0, 1)
+    want = TPS.probsparse_attention_bnc_bwd(q, k, v, g, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, dtype, q.shape, True)
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""The port's serving path on the CPU: the stdlib PNG codec against PIL,
+"""The port's serving path on the CPU: the PNG codec against PIL,
 the HTTP server in-process and as a CLI subprocess, and the rule that the
 port imports neither jax nor the JAX package."""
 
@@ -112,16 +112,18 @@ def test_png_encode_round_trips_through_pil():
                                       np.uint8))
 
 
+# the start of a baseline JPEG (SOI, then an APP0/JFIF marker segment)
+JPEG_HEAD = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01"
+
+
 def test_png_rejects_unsupported():
-    with pytest.raises(ValueError):
+    """What stays refused: JPEG (named), payloads that are no image, and
+    encoding anything but PNG. (16-bit and the other PNG formats decode:
+    tests/test_torch_port_images.py.)"""
+    with pytest.raises(ValueError, match="not a PNG or BMP"):
         decode_img(b"not an image")
-    sixteen_bit = (b"\x89PNG\r\n\x1a\n"
-                   + _chunk(b"IHDR", struct.pack(">IIBBBBB", 1, 1, 16, 2, 0,
-                                                 0, 0))
-                   + _chunk(b"IDAT", zlib.compress(b"\x00" + b"\x00" * 6))
-                   + _chunk(b"IEND", b""))
-    with pytest.raises(ValueError, match="bit depth 16"):
-        decode_img(sixteen_bit)
+    with pytest.raises(ValueError, match="JPEG is not supported"):
+        decode_img(JPEG_HEAD + bytes(64))
     with pytest.raises(ValueError):
         encode_img(np.zeros((2, 2, 3), np.uint8), ext=".jpg")
 
@@ -197,6 +199,15 @@ def test_serve_concurrent_posts_group_and_bad_payload(server):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(server, b"not an image")
     assert e.value.code == 400
+
+
+def test_serve_answers_jpeg_with_400(server):
+    req = urllib.request.Request(server + "/dehaze",
+                                 data=JPEG_HEAD + bytes(64), method="POST")
+    with pytest.raises(urllib.error.HTTPError) as e:
+        urllib.request.urlopen(req, timeout=60)
+    assert e.value.code == 400
+    assert b"JPEG is not supported" in e.value.read()
 
 
 def test_micro_batcher_groups_and_preserves_order():
