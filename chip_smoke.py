@@ -6,13 +6,15 @@
 Phases, in order; any failure exits non-zero before the final line:
   1. the card's name and power limit (nvidia-smi); a CUDA device is required;
   2. build kernels K1/K3 (ProbSparse window attention on the CUDA cores,
-     forward and backward, one source), K1's tensor-core forward and
-     backward (one source) and K2 (fused LN+LeFF) from
+     forward and backward, one source), K1's and K3-v3's tensor-core
+     forward and backward (one source) and K2 (fused LN+LeFF) from
      dehaze_tpu_torch/csrc/, one nvcc per source, all at once, for sm_90a,
-     and the PNG unfilter (host C) beside them;
+     and the PNG unfilter and JPEG decoder (host C) beside them;
   2b. the image codec on the host: a 1200×1600 textured frame through the
      port's PNG encoder (per-row filters) and decoder, and as a 24-bit BMP,
-     each against the pixels; encode and decode ms;
+     each against the pixels; the committed JPEG fixtures (tests/data/)
+     against the SHA-256 of cv2's decode of each; encode and decode ms,
+     the 1200×1600 JPEG's among them;
   3. K1 forward against its plain twin at the nine stages of the serving
      frame, N = 16, the training enc0 and 16×16 windows (N = 256), f32
      and bf16 (bf16 at N <= 64 runs the tensor-core kernel, the rest the
@@ -28,9 +30,12 @@ Phases, in order; any failure exits non-zero before the final line:
      only there), and at 16×16 windows (N = 256, the CUDA-core kernel);
   5. K3 (the older TPU variants, which round at other points) against
      their twins: v1 and v2 head-major at the serving enc1 and bottleneck
-     shapes, the v3 forward and backward at the training enc0 and enc1
-     shapes, f32 and bf16; in bf16 each K1 and K3 case is also held to
-     its own rounding points (NUMERICS_SEP);
+     shapes (CUDA-core kernel), the v3 forward and backward at the
+     training enc0 and enc1 shapes, f32 (CUDA-core kernels) and bf16
+     (tensor-core kernels, q and k at std 0.5, 1 and 2, and with padding
+     flags; 0 flipped rows), each call checked to reach the kernel its
+     chooser names by that kernel's launch counter; in bf16 each K1 and K3
+     case is also held to its own rounding points (NUMERICS_SEP);
   6. K2 against its plain twin at the serving path's shapes (rect canvas),
      the evaluation path's (1664² square canvas, 1536² any-resolution),
      the training eval forward's (batch 32 × 128²) and the 76-row
@@ -71,7 +76,7 @@ the evaluation path (9, the three runs together) and the training path
 (11), each counted from 0 over its own run. Every path runs bf16, so K1's
 forward and backward go to the tensor-core kernels there and the CUDA-core
 ones have 0 launches. No path runs K3 (no entry point of the JAX package
-runs its TPU kernels either): its launches are 0.
+runs its TPU kernels either): its launches, on either kernel, are 0.
 Imports nothing of JAX.
 """
 
@@ -213,13 +218,17 @@ def phase_build():
             ("window_attention_tc", window_attention._TC_SIGNATURES),
             ("leff", leff._SIGNATURES))
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(len(libs) + 1) as ex:  # one nvcc per source
-        host = ex.submit(_build.load_host_library, "png_unfilter",
-                         images._UNFILTER)
-        list(ex.map(lambda a: _build.load_library(*a), libs))
-        host.result()
-    print(f"built {len(libs)} kernel libraries and the PNG unfilter in "
-          f"{time.perf_counter() - t0:.1f}s (parallel nvcc, cc)", flush=True)
+    hosts = (("png_unfilter", images._UNFILTER),
+             ("jpeg_decode", images._JPEG))
+    # one compiler per source, all started together
+    with cf.ThreadPoolExecutor(len(libs) + len(hosts)) as ex:
+        done = [ex.submit(_build.load_host_library, *a) for a in hosts]
+        done += [ex.submit(_build.load_library, *a) for a in libs]
+        for d in done:
+            d.result()
+    print(f"built {len(libs)} kernel libraries, the PNG unfilter and the "
+          f"JPEG decoder in {time.perf_counter() - t0:.1f}s (parallel nvcc, "
+          "cc)", flush=True)
     for name, _ in libs:
         secs, report = _build.build_info.get(name, (0.0, ""))
         usage = [ln.strip() for ln in report.splitlines()
@@ -259,7 +268,9 @@ def _bmp24(img) -> bytes:
 def phase_codec():
     """The port's image codec on the host at 1200×1600: the PNG encoder's
     per-row filters, its decoder (the compiled unfilter) and the BMP
-    decoder, each against the pixels."""
+    decoder, each against the pixels; the JPEG decoder (compiled) on the
+    committed fixtures, each against cv2's hash."""
+    import hashlib
     import zlib
 
     import numpy as np
@@ -293,11 +304,35 @@ def phase_codec():
         if not np.array_equal(out, img):
             fail(f"codec: the {name} decode differs from the pixels")
         ms[name] = float(np.median(times))
+    # the committed JPEG fixtures against the SHA-256 of cv2's decode
+    # (scripts/make_jpeg_fixtures.py; this host has no cv2)
+    fixtures = os.path.join(REPO, "tests", "data")
+    with open(os.path.join(fixtures, "jpeg_fixtures.json")) as f:
+        manifest = json.load(f)["files"]
+    for name, want in manifest.items():
+        with open(os.path.join(fixtures, name), "rb") as f:
+            data = f.read()
+        times = []
+        for _ in range(5 if name.startswith("scene") else 1):
+            t0 = time.perf_counter()
+            out = images.decode_img(data, u8=True)
+            times.append((time.perf_counter() - t0) * 1e3)
+        digest = hashlib.sha256(out.tobytes()).hexdigest()
+        if list(out.shape) != want["shape"] or digest != want["sha256"]:
+            fail(f"codec: {name} decodes to {list(out.shape)} sha256 "
+                 f"{digest[:16]}..., cv2 to {want['shape']} "
+                 f"{want['sha256'][:16]}...")
+        ms[name] = float(np.median(times))
+    jpeg = next(n for n in manifest if n.startswith("scene"))
     print(f"codec {FRAME[0]}x{FRAME[1]} (host): PNG encode {enc_ms:.1f} ms, "
           f"{len(png) / 1e6:.2f} MB, rows by filter None/Sub/Up/Average/"
           f"Paeth {filters.tolist()} (a noise-free synthetic scene: "
           f"{scene.tolist()}); decode PNG {ms['png']:.1f} ms, 24-bit BMP "
-          f"{ms['bmp']:.1f} ms (median of 5); pixels equal", flush=True)
+          f"{ms['bmp']:.1f} ms, JPEG 4:2:0 q95 ({jpeg}, "
+          f"{manifest[jpeg]['bytes'] / 1e6:.2f} MB) {ms[jpeg]:.1f} ms "
+          f"(median of 5); pixels equal; the {len(manifest)} JPEG fixtures "
+          f"(progressive, EXIF orientation 6) decode to cv2's SHA-256",
+          flush=True)
     if int((filters > 0).sum()) < 2 or int((scene > 0).sum()) < 2:
         fail("codec: the PNG encoder wrote one filter type on every row")
 
@@ -374,11 +409,12 @@ def _check_grads(label, got, want, dname, wrong):
     return worst, "max|d|/max|ref| " + ", ".join(stats)
 
 
-def _flipped_rows(got, q, k, v, kw):
-    """Rows where a K1 forward's choice between a2 @ V and mean(V) differs
-    from the twin's selection. Both K1 kernels write mean(V) as the float32
-    sum over tokens in token order, divided by N and rounded, so a row is
-    a mean(V) row iff it equals that bit for bit."""
+def _flipped_rows(got, q, k, v, kw, numerics="v4"):
+    """Rows where a K1 (or K3-v3, numerics "v23") forward's choice between
+    a2 @ V and mean(V) differs from the twin's selection. Both forward
+    kernels write mean(V) as the float32 sum over tokens in token order,
+    divided by N and rounded, so a row is a mean(V) row iff it equals that
+    bit for bit."""
     import torch
 
     from dehaze_tpu_torch.ops import probsparse as ps
@@ -389,7 +425,7 @@ def _flipped_rows(got, q, k, v, kw):
         ps._heads(q, heads), ps._heads(k, heads), ps._heads(v, heads),
         kw["sample_idx"], kw.get("rel_pos_bias"),
         ps.attention_mask(kw.get("sw_region"), kw.get("pad_flag")), 5,
-        ps._scale(q, heads, None), "v4")[3]
+        ps._scale(q, heads, None), numerics)[3]
     s = torch.zeros(B, C, device=v.device)
     for j in range(N):
         s = s + v[:, j].float()
@@ -473,9 +509,9 @@ def _attn_run(label, kern, twin_of, own, q, kw, nW, bwd, wrong, kv=None):
             err, text = _check_grads(label, got, want, dname, wrong)
         else:
             err, text = _check_rows(label, got, want, D, dname, wrong)
-        if kv is not None:  # (k, v) of a K1 call: the selection
-            flips = (_bwd_flipped_rows(got, want, q, kv[0], kv[1], kw) if bwd
-                     else _flipped_rows(got, q, kv[0], kv[1], kw))
+        if kv is not None:  # (k, v) of a token-major call: the selection
+            flips = (_bwd_flipped_rows(got, want, q, kv[0], kv[1], kw, own)
+                     if bwd else _flipped_rows(got, q, kv[0], kv[1], kw, own))
             text += f" flipped rows {flips}"
             if flips:
                 wrong.append(f"{label}: {flips} rows flipped between "
@@ -567,10 +603,10 @@ def _bwd_kernel(q, heads):
     return bwd_kernel_for(q.dtype, "v4", q.shape[1], q.shape[2] // heads)
 
 
-def _bwd_flipped_rows(got, want, q, k, v, kw):
-    """Rows where a K1 backward's kept rows differ from the twin's
-    selection, as dq shows them: a kernel's dq is exactly zero on the rows
-    it did not keep. So a flip is a nonzero dq on a row the twin does not
+def _bwd_flipped_rows(got, want, q, k, v, kw, numerics="v4"):
+    """Rows where a K1 (or K3-v3) backward's kept rows differ from the
+    twin's selection, as dq shows them: a kernel's dq is exactly zero on the
+    rows it did not keep. So a flip is a nonzero dq on a row the twin does not
     keep, or a zero dq on a kept row where the twin's dq is far from zero
     (above 1e-30; a kept row whose softmax saturates under the -100 masks
     has a dq that rounds to zero in the twin too)."""
@@ -581,7 +617,7 @@ def _bwd_flipped_rows(got, want, q, k, v, kw):
         ps._heads(q, heads), ps._heads(k, heads), ps._heads(v, heads),
         kw["sample_idx"], kw.get("rel_pos_bias"),
         ps.attention_mask(kw.get("sw_region"), kw.get("pad_flag")), 5,
-        ps._scale(q, heads, None), "v4")[3]
+        ps._scale(q, heads, None), numerics)[3]
     zero = (ps._heads(got[0], heads) == 0).all(-1)
     clear = ps._heads(want[0].float(), heads).abs().amax(-1) > 1e-30
     return int((~row_mask & ~zero).sum() + (row_mask & clear & zero).sum())
@@ -717,21 +753,38 @@ def phase_k1_pad():
 def phase_k3():
     """The K3 kernels (older TPU variants, other rounding points) against
     their twins: v1 and v2 head-major [B, H, N, D] at the serving shapes
-    (enc1 shifted, bottleneck); the v3 forward and backward at the
-    training enc0 and enc1 shapes; f32 and bf16. q and k have std 1, where
-    the rounding of S moves the output (NUMERICS_SEP)."""
+    (enc1 shifted, bottleneck), on the CUDA-core kernel; the v3 forward and
+    backward at the training enc0 and enc1 shapes, f32 (the CUDA-core
+    kernels) and bf16 (the tensor-core ones) with q and k at std 1 (where
+    the rounding of S moves the output, NUMERICS_SEP), and in bf16 also at
+    std 0.5 and 2 and with padding flags (a 100×120 frame on each 128²
+    crop); 0 flipped rows in bf16. Each call must reach the kernel that
+    `fwd_kernel_for` / `bwd_kernel_for` names, by its launch counter.
+    Returns {kernel: rows (case, dtype, kernel, max|d|, ms, twin ms, bound
+    ms, bound by)}."""
     import torch
 
     from dehaze_tpu_torch.ops import probsparse as ps_ops
     from dehaze_tpu_torch.ops.kernels.window_attention import (
-        probsparse_window_attention_v1, probsparse_window_attention_v2,
-        window_attention_v3_bwd, window_attention_v3_fwd)
+        bwd_kernel_for, fwd_kernel_for, probsparse_window_attention_v1,
+        probsparse_window_attention_v2, window_attention_v3_bwd,
+        window_attention_v3_fwd)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     N, D = 64, 32
     P = TRAIN_PS
     results, wrong = {}, []
+
+    def counted(entry, attr, fn):
+        """fn() once more, which must add one to entry.attr, then fn."""
+        before = getattr(entry, attr)
+        fn()
+        if getattr(entry, attr) != before + 1:
+            wrong.append(f"{entry.__name__}: the call did not reach the "
+                         f"kernel counted in .{attr}")
+        return fn
+
     for vname, entry, own in (("v1", probsparse_window_attention_v1, "v1"),
                               ("v2", probsparse_window_attention_v2, "v23")):
         for name, B, heads, reg_hw in (("enc1", 8320, 2, (640, 832)),
@@ -741,38 +794,61 @@ def phase_k3():
                 q, k, v = _qkv(g, dev, (B, heads, N, D), dtype, (1, 1, 0.5))
                 kw = dict(sample_idx=si, rel_pos_bias=bias, sw_region=region)
                 dname = str(dtype).split(".")[1]
-                results.setdefault(vname, []).append((name, dname) + _attn_run(
-                    f"K3-{vname} {name} {dname} [B,H,N,D]=[{B},{heads},{N},"
-                    f"{D}] shifted={region is not None}",
-                    lambda: entry(q, k, v, num_windows=nW, **kw),
-                    lambda n: ps_ops.probsparse_attention_bhnd(
-                        q, k, v, numerics=n, **kw), own, q, kw, nW, False,
-                    wrong))
-    for name, B, C, heads, reg_hw in (("train_enc0", 8192, 32, 1, (P, P)),
-                                      ("train_enc1", 2048, 64, 2,
-                                       (P // 2, P // 2))):
+                results.setdefault(vname, []).append(
+                    (name, dname, "cuda_core") + _attn_run(
+                        f"K3-{vname} cuda_core {name} {dname} [B,H,N,D]="
+                        f"[{B},{heads},{N},{D}] shifted={region is not None}",
+                        counted(entry, "launches",
+                                lambda: entry(q, k, v, num_windows=nW, **kw)),
+                        lambda n: ps_ops.probsparse_attention_bhnd(
+                            q, k, v, numerics=n, **kw), own, q, kw, nW, False,
+                        wrong))
+    # (name, B_, C, heads, region map, pad flags or None, dtype, q/k std)
+    pad = _pad_case(P, 100, 120, P, P, 8)
+    cases = []
+    for name, B, C, heads in (("train_enc0", 8192, 32, 1),
+                              ("train_enc1", 2048, 64, 2)):
+        hw = (P, P) if name == "train_enc0" else (P // 2, P // 2)
+        cases += [(name, B, C, heads, hw, None, torch.float32, 1.0)]
+        cases += [(name, B, C, heads, hw, None, torch.bfloat16, std)
+                  for std in (1.0, 0.5, 2.0)]
+    cases += [("pad train_enc0", 8192, 32, 1, (P, P), pad, torch.bfloat16,
+               1.0)]
+    for name, B, C, heads, reg_hw, pflag, dtype, std in cases:
         si, bias, region, nW = _attn_case(g, dev, heads, 8, reg_hw)
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, go = _qkv(g, dev, (B, N, C), dtype, (1, 1, 0.5, 1))
-            kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
-                      sw_region=region)
-            dname = str(dtype).split(".")[1]
-            label = (f"{name} {dname} B_={B} C={C} h={heads} "
-                     f"shifted={region is not None}")
-            results.setdefault("v3_fwd", []).append((name, dname) + _attn_run(
-                f"K3-v3 fwd {label}",
-                lambda: window_attention_v3_fwd(q, k, v, num_windows=nW,
-                                                **kw),
-                lambda n: ps_ops.probsparse_attention_bnc(
-                    q, k, v, numerics=n, **kw), "v23", q, kw, nW, False,
-                wrong))
-            results.setdefault("v3_bwd", []).append((name, dname) + _attn_run(
-                f"K3-v3 bwd {label}",
-                lambda: window_attention_v3_bwd(q, k, v, go, num_windows=nW,
-                                                **kw),
-                lambda n: ps_ops.probsparse_attention_bnc_bwd(
-                    q, k, v, go, numerics=n, **kw), "v23", q, kw, nW, True,
-                wrong))
+        if pflag is not None:
+            nW = pflag.shape[0]
+        q, k, v, go = _qkv(g, dev, (B, N, C), dtype, (std, std, 0.5, 1))
+        kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
+                  sw_region=region, pad_flag=pflag)
+        dname = str(dtype).split(".")[1]
+        case = name if std == 1.0 else f"{name} std{std:g}"
+        label = (f"{name} {dname} B_={B} C={C} h={heads} "
+                 f"shifted={region is not None} padded="
+                 f"{pflag is not None} q,k std {std:g}")
+        kf = fwd_kernel_for(dtype, "v23", N, C // heads)
+        kb = bwd_kernel_for(dtype, "v23", N, C // heads)
+        if (dtype == torch.bfloat16) != (kf == "tc" == kb):
+            wrong.append(f"K3-v3 {label}: routed to {kf} / {kb}")
+        results.setdefault("v3_fwd", []).append((case, dname, kf) + _attn_run(
+            f"K3-v3 fwd {kf} {label}",
+            counted(window_attention_v3_fwd,
+                    "launches_tc" if kf == "tc" else "launches",
+                    lambda: window_attention_v3_fwd(q, k, v, num_windows=nW,
+                                                    **kw)),
+            lambda n: ps_ops.probsparse_attention_bnc(
+                q, k, v, numerics=n, **kw), "v23", q, kw, nW, False,
+            wrong, kv=(k, v) if kf == "tc" else None))
+        results.setdefault("v3_bwd", []).append((case, dname, kb) + _attn_run(
+            f"K3-v3 bwd {kb} {label}",
+            counted(window_attention_v3_bwd,
+                    "launches_tc" if kb == "tc" else "launches",
+                    lambda: window_attention_v3_bwd(q, k, v, go,
+                                                    num_windows=nW, **kw)),
+            lambda n: ps_ops.probsparse_attention_bnc_bwd(
+                q, k, v, go, numerics=n, **kw), "v23", q, kw, nW, True,
+            wrong, kv=(k, v) if kb == "tc" else None))
+        del q, k, v, go
     if wrong:
         fail("; ".join(wrong))
     return results
@@ -872,7 +948,9 @@ def _counters():
             "k2": (leff_fused, "launches"),
             "k3_v1": (wa.probsparse_window_attention_v1, "launches"),
             "k3_v2": (wa.probsparse_window_attention_v2, "launches"),
+            "k3_v3_fwd_tc": (wa.window_attention_v3_fwd, "launches_tc"),
             "k3_v3_fwd": (wa.window_attention_v3_fwd, "launches"),
+            "k3_v3_bwd_tc": (wa.window_attention_v3_bwd, "launches_tc"),
             "k3_v3_bwd": (wa.window_attention_v3_bwd, "launches")}
 
 
@@ -1548,6 +1626,10 @@ def main() -> None:
                          if r[2].endswith("_bwd")]
     tc_bwd = [r[:2] + r[3:] for r in bwd_all if r[2] == "tc"]
     cc_bwd = [r[:2] + r[3:] for r in bwd_all if r[2] == "cuda_core"]
+
+    def k3_of(key, kern):  # K3 rows of one kernel, without its column
+        return [r[:2] + r[3:] for r in k3_res[key] if r[2] == kern]
+
     kernels = {"kernels": [
         entry("K1 ProbSparse window attention fwd, tensor cores (bf16, "
               "N <= 64)", "dehaze_tpu_torch/csrc/window_attention_tc.cu",
@@ -1568,17 +1650,25 @@ def main() -> None:
                               "plain_ms", "bound_ms", "bound_by"), r))
                     for r in k2_res]),
         entry("K3-v1 ProbSparse window attention fwd, [B,H,N,D]", wa,
-              f"{pw}:317", k3_res["v1"], ("enc1", "bfloat16"), "k3_v1",
-              paths),
+              f"{pw}:317", k3_of("v1", "cuda_core"), ("enc1", "bfloat16"),
+              "k3_v1", paths),
         entry("K3-v2 ProbSparse window attention fwd, [B,H,N,D]", wa,
-              f"{pw}:220", k3_res["v2"], ("enc1", "bfloat16"), "k3_v2",
-              paths),
-        entry("K3-v3 ProbSparse window attention fwd", wa, f"{pw}:618",
-              k3_res["v3_fwd"], ("train_enc0", "bfloat16"), "k3_v3_fwd",
-              paths),
-        entry("K3-v3 ProbSparse window attention bwd", wa, f"{pw}:639",
-              k3_res["v3_bwd"], ("train_enc0", "bfloat16"), "k3_v3_bwd",
-              paths),
+              f"{pw}:220", k3_of("v2", "cuda_core"), ("enc1", "bfloat16"),
+              "k3_v2", paths),
+        entry("K3-v3 ProbSparse window attention fwd, tensor cores (bf16)",
+              "dehaze_tpu_torch/csrc/window_attention_tc.cu", f"{pw}:618",
+              k3_of("v3_fwd", "tc"), ("train_enc0", "bfloat16"),
+              "k3_v3_fwd_tc", paths),
+        entry("K3-v3 ProbSparse window attention fwd, CUDA cores (f32)", wa,
+              f"{pw}:618", k3_of("v3_fwd", "cuda_core"),
+              ("train_enc0", "float32"), "k3_v3_fwd", paths),
+        entry("K3-v3 ProbSparse window attention bwd, tensor cores (bf16)",
+              "dehaze_tpu_torch/csrc/window_attention_tc.cu", f"{pw}:639",
+              k3_of("v3_bwd", "tc"), ("train_enc0", "bfloat16"),
+              "k3_v3_bwd_tc", paths),
+        entry("K3-v3 ProbSparse window attention bwd, CUDA cores (f32)", wa,
+              f"{pw}:639", k3_of("v3_bwd", "cuda_core"),
+              ("train_enc0", "float32"), "k3_v3_bwd", paths),
     ]}
     print(f"card: {card}", flush=True)
     print(json.dumps(kernels), flush=True)

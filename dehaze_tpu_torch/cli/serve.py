@@ -3,7 +3,7 @@
     python -m dehaze_tpu_torch.cli.serve --weights w.pth [--port N]
         [--precompile 1200x1600] [--square] [--max_batch 4]
 
-    POST /dehaze   body = PNG or BMP → dehazed PNG (JPEG: 400)
+    POST /dehaze   body = PNG, JPEG or BMP → dehazed PNG (EXIF upright)
     GET  /healthz  → JSON {status, arch, served, device, batch_hist}
 
 Counterpart of `dehaze_tpu/cli/serve.py` (the `--weights` leg). Handler

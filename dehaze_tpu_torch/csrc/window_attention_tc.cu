@@ -1,12 +1,13 @@
-// K1 on Hopper's tensor cores (sm_90a), forward and backward: ProbSparse
-// window attention for bf16 activations, N <= 64 tokens per window, head dim
-// D in {16, 32, 48, 64}.
+// K1 and K3-v3 on Hopper's tensor cores (sm_90a), forward and backward:
+// ProbSparse window attention for bf16 activations, N <= 64 tokens per
+// window, head dim D in {16, 32, 48, 64}.
 //
 // Forward: replaces the TPU kernel `_kernel_v4` / `_fused_attn_v4_fwd` of
 // dehaze_tpu/ops/pallas/window_attention.py (`fused_window_attention`,
 // version 4) for those shapes; `window_attention_fwd_kernel<bf16, kV4>` of
 // csrc/window_attention.cu computes the same function on the CUDA cores and
-// takes everything else (float32, K3's numerics, N > 64, other head dims).
+// takes everything else (float32, K3's head-major v1 and v2, N > 64, other
+// head dims).
 // Same function as the plain twin
 // `dehaze_tpu_torch.ops.probsparse.probsparse_attention_bnc`, per window and
 // head:
@@ -26,6 +27,27 @@
 //   dq = scale * ds K,  dk = scale * ds^T Q,  dbias[h] = sum over windows dz.
 // q/k/v/g/out/dq/dk/dv are token-major [B_ * N, C] with heads as channel
 // slices; region ids and pad flags are [nW, N], indexed by window % nW.
+//
+// K3-v3 on the same kernels (the `Numerics` argument, as in
+// csrc/window_attention.cu): `_kernel_v3` / `_fused_attn_v3_fwd` and
+// `_kernel_v3_bwd` / `_fused_attn_v3_bwd` (window_attention.py:618, :639),
+// "v23" rounding, twin `probsparse_attention_bnc(numerics="v23")`:
+//   kV4   as above.
+//   kV23  q * scale rounded to bf16 (the scale rounded to bf16 first) as q
+//         is widened for QK^T, and in the backward's q tile, which dk then
+//         uses with no further scale; S rounded once, to float, not to bf16,
+//         and M taken on it (sum(cnt * S) in float64, each product exact
+//         there); the first softmax without a further scale; a1 not rounded.
+// kV23's float S tile is twice kV4's bf16 one. The forward then holds fewer
+// window-heads per SM: one CTA of as many warps as fit (7 at D = 32) for
+// kV4's two CTAs of four. The backward keeps its pairs and loses one (3 at
+// D = 32 for kV4's 4); its a1, a float that the ds step needs, is written
+// over the kept row's S in the tile (no registers for it), and dq rows are
+// staged in the same float rows. S in registers instead would need the
+// whole 64 x 64 tile per warp (128 registers a lane) before the rank says
+// which rows are kept, and staging only some rows is not possible before
+// the rank either; so the tile is what shrinks occupancy. The head-major
+// v1 and v2 (K3 (a), (b)) and float32 stay on the CUDA-core kernels.
 //
 // What bounds it. Per window-head the forward moves 4 * N * D bf16 (q, k,
 // v in, out out: 16 KB at N = 64, D = 32) and the backward 7 * N * D (q,
@@ -109,12 +131,19 @@
 // sum is order-free; the max is. The rank is a pure comparison. Both
 // kernels run the same device functions for all of it. The softmax sums
 // are float32 and run in another order than the twin's; that moves a1 and
-// a2 by about an ulp and never the selection.
+// a2 by about an ulp and never the selection. In kV23, q * scale is bf16,
+// so S is exact in float64 as before and is rounded once, to float; each
+// float S times a count is exact in float64 (32 significand bits), and
+// their float64 sum over a row, rounded to float, is the twin's unless the
+// row's values span more than about 20 binades, where the sum itself
+// rounds; the twin sums in float64 too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -131,32 +160,46 @@ static_assert(kShared % 16 == 0, "16-byte aligned warp slices");
 constexpr int kSmemMax = 232448;        // shared memory a CTA may use
 constexpr int kMaxKept = 32;            // kept rows the backward takes
 
-// Forward: four warps per CTA, two CTAs per SM.
-constexpr int kWarps = 4;               // window-heads per CTA, a warp each
-constexpr int kThreads = 32 * kWarps;
+// Where the chain rounds (values as csrc/window_attention.cu's Numerics).
+enum Numerics : int { kV4 = 0, kV23 = 2 };
 
-template <int D>
+// The S tile's element: bf16 where S is rounded to bf16 (kV4), float where
+// it is not (kV23). Rows are kLS elements apart in either.
+template <int NUM>
+using STile = std::conditional_t<NUM == kV23, float, bf16>;
+
+// Forward: kV4 four warps per CTA, two CTAs per SM; kV23 one CTA per SM of
+// as many warps as its tiles allow (8, 7, 6, 5 at D = 16, 32, 48, 64).
+template <int D, int NUM>
 struct Cfg {
+  using ST = STile<NUM>;
   static constexpr int LD = D + 8;      // row stride of the k, v, out tiles
   static constexpr int DQ = D / 4;      // k-steps of the float64 MMA
   static constexpr int kWarpBytes =
       2 * kMaxN * LD * 2 +              // k (then out), v
-      kMaxN * kLS * 2 +                 // S, then packed a2
+      kMaxN * kLS * static_cast<int>(sizeof(ST)) +  // S, then packed a2
       3 * kMaxN * 4 +                   // M, region ids, pad flags
       kMaxN * 2 + kMaxN;                // mean(V), kept-row list
+  static constexpr int kFit = (kSmemMax - kShared) / kWarpBytes;
+  static constexpr int kWarps = NUM == kV4 ? 4 : (kFit < 8 ? kFit : 8);
+  static constexpr int kMinCtas = NUM == kV4 ? 2 : 1;  // per SM
+  static constexpr int kThreads = 32 * kWarps;
   static constexpr int kSmem = kShared + kWarps * kWarpBytes;
   static_assert(D % 16 == 0 && D <= 64, "head dim 16, 32, 48 or 64");
   static_assert(kWarpBytes % 16 == 0, "16-byte aligned warp slices");
+  static_assert(kWarps >= 1 && kSmem <= kSmemMax, "a warp's tiles fit");
 };
 
 // Backward: one CTA per SM, as many pairs of warps as their tiles allow
-// (5, 4, 3, 3 at D = 16, 32, 48, 64); a pair shares one set of tiles.
-template <int D>
+// (kV4: 5, 4, 3, 3 at D = 16, 32, 48, 64; kV23: 4, 3, 3, 2); a pair shares
+// one set of tiles.
+template <int D, int NUM>
 struct BwdCfg {
+  using ST = STile<NUM>;
   static constexpr int LD = D + 8;
   static constexpr int kPairBytes =
       4 * kMaxN * LD * 2 +              // k (then dk), v (then dv), q, g
-      kMaxN * kLS * 2 +                 // S (then dq of the kept rows)
+      kMaxN * kLS * static_cast<int>(sizeof(ST)) +  // S (a1), then dq rows
       4 * kMaxKept * kLS * 2 +          // a2 hi, a2 lo, ds hi, ds lo
       3 * kMaxN * 4 +                   // M, region ids, pad flags
       kMaxN * 4 +                       // sum(g_unsel) / N
@@ -327,20 +370,40 @@ struct QRows {
   }
 };
 
+// q * qsc rounded to bf16 (kV23's scaled q; qsc is the scale rounded to
+// bf16, so the float product is exact before its one rounding).
+__device__ __forceinline__ float q_scaled(bf16 q, float qsc) {
+  return bf2f(__float2bfloat16_rn(bf2f(q) * qsc));
+}
+
+// kV23: the first n_rows rows of a [.][LD] q tile times qsc, rounded, in
+// place, by threads i of n: the same 16-byte pieces cp_tile gave each of
+// them, so each thread's own completed copies are all it touches.
+template <int D, int LD>
+__device__ __forceinline__ void scale_tile(bf16* tile, int n_rows, float qsc,
+                                           int i, int n) {
+  for (int e = i; e < n_rows * (D / 8); e += n) {
+    const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+    uint4* p = reinterpret_cast<uint4*>(tile + r * LD + c);
+    uint4 raw = *p;
+    bf16* x = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = __float2bfloat16_rn(q_scaled(x[j], qsc));
+    *p = raw;
+  }
+}
+
 // QK^T in float64 on the tensor cores, 16 rows at a time (rows m_first,
 // m_first + STEP, ...), from q rows in registers (`qr` holds rows m_first
-// ... m_first + 15 on entry) and the k tile. S, rounded to float and then
-// bf16, goes to sS; the measure of each row is taken from the rounded
-// values in registers (the lane quad t = 0..3 holds a row's columns;
-// counts past N are zero).
-template <int D, bool FULL, int STEP>
-__device__ __forceinline__ void qk_measure(QRows<D>& qr,
-                                           const bf16* __restrict__ qw, int C,
-                                           const bf16* sK, bf16* sS,
-                                           float* sM,
-                                           const unsigned char* sCnt,
-                                           int n_tokens, int m_first,
-                                           int lane) {
+// ... m_first + 15 on entry; kV23 scales them by qsc as they are widened)
+// and the k tile. S, rounded to float (and then, in kV4, to bf16), goes to
+// sS; the measure of each row is taken from the rounded values in registers
+// (the lane quad t = 0..3 holds a row's columns; counts past N are zero).
+template <int D, bool FULL, int STEP, int NUM>
+__device__ __forceinline__ void qk_measure(
+    QRows<D>& qr, const bf16* __restrict__ qw, int C, const bf16* sK,
+    STile<NUM>* sS, float* sM, const unsigned char* sCnt,
+    int n_tokens, int m_first, int lane, float qsc) {
   constexpr int LD = D + 8, DQ = D / 4;
   const int N = FULL ? kMaxN : n_tokens;
   const int g = lane >> 2, t = lane & 3;
@@ -353,7 +416,9 @@ __device__ __forceinline__ void qk_measure(QRows<D>& qr,
       for (int c = 0; c < DQ / 4; ++c) {
         const bf16* e = reinterpret_cast<const bf16*>(&qr.raw[b][c]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qa[b][4 * c + i] = bf2f(e[i]);
+        for (int i = 0; i < 4; ++i) {
+          qa[b][4 * c + i] = NUM == kV23 ? q_scaled(e[i], qsc) : bf2f(e[i]);
+        }
       }
     }
     if (m0 + STEP < N) qr.load(qw, C, N, m0 + STEP, g, t);
@@ -380,15 +445,18 @@ __device__ __forceinline__ void qk_measure(QRows<D>& qr,
       for (int nt = 0; nt < 8; ++nt) {
         if (nt < NT) {
           const int c = nt * 8 + 2 * t;
-          const __nv_bfloat162 s2 =
-              __floats2bfloat162_rn(__double2float_rn(acc[nt][2 * b]),
-                                    __double2float_rn(acc[nt][2 * b + 1]));
-          *reinterpret_cast<__nv_bfloat162*>(sS + r * kLS + c) = s2;
-          const float2 s = __bfloat1622float2(s2);
+          float2 s = make_float2(__double2float_rn(acc[nt][2 * b]),
+                                 __double2float_rn(acc[nt][2 * b + 1]));
+          if constexpr (NUM == kV23) {
+            *reinterpret_cast<float2*>(sS + r * kLS + c) = s;
+          } else {
+            const __nv_bfloat162 s2 = __floats2bfloat162_rn(s.x, s.y);
+            *reinterpret_cast<__nv_bfloat162*>(sS + r * kLS + c) = s2;
+            s = __bfloat1622float2(s2);
+          }
           const unsigned cc = *reinterpret_cast<const unsigned short*>(
               sCnt + r * kCS + c);
-          // count c < 256 as float (exact, without a conversion unit);
-          // S * c is exact in float: an 8-bit significand times 8 bits
+          // count c < 256 as float (exact, without a conversion unit)
           const float c0 = __int_as_float(0x4b000000 | (cc & 0xffu)) -
                            8388608.f;
           const float c1 = __int_as_float(0x4b000000 | (cc >> 8)) -
@@ -396,8 +464,15 @@ __device__ __forceinline__ void qk_measure(QRows<D>& qr,
           // branch-free: unsampled columns add 0 and leave the max
           m_max = fmaxf(m_max, fmaxf(c0 > 0.f ? s.x : -1e30f,
                                      c1 > 0.f ? s.y : -1e30f));
-          m_sum += static_cast<double>(s.x * c0);
-          m_sum += static_cast<double>(s.y * c1);
+          if constexpr (NUM == kV23) {
+            // a float S times 8 bits is exact in float64, not in float
+            m_sum += static_cast<double>(s.x) * static_cast<double>(c0);
+            m_sum += static_cast<double>(s.y) * static_cast<double>(c1);
+          } else {
+            // exact in float: an 8-bit significand times 8 bits
+            m_sum += static_cast<double>(s.x * c0);
+            m_sum += static_cast<double>(s.y * c1);
+          }
         }
       }
 #pragma unroll
@@ -472,14 +547,18 @@ __device__ __forceinline__ bool kept_row(unsigned keep_lo, unsigned keep_hi,
 
 // FULL: N = 64 (8x8 windows, every stage of the default model), a
 // compile-time constant, so no loop or select depends on a runtime N.
-template <int D, bool FULL>
-__global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const int32_t* __restrict__ cnt,
-    const float* __restrict__ bias, const int32_t* __restrict__ region,
-    const int32_t* __restrict__ pad, bf16* __restrict__ out, int B,
-    int n_tokens, int C, int nW, int u, float scale) {
-  using L = Cfg<D>;
+template <int D, bool FULL, int NUM>
+__global__ void __launch_bounds__(Cfg<D, NUM>::kThreads,
+                                  Cfg<D, NUM>::kMinCtas)
+    window_attention_tc_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const int32_t* __restrict__ cnt,
+        const float* __restrict__ bias, const int32_t* __restrict__ region,
+        const int32_t* __restrict__ pad, bf16* __restrict__ out, int B,
+        int n_tokens, int C, int nW, int u, float scale) {
+  using L = Cfg<D, NUM>;
+  using ST = typename L::ST;
+  constexpr int kWarps = L::kWarps;
   const int N = FULL ? kMaxN : n_tokens;
   constexpr int LD = L::LD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -489,7 +568,10 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
   unsigned char* ws = smem + kShared + warp * L::kWarpBytes;
   bf16* sK = reinterpret_cast<bf16*>(ws);                // [64][LD]: k, out
   bf16* sV = sK + kMaxN * LD;                            // [64][LD]
-  bf16* sS = sV + kMaxN * LD;                            // [64][kLS]
+  ST* sS = reinterpret_cast<ST*>(sV + kMaxN * LD);       // [64][kLS]
+  // packed a2, bf16 rows kLS apart over the S tile (row r of a2 never
+  // reaches a float S row that a later pass of the chain reads: r <= i)
+  bf16* sA2 = reinterpret_cast<bf16*>(sS);
   float* sM = reinterpret_cast<float*>(sS + kMaxN * kLS);  // [64]
   int* sReg = reinterpret_cast<int*>(sM + kMaxN);          // [64]
   int* sPad = sReg + kMaxN;                                // [64]
@@ -498,8 +580,9 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
   const int h = blockIdx.y;
   const bool has_bias = bias != nullptr, has_reg = region != nullptr,
              has_pad = pad != nullptr;
+  const float qsc = bf2f(__float2bfloat16_rn(scale));  // kV23's q scale
 
-  stage_bias_counts<kThreads>(sBias, sCnt, cnt, bias, h, N);
+  stage_bias_counts<L::kThreads>(sBias, sCnt, cnt, bias, h, N);
   __syncthreads();
   // phase: stage
 
@@ -525,7 +608,8 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
     __syncwarp();
     // phase: load
 
-    qk_measure<D, FULL, 16>(qr, q + base, C, sK, sS, sM, sCnt, N, 0, lane);
+    qk_measure<D, FULL, 16, NUM>(qr, q + base, C, sK, sS, sM, sCnt, N, 0,
+                                 lane, qsc);
     __syncwarp();
     // phase: QK^T+measure
 
@@ -546,19 +630,30 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
       float x[32];
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
-        const uint4 sv = *reinterpret_cast<const uint4*>(
-            sS + i * kLS + 16 * m + 8 * sub);
-        const bf16* se = reinterpret_cast<const bf16*>(&sv);
+        if constexpr (NUM == kV23) {
+          const float4* sv = reinterpret_cast<const float4*>(
+              sS + i * kLS + 16 * m + 8 * sub);
+          const float4 a = sv[0], b = sv[1];
+          x[8 * m + 0] = a.x, x[8 * m + 1] = a.y, x[8 * m + 2] = a.z;
+          x[8 * m + 3] = a.w, x[8 * m + 4] = b.x, x[8 * m + 5] = b.y;
+          x[8 * m + 6] = b.z, x[8 * m + 7] = b.w;
+        } else {
+          const uint4 sv = *reinterpret_cast<const uint4*>(
+              sS + i * kLS + 16 * m + 8 * sub);
+          const bf16* se = reinterpret_cast<const bf16*>(&sv);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) x[8 * m + e] = bf2f(se[e]);
+          for (int e = 0; e < 8; ++e) x[8 * m + e] = bf2f(se[e]);
+        }
       }
       __syncwarp();  // this pass's rows are read before any is overwritten
-      // branch-free: columns past N enter as -inf, so exp gives them 0
+      // branch-free: columns past N enter as -inf, so exp gives them 0;
+      // kV23's S carries the scale already
       float mx = -INFINITY;
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
-        x[e] = 16 * (e >> 3) + 8 * sub + (e & 7) < N ? x[e] * scale
-                                                     : -INFINITY;
+        x[e] = 16 * (e >> 3) + 8 * sub + (e & 7) < N
+                   ? (NUM == kV23 ? x[e] : x[e] * scale)
+                   : -INFINITY;
         mx = fmaxf(mx, x[e]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 1));
@@ -576,7 +671,8 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int j = 16 * (e >> 3) + 8 * sub + (e & 7);
-        float z = bf2f(__float2bfloat16_rn(div_rn(x[e], sum, rsum)));  // a1
+        float z = div_rn(x[e], sum, rsum);  // a1, rounded in kV4
+        if (NUM == kV4) z = bf2f(__float2bfloat16_rn(z));
         if (has_bias) z = z + sBias[i * kBS + j];
         if (has_reg || has_pad) {  // one add of the summed mask
           float m = 0.f;
@@ -605,7 +701,7 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
           for (int e = 0; e < 8; ++e) {
             oe[e] = __float2bfloat16_rn(div_rn(x[8 * m + e], sum, rsum));
           }
-          *reinterpret_cast<uint4*>(sS + r * kLS + 16 * m + 8 * sub) = o;
+          *reinterpret_cast<uint4*>(sA2 + r * kLS + 16 * m + 8 * sub) = o;
         }
       }
     }
@@ -625,7 +721,7 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
       }
       for (int kk = 0; kk < KS; ++kk) {
         uint32_t a[4];
-        ldsm_x4(smem_addr(sS + (mt * 16 + (lane & 15)) * kLS + kk * 16 +
+        ldsm_x4(smem_addr(sA2 + (mt * 16 + (lane & 15)) * kLS + kk * 16 +
                           (lane >> 4) * 8),
                 a);
 #pragma unroll
@@ -677,8 +773,8 @@ __global__ void __launch_bounds__(kThreads, 2) window_attention_tc_kernel(
 
 // ---- backward -----------------------------------------------------------
 
-template <int D, bool FULL>
-__global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
+template <int D, bool FULL, int NUM>
+__global__ void __launch_bounds__(BwdCfg<D, NUM>::kThreads, 1)
     window_attention_tc_bwd_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ k,
         const bf16* __restrict__ v, const bf16* __restrict__ go,
@@ -687,8 +783,11 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
         bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
         float* __restrict__ db_part, int B, int n_tokens, int C, int nW,
         int u, float scale) {
-  using L = BwdCfg<D>;
+  using L = BwdCfg<D, NUM>;
+  using ST = typename L::ST;
   constexpr int LD = L::LD, kP = L::kPairs;
+  // dq rows are staged as bf16 in the S tile's rows: kDqS bf16 apart
+  constexpr int kDqS = kLS * static_cast<int>(sizeof(ST)) / 2;
   const int N = FULL ? kMaxN : n_tokens;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sBias = reinterpret_cast<float*>(smem);        // [64][kBS] bias[h]
@@ -705,8 +804,11 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
   bf16* sV = sK + kMaxN * LD;                // [64][LD]: v, then dv
   bf16* sQ = sV + kMaxN * LD;                // [64][LD]
   bf16* sG = sQ + kMaxN * LD;                // [64][LD]: the output grad
-  bf16* sS = sG + kMaxN * LD;                // [64][kLS]: S, then dq rows
-  bf16* sA2h = sS + kMaxN * kLS;             // [32][kLS] by kept slot
+  ST* sS = reinterpret_cast<ST*>(sG + kMaxN * LD);  // [64][kLS]: S (kV23:
+                                                    // then a1 of kept rows)
+  bf16* sDq = reinterpret_cast<bf16*>(sS);   // then dq rows, kDqS apart
+  bf16* sA2h = reinterpret_cast<bf16*>(sS + kMaxN * kLS);  // [32][kLS] by
+                                                           // kept slot
   bf16* sA2l = sA2h + kMaxKept * kLS;
   bf16* sDsh = sA2l + kMaxKept * kLS;
   bf16* sDsl = sDsh + kMaxKept * kLS;
@@ -720,6 +822,7 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
   const int h = blockIdx.y;
   const bool has_bias = bias != nullptr, has_reg = region != nullptr,
              has_pad = pad != nullptr;
+  const float qsc = bf2f(__float2bfloat16_rn(scale));  // kV23's q scale
 
   stage_bias_counts<L::kThreads>(sBias, sCnt, cnt, bias, h, N);
   for (int e = pl; e < kLS; e += 64) sZero[e] = __float2bfloat16_rn(0.f);
@@ -756,12 +859,14 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
     QRows<D> qr;
     qr.load(q + base, C, N, 16 * half, g, t);
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // kV23: dk takes q * scale, rounded, as QK^T does
+    if constexpr (NUM == kV23) scale_tile<D, LD>(sQ, N, qsc, pl, 64);
     pair_sync();
     // phase: load
 
     // the pair's warps take the m16 blocks of S in turn
-    qk_measure<D, FULL, 32>(qr, q + base, C, sK, sS, sM, sCnt, N, 16 * half,
-                            lane);
+    qk_measure<D, FULL, 32, NUM>(qr, q + base, C, sK, sS, sM, sCnt, N,
+                                 16 * half, lane, qsc);
     pair_sync();
     // phase: QK^T+measure
 
@@ -836,15 +941,23 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
           const int c = nt * 8 + 2 * t;
-          const float2 s = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(sS + ri[b] * kLS +
-                                                       c));
-          // branch-free: columns past N enter as -inf, so exp gives 0
-          x[nt][2 * b] = FULL || c < N ? s.x * scale : -INFINITY;
-          x[nt][2 * b + 1] = FULL || c + 1 < N ? s.y * scale : -INFINITY;
+          float2 s;
+          if constexpr (NUM == kV23) {
+            s = *reinterpret_cast<const float2*>(sS + ri[b] * kLS + c);
+          } else {
+            s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                sS + ri[b] * kLS + c));
+          }
+          // branch-free: columns past N enter as -inf, so exp gives 0;
+          // kV23's S carries the scale already
+          const float sc = NUM == kV23 ? 1.f : scale;
+          x[nt][2 * b] = FULL || c < N ? s.x * sc : -INFINITY;
+          x[nt][2 * b + 1] = FULL || c + 1 < N ? s.y * sc : -INFINITY;
         }
       }
-      uint32_t a1p[8][2];  // a1, rounded to bf16 (exact), packed
+      // a1: kV4 rounded to bf16 (exact), packed in registers; kV23 a float,
+      // written over the kept row's S (slots past nk write nothing)
+      uint32_t a1p[8][2];
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
         float mx = -INFINITY;
@@ -876,8 +989,8 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int j = nt * 8 + 2 * t + e;
-            a1[e] = bf2f(__float2bfloat16_rn(
-                div_rn(x[nt][2 * b + e], sum, rsum)));
+            a1[e] = div_rn(x[nt][2 * b + e], sum, rsum);
+            if (NUM == kV4) a1[e] = bf2f(__float2bfloat16_rn(a1[e]));
             float z = a1[e];
             if (has_bias) z = z + sBias[i * kBS + j];
             if (has_reg || has_pad) {  // one add of the summed mask
@@ -889,7 +1002,14 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
             x[nt][2 * b + e] = FULL || j < N ? z : -INFINITY;
             mx = fmaxf(mx, x[nt][2 * b + e]);
           }
-          a1p[nt][b] = pack_bf16(a1[0], a1[1]);
+          if constexpr (NUM == kV23) {
+            if (mt * 16 + g + 8 * b < nk) {
+              *reinterpret_cast<float2*>(sS + i * kLS + nt * 8 + 2 * t) =
+                  make_float2(a1[0], a1[1]);
+            }
+          } else {
+            a1p[nt][b] = pack_bf16(a1[0], a1[1]);
+          }
         }
         mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 2));
@@ -976,11 +1096,25 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
             }
           }
         }
+        // a1 of column pair nt. kV23 reads it from the kept row's S row;
+        // a slot past nk takes 0 (its stand-in row 0 may not be kept, and
+        // at N < 64 its columns past the last 8-column tile of S were never
+        // written: 0 * NaN in the row dot would reach every column of ds)
+        const bool real = mt * 16 + g + 8 * b < nk;
+        auto a1_of = [&](int nt) -> float2 {
+          if constexpr (NUM == kV23) {
+            return real ? *reinterpret_cast<const float2*>(
+                              sS + ri[b] * kLS + nt * 8 + 2 * t)
+                        : make_float2(0.f, 0.f);
+          } else {
+            return __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&a1p[nt][b]));
+          }
+        };
         dot = 0.f;
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
-          const float2 a1 = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&a1p[nt][b]));
+          const float2 a1 = a1_of(nt);
           dot = fmaf(acc[nt][2 * b], a1.x, dot);
           dot = fmaf(acc[nt][2 * b + 1], a1.y, dot);
         }
@@ -988,8 +1122,7 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
         dot += __shfl_xor_sync(~0u, dot, 2);
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
-          const float2 a1 = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&a1p[nt][b]));
+          const float2 a1 = a1_of(nt);
           acc[nt][2 * b] = a1.x * (acc[nt][2 * b] - dot);
           acc[nt][2 * b + 1] = a1.y * (acc[nt][2 * b + 1] - dot);
         }
@@ -1047,7 +1180,7 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
         if (mt * 16 + g + 8 * b < nk) {
 #pragma unroll
           for (int n = 0; n < D / 8; ++n) {
-            *reinterpret_cast<__nv_bfloat162*>(sS + ri[b] * kLS + n * 8 +
+            *reinterpret_cast<__nv_bfloat162*>(sDq + ri[b] * kDqS + n * 8 +
                                                2 * t) =
                 __floats2bfloat162_rn(dacc[n][2 * b] * scale,
                                       dacc[n][2 * b + 1] * scale);
@@ -1064,6 +1197,8 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
     // rows by ldmatrix.trans. Written into the v and k tiles, which no
     // product needs any more.
     const int JT = N16 >> 4;
+    // kV23's q tile holds q * scale (rounded) already
+    const float dk_scale = NUM == kV23 ? 1.f : scale;
     for (int J = half; J < JT; J += 2) {
       float vacc[D / 8][4], kacc[D / 8][4];
 #pragma unroll
@@ -1106,8 +1241,8 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
               __floats2bfloat162_rn(vacc[n][2 * hh] + sGu[c],
                                     vacc[n][2 * hh + 1] + sGu[c + 1]);
           *reinterpret_cast<__nv_bfloat162*>(sK + j * LD + c) =
-              __floats2bfloat162_rn(kacc[n][2 * hh] * scale,
-                                    kacc[n][2 * hh + 1] * scale);
+              __floats2bfloat162_rn(kacc[n][2 * hh] * dk_scale,
+                                    kacc[n][2 * hh + 1] * dk_scale);
         }
       }
     }
@@ -1120,7 +1255,7 @@ __global__ void __launch_bounds__(BwdCfg<D>::kThreads, 1)
       const size_t o = base + static_cast<size_t>(i) * C + c;
       *reinterpret_cast<uint4*>(dq + o) =
           kept_row(keep_lo, keep_hi, i)
-              ? *reinterpret_cast<const uint4*>(sS + i * kLS + c)
+              ? *reinterpret_cast<const uint4*>(sDq + i * kDqS + c)
               : make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(dk + o) =
           *reinterpret_cast<const uint4*>(sK + i * LD + c);
@@ -1165,36 +1300,37 @@ int wave_ctas(const void* kernel, int threads, int smem, int B, int per_cta,
   return 0;
 }
 
-template <int D, bool FULL>
+template <int D, bool FULL, int NUM>
 int launch_n(const void* q, const void* k, const void* v, const int32_t* cnt,
              const float* bias, const int32_t* region, const int32_t* pad,
              void* out, int B, int N, int C, int H, int nW, int u,
              float scale, cudaStream_t stream) {
-  auto kernel = window_attention_tc_kernel<D, FULL>;
+  using L = Cfg<D, NUM>;
+  auto kernel = window_attention_tc_kernel<D, FULL, NUM>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int gx = 0;
-  const int err = wave_ctas(reinterpret_cast<const void*>(kernel), kThreads,
-                            Cfg<D>::kSmem, B, kWarps, H, &gx);
+  const int err = wave_ctas(reinterpret_cast<const void*>(kernel),
+                            L::kThreads, L::kSmem, B, L::kWarps, H, &gx);
   if (err != 0) return err;
-  kernel<<<dim3(gx, H), kThreads, Cfg<D>::kSmem, stream>>>(
+  kernel<<<dim3(gx, H), L::kThreads, L::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), cnt, bias, region, pad,
       static_cast<bf16*>(out), B, N, C, nW, u, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int NUM>
 int launch(const void* q, const void* k, const void* v, const int32_t* cnt,
            const float* bias, const int32_t* region, const int32_t* pad,
            void* out, int B, int N, int C, int H, int nW, int u, float scale,
            cudaStream_t stream) {
   return N == kMaxN
-             ? launch_n<D, true>(q, k, v, cnt, bias, region, pad, out, B, N,
-                                 C, H, nW, u, scale, stream)
-             : launch_n<D, false>(q, k, v, cnt, bias, region, pad, out, B, N,
-                                  C, H, nW, u, scale, stream);
+             ? launch_n<D, true, NUM>(q, k, v, cnt, bias, region, pad, out, B,
+                                      N, C, H, nW, u, scale, stream)
+             : launch_n<D, false, NUM>(q, k, v, cnt, bias, region, pad, out,
+                                       B, N, C, H, nW, u, scale, stream);
 }
 
 struct BwdArgs {
@@ -1209,27 +1345,28 @@ struct BwdArgs {
   int n_slots;
 };
 
-template <int D, bool FULL>
+template <int D, bool FULL, int NUM>
 int bwd_grid(int B, int H, int* grid_x) {
-  auto kernel = window_attention_tc_bwd_kernel<D, FULL>;
+  using L = BwdCfg<D, NUM>;
+  auto kernel = window_attention_tc_bwd_kernel<D, FULL, NUM>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BwdCfg<D>::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return wave_ctas(reinterpret_cast<const void*>(kernel),
-                   BwdCfg<D>::kThreads, BwdCfg<D>::kSmem, B,
-                   BwdCfg<D>::kPairs, H, grid_x);
+  return wave_ctas(reinterpret_cast<const void*>(kernel), L::kThreads,
+                   L::kSmem, B, L::kPairs, H, grid_x);
 }
 
-template <int D, bool FULL>
+template <int D, bool FULL, int NUM>
 int launch_bwd_n(const BwdArgs& a, cudaStream_t stream) {
+  using L = BwdCfg<D, NUM>;
   int gx = 0;
-  int err = bwd_grid<D, FULL>(a.B, a.H, &gx);
+  int err = bwd_grid<D, FULL, NUM>(a.B, a.H, &gx);
   if (err != 0) return err;
-  if (a.bias != nullptr && gx * BwdCfg<D>::kPairs > a.n_slots) {
+  if (a.bias != nullptr && gx * L::kPairs > a.n_slots) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  window_attention_tc_bwd_kernel<D, FULL>
-      <<<dim3(gx, a.H), BwdCfg<D>::kThreads, BwdCfg<D>::kSmem, stream>>>(
+  window_attention_tc_bwd_kernel<D, FULL, NUM>
+      <<<dim3(gx, a.H), L::kThreads, L::kSmem, stream>>>(
           static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
           a.cnt, a.bias, a.region, a.pad, static_cast<bf16*>(a.dq),
@@ -1240,26 +1377,44 @@ int launch_bwd_n(const BwdArgs& a, cudaStream_t stream) {
   if (err != 0 || a.bias == nullptr) return err;
   const int n = a.H * a.N * a.N;
   dbias_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      a.db_part, a.dbias, gx * BwdCfg<D>::kPairs, n);
+      a.db_part, a.dbias, gx * L::kPairs, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int NUM>
 int launch_bwd(const BwdArgs& a, cudaStream_t s) {
-  return a.N == kMaxN ? launch_bwd_n<D, true>(a, s)
-                      : launch_bwd_n<D, false>(a, s);
+  return a.N == kMaxN ? launch_bwd_n<D, true, NUM>(a, s)
+                      : launch_bwd_n<D, false, NUM>(a, s);
 }
 
-template <int D>
+template <int D, int NUM>
 int slots_of(int B, int N, int H) {
   int gx = 0;
-  const int err = N == kMaxN ? bwd_grid<D, true>(B, H, &gx)
-                             : bwd_grid<D, false>(B, H, &gx);
-  return err != 0 ? -err : gx * BwdCfg<D>::kPairs;
+  const int err = N == kMaxN ? bwd_grid<D, true, NUM>(B, H, &gx)
+                             : bwd_grid<D, false, NUM>(B, H, &gx);
+  return err != 0 ? -err : gx * BwdCfg<D, NUM>::kPairs;
 }
 
-bool takes(int N, int C, int H, int B, int nW) {
-  return H >= 1 && C % H == 0 && N >= 1 && N <= kMaxN && B >= 1 && nW >= 1;
+bool takes(int N, int C, int H, int B, int nW, int numerics) {
+  return H >= 1 && C % H == 0 && N >= 1 && N <= kMaxN && B >= 1 &&
+         nW >= 1 && (numerics == kV4 || numerics == kV23);
+}
+
+// f(integral_constant<D>, integral_constant<NUM>) for the head dim C / H
+// and the numerics, or an invalid-value error for any other.
+template <typename F>
+int by_shape(int C, int H, int numerics, F f) {
+  auto d = [&](auto num) {
+    switch (C / H) {
+      case 16: return f(std::integral_constant<int, 16>{}, num);
+      case 32: return f(std::integral_constant<int, 32>{}, num);
+      case 48: return f(std::integral_constant<int, 48>{}, num);
+      case 64: return f(std::integral_constant<int, 64>{}, num);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  return numerics == kV23 ? d(std::integral_constant<int, kV23>{})
+                          : d(std::integral_constant<int, kV4>{});
 }
 
 }  // namespace
@@ -1268,45 +1423,38 @@ extern "C" {
 
 // bf16 q/k/v/out [B * N, C] contiguous and 16-byte aligned, heads as channel
 // slices of D = C / H in {16, 32, 48, 64}; 1 <= N <= 64. cnt: [N, N] int32;
-// bias: [H, N, N] float32 or null; region and pad: [nW, N] int32 or null.
-// Returns cudaGetLastError() after the launch, or an error code for a shape
-// the kernel does not take.
+// bias: [H, N, N] float32 or null; region and pad: [nW, N] int32 or null;
+// numerics: 0 (kV4, K1) or 2 (kV23, K3-v3). Returns cudaGetLastError() after
+// the launch, or an error code for a shape the kernel does not take.
 int window_attention_tc_fwd(const void* q, const void* k, const void* v,
                             const int32_t* cnt, const float* bias,
                             const int32_t* region, const int32_t* pad,
                             void* out, int B, int N, int C, int H, int nW,
-                            int u, float scale, void* stream) {
-  if (!takes(N, C, H, B, nW)) return static_cast<int>(cudaErrorInvalidValue);
+                            int u, float scale, int numerics, void* stream) {
+  if (!takes(N, C, H, B, nW, numerics)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
                         reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) |
                         reinterpret_cast<uintptr_t>(out);
   if (any % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C / H) {
-    case 16: return launch<16>(q, k, v, cnt, bias, region, pad, out, B, N, C,
-                               H, nW, u, scale, s);
-    case 32: return launch<32>(q, k, v, cnt, bias, region, pad, out, B, N, C,
-                               H, nW, u, scale, s);
-    case 48: return launch<48>(q, k, v, cnt, bias, region, pad, out, B, N, C,
-                               H, nW, u, scale, s);
-    case 64: return launch<64>(q, k, v, cnt, bias, region, pad, out, B, N, C,
-                               H, nW, u, scale, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_shape(C, H, numerics, [&](auto d, auto num) {
+    return launch<decltype(d)::value, decltype(num)::value>(
+        q, k, v, cnt, bias, region, pad, out, B, N, C, H, nW, u, scale, s);
+  });
 }
 
 // The dbias partial slots of one head that window_attention_tc_bwd fills
-// for these shapes (> 0), or minus a CUDA error code.
-int window_attention_tc_bwd_slots(int B, int N, int C, int H) {
-  if (!takes(N, C, H, B, 1)) return -static_cast<int>(cudaErrorInvalidValue);
-  switch (C / H) {
-    case 16: return slots_of<16>(B, N, H);
-    case 32: return slots_of<32>(B, N, H);
-    case 48: return slots_of<48>(B, N, H);
-    case 64: return slots_of<64>(B, N, H);
+// for these shapes and numerics (> 0), or minus a CUDA error code.
+int window_attention_tc_bwd_slots(int B, int N, int C, int H, int numerics) {
+  if (!takes(N, C, H, B, 1, numerics)) {
+    return -static_cast<int>(cudaErrorInvalidValue);
   }
-  return -static_cast<int>(cudaErrorInvalidValue);
+  return by_shape(C, H, numerics, [&](auto d, auto num) {
+    return slots_of<decltype(d)::value, decltype(num)::value>(B, N, H);
+  });
 }
 
 // Backward of window_attention_tc_fwd for the output gradient g: q/k/v/g
@@ -1321,8 +1469,8 @@ int window_attention_tc_bwd(const void* q, const void* k, const void* v,
                             const int32_t* pad, void* dq, void* dk, void* dv,
                             float* db_part, float* dbias, int B, int N, int C,
                             int H, int nW, int u, float scale, int n_slots,
-                            void* stream) {
-  if (!takes(N, C, H, B, nW) || u < 1 || u > kMaxKept) {
+                            int numerics, void* stream) {
+  if (!takes(N, C, H, B, nW, numerics) || u < 1 || u > kMaxKept) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uintptr_t any =
@@ -1334,13 +1482,9 @@ int window_attention_tc_bwd(const void* q, const void* k, const void* v,
   const BwdArgs a{q, k, v, g, cnt, bias, region, pad, dq, dk, dv, db_part,
                   dbias, B, N, C, H, nW, u, scale, n_slots};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C / H) {
-    case 16: return launch_bwd<16>(a, s);
-    case 32: return launch_bwd<32>(a, s);
-    case 48: return launch_bwd<48>(a, s);
-    case 64: return launch_bwd<64>(a, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_shape(C, H, numerics, [&](auto d, auto num) {
+    return launch_bwd<decltype(d)::value, decltype(num)::value>(a, s);
+  });
 }
 
 const char* cuda_error_string(int err) {

@@ -1,21 +1,32 @@
-"""Image I/O with a standard-library PNG and BMP codec (zlib, struct, numpy
-and a small C helper).
+"""Image I/O with a standard-library PNG, BMP and JPEG codec (zlib, struct,
+numpy and two small C helpers).
 
 Counterpart of `dehaze_tpu/data/images.py` with the same functions and
 semantics — RGB [H, W, 3], float32 in [0, 1] or raw uint8 — but without cv2
 or PIL, which the GPU host does not have. It decodes what cv2's
-IMREAD_COLOR gives the JAX package for these two containers:
+IMREAD_COLOR gives the JAX package for these containers, byte for byte:
 - PNG of every colour type (gray, RGB, palette, gray + alpha, RGBA) at
   every bit depth (1, 2, 4, 8, 16), interlaced (Adam7) or not. Alpha and
   `tRNS` are dropped, gray is repeated to RGB, 16-bit samples keep their
   high byte and gray below 8 bits is scaled to 0..255, as libpng does for
-  cv2. The row filters are undone by `csrc/png_unfilter.c`, built with the
-  host C compiler at first use.
+  cv2. The row filters are undone by `csrc/png_unfilter.c`.
 - BMP: uncompressed 1, 4 and 8-bit palette, 24-bit and 32-bit (`BI_RGB`,
   or `BI_BITFIELDS` with the standard masks), bottom-up or top-down.
-Anything else (JPEG, RLE-compressed BMP, other containers) raises a
-ValueError that names it. `encode_png` writes 8-bit RGB with libpng's
-per-row filter choice.
+- JPEG: 8-bit Huffman-coded, gray or three components, baseline, extended
+  sequential and progressive, any integral sampling factors (4:4:4, 4:2:2,
+  4:2:0, 4:4:0, 4:1:1, ...), restart intervals, as libjpeg-turbo decodes
+  it for cv2 (islow IDCT, fancy upsampling, its fixed-point YCbCr -> RGB).
+  The markers are parsed here; the entropy decode, IDCT, upsampling and
+  colour conversion are `csrc/jpeg_decode.c`. Corrupt data decodes as
+  libjpeg-turbo decodes it for cv2 (restart resynchronisation, zero fill,
+  the 16-bit arithmetic of its SIMD IDCT) or raises ValueError
+  (`scripts/fuzz_jpeg.py` holds mutated files to cv2).
+The C helpers are built with the host C compiler at first use. As cv2
+does, a JPEG's EXIF orientation (APP1 `Exif`) and a PNG's (`eXIf`) turn or
+flip the image upright. Anything else (arithmetic-coded, lossless,
+hierarchical, 12-bit or CMYK JPEG, a truncated file, RLE-compressed BMP,
+other containers) raises a ValueError that names it. `encode_png` writes
+8-bit RGB with libpng's per-row filter choice.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import struct
 import zlib
+from typing import Optional
 
 import numpy as np
 
@@ -40,6 +52,54 @@ _UNFILTER = {"png_unfilter": [ctypes.c_void_p, ctypes.c_void_p,
 _BMP_COMPRESSION = {1: "RLE8", 2: "RLE4", 4: "JPEG", 5: "PNG",
                     6: "ALPHABITFIELDS"}
 _BMP_STANDARD_MASKS = (0x00FF0000, 0x0000FF00, 0x000000FF)
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_JPEG = {"jpeg_decode_scan": [_P, _I64] + [_P] * 7,
+         "jpeg_output": [_I, _I, _I] + [_P] * 6 + [_I, _P]}
+# JPEG frame markers this decoder refuses, by name (cv2 decodes the
+# arithmetic-coded ones; see ROADMAP.md, F6)
+_JPEG_REFUSED = {
+    0xC3: "lossless (SOF3)", 0xC5: "hierarchical (SOF5)",
+    0xC6: "hierarchical (SOF6)", 0xC7: "hierarchical lossless (SOF7)",
+    0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded (SOF10)",
+    0xCB: "arithmetic-coded lossless (SOF11)",
+    0xCC: "arithmetic-coded (DAC)", 0xCD: "arithmetic-coded (SOF13)",
+    0xCE: "arithmetic-coded (SOF14)", 0xCF: "arithmetic-coded (SOF15)",
+    0xDE: "hierarchical (DHP)", 0xDF: "hierarchical (EXP)"}
+_JPEG_ERRORS = {1: "a corrupt Huffman table", 2: "an undefined Huffman table",
+                3: "a corrupt scan"}
+# markers with a length and a body that libjpeg reads or skips: SOF0-2, DHT,
+# DQT, DRI, SOS, DNL, APP0-15, COM (RST0-7 and TEM stand alone); libjpeg
+# stops at any other marker, and so does this decoder
+_JPEG_SEGMENTS = frozenset([0xC0, 0xC1, 0xC2, 0xC4, 0xDB, 0xDD, 0xDA, 0xDC,
+                            0xFE, *range(0xE0, 0xF0)])
+# the Huffman tables of ITU-T T.81 Annex K.3 (16 counts, then the symbols),
+# which libjpeg-turbo installs in DC/AC slots 0 and 1 of a sequential JPEG
+# that leaves them undefined (motion-JPEG frames), in the order DC 0, DC 1,
+# AC 0, AC 1
+_STD_HUFF = {slot: bytes.fromhex(spec) for slot, spec in (
+    (0, "00010501010101010100000000000000000102030405060708090a0b"),
+    (1, "00030101010101010101010000000000000102030405060708090a0b"),
+    (4, "0002010303020403050504040000017d01020300041105122131410613516107"
+        "227114328191a1082342b1c11552d1f02433627282090a161718191a25262728"
+        "292a3435363738393a434445464748494a535455565758595a63646566676869"
+        "6a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7"
+        "a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2"
+        "e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"),
+    (5, "0002010204040304070504040001027700010203110405213106124151076171"
+        "1322328108144291a1b1c109233352f0156272d10a162434e125f11718191a26"
+        "2728292a35363738393a434445464748494a535455565758595a636465666768"
+        "696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5"
+        "a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9da"
+        "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"))}
+# zigzag position -> natural position of a DCT coefficient
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+    36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+    60, 61, 54, 47, 55, 62, 63])
+# the first 10 coefficients (zigzag order) whose partial refinement makes
+# libjpeg smooth a progressive image's blocks (jdcoefct.c, SAVED_COEFS)
+_SMOOTHED = 10
 
 
 def _chunks(data: bytes):
@@ -89,11 +149,49 @@ def _samples(rows: np.ndarray, width: int, channels: int,
     return vals[:, :width, None]
 
 
+def exif_orientation(tiff: bytes) -> Optional[int]:
+    """The Orientation tag (0x0112) of a TIFF/EXIF block's first IFD, read
+    as cv2's ExifReader reads it: either byte order, the 16-bit value at the
+    entry's value field whatever its declared type and count, the first
+    such entry among the IFD's counted entries. None when there is none or
+    the block is malformed (no byte order mark, a magic other than 42, an
+    IFD or entry past the end)."""
+    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return None
+    e = "<" if tiff[:2] == b"II" else ">"
+    magic, off = struct.unpack_from(e + "HI", tiff, 2)
+    if magic != 42 or off + 2 > len(tiff):
+        return None
+    (count,) = struct.unpack_from(e + "H", tiff, off)
+    for i in range(count):
+        p = off + 2 + 12 * i
+        if p + 2 > len(tiff):
+            return None
+        if struct.unpack_from(e + "H", tiff, p)[0] == 0x0112:
+            if p + 10 > len(tiff):
+                return None
+            return struct.unpack_from(e + "H", tiff, p + 8)[0]
+    return None
+
+
+def apply_orientation(img: np.ndarray, orientation: Optional[int]
+                      ) -> np.ndarray:
+    """[H, W, C] turned or flipped upright for an EXIF orientation 1-8, as
+    cv2's ExifTransform does; any other value (or None) leaves it."""
+    if orientation in (5, 6, 7, 8):
+        img = img.transpose(1, 0, 2)
+    if orientation in (2, 3, 6, 7):
+        img = img[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes → uint8 RGB [H, W, 3]."""
+    """PNG bytes → uint8 RGB [H, W, 3], upright by its `eXIf` orientation."""
     if not data.startswith(_SIG):
         raise ValueError("undecodable image payload (not a PNG)")
-    header, palette, idat = None, None, []
+    header, palette, idat, exif = None, None, [], None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             if len(body) != 13:
@@ -103,6 +201,8 @@ def decode_png(data: bytes) -> np.ndarray:
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"eXIf" and exif is None:
+            exif = body
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, comp, filt, interlace = header
@@ -138,13 +238,16 @@ def decode_png(data: bytes) -> np.ndarray:
     if ctype == 3:
         if int(img.max()) >= len(palette):
             raise ValueError("PNG palette index out of range")
-        return palette[img[..., 0]]
-    if ch >= 3:
-        return np.ascontiguousarray(img[:, :, :3])
-    gray = img[:, :, :1]
-    if depth < 8:  # libpng's expansion: 1 -> 255, 2 -> 85, 4 -> 17 per step
-        gray = gray * np.uint8(255 // ((1 << depth) - 1))
-    return np.repeat(gray, 3, axis=2)
+        rgb = palette[img[..., 0]]
+    elif ch >= 3:
+        rgb = img[:, :, :3]
+    else:
+        gray = img[:, :, :1]
+        if depth < 8:  # libpng's expansion: 1 -> 255, 2 -> 85, 4 -> 17
+            gray = gray * np.uint8(255 // ((1 << depth) - 1))
+        rgb = np.repeat(gray, 3, axis=2)
+    return apply_orientation(rgb, None if exif is None
+                             else exif_orientation(exif))
 
 
 def decode_bmp(data: bytes) -> np.ndarray:
@@ -198,6 +301,245 @@ def decode_bmp(data: bytes) -> np.ndarray:
     if int(idx.max()) >= n:
         raise ValueError("BMP palette index out of range")
     return palette[idx]
+
+
+def _jpeg_frame(seg: bytes):
+    """A SOF0/1/2 segment -> (height, width, [(id, h, v, table)])."""
+    if len(seg) < 6:
+        raise ValueError("truncated JPEG frame header")
+    prec, h, w, nf = struct.unpack_from(">BHHB", seg)
+    if prec != 8:
+        raise ValueError(f"{prec}-bit JPEG is not supported (8-bit only)")
+    if nf == 4:
+        raise ValueError("4-component (CMYK/YCCK) JPEG is not supported")
+    if nf not in (1, 3):
+        raise ValueError(f"JPEG with {nf} components is not supported")
+    if h == 0:
+        raise ValueError("JPEG with its height in a DNL marker is not "
+                         "supported")
+    if w == 0 or len(seg) != 6 + 3 * nf or len(set(seg[6::3])) != nf:
+        raise ValueError("corrupt JPEG frame header")
+    if max(h, w) > 65500:  # libjpeg's JPEG_MAX_DIMENSION
+        raise ValueError(f"JPEG of {w}x{h} exceeds 65500 pixels a side")
+    if h * w > 1 << 30:  # cv2's CV_IO_MAX_IMAGE_PIXELS
+        raise ValueError(f"JPEG of {w}x{h} exceeds 2^30 pixels")
+    comps = []
+    for i in range(nf):
+        cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
+        if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4) or tq > 3:
+            raise ValueError("corrupt JPEG frame header (sampling factors "
+                             "or quantisation table)")
+        comps.append((cid, hv >> 4, hv & 15, tq))
+    return h, w, comps
+
+
+def _jpeg_tables(seg: bytes, marker: int, qt: dict, huff: np.ndarray):
+    """DQT or DHT segment into qt ({id: 64 divisors in natural order}) or
+    huff ([8, 16 + 256]: DC 0..3, then AC 0..3)."""
+    i = 0
+    while i < len(seg):
+        if marker == 0xDB:
+            pq, tq = seg[i] >> 4, seg[i] & 15
+            n = 128 if pq else 64
+            if tq > 3 or pq > 1 or i + 1 + n > len(seg):
+                raise ValueError("corrupt JPEG quantisation table")
+            vals = np.frombuffer(seg, ">u2" if pq else np.uint8, 64, i + 1)
+            q = np.zeros(64, np.uint16)
+            q[_ZIGZAG] = vals
+            qt[tq] = q
+            i += 1 + n
+        else:
+            tc, th = seg[i] >> 4, seg[i] & 15
+            counts = seg[i + 1:i + 17]
+            n = sum(counts)
+            if tc > 1 or th > 3 or len(counts) < 16 or n > 256 \
+                    or i + 17 + n > len(seg):
+                raise ValueError("corrupt JPEG Huffman table")
+            huff[4 * tc + th] = 0
+            huff[4 * tc + th, :16] = np.frombuffer(counts, np.uint8)
+            huff[4 * tc + th, 16:16 + n] = np.frombuffer(seg, np.uint8, n,
+                                                         i + 17)
+            i += 17 + n
+
+
+def _next_marker(data: bytes, pos: int):
+    """The next marker at or after pos, as libjpeg's next_marker finds it
+    (bytes that are not 0xFF, fill bytes and stuffed FF 00 pairs are
+    skipped): (marker code, position after it), or (None, len(data))."""
+    n = len(data)
+    while True:
+        pos = data.find(b"\xff", pos)
+        if pos < 0:
+            return None, n
+        while pos < n and data[pos] == 0xFF:
+            pos += 1
+        if pos >= n:
+            return None, n
+        if data[pos]:
+            return data[pos], pos + 1
+        pos += 1
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes → uint8 RGB [H, W, 3], upright by its EXIF orientation,
+    as cv2.imdecode(IMREAD_COLOR) and a BGR → RGB swap give it.
+
+    The markers are read as libjpeg reads them for cv2. A sequential JPEG
+    whose first scan holds every component is done with that scan: cv2
+    ignores what follows it (libjpeg reads it only when the image is
+    finished, and cv2 does not look at that step's errors), but the scan's
+    data must end at a marker. Any other JPEG is read to its EOI."""
+    if not data.startswith(b"\xff\xd8\xff"):  # cv2's JPEG signature
+        raise ValueError("undecodable image payload (not a JPEG)")
+    lib = _build.load_host_library("jpeg_decode", _JPEG)
+    buf = np.frombuffer(data, np.uint8)
+    n, pos = len(data), 2
+    qt, huff = {}, np.zeros((8, 272), np.uint8)
+    frame, progressive, comps, restart = None, False, [], 0
+    jfif, adobe, exif = False, None, []
+    coef_bits, stop, scans = None, np.zeros(1, np.int64), 0
+    while True:
+        m, pos = _next_marker(data, pos)
+        if m is None:
+            raise ValueError("truncated JPEG (no EOI marker)")
+        if m == 0xD9:
+            break
+        if 0xD0 <= m <= 0xD7 or m == 0x01:  # markers without a segment
+            continue
+        if m in _JPEG_REFUSED:
+            raise ValueError(f"{_JPEG_REFUSED[m]} JPEG is not supported")
+        if m not in _JPEG_SEGMENTS:
+            raise ValueError(f"corrupt JPEG (unknown marker 0x{m:02x})")
+        if pos + 2 > n:
+            raise ValueError("truncated JPEG")
+        (length,) = struct.unpack_from(">H", data, pos)
+        if length < 2 or pos + length > n:
+            raise ValueError("truncated JPEG marker segment")
+        seg = data[pos + 2:pos + length]
+        pos += length
+        if m in (0xC0, 0xC1, 0xC2):
+            if frame is not None:
+                raise ValueError("corrupt JPEG (two frame headers)")
+            frame = _jpeg_frame(seg)
+            progressive = m == 0xC2
+            H, W, fcomps = frame
+            hmax = max(c[1] for c in fcomps)
+            vmax = max(c[2] for c in fcomps)
+            mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+            for cid, h, v, tq in fcomps:
+                comps.append(dict(
+                    id=cid, h=h, v=v, tq=tq, quant=None,
+                    wib=-(-W * h // (8 * hmax)), hib=-(-H * v // (8 * vmax)),
+                    bw=mcux * h,
+                    coef=np.zeros((mcuy * v, mcux * h, 64), np.int16)))
+            coef_bits = np.full((len(comps), 64), -1, np.int32)
+        elif m in (0xDB, 0xC4):
+            _jpeg_tables(seg, m, qt, huff)
+        elif m == 0xDD:
+            if len(seg) != 2:
+                raise ValueError("corrupt JPEG restart interval")
+            (restart,) = struct.unpack_from(">H", seg)
+        elif scans and m in (0xE0, 0xE1, 0xEE):
+            pass  # libjpeg and cv2 read these only before the first scan
+        elif m == 0xE0 and seg.startswith(b"JFIF\0") and len(seg) >= 14:
+            jfif = True
+        elif m == 0xEE and seg.startswith(b"Adobe") and len(seg) >= 12:
+            adobe = seg[11]
+        elif m == 0xE1 and seg.startswith(b"Exif\0\0"):
+            exif.append(seg[6:])
+        elif m == 0xDA:
+            if frame is None:
+                raise ValueError("corrupt JPEG (a scan before the frame "
+                                 "header)")
+            ns = seg[0] if seg else 0
+            if not 1 <= ns <= 4 or len(seg) != 4 + 2 * ns:
+                raise ValueError("corrupt JPEG scan header")
+            ss, se, ahal = seg[1 + 2 * ns:4 + 2 * ns]
+            ah, al = ahal >> 4, ahal & 15
+            if progressive and (se > 63 or ss > se or (ss == 0) != (se == 0)
+                                or (ss > 0 and ns != 1) or al > 13
+                                or (ah and al != ah - 1)):
+                raise ValueError("corrupt JPEG (invalid progressive scan)")
+            if not scans and not progressive:
+                for slot, spec in _STD_HUFF.items():  # as libjpeg-turbo
+                    if not huff[slot, :16].any():
+                        huff[slot, :len(spec)] = np.frombuffer(spec, np.uint8)
+            ids = [c["id"] for c in comps]
+            desc = [int(progressive), ss, se, ah, al, restart, ns, 0, 0]
+            ptrs, blocks = [None] * 4, 0
+            if len(set(seg[1:1 + 2 * ns:2])) != ns:
+                raise ValueError("corrupt JPEG scan header (a component "
+                                 "twice)")
+            for j in range(ns):
+                cs, t = seg[1 + 2 * j:3 + 2 * j]
+                if cs not in ids or t >> 4 > 3 or t & 15 > 3:
+                    raise ValueError("corrupt JPEG scan header")
+                ci = ids.index(cs)
+                c = comps[ci]
+                if c["quant"] is None:  # latched at its first scan
+                    if c["tq"] not in qt:
+                        raise ValueError("JPEG quantisation table "
+                                         f"{c['tq']} is not defined")
+                    c["quant"] = qt[c["tq"]].copy()
+                ptrs[j] = c["coef"].ctypes.data
+                desc += [j, c["h"], c["v"], c["bw"], c["wib"], c["hib"],
+                         t >> 4, t & 15]
+                blocks += c["h"] * c["v"]
+                if progressive:
+                    coef_bits[ci, ss:se + 1] = al
+                else:
+                    coef_bits[ci, :] = 0
+            if ns == 1:  # one block per MCU, over the component's blocks
+                desc[7:9] = [c["wib"], c["hib"]]
+            else:
+                if blocks > 10:
+                    raise ValueError("corrupt JPEG (more than 10 blocks "
+                                     "in an MCU)")
+                desc[7:9] = [mcux, mcuy]
+            err = lib.jpeg_decode_scan(
+                buf[pos:].ctypes.data, n - pos,
+                np.asarray(desc, np.int32).ctypes.data, *ptrs,
+                huff.ctypes.data, stop.ctypes.data)
+            if err:
+                raise ValueError(f"corrupt JPEG: {_JPEG_ERRORS[err]}")
+            pos += int(stop[0])
+            scans += 1
+            if scans == 1 and not progressive and ns == len(comps):
+                if _next_marker(data, pos)[0] is None:
+                    raise ValueError("truncated JPEG (the scan data has no "
+                                     "end)")
+                break
+    if frame is None or not scans:
+        raise ValueError("corrupt JPEG (no frame or no scan)")
+    if progressive and any(bits[0] >= 0 and (bits[1:_SMOOTHED] != 0).any()
+                           for bits in coef_bits):
+        raise ValueError("progressive JPEG whose scans leave low-frequency "
+                         "coefficients unrefined is not supported (libjpeg "
+                         "smooths its blocks)")
+    H, W, _ = frame
+    if len(comps) == 1:
+        color = 0
+    elif jfif:
+        color = 1
+    elif adobe is not None:
+        color = 2 if adobe == 0 else 1
+    else:
+        color = 2 if [c["id"] for c in comps] == [82, 71, 66] else 1
+    cdesc = np.asarray([[c["h"], c["v"], c["bw"], c["wib"], c["hib"]]
+                        for c in comps], np.int32)
+    quant = np.stack([np.zeros(64, np.uint16) if c["quant"] is None
+                      else c["quant"] for c in comps])
+    out = np.empty((H, W, 3), np.uint8)
+    ptrs = [c["coef"].ctypes.data for c in comps] + [None] * (4 - len(comps))
+    if lib.jpeg_output(H, W, len(comps), cdesc.ctypes.data, *ptrs,
+                       quant.ctypes.data, color, out.ctypes.data):
+        raise ValueError("JPEG with fractional sampling factors is not "
+                         "supported")
+    for block in exif:  # the first block that has the tag decides
+        orientation = exif_orientation(block)
+        if orientation is not None:
+            return apply_orientation(out, orientation)
+    return out
 
 
 def _residuals(rows: np.ndarray, bpp: int) -> np.ndarray:
@@ -260,18 +602,20 @@ def _to_u8(img: np.ndarray) -> np.ndarray:
 
 
 def decode_img(data: bytes, u8: bool = False) -> np.ndarray:
-    """Encoded PNG or BMP bytes → [H, W, 3] float32 RGB in [0, 1], or raw
-    uint8 RGB with `u8=True` (the serving forwards normalize on the
-    device). JPEG and other formats raise ValueError."""
+    """Encoded PNG, BMP or JPEG bytes → [H, W, 3] float32 RGB in [0, 1], or
+    raw uint8 RGB with `u8=True` (the serving forwards normalize on the
+    device), upright by the EXIF orientation as cv2 applies it. Other
+    formats, and the kinds of JPEG listed in the module's docstring, raise
+    ValueError."""
     if data.startswith(_SIG):
         img = decode_png(data)
     elif data.startswith(b"BM"):
         img = decode_bmp(data)
     elif data.startswith(b"\xff\xd8\xff"):
-        raise ValueError("JPEG is not supported (the port decodes PNG and "
-                         "BMP only)")
+        img = decode_jpeg(data)
     else:
-        raise ValueError("undecodable image payload (not a PNG or BMP)")
+        raise ValueError("undecodable image payload (not a PNG or BMP, nor "
+                         "a JPEG)")
     return img if u8 else img.astype(np.float32) / 255.0
 
 

@@ -11,27 +11,29 @@ There is no other path: a failed build or launch raises. Gradients go to q,
 k, v and `rel_pos_bias`; the backward reuses the forward's `sample_idx`, so
 the selection is never redrawn.
 
-Two forward kernels, chosen by shape and dtype alone (`fwd_kernel_for`):
-- "tc", `csrc/window_attention_tc.cu`: bf16, K1's numerics, N <= 64, head
-  dim 16, 32, 48 or 64 — every shape of the model's default configuration.
-  QK^T on the float64 tensor cores, PV on the bf16 ones, a warp per
-  window-head; counted in `window_attention_fwd.launches_tc`;
+Two forward kernels, chosen by shape, dtype, numerics and layout alone
+(`fwd_kernel_for`):
+- "tc", `csrc/window_attention_tc.cu`: bf16, token-major, K1's or K3-v3's
+  numerics, N <= 64, head dim 16, 32, 48 or 64 — every shape of the
+  model's default configuration. QK^T on the float64 tensor cores, PV on
+  the bf16 ones, a warp per window-head; counted in `.launches_tc` of its
+  entry point (`window_attention_fwd`, `window_attention_v3_fwd`);
 - "cuda_core", `window_attention_fwd_kernel` of `csrc/window_attention.cu`:
-  everything else (float32, K3's numerics, larger windows or heads);
-  counted in `.launches` of its entry point.
+  everything else (float32, K3's head-major v1 and v2, larger windows or
+  heads); counted in `.launches` of its entry point.
 Both select exactly the rows the twin selects (see the sources' notes).
 Two backward kernels, chosen the same way (`bwd_kernel_for`):
 - "tc", `window_attention_tc_bwd_kernel` of `csrc/window_attention_tc.cu`:
   the forward's shapes with u <= 32 kept rows (every shape of the default
   configuration); it runs the forward's selection code, then only the kept
-  rows' products on the bf16 tensor cores; counted in
-  `window_attention_bwd.launches_tc`;
+  rows' products on the bf16 tensor cores; counted in `.launches_tc` of
+  `window_attention_bwd` and `window_attention_v3_bwd`;
 - "cuda_core", `window_attention_bwd_kernel` of `csrc/window_attention.cu`:
   everything else; counted in `.launches`.
 
 K3 are the older TPU kernels of the same chain, which round at other points
 (see `ops.probsparse`); the same CUDA kernels run them with another
-numerics argument:
+numerics argument ("v23" on the tensor-core kernels as well):
 - `fused_window_attention(version=3)`: `_fused_attn_v3_fwd` / `_kernel_v3`
   and `_fused_attn_v3_bwd` / `_kernel_v3_bwd` (`window_attention.py:618`,
   `:639`), forward and backward;
@@ -71,9 +73,9 @@ _SIGNATURES = {
     "window_attention_ws_bytes": [_I] * 3,
 }
 _TC_SIGNATURES = {
-    "window_attention_tc_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
-    "window_attention_tc_bwd": [_P] * 13 + [_I] * 6 + [_F, _I, _P],
-    "window_attention_tc_bwd_slots": [_I] * 4,
+    "window_attention_tc_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    "window_attention_tc_bwd": [_P] * 13 + [_I] * 6 + [_F, _I, _I, _P],
+    "window_attention_tc_bwd_slots": [_I] * 5,
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NUMERICS = {"v4": 0, "v1": 1, "v23": 2}
@@ -81,6 +83,7 @@ _NUMERICS = {"v4": 0, "v1": 1, "v23": 2}
 # backward also needs u <= TC_BWD_MAX_KEPT.
 TC_MAX_N = 64
 TC_HEAD_DIMS = (16, 32, 48, 64)
+TC_NUMERICS = ("v4", "v23")
 TC_BWD_MAX_KEPT = 32
 # Backward CTAs per head count share the windows, each writing one dbias
 # partial: 4 per SM (two are resident at N=64, D=32). A CUDA-core forward
@@ -89,11 +92,13 @@ BWD_CTAS_PER_SM = 4
 
 
 def fwd_kernel_for(dtype: torch.dtype, numerics: str, n: int,
-                   head_dim: int) -> str:
+                   head_dim: int, head_major: bool = False) -> str:
     """Which forward kernel a CUDA call launches: "tc" (the tensor-core
-    kernel: bf16, K1's numerics, N <= 64, head dim 16, 32, 48 or 64) or
-    "cuda_core" (everything else, K3's head-major variants among it)."""
-    if (dtype == torch.bfloat16 and numerics == "v4" and n <= TC_MAX_N
+    kernel: bf16, token-major [B_, N, C], K1's or K3-v3's numerics, N <=
+    64, head dim 16, 32, 48 or 64) or "cuda_core" (everything else, K3's
+    head-major v1 and v2 among it)."""
+    if (dtype == torch.bfloat16 and numerics in TC_NUMERICS
+            and not head_major and n <= TC_MAX_N
             and head_dim in TC_HEAD_DIMS):
         return "tc"
     return "cuda_core"
@@ -102,8 +107,8 @@ def fwd_kernel_for(dtype: torch.dtype, numerics: str, n: int,
 def bwd_kernel_for(dtype: torch.dtype, numerics: str, n: int,
                    head_dim: int, factor: int = 5) -> str:
     """Which backward kernel a CUDA call launches: "tc" (the tensor-core
-    kernel: the forward's shapes, with u = probsparse_u(n, factor) <= 32
-    kept rows) or "cuda_core" (everything else, K3-v3 among it)."""
+    kernel: the forward's shapes and numerics, with u = probsparse_u(n,
+    factor) <= 32 kept rows) or "cuda_core" (everything else)."""
     if (fwd_kernel_for(dtype, numerics, n, head_dim) == "tc"
             and ps_ops.probsparse_u(n, factor) <= TC_BWD_MAX_KEPT):
         return "tc"
@@ -204,15 +209,15 @@ def _launch_fwd(entry, numerics, head_major, q, k, v, *, num_heads,
     if cnt is None:
         cnt = count_matrix(sample_idx, N, dev)
     out = torch.empty_like(q)
-    if fwd_kernel_for(q.dtype, numerics, N, C // H) == "tc":
+    if fwd_kernel_for(q.dtype, numerics, N, C // H, head_major) == "tc":
         lib = _build.load_library("window_attention_tc", _TC_SIGNATURES)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.window_attention_tc_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), cnt.data_ptr(),
                 _ptr(bias), _ptr(region), _ptr(pad), out.data_ptr(), B, N, C,
-                H, nW, u, float(scale), stream)
-        _build.check(lib, err, "window_attention_tc_fwd")
+                H, nW, u, float(scale), _NUMERICS[numerics], stream)
+        _build.check(lib, err, f"window_attention_tc_fwd ({numerics})")
         entry.launches_tc += 1
         return out
     lib = _build.load_library("window_attention", _SIGNATURES)
@@ -275,8 +280,10 @@ def _attention_bwd(entry, numerics, q, k, v, g, *, num_heads, sample_idx,
     if bwd_kernel_for(q.dtype, numerics, N, C // H, factor) == "tc":
         lib = _build.load_library("window_attention_tc", _TC_SIGNATURES)
         with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
             # the dbias partials the kernel fills; minus a CUDA error
-            slots = lib.window_attention_tc_bwd_slots(B, N, C, H)
+            slots = lib.window_attention_tc_bwd_slots(B, N, C, H,
+                                                      _NUMERICS[numerics])
             _build.check(lib, max(0, -slots), "window_attention_tc_bwd_slots")
             db_part = dbias = None
             if bias is not None:
@@ -288,8 +295,8 @@ def _attention_bwd(entry, numerics, q, k, v, g, *, num_heads, sample_idx,
                 cnt.data_ptr(), _ptr(bias), _ptr(region), _ptr(pad),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(db_part),
                 _ptr(dbias), B, N, C, H, nW, u, float(scale), slots,
-                torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(lib, err, "window_attention_tc_bwd")
+                _NUMERICS[numerics], stream)
+        _build.check(lib, err, f"window_attention_tc_bwd ({numerics})")
         entry.launches_tc += 1
         return dq, dk, dv, dbias
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -336,13 +343,14 @@ def window_attention_bwd(q, k, v, g, **kw):
 
 def window_attention_v3_fwd(q, k, v, **kw):
     """K3-v3 forward (`_fused_attn_v3_fwd`, "v23" numerics), as
-    `window_attention_fwd`."""
+    `window_attention_fwd`: the tensor-core kernel's launches in
+    `.launches_tc`, the CUDA-core kernel's in `.launches`."""
     return _attention_fwd(window_attention_v3_fwd, "v23", q, k, v, **kw)
 
 
 def window_attention_v3_bwd(q, k, v, g, **kw):
     """K3-v3 backward (`_fused_attn_v3_bwd`, "v23" numerics: dk from the
-    rounded q·scale), as `window_attention_bwd`."""
+    rounded q·scale), as `window_attention_bwd`, counted the same way."""
     return _attention_bwd(window_attention_v3_bwd, "v23", q, k, v, g, **kw)
 
 
@@ -400,8 +408,9 @@ for _entry in (window_attention_fwd, window_attention_bwd,
                probsparse_window_attention_v1,
                probsparse_window_attention_v2):
     _entry.launches = 0
-window_attention_fwd.launches_tc = 0
-window_attention_bwd.launches_tc = 0
+for _entry in (window_attention_fwd, window_attention_bwd,
+               window_attention_v3_fwd, window_attention_v3_bwd):
+    _entry.launches_tc = 0
 
 _VERSIONS = {4: (window_attention_fwd, window_attention_bwd),
              3: (window_attention_v3_fwd, window_attention_v3_bwd)}

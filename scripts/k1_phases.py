@@ -2,7 +2,7 @@
 """Where K1 spends its time, phase by phase, on one NVIDIA GPU.
 
     python3 scripts/k1_phases.py [--root DIR]
-        [--kernel cuda_core|tc|cuda_core_bwd|tc_bwd]
+        [--kernel cuda_core|tc|cuda_core_bwd|tc_bwd] [--numerics v4|v23]
 
 Builds an instrumented copy of one K1 source of the port found under
 --root (default: this repository), in a temporary directory; the source
@@ -31,6 +31,8 @@ prints the cycles per CTA of each phase.
   reach it only in a tree without the tensor-core backward.
 --kernel tc_bwd: `window_attention_tc_bwd_kernel` of
   csrc/window_attention_tc.cu, by its `// phase:` lines as for tc.
+--numerics v23 runs K3-v3's calls (`window_attention_v3_fwd` / `_bwd`,
+the same kernels with K3-v3's rounding points) instead of K1's.
 The counters and clock reads slow the kernel somewhat; shares are what they
 show. Imports nothing of JAX.
 """
@@ -130,6 +132,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--kernel", choices=tuple(KERNELS), default="tc")
+    ap.add_argument("--numerics", choices=("v4", "v23"), default="v4")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -168,7 +171,11 @@ def main() -> None:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1237)
-    print(f"K1 {'backward' if bwd else 'forward'}, {args.kernel} kernel, "
+    fwd, bwd_fn = ((K1.window_attention_fwd, K1.window_attention_bwd)
+                   if args.numerics == "v4" else
+                   (K1.window_attention_v3_fwd, K1.window_attention_v3_bwd))
+    print(f"{'K1' if args.numerics == 'v4' else 'K3-v3'} "
+          f"{'backward' if bwd else 'forward'}, {args.kernel} kernel, "
           f"from {lib_name}.cu under {os.path.abspath(args.root)}",
           flush=True)
     for name, B, C, heads, reg_hw in BWD_STAGES if bwd else STAGES:
@@ -189,8 +196,8 @@ def main() -> None:
 
         def run():
             if bwd:
-                return K1.window_attention_bwd(q, k, v, go, **kw)
-            return K1.window_attention_fwd(q, k, v, **kw)
+                return bwd_fn(q, k, v, go, **kw)
+            return fwd(q, k, v, **kw)
 
         run()
         torch.cuda.synchronize()

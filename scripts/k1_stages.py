@@ -4,6 +4,7 @@ frame (forward) or of one train step (backward, --bwd), on one NVIDIA GPU,
 from the port found under --root.
 
     python3 scripts/k1_stages.py [--root DIR] [--reps N] [--twin] [--bwd]
+        [--numerics v4|v23]
 
 The shapes are Uformer-32's, N = 64, head dim 32, bf16, q/k/v at std 0.5
 (the output gradient at std 1), a rel-pos bias, seeded inputs: at each
@@ -16,9 +17,11 @@ two trees' kernels are timed on the same card in one call. Prints one line
 per stage, then a JSON line with each call's kernel ms (CUDA events, mean
 of --reps calls after a warm-up) and its bound and, with --twin, the plain
 twin's ms and the largest |kernel - twin| (over dq, dk and dv in the
-backward, relative to each tensor's largest |twin|). The sample-count
-matrix is built once, as the model builds it once per forward. Imports
-nothing of JAX.
+backward, relative to each tensor's largest |twin|). --numerics v23 times
+K3-v3 (`window_attention_v3_fwd` / `_bwd`, the same kernels with K3-v3's
+rounding points) at the same shapes instead; no path runs it, but its
+per-stage times compare with K1's. The sample-count matrix is built once,
+as the model builds it once per forward. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -73,6 +76,7 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--twin", action="store_true")
     ap.add_argument("--bwd", action="store_true")
+    ap.add_argument("--numerics", choices=("v4", "v23"), default="v4")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -82,8 +86,12 @@ def main() -> None:
         sys.exit("needs an NVIDIA GPU")
     from dehaze_tpu_torch.ops import probsparse as ps_ops
     from dehaze_tpu_torch.ops import window as win_ops
-    from dehaze_tpu_torch.ops.kernels.window_attention import (
-        count_matrix, window_attention_bwd, window_attention_fwd)
+    from dehaze_tpu_torch.ops.kernels import window_attention as K1
+
+    count_matrix = K1.count_matrix
+    fwd, bwd = ((K1.window_attention_fwd, K1.window_attention_bwd)
+                if args.numerics == "v4" else
+                (K1.window_attention_v3_fwd, K1.window_attention_v3_bwd))
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1238)
@@ -108,19 +116,18 @@ def main() -> None:
             nW = 1 if region is None else region.shape[0]
             if args.bwd:
                 def kern():
-                    return window_attention_bwd(q, k, v, go, num_windows=nW,
-                                                cnt=cnt, **kw)
+                    return bwd(q, k, v, go, num_windows=nW, cnt=cnt, **kw)
 
                 def twin():
-                    return ps_ops.probsparse_attention_bnc_bwd(q, k, v, go,
-                                                               **kw)
+                    return ps_ops.probsparse_attention_bnc_bwd(
+                        q, k, v, go, numerics=args.numerics, **kw)
             else:
                 def kern():
-                    return window_attention_fwd(q, k, v, num_windows=nW,
-                                                cnt=cnt, **kw)
+                    return fwd(q, k, v, num_windows=nW, cnt=cnt, **kw)
 
                 def twin():
-                    return ps_ops.probsparse_attention_bnc(q, k, v, **kw)
+                    return ps_ops.probsparse_attention_bnc(
+                        q, k, v, numerics=args.numerics, **kw)
             # bytes: q/k/v and out (q/k/v/g and dq/dk/dv, the bias read and
             # dbias written in a backward), the counts, the region ids;
             # operations: S and the kept rows' products (PV; dv, da2, dq
@@ -163,8 +170,10 @@ def main() -> None:
     total = sum(r["ms"] for r in rows)
     what = ("backward calls of a train step" if args.bwd
             else "forward launches of a serving frame")
-    print(f"18 K1 {what}: {total:.3f} ms", flush=True)
+    name = "K1" if args.numerics == "v4" else "K3-v3"
+    print(f"18 {name} {what}: {total:.3f} ms", flush=True)
     print(json.dumps({"root": os.path.abspath(args.root),
+                      "numerics": args.numerics,
                       "step_ms" if args.bwd else "frame_ms": total,
                       "stages": rows}), flush=True)
 

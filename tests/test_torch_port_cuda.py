@@ -103,18 +103,19 @@ def _bwd_count(dtype, N, D):
     return lambda: getattr(window_attention_bwd, attr)
 
 
-def _flipped_rows(got, q, k, v, kw):
+def _flipped_rows(got, q, k, v, kw, numerics="v4"):
     """Rows where the kernel's choice between a2 @ V and mean(V) differs
-    from the twin's selection. The kernels' mean(V) is the float32 sum over
-    tokens in token order, divided by N and rounded: a row is the kernel's
-    mean(V) row iff it equals that bit for bit."""
+    from the twin's selection (K1's, or K3-v3's with numerics "v23"). The
+    kernels' mean(V) is the float32 sum over tokens in token order, divided
+    by N and rounded: a row is the kernel's mean(V) row iff it equals that
+    bit for bit."""
     heads = kw["num_heads"]
     B, N, C = q.shape
     mask = TPS.attention_mask(kw.get("sw_region"), kw.get("pad_flag"))
     row_mask = TPS._chain_bhnd(
         TPS._heads(q, heads), TPS._heads(k, heads), TPS._heads(v, heads),
         kw["sample_idx"], kw.get("rel_pos_bias"), mask, 5,
-        TPS._scale(q, heads, None), "v4")[3]                  # [B, H, N]
+        TPS._scale(q, heads, None), numerics)[3]              # [B, H, N]
     s = torch.zeros(B, C, device=v.device)
     for j in range(N):
         s = s + v[:, j].float()
@@ -281,9 +282,9 @@ def test_k1_backward_is_deterministic(cuda):
         assert torch.equal(x, y)
 
 
-def _bwd_flipped_rows(dq, want_dq, q, k, v, kw):
+def _bwd_flipped_rows(dq, want_dq, q, k, v, kw, numerics="v4"):
     """Rows where the backward's kept rows differ from the twin's
-    selection, as dq shows them: a kernel's dq is exactly zero on the rows
+    selection (numerics as for _flipped_rows), as dq shows them: a kernel's dq is exactly zero on the rows
     it did not keep. So a flip is a nonzero dq on a row the twin does not
     keep, or a zero dq on a kept row where the twin's dq is far from zero
     (above 1e-30; a kept row whose softmax saturates under the -100 masks
@@ -293,7 +294,7 @@ def _bwd_flipped_rows(dq, want_dq, q, k, v, kw):
     row_mask = TPS._chain_bhnd(
         TPS._heads(q, heads), TPS._heads(k, heads), TPS._heads(v, heads),
         kw["sample_idx"], kw.get("rel_pos_bias"), mask, 5,
-        TPS._scale(q, heads, None), "v4")[3]                  # [B, H, N]
+        TPS._scale(q, heads, None), numerics)[3]              # [B, H, N]
     zero = (TPS._heads(dq, heads) == 0).all(-1)
     clear = TPS._heads(want_dq.float(), heads).abs().amax(-1) > 1e-30
     return int((~row_mask & ~zero).sum() + (row_mask & clear & zero).sum())
@@ -374,18 +375,18 @@ def test_k1_tc_backward_is_deterministic(cuda):
 
 
 def test_bwd_kernel_for_routes_by_shape_and_dtype():
-    """bf16, K1's numerics, N <= 64, head dim 16/32/48/64 and u <= 32 go
-    to the tensor-core backward; f32, K3-v3, N = 256, head dim 96 and
-    u > 32 (a larger ProbSparse factor) to the CUDA-core one."""
+    """bf16, K1's or K3-v3's numerics, N <= 64, head dim 16/32/48/64 and u
+    <= 32 go to the tensor-core backward; f32, N = 256, head dim 96 and u >
+    32 (a larger ProbSparse factor) to the CUDA-core one."""
     bf, f32 = torch.bfloat16, torch.float32
-    for n, d in ((64, 32), (64, 16), (49, 48), (16, 64), (4, 32)):
-        assert bwd_kernel_for(bf, "v4", n, d) == "tc", (n, d)
-    for args in ((f32, "v4", 64, 32), (bf, "v23", 64, 32),
-                 (bf, "v4", 256, 32), (bf, "v4", 64, 96),
-                 (bf, "v4", 64, 128)):
-        assert bwd_kernel_for(*args) == "cuda_core", args
+    for num in ("v4", "v23"):
+        for n, d in ((64, 32), (64, 16), (49, 48), (16, 64), (4, 32)):
+            assert bwd_kernel_for(bf, num, n, d) == "tc", (num, n, d)
+        for args in ((f32, num, 64, 32), (bf, num, 256, 32),
+                     (bf, num, 64, 96), (bf, num, 64, 128)):
+            assert bwd_kernel_for(*args) == "cuda_core", args
+        assert bwd_kernel_for(bf, num, 64, 32, factor=7) == "cuda_core"
     assert TPS.probsparse_u(64, 7) > 32
-    assert bwd_kernel_for(bf, "v4", 64, 32, factor=7) == "cuda_core"
 
 
 @pytest.mark.cuda
@@ -459,11 +460,13 @@ def test_k3_v1_v2_match_twins(cuda, version, heads, win, shifted, dtype,
     (16, False, torch.float32, True), (2, False, torch.bfloat16, False)])
 def test_k3_v3_matches_twin(cuda, heads, shifted, dtype, bias):
     """fused_window_attention(version=3): the v3 forward and backward
-    kernels against the twins with "v23" numerics."""
+    kernels against the twins with "v23" numerics (bf16 on the tensor-core
+    kernels, f32 on the CUDA-core ones)."""
     q, k, v, kw, nW = _attn_inputs(cuda, heads, 8, 32, shifted, dtype,
                                    seed=60 + heads, bias=bias)
-    counts = (window_attention_v3_fwd.launches,
-              window_attention_v3_bwd.launches)
+    attr = "launches_tc" if dtype == torch.bfloat16 else "launches"
+    counts = (getattr(window_attention_v3_fwd, attr),
+              getattr(window_attention_v3_bwd, attr))
     got = fused_window_attention(q, k, v, num_windows=nW, version=3, **kw)
     want = TPS.probsparse_attention_bnc(q, k, v, numerics="v23", **kw)
     torch.cuda.synchronize()
@@ -474,9 +477,73 @@ def test_k3_v3_matches_twin(cuda, heads, shifted, dtype, bias):
     want = TPS.probsparse_attention_bnc_bwd(q, k, v, g, numerics="v23", **kw)
     torch.cuda.synchronize()
     _assert_grads_close(got, want, dtype, q.shape, bias)
-    assert (window_attention_v3_fwd.launches,
-            window_attention_v3_bwd.launches) == (counts[0] + 1,
-                                                  counts[1] + 1)
+    assert (getattr(window_attention_v3_fwd, attr),
+            getattr(window_attention_v3_bwd, attr)) == (counts[0] + 1,
+                                                        counts[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("std", [0.5, 2.0])
+@pytest.mark.parametrize("heads,win,D,shifted,pad,bias", _TC_BWD_CASES)
+def test_k3_v3_tc_matches_twin(cuda, heads, win, D, shifted, pad, bias,
+                               std):
+    """K3-v3 on the tensor-core kernels (bf16), forward and backward,
+    against the "v23" twins at N 4, 16, 49 and 64 and head dims 16-64, q
+    and k at std 0.5 and 2, over 64 windows: K1_TOL per row, K1B_TOL per
+    gradient tensor, and exactly the twin's rows kept (0 flipped)."""
+    q, k, v, kw, nW = _attn_inputs(cuda, heads, win, D, shifted,
+                                   torch.bfloat16, seed=90 + heads + win + D,
+                                   bias=bias, pad=pad)
+    reps = 64 // q.shape[0]
+    q, k, v = (t.repeat(reps, 1, 1) for t in (q, k, v))
+    q = (q.float() * (std / 0.5) + torch.randn_like(q.float()) * 0.01
+         ).bfloat16()
+    k = (k.float() * (std / 0.5)).bfloat16()
+    g = torch.from_numpy(_rng(win + D + 1).normal(size=q.shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    N = win * win
+    assert fwd_kernel_for(torch.bfloat16, "v23", N, D) == "tc"
+    assert bwd_kernel_for(torch.bfloat16, "v23", N, D) == "tc"
+    before = (window_attention_v3_fwd.launches_tc,
+              window_attention_v3_bwd.launches_tc,
+              window_attention_v3_fwd.launches,
+              window_attention_v3_bwd.launches)
+    out = window_attention_v3_fwd(q, k, v, num_windows=nW, **kw)
+    got = window_attention_v3_bwd(q, k, v, g, num_windows=nW, **kw)
+    assert (window_attention_v3_fwd.launches_tc,
+            window_attention_v3_bwd.launches_tc,
+            window_attention_v3_fwd.launches,
+            window_attention_v3_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1,
+                                                  before[2], before[3])
+    want_out = TPS.probsparse_attention_bnc(q, k, v, numerics="v23", **kw)
+    want = TPS.probsparse_attention_bnc_bwd(q, k, v, g, numerics="v23", **kw)
+    torch.cuda.synchronize()
+    _assert_rows_close(out, want_out, heads, D, torch.bfloat16)
+    assert _flipped_rows(out, q, k, v, kw, "v23") == 0
+    _assert_grads_close(got, want, torch.bfloat16, q.shape, bias)
+    assert _bwd_flipped_rows(got[0], want[0], q, k, v, kw, "v23") == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 37, 130])
+def test_k3_v3_tc_ragged_window_counts(cuda, B):
+    """K3-v3 on the tensor cores at window counts below a CTA's warps and
+    off its multiple, forward and backward."""
+    q, k, v, kw, _ = _attn_inputs(cuda, 2, 8, 32, False, torch.bfloat16,
+                                  seed=75 + B)
+    q, k, v = (t.repeat(B, 1, 1)[:B] for t in (q, k, v))
+    q = q + (torch.randn_like(q.float()) * 0.05).bfloat16()
+    g = torch.randn_like(q.float()).bfloat16()
+    out = window_attention_v3_fwd(q, k, v, **kw)
+    got = window_attention_v3_bwd(q, k, v, g, **kw)
+    want_out = TPS.probsparse_attention_bnc(q, k, v, numerics="v23", **kw)
+    want = TPS.probsparse_attention_bnc_bwd(q, k, v, g, numerics="v23", **kw)
+    torch.cuda.synchronize()
+    _assert_rows_close(out, want_out, 2, 32, torch.bfloat16)
+    assert _flipped_rows(out, q, k, v, kw, "v23") == 0
+    _assert_grads_close(got, want, torch.bfloat16, q.shape, True)
+    assert _bwd_flipped_rows(got[0], want[0], q, k, v, kw, "v23") == 0
 
 
 def _gap(got, ref, own):

@@ -117,12 +117,13 @@ JPEG_HEAD = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01"
 
 
 def test_png_rejects_unsupported():
-    """What stays refused: JPEG (named), payloads that are no image, and
-    encoding anything but PNG. (16-bit and the other PNG formats decode:
-    tests/test_torch_port_images.py.)"""
+    """What stays refused: a truncated JPEG (named), payloads that are no
+    image, and encoding anything but PNG. (16-bit and the other PNG formats
+    decode: tests/test_torch_port_images.py; JPEG:
+    tests/test_torch_port_jpeg.py.)"""
     with pytest.raises(ValueError, match="not a PNG or BMP"):
         decode_img(b"not an image")
-    with pytest.raises(ValueError, match="JPEG is not supported"):
+    with pytest.raises(ValueError, match="truncated JPEG"):
         decode_img(JPEG_HEAD + bytes(64))
     with pytest.raises(ValueError):
         encode_img(np.zeros((2, 2, 3), np.uint8), ext=".jpg")
@@ -202,12 +203,30 @@ def test_serve_concurrent_posts_group_and_bad_payload(server):
 
 
 def test_serve_answers_jpeg_with_400(server):
+    """A JPEG the decoder refuses (here a truncated one) gets a 400 that
+    names it."""
     req = urllib.request.Request(server + "/dehaze",
                                  data=JPEG_HEAD + bytes(64), method="POST")
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(req, timeout=60)
     assert e.value.code == 400
-    assert b"JPEG is not supported" in e.value.read()
+    assert b"truncated JPEG" in e.value.read()
+
+
+def test_serve_answers_jpeg_as_its_pixels_in_png(server):
+    """A JPEG body gets a 200 and the same PNG answer as a PNG body of the
+    pixels the JPEG decodes to."""
+    Image = pytest.importorskip("PIL.Image")
+    import io
+
+    img = np.random.default_rng(6).integers(0, 256, size=(40, 56, 3),
+                                            dtype=np.uint8)
+    bio = io.BytesIO()
+    Image.fromarray(img).save(bio, "JPEG", quality=90)
+    status, ctype, body = _post(server, bio.getvalue())
+    assert status == 200 and ctype == "image/png"
+    pixels = decode_img(bio.getvalue(), u8=True)
+    assert _post(server, encode_img(pixels)) == (status, ctype, body)
 
 
 def test_micro_batcher_groups_and_preserves_order():

@@ -146,7 +146,7 @@ def test_uformer_ragged_stage_heights_matches_jax(pinned):
     (torch.bfloat16, "v4", 49, 16, "tc"),
     (torch.bfloat16, "v4", 64, 48, "tc"),
     (torch.float32, "v4", 64, 32, "cuda_core"),  # f32: the tests' type
-    (torch.bfloat16, "v23", 64, 32, "cuda_core"),  # K3
+    (torch.bfloat16, "v23", 64, 32, "tc"),     # K3-v3, token-major
     (torch.bfloat16, "v1", 64, 32, "cuda_core"),
     (torch.bfloat16, "v4", 256, 32, "cuda_core"),  # F2: 16x16 windows
     (torch.bfloat16, "v4", 64, 96, "cuda_core"),   # F2: wide heads
@@ -157,3 +157,22 @@ def test_uformer_ragged_stage_heights_matches_jax(pinned):
 def test_fwd_kernel_for_routes_by_shape_and_dtype(dtype, numerics, N, D,
                                                   kernel):
     assert fwd_kernel_for(dtype, numerics, N, D) == kernel
+
+
+@pytest.mark.parametrize("dtype,numerics,N,D,kernel", [
+    (torch.bfloat16, "v23", 64, 32, "tc"),         # K3-v3 at train enc0
+    (torch.bfloat16, "v23", 49, 16, "tc"),
+    (torch.bfloat16, "v23", 4, 64, "tc"),
+    (torch.float32, "v23", 64, 32, "cuda_core"),   # f32
+    (torch.bfloat16, "v23", 256, 32, "cuda_core"),  # N > 64
+    (torch.bfloat16, "v23", 64, 96, "cuda_core"),  # wide heads
+])
+def test_fwd_kernel_for_routes_k3_v3(dtype, numerics, N, D, kernel):
+    """The token-major K3-v3 forward takes the tensor-core kernel where
+    K1's does; its head-major form, K3-v2 (same numerics), and K3-v1 stay
+    on the CUDA-core kernel at every shape."""
+    assert fwd_kernel_for(dtype, numerics, N, D) == kernel
+    assert fwd_kernel_for(dtype, numerics, N, D, head_major=False) == kernel
+    for num in ("v23", "v1"):
+        assert fwd_kernel_for(dtype, num, N, D, head_major=True) == \
+            "cuda_core"
