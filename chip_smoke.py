@@ -269,7 +269,8 @@ def phase_codec():
     """The port's image codec on the host at 1200×1600: the PNG encoder's
     per-row filters, its decoder (the compiled unfilter) and the BMP
     decoder, each against the pixels; the JPEG decoder (compiled) on the
-    committed fixtures, each against cv2's hash."""
+    committed fixtures (among them the serving frame as 4:2:0, CMYK and
+    arithmetic-coded JPEG, each timed), each against cv2's hash."""
     import hashlib
     import zlib
 
@@ -323,16 +324,18 @@ def phase_codec():
                  f"{digest[:16]}..., cv2 to {want['shape']} "
                  f"{want['sha256'][:16]}...")
         ms[name] = float(np.median(times))
-    jpeg = next(n for n in manifest if n.startswith("scene"))
+    jpegs = ", ".join(
+        f"{n} ({manifest[n]['bytes'] / 1e6:.2f} MB) {ms[n]:.1f} ms"
+        for n in manifest if n.startswith("scene"))
     print(f"codec {FRAME[0]}x{FRAME[1]} (host): PNG encode {enc_ms:.1f} ms, "
           f"{len(png) / 1e6:.2f} MB, rows by filter None/Sub/Up/Average/"
           f"Paeth {filters.tolist()} (a noise-free synthetic scene: "
           f"{scene.tolist()}); decode PNG {ms['png']:.1f} ms, 24-bit BMP "
-          f"{ms['bmp']:.1f} ms, JPEG 4:2:0 q95 ({jpeg}, "
-          f"{manifest[jpeg]['bytes'] / 1e6:.2f} MB) {ms[jpeg]:.1f} ms "
-          f"(median of 5); pixels equal; the {len(manifest)} JPEG fixtures "
-          f"(progressive, EXIF orientation 6) decode to cv2's SHA-256",
-          flush=True)
+          f"{ms['bmp']:.1f} ms, JPEG (4:2:0 q95, CMYK q85, arithmetic SOF9 "
+          f"q95) {jpegs} (median of 5); pixels equal; the {len(manifest)} "
+          f"JPEG fixtures (progressive, EXIF orientation 6, block "
+          f"smoothing, CMYK, YCCK, arithmetic sequential and progressive) "
+          f"decode to cv2's SHA-256", flush=True)
     if int((filters > 0).sum()) < 2 or int((scene > 0).sum()) < 2:
         fail("codec: the PNG encoder wrote one filter type on every row")
 
@@ -410,28 +413,29 @@ def _check_grads(label, got, want, dname, wrong):
 
 
 def _flipped_rows(got, q, k, v, kw, numerics="v4"):
-    """Rows where a K1 (or K3-v3, numerics "v23") forward's choice between
-    a2 @ V and mean(V) differs from the twin's selection. Both forward
-    kernels write mean(V) as the float32 sum over tokens in token order,
-    divided by N and rounded, so a row is a mean(V) row iff it equals that
-    bit for bit."""
+    """Rows where a K1 (or K3, numerics "v23" or "v1") forward's choice
+    between a2 @ V and mean(V) differs from the twin's selection. Both
+    forward kernels write mean(V) as the float32 sum over tokens in token
+    order, divided by N and rounded, so a row is a mean(V) row iff it
+    equals that bit for bit. Token-major [B_, N, C] with kw["num_heads"],
+    else head-major [B, H, N, D]."""
     import torch
 
     from dehaze_tpu_torch.ops import probsparse as ps
 
-    heads = kw["num_heads"]
-    B, N, C = q.shape
+    if "num_heads" in kw:
+        heads = kw["num_heads"]
+        got, q, k, v = (ps._heads(t, heads) for t in (got, q, k, v))
+    B, H, N, D = q.shape
     row_mask = ps._chain_bhnd(
-        ps._heads(q, heads), ps._heads(k, heads), ps._heads(v, heads),
-        kw["sample_idx"], kw.get("rel_pos_bias"),
+        q, k, v, kw["sample_idx"], kw.get("rel_pos_bias"),
         ps.attention_mask(kw.get("sw_region"), kw.get("pad_flag")), 5,
-        ps._scale(q, heads, None), numerics)[3]
-    s = torch.zeros(B, C, device=v.device)
+        ps._scale(q, 1, None), numerics)[3]
+    s = torch.zeros(B, H, D, device=v.device)
     for j in range(N):
-        s = s + v[:, j].float()
+        s = s + v[:, :, j].float()
     mean = (s / N).to(v.dtype)
-    is_mean = (ps._heads(got, heads) == ps._heads(mean[:, None], heads)
-               ).all(-1)
+    is_mean = (got == mean[:, :, None]).all(-1)
     return int((is_mean == row_mask).sum())
 
 
@@ -753,7 +757,8 @@ def phase_k1_pad():
 def phase_k3():
     """The K3 kernels (older TPU variants, other rounding points) against
     their twins: v1 and v2 head-major [B, H, N, D] at the serving shapes
-    (enc1 shifted, bottleneck), on the CUDA-core kernel; the v3 forward and
+    (enc1 shifted, bottleneck), f32 on the CUDA-core kernel and bf16 on
+    the tensor-core one with q and k at std 1, 0.5 and 2; the v3 forward and
     backward at the training enc0 and enc1 shapes, f32 (the CUDA-core
     kernels) and bf16 (the tensor-core ones) with q and k at std 1 (where
     the rounding of S moves the output, NUMERICS_SEP), and in bf16 also at
@@ -790,19 +795,29 @@ def phase_k3():
         for name, B, heads, reg_hw in (("enc1", 8320, 2, (640, 832)),
                                        ("bottleneck", 130, 16, None)):
             si, bias, region, nW = _attn_case(g, dev, heads, 8, reg_hw)
-            for dtype in (torch.float32, torch.bfloat16):
-                q, k, v = _qkv(g, dev, (B, heads, N, D), dtype, (1, 1, 0.5))
+            for dtype, std in ((torch.float32, 1.0), (torch.bfloat16, 1.0),
+                               (torch.bfloat16, 0.5), (torch.bfloat16, 2.0)):
+                q, k, v = _qkv(g, dev, (B, heads, N, D), dtype,
+                               (std, std, 0.5))
                 kw = dict(sample_idx=si, rel_pos_bias=bias, sw_region=region)
                 dname = str(dtype).split(".")[1]
+                kf = fwd_kernel_for(dtype, own, N, D, head_major=True)
+                if (dtype == torch.bfloat16) != (kf == "tc"):
+                    wrong.append(f"K3-{vname} {name} {dname}: routed to "
+                                 f"{kf}")
+                case = name if std == 1.0 else f"{name} std{std:g}"
                 results.setdefault(vname, []).append(
-                    (name, dname, "cuda_core") + _attn_run(
-                        f"K3-{vname} cuda_core {name} {dname} [B,H,N,D]="
-                        f"[{B},{heads},{N},{D}] shifted={region is not None}",
-                        counted(entry, "launches",
+                    (case, dname, kf) + _attn_run(
+                        f"K3-{vname} {kf} {name} {dname} [B,H,N,D]="
+                        f"[{B},{heads},{N},{D}] shifted={region is not None}"
+                        f" q,k std {std:g}",
+                        counted(entry,
+                                "launches_tc" if kf == "tc" else "launches",
                                 lambda: entry(q, k, v, num_windows=nW, **kw)),
                         lambda n: ps_ops.probsparse_attention_bhnd(
                             q, k, v, numerics=n, **kw), own, q, kw, nW, False,
-                        wrong))
+                        wrong, kv=(k, v) if kf == "tc" else None))
+                del q, k, v
     # (name, B_, C, heads, region map, pad flags or None, dtype, q/k std)
     pad = _pad_case(P, 100, 120, P, P, 8)
     cases = []
@@ -946,7 +961,9 @@ def _counters():
             "k1_bwd_tc": (wa.window_attention_bwd, "launches_tc"),
             "k1_bwd": (wa.window_attention_bwd, "launches"),
             "k2": (leff_fused, "launches"),
+            "k3_v1_tc": (wa.probsparse_window_attention_v1, "launches_tc"),
             "k3_v1": (wa.probsparse_window_attention_v1, "launches"),
+            "k3_v2_tc": (wa.probsparse_window_attention_v2, "launches_tc"),
             "k3_v2": (wa.probsparse_window_attention_v2, "launches"),
             "k3_v3_fwd_tc": (wa.window_attention_v3_fwd, "launches_tc"),
             "k3_v3_fwd": (wa.window_attention_v3_fwd, "launches"),
@@ -1649,12 +1666,20 @@ def main() -> None:
              cases=[dict(zip(("case", "dtype", "gelu", "max_abs_err", "ms",
                               "plain_ms", "bound_ms", "bound_by"), r))
                     for r in k2_res]),
-        entry("K3-v1 ProbSparse window attention fwd, [B,H,N,D]", wa,
-              f"{pw}:317", k3_of("v1", "cuda_core"), ("enc1", "bfloat16"),
-              "k3_v1", paths),
-        entry("K3-v2 ProbSparse window attention fwd, [B,H,N,D]", wa,
-              f"{pw}:220", k3_of("v2", "cuda_core"), ("enc1", "bfloat16"),
-              "k3_v2", paths),
+        entry("K3-v1 ProbSparse window attention fwd, [B,H,N,D], tensor "
+              "cores (bf16)", "dehaze_tpu_torch/csrc/window_attention_tc.cu",
+              f"{pw}:317", k3_of("v1", "tc"), ("enc1", "bfloat16"),
+              "k3_v1_tc", paths),
+        entry("K3-v1 ProbSparse window attention fwd, [B,H,N,D], CUDA "
+              "cores (f32)", wa, f"{pw}:317", k3_of("v1", "cuda_core"),
+              ("enc1", "float32"), "k3_v1", paths),
+        entry("K3-v2 ProbSparse window attention fwd, [B,H,N,D], tensor "
+              "cores (bf16)", "dehaze_tpu_torch/csrc/window_attention_tc.cu",
+              f"{pw}:220", k3_of("v2", "tc"), ("enc1", "bfloat16"),
+              "k3_v2_tc", paths),
+        entry("K3-v2 ProbSparse window attention fwd, [B,H,N,D], CUDA "
+              "cores (f32)", wa, f"{pw}:220", k3_of("v2", "cuda_core"),
+              ("enc1", "float32"), "k3_v2", paths),
         entry("K3-v3 ProbSparse window attention fwd, tensor cores (bf16)",
               "dehaze_tpu_torch/csrc/window_attention_tc.cu", f"{pw}:618",
               k3_of("v3_fwd", "tc"), ("train_enc0", "bfloat16"),

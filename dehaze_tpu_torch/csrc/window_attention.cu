@@ -43,7 +43,9 @@
 //        without a further scale; a2 rounded before PV. Backward:
 //        dq = (ds K) * scale, dk = ds^T (q * scale, rounded).
 // v1 and v2 take q/k/v/out head-major, [B, H, N, D] (`head_major`); the
-// others token-major.
+// others token-major. In bf16 at N <= 64 and head dims 16-64 all of them
+// run on csrc/window_attention_tc.cu's tensor-core kernels instead (kV1
+// there too); these kernels take float32 and the other shapes.
 //
 // Layout: token-major q/k/v/g/out/dq/dk/dv are [B_ * N, C], heads are
 // channel slices of width D = C / H; head-major ones are [B_, H, N, D].

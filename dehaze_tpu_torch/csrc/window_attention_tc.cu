@@ -6,8 +6,7 @@
 // dehaze_tpu/ops/pallas/window_attention.py (`fused_window_attention`,
 // version 4) for those shapes; `window_attention_fwd_kernel<bf16, kV4>` of
 // csrc/window_attention.cu computes the same function on the CUDA cores and
-// takes everything else (float32, K3's head-major v1 and v2, N > 64, other
-// head dims).
+// takes everything else (float32, N > 64, other head dims).
 // Same function as the plain twin
 // `dehaze_tpu_torch.ops.probsparse.probsparse_attention_bnc`, per window and
 // head:
@@ -27,17 +26,34 @@
 //   dq = scale * ds K,  dk = scale * ds^T Q,  dbias[h] = sum over windows dz.
 // q/k/v/g/out/dq/dk/dv are token-major [B_ * N, C] with heads as channel
 // slices; region ids and pad flags are [nW, N], indexed by window % nW.
+// The forward also takes head-major q/k/v/out [B, H, N, D] (the HM
+// template argument; K3's v1 and v2): a window-head is then one contiguous
+// N x D block, at (w * H + h) * N * D with rows D apart, so its loads are
+// unstrided runs of 16-byte copies.
 //
-// K3-v3 on the same kernels (the `Numerics` argument, as in
-// csrc/window_attention.cu): `_kernel_v3` / `_fused_attn_v3_fwd` and
+// K3 on the same kernels (the `Numerics` argument, as in
+// csrc/window_attention.cu): K3-v3, `_kernel_v3` / `_fused_attn_v3_fwd` and
 // `_kernel_v3_bwd` / `_fused_attn_v3_bwd` (window_attention.py:618, :639),
-// "v23" rounding, twin `probsparse_attention_bnc(numerics="v23")`:
+// token-major, and K3-v2, `_kernel_v2` of
+// `probsparse_window_attention_pallas_v2` (:220), head-major, forward only,
+// both "v23" (twins `probsparse_attention_bnc(numerics="v23")` and
+// `probsparse_attention_v2`); K3-v1, `_kernel` of
+// `probsparse_window_attention_pallas` (:317), head-major, forward only,
+// "v1" (twin `probsparse_attention_v1`):
 //   kV4   as above.
 //   kV23  q * scale rounded to bf16 (the scale rounded to bf16 first) as q
 //         is widened for QK^T, and in the backward's q tile, which dk then
 //         uses with no further scale; S rounded once, to float, not to bf16,
 //         and M taken on it (sum(cnt * S) in float64, each product exact
 //         there); the first softmax without a further scale; a1 not rounded.
+//   kV1   nothing rounded in the chain: S rounded once, to float, from the
+//         unscaled q, M on it (as kV23); a1 = softmax(S * scale) and a2
+//         not rounded; PV in float32: a2 split into bf16 hi + lo (about 16
+//         significand bits), each half times the bf16 V on the tensor
+//         cores into one float32 sum, twice kV23's PV products. a2's hi
+//         and lo rows are packed 2 * kLS bf16 apart, so the r-th kept row
+//         lies on float S row r, which no later pass of the chain reads.
+//         Its tiles and occupancy are kV23's (the same float S plan).
 // kV23's float S tile is twice kV4's bf16 one. The forward then holds fewer
 // window-heads per SM: one CTA of as many warps as fit (7 at D = 32) for
 // kV4's two CTAs of four. The backward keeps its pairs and loses one (3 at
@@ -46,8 +62,8 @@
 // staged in the same float rows. S in registers instead would need the
 // whole 64 x 64 tile per warp (128 registers a lane) before the rank says
 // which rows are kept, and staging only some rows is not possible before
-// the rank either; so the tile is what shrinks occupancy. The head-major
-// v1 and v2 (K3 (a), (b)) and float32 stay on the CUDA-core kernels.
+// the rank either; so the tile is what shrinks occupancy. float32 stays on
+// the CUDA-core kernels.
 //
 // What bounds it. Per window-head the forward moves 4 * N * D bf16 (q, k,
 // v in, out out: 16 KB at N = 64, D = 32) and the backward 7 * N * D (q,
@@ -161,15 +177,16 @@ constexpr int kSmemMax = 232448;        // shared memory a CTA may use
 constexpr int kMaxKept = 32;            // kept rows the backward takes
 
 // Where the chain rounds (values as csrc/window_attention.cu's Numerics).
-enum Numerics : int { kV4 = 0, kV23 = 2 };
+enum Numerics : int { kV4 = 0, kV1 = 1, kV23 = 2 };
 
 // The S tile's element: bf16 where S is rounded to bf16 (kV4), float where
-// it is not (kV23). Rows are kLS elements apart in either.
+// it is not (kV1, kV23). Rows are kLS elements apart in either.
 template <int NUM>
-using STile = std::conditional_t<NUM == kV23, float, bf16>;
+using STile = std::conditional_t<NUM == kV4, bf16, float>;
 
-// Forward: kV4 four warps per CTA, two CTAs per SM; kV23 one CTA per SM of
-// as many warps as its tiles allow (8, 7, 6, 5 at D = 16, 32, 48, 64).
+// Forward: kV4 four warps per CTA, two CTAs per SM; kV1 and kV23 one CTA
+// per SM of as many warps as their tiles allow (8, 7, 6, 5 at D = 16, 32,
+// 48, 64).
 template <int D, int NUM>
 struct Cfg {
   using ST = STile<NUM>;
@@ -322,9 +339,9 @@ __device__ __forceinline__ void stage_bias_counts(
   }
 }
 
-// One [N, D] slice (rows C elements apart) into a [N16][LD] shared tile by
-// 16-byte cp.async, rows N ... N16 zero, by threads i of n. Not committed
-// here.
+// One [N, D] slice (rows C elements apart: the channel count when
+// token-major, D when head-major) into a [N16][LD] shared tile by 16-byte
+// cp.async, rows N ... N16 zero, by threads i of n. Not committed here.
 template <int D, int LD>
 __device__ __forceinline__ void cp_tile(bf16* dst,
                                         const bf16* __restrict__ src,
@@ -447,7 +464,7 @@ __device__ __forceinline__ void qk_measure(
           const int c = nt * 8 + 2 * t;
           float2 s = make_float2(__double2float_rn(acc[nt][2 * b]),
                                  __double2float_rn(acc[nt][2 * b + 1]));
-          if constexpr (NUM == kV23) {
+          if constexpr (NUM != kV4) {
             *reinterpret_cast<float2*>(sS + r * kLS + c) = s;
           } else {
             const __nv_bfloat162 s2 = __floats2bfloat162_rn(s.x, s.y);
@@ -464,7 +481,7 @@ __device__ __forceinline__ void qk_measure(
           // branch-free: unsampled columns add 0 and leave the max
           m_max = fmaxf(m_max, fmaxf(c0 > 0.f ? s.x : -1e30f,
                                      c1 > 0.f ? s.y : -1e30f));
-          if constexpr (NUM == kV23) {
+          if constexpr (NUM != kV4) {
             // a float S times 8 bits is exact in float64, not in float
             m_sum += static_cast<double>(s.x) * static_cast<double>(c0);
             m_sum += static_cast<double>(s.y) * static_cast<double>(c1);
@@ -547,7 +564,9 @@ __device__ __forceinline__ bool kept_row(unsigned keep_lo, unsigned keep_hi,
 
 // FULL: N = 64 (8x8 windows, every stage of the default model), a
 // compile-time constant, so no loop or select depends on a runtime N.
-template <int D, bool FULL, int NUM>
+// HM: head-major q/k/v/out [B, H, N, D] (K3's v1 and v2), where a
+// window-head is one contiguous N x D block; else token-major [B * N, C].
+template <int D, bool FULL, int NUM, bool HM>
 __global__ void __launch_bounds__(Cfg<D, NUM>::kThreads,
                                   Cfg<D, NUM>::kMinCtas)
     window_attention_tc_kernel(
@@ -569,8 +588,11 @@ __global__ void __launch_bounds__(Cfg<D, NUM>::kThreads,
   bf16* sK = reinterpret_cast<bf16*>(ws);                // [64][LD]: k, out
   bf16* sV = sK + kMaxN * LD;                            // [64][LD]
   ST* sS = reinterpret_cast<ST*>(sV + kMaxN * LD);       // [64][kLS]
-  // packed a2, bf16 rows kLS apart over the S tile (row r of a2 never
-  // reaches a float S row that a later pass of the chain reads: r <= i)
+  // packed a2, bf16 rows kA2 apart over the S tile (row r of a2 never
+  // reaches a float S row that a later pass of the chain reads: r <= i);
+  // kV1's rows hold a2 as bf16 hi + lo, the lo half kLS after the hi one,
+  // so row r lies on float S row r
+  constexpr int kA2 = NUM == kV1 ? 2 * kLS : kLS;
   bf16* sA2 = reinterpret_cast<bf16*>(sS);
   float* sM = reinterpret_cast<float*>(sS + kMaxN * kLS);  // [64]
   int* sReg = reinterpret_cast<int*>(sM + kMaxN);          // [64]
@@ -590,25 +612,28 @@ __global__ void __launch_bounds__(Cfg<D, NUM>::kThreads,
   const int N16 = (N + 15) & ~15;
   // Each warp walks window-heads w, w + kWarps * gridDim.x, ... of head h
   // on its own; no CTA-wide barrier follows.
+  // a token's row: C elements on from the last (token-major), or D
+  const int rs = HM ? D : C;
   for (int w = blockIdx.x * kWarps + warp; w < B;
        w += gridDim.x * kWarps) {
     const size_t base =
-        static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * D;
+        HM ? (static_cast<size_t>(w) * gridDim.y + h) * N * D
+           : static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * D;
 
     // load: k and v by cp.async (rows N ... N16 zero), this window's masks,
     // q rows 0..15 into registers.
-    cp_tile<D, LD>(sK, k + base, N, N16, C, lane, 32);
-    cp_tile<D, LD>(sV, v + base, N, N16, C, lane, 32);
+    cp_tile<D, LD>(sK, k + base, N, N16, rs, lane, 32);
+    cp_tile<D, LD>(sV, v + base, N, N16, rs, lane, 32);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     load_masks(sReg, sPad, region, pad, static_cast<size_t>(w % nW) * N, N,
                lane, 32);
     QRows<D> qr;
-    qr.load(q + base, C, N, 0, g, t);
+    qr.load(q + base, rs, N, 0, g, t);
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncwarp();
     // phase: load
 
-    qk_measure<D, FULL, 16, NUM>(qr, q + base, C, sK, sS, sM, sCnt, N, 0,
+    qk_measure<D, FULL, 16, NUM>(qr, q + base, rs, sK, sS, sM, sCnt, N, 0,
                                  lane, qsc);
     __syncwarp();
     // phase: QK^T+measure
@@ -620,9 +645,9 @@ __global__ void __launch_bounds__(Cfg<D, NUM>::kThreads,
 
     // chain, kept rows only, two lanes per row (sixteen rows at a time):
     // lane sub = lane & 1 holds columns 16m + 8sub ... 16m + 8sub + 7, m =
-    // 0..3, in registers. a2 of the r-th kept row, rounded, goes to row r
-    // of sS (zero past N); rows are listed in index order, so row r is
-    // never a later pass's input.
+    // 0..3, in registers. a2 of the r-th kept row, rounded (kV1: split
+    // into bf16 hi + lo), goes to row r of sA2 (zero past N); rows are
+    // listed in index order, so row r is never a later pass's input.
     const int slot = lane >> 1, sub = lane & 1;
     for (int r0 = 0; r0 < nk; r0 += 16) {
       const int r = r0 + slot;
@@ -630,7 +655,7 @@ __global__ void __launch_bounds__(Cfg<D, NUM>::kThreads,
       float x[32];
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
-        if constexpr (NUM == kV23) {
+        if constexpr (NUM != kV4) {
           const float4* sv = reinterpret_cast<const float4*>(
               sS + i * kLS + 16 * m + 8 * sub);
           const float4 a = sv[0], b = sv[1];
@@ -695,22 +720,38 @@ __global__ void __launch_bounds__(Cfg<D, NUM>::kThreads,
       if (r < nk) {
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
-          uint4 o;
-          bf16* oe = reinterpret_cast<bf16*>(&o);
+          bf16* row = sA2 + r * kA2 + 16 * m + 8 * sub;
+          if constexpr (NUM == kV1) {  // a2 unrounded: hi + lo
+            uint4 hi, lo;
+            uint32_t* he = reinterpret_cast<uint32_t*>(&hi);
+            uint32_t* le = reinterpret_cast<uint32_t*>(&lo);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            oe[e] = __float2bfloat16_rn(div_rn(x[8 * m + e], sum, rsum));
+            for (int e = 0; e < 4; ++e) {
+              split_bf16(div_rn(x[8 * m + 2 * e], sum, rsum),
+                         div_rn(x[8 * m + 2 * e + 1], sum, rsum), he[e],
+                         le[e]);
+            }
+            *reinterpret_cast<uint4*>(row) = hi;
+            *reinterpret_cast<uint4*>(row + kLS) = lo;
+          } else {
+            uint4 o;
+            bf16* oe = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              oe[e] = __float2bfloat16_rn(div_rn(x[8 * m + e], sum, rsum));
+            }
+            *reinterpret_cast<uint4*>(row) = o;
           }
-          *reinterpret_cast<uint4*>(sA2 + r * kLS + 16 * m + 8 * sub) = o;
         }
       }
     }
     __syncwarp();
     // phase: chain
 
-    // PV on the tensor cores for the packed kept rows; each row r < nk
-    // goes to row sIdx[r] of the staging tile (the k tile). Rows nk ... of
-    // the last m16 tile compute garbage that is never stored.
+    // PV on the tensor cores for the packed kept rows (kV1: hi and lo
+    // halves into one float32 sum); each row r < nk goes to row sIdx[r] of
+    // the staging tile (the k tile). Rows nk ... of the last m16 tile
+    // compute garbage that is never stored.
     bf16* sO = sK;
     const int KS = N16 >> 4;
     for (int mt = 0; mt * 16 < nk; ++mt) {
@@ -720,10 +761,11 @@ __global__ void __launch_bounds__(Cfg<D, NUM>::kThreads,
         acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
       }
       for (int kk = 0; kk < KS; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(smem_addr(sA2 + (mt * 16 + (lane & 15)) * kLS + kk * 16 +
-                          (lane >> 4) * 8),
-                a);
+        const bf16* arow =
+            sA2 + (mt * 16 + (lane & 15)) * kA2 + kk * 16 + (lane >> 4) * 8;
+        uint32_t a[4], alo[4];
+        ldsm_x4(smem_addr(arow), a);
+        if constexpr (NUM == kV1) ldsm_x4(smem_addr(arow + kLS), alo);
 #pragma unroll
         for (int n = 0; n < D / 16; ++n) {
           uint32_t b[4];
@@ -732,6 +774,10 @@ __global__ void __launch_bounds__(Cfg<D, NUM>::kThreads,
                     b);
           mma_bf16(acc[2 * n], a, b[0], b[1]);
           mma_bf16(acc[2 * n + 1], a, b[2], b[3]);
+          if constexpr (NUM == kV1) {
+            mma_bf16(acc[2 * n], alo, b[0], b[1]);
+            mma_bf16(acc[2 * n + 1], alo, b[2], b[3]);
+          }
         }
       }
 #pragma unroll
@@ -763,7 +809,7 @@ __global__ void __launch_bounds__(Cfg<D, NUM>::kThreads,
           kept_row(keep_lo, keep_hi, i)
               ? *reinterpret_cast<const uint4*>(sO + i * LD + c)
               : *reinterpret_cast<const uint4*>(sMean + c);
-      *reinterpret_cast<uint4*>(out + base + static_cast<size_t>(i) * C +
+      *reinterpret_cast<uint4*>(out + base + static_cast<size_t>(i) * rs +
                                 c) = val;
     }
     __syncwarp();  // the tiles are free for the next window-head
@@ -1300,13 +1346,13 @@ int wave_ctas(const void* kernel, int threads, int smem, int B, int per_cta,
   return 0;
 }
 
-template <int D, bool FULL, int NUM>
+template <int D, bool FULL, int NUM, bool HM>
 int launch_n(const void* q, const void* k, const void* v, const int32_t* cnt,
              const float* bias, const int32_t* region, const int32_t* pad,
              void* out, int B, int N, int C, int H, int nW, int u,
              float scale, cudaStream_t stream) {
   using L = Cfg<D, NUM>;
-  auto kernel = window_attention_tc_kernel<D, FULL, NUM>;
+  auto kernel = window_attention_tc_kernel<D, FULL, NUM, HM>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1321,16 +1367,18 @@ int launch_n(const void* q, const void* k, const void* v, const int32_t* cnt,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int NUM>
+template <int D, int NUM, bool HM>
 int launch(const void* q, const void* k, const void* v, const int32_t* cnt,
            const float* bias, const int32_t* region, const int32_t* pad,
            void* out, int B, int N, int C, int H, int nW, int u, float scale,
            cudaStream_t stream) {
   return N == kMaxN
-             ? launch_n<D, true, NUM>(q, k, v, cnt, bias, region, pad, out, B,
-                                      N, C, H, nW, u, scale, stream)
-             : launch_n<D, false, NUM>(q, k, v, cnt, bias, region, pad, out,
-                                       B, N, C, H, nW, u, scale, stream);
+             ? launch_n<D, true, NUM, HM>(q, k, v, cnt, bias, region, pad,
+                                          out, B, N, C, H, nW, u, scale,
+                                          stream)
+             : launch_n<D, false, NUM, HM>(q, k, v, cnt, bias, region, pad,
+                                           out, B, N, C, H, nW, u, scale,
+                                           stream);
 }
 
 struct BwdArgs {
@@ -1395,14 +1443,20 @@ int slots_of(int B, int N, int H) {
   return err != 0 ? -err : gx * BwdCfg<D, NUM>::kPairs;
 }
 
-bool takes(int N, int C, int H, int B, int nW, int numerics) {
+// The numerics and layouts the kernels take: K1 (kV4) token-major, K3-v3
+// (kV23) token-major and K3-v2 (kV23) head-major, K3-v1 (kV1) head-major;
+// the backward token-major kV4 and kV23 only.
+bool takes(int N, int C, int H, int B, int nW, int numerics, int head_major) {
+  const bool layout = head_major ? (numerics == kV1 || numerics == kV23)
+                                 : (numerics == kV4 || numerics == kV23);
   return H >= 1 && C % H == 0 && N >= 1 && N <= kMaxN && B >= 1 &&
-         nW >= 1 && (numerics == kV4 || numerics == kV23);
+         nW >= 1 && layout;
 }
 
 // f(integral_constant<D>, integral_constant<NUM>) for the head dim C / H
-// and the numerics, or an invalid-value error for any other.
-template <typename F>
+// and the numerics (kV1 only where V1, the forward), or an invalid-value
+// error for any other.
+template <bool V1, typename F>
 int by_shape(int C, int H, int numerics, F f) {
   auto d = [&](auto num) {
     switch (C / H) {
@@ -1413,6 +1467,9 @@ int by_shape(int C, int H, int numerics, F f) {
     }
     return static_cast<int>(cudaErrorInvalidValue);
   };
+  if constexpr (V1) {
+    if (numerics == kV1) return d(std::integral_constant<int, kV1>{});
+  }
   return numerics == kV23 ? d(std::integral_constant<int, kV23>{})
                           : d(std::integral_constant<int, kV4>{});
 }
@@ -1421,17 +1478,20 @@ int by_shape(int C, int H, int numerics, F f) {
 
 extern "C" {
 
-// bf16 q/k/v/out [B * N, C] contiguous and 16-byte aligned, heads as channel
-// slices of D = C / H in {16, 32, 48, 64}; 1 <= N <= 64. cnt: [N, N] int32;
-// bias: [H, N, N] float32 or null; region and pad: [nW, N] int32 or null;
-// numerics: 0 (kV4, K1) or 2 (kV23, K3-v3). Returns cudaGetLastError() after
-// the launch, or an error code for a shape the kernel does not take.
+// bf16 q/k/v/out contiguous and 16-byte aligned: token-major [B * N, C],
+// heads as channel slices of D = C / H, or (head_major) [B, H, N, D]; D in
+// {16, 32, 48, 64}; 1 <= N <= 64. cnt: [N, N] int32; bias: [H, N, N]
+// float32 or null; region and pad: [nW, N] int32 or null; numerics: 0 (kV4,
+// K1, token-major), 1 (kV1, K3-v1, head-major) or 2 (kV23: K3-v3
+// token-major, K3-v2 head-major). Returns cudaGetLastError() after the
+// launch, or an error code for a shape the kernel does not take.
 int window_attention_tc_fwd(const void* q, const void* k, const void* v,
                             const int32_t* cnt, const float* bias,
                             const int32_t* region, const int32_t* pad,
                             void* out, int B, int N, int C, int H, int nW,
-                            int u, float scale, int numerics, void* stream) {
-  if (!takes(N, C, H, B, nW, numerics)) {
+                            int u, float scale, int numerics, int head_major,
+                            void* stream) {
+  if (!takes(N, C, H, B, nW, numerics, head_major)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
@@ -1440,19 +1500,32 @@ int window_attention_tc_fwd(const void* q, const void* k, const void* v,
                         reinterpret_cast<uintptr_t>(out);
   if (any % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return by_shape(C, H, numerics, [&](auto d, auto num) {
-    return launch<decltype(d)::value, decltype(num)::value>(
-        q, k, v, cnt, bias, region, pad, out, B, N, C, H, nW, u, scale, s);
+  return by_shape<true>(C, H, numerics, [&](auto d, auto num) {
+    constexpr int kD = decltype(d)::value, kNum = decltype(num)::value;
+    // only the layouts `takes` lets through are compiled
+    if constexpr (kNum == kV4) {
+      return launch<kD, kNum, false>(q, k, v, cnt, bias, region, pad, out, B,
+                                     N, C, H, nW, u, scale, s);
+    } else if constexpr (kNum == kV1) {
+      return launch<kD, kNum, true>(q, k, v, cnt, bias, region, pad, out, B,
+                                    N, C, H, nW, u, scale, s);
+    } else {
+      return head_major
+                 ? launch<kD, kNum, true>(q, k, v, cnt, bias, region, pad,
+                                          out, B, N, C, H, nW, u, scale, s)
+                 : launch<kD, kNum, false>(q, k, v, cnt, bias, region, pad,
+                                           out, B, N, C, H, nW, u, scale, s);
+    }
   });
 }
 
 // The dbias partial slots of one head that window_attention_tc_bwd fills
 // for these shapes and numerics (> 0), or minus a CUDA error code.
 int window_attention_tc_bwd_slots(int B, int N, int C, int H, int numerics) {
-  if (!takes(N, C, H, B, 1, numerics)) {
+  if (!takes(N, C, H, B, 1, numerics, 0)) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
-  return by_shape(C, H, numerics, [&](auto d, auto num) {
+  return by_shape<false>(C, H, numerics, [&](auto d, auto num) {
     return slots_of<decltype(d)::value, decltype(num)::value>(B, N, H);
   });
 }
@@ -1470,7 +1543,7 @@ int window_attention_tc_bwd(const void* q, const void* k, const void* v,
                             float* db_part, float* dbias, int B, int N, int C,
                             int H, int nW, int u, float scale, int n_slots,
                             int numerics, void* stream) {
-  if (!takes(N, C, H, B, nW, numerics) || u < 1 || u > kMaxKept) {
+  if (!takes(N, C, H, B, nW, numerics, 0) || u < 1 || u > kMaxKept) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uintptr_t any =
@@ -1482,7 +1555,7 @@ int window_attention_tc_bwd(const void* q, const void* k, const void* v,
   const BwdArgs a{q, k, v, g, cnt, bias, region, pad, dq, dk, dv, db_part,
                   dbias, B, N, C, H, nW, u, scale, n_slots};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return by_shape(C, H, numerics, [&](auto d, auto num) {
+  return by_shape<false>(C, H, numerics, [&](auto d, auto num) {
     return launch_bwd<decltype(d)::value, decltype(num)::value>(a, s);
   });
 }

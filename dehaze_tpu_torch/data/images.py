@@ -12,21 +12,27 @@ IMREAD_COLOR gives the JAX package for these containers, byte for byte:
   cv2. The row filters are undone by `csrc/png_unfilter.c`.
 - BMP: uncompressed 1, 4 and 8-bit palette, 24-bit and 32-bit (`BI_RGB`,
   or `BI_BITFIELDS` with the standard masks), bottom-up or top-down.
-- JPEG: 8-bit Huffman-coded, gray or three components, baseline, extended
+- JPEG: 8-bit, gray, three or four components (Adobe CMYK and YCCK),
+  Huffman or arithmetic-coded (with DAC conditioning), baseline, extended
   sequential and progressive, any integral sampling factors (4:4:4, 4:2:2,
   4:2:0, 4:4:0, 4:1:1, ...), restart intervals, as libjpeg-turbo decodes
-  it for cv2 (islow IDCT, fancy upsampling, its fixed-point YCbCr -> RGB).
-  The markers are parsed here; the entropy decode, IDCT, upsampling and
-  colour conversion are `csrc/jpeg_decode.c`. Corrupt data decodes as
-  libjpeg-turbo decodes it for cv2 (restart resynchronisation, zero fill,
-  the 16-bit arithmetic of its SIMD IDCT) or raises ValueError
-  (`scripts/fuzz_jpeg.py` holds mutated files to cv2).
+  it for cv2 (islow IDCT, block smoothing of a progressive image whose low
+  coefficients are not all refined, fancy upsampling, its fixed-point
+  YCbCr -> RGB; CMYK as OpenCV converts libjpeg's CMYK output). The
+  markers are parsed here; the entropy decode, smoothing, IDCT,
+  upsampling and colour conversion are `csrc/jpeg_decode.c`. Corrupt data
+  decodes as libjpeg-turbo decodes it for cv2 (restart
+  resynchronisation, zero fill, the 16-bit arithmetic of its SIMD IDCT,
+  the segments it reads leniently) or raises ValueError where cv2 returns
+  nothing (`scripts/fuzz_jpeg.py` holds mutated files to cv2). A file
+  without its EOI decodes where cv2's libjpeg never asks for a byte past
+  the end.
 The C helpers are built with the host C compiler at first use. As cv2
 does, a JPEG's EXIF orientation (APP1 `Exif`) and a PNG's (`eXIf`) turn or
-flip the image upright. Anything else (arithmetic-coded, lossless,
-hierarchical, 12-bit or CMYK JPEG, a truncated file, RLE-compressed BMP,
-other containers) raises a ValueError that names it. `encode_png` writes
-8-bit RGB with libpng's per-row filter choice.
+flip the image upright. Anything else (lossless, hierarchical or 12-bit
+JPEG, a truncated file, RLE-compressed BMP, other containers) raises a
+ValueError that names it. `encode_png` writes 8-bit RGB with libpng's
+per-row filter choice.
 """
 
 from __future__ import annotations
@@ -54,24 +60,33 @@ _BMP_COMPRESSION = {1: "RLE8", 2: "RLE4", 4: "JPEG", 5: "PNG",
 _BMP_STANDARD_MASKS = (0x00FF0000, 0x0000FF00, 0x000000FF)
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _JPEG = {"jpeg_decode_scan": [_P, _I64] + [_P] * 7,
-         "jpeg_output": [_I, _I, _I] + [_P] * 6 + [_I, _P]}
-# JPEG frame markers this decoder refuses, by name (cv2 decodes the
-# arithmetic-coded ones; see ROADMAP.md, F6)
+         "jpeg_decode_scan_arith": [_P, _I64] + [_P] * 7,
+         "jpeg_output": [_I, _I, _I] + [_P] * 6 + [_I, _P, _P]}
+# JPEG frame markers this decoder refuses, by name, as cv2's libjpeg-turbo
+# does (see ROADMAP.md, F6)
 _JPEG_REFUSED = {
     0xC3: "lossless (SOF3)", 0xC5: "hierarchical (SOF5)",
     0xC6: "hierarchical (SOF6)", 0xC7: "hierarchical lossless (SOF7)",
-    0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded (SOF10)",
     0xCB: "arithmetic-coded lossless (SOF11)",
-    0xCC: "arithmetic-coded (DAC)", 0xCD: "arithmetic-coded (SOF13)",
-    0xCE: "arithmetic-coded (SOF14)", 0xCF: "arithmetic-coded (SOF15)",
+    0xCD: "hierarchical arithmetic-coded (SOF13)",
+    0xCE: "hierarchical arithmetic-coded (SOF14)",
+    0xCF: "hierarchical arithmetic-coded lossless (SOF15)",
     0xDE: "hierarchical (DHP)", 0xDF: "hierarchical (EXP)"}
 _JPEG_ERRORS = {1: "a corrupt Huffman table", 2: "an undefined Huffman table",
-                3: "a corrupt scan"}
-# markers with a length and a body that libjpeg reads or skips: SOF0-2, DHT,
-# DQT, DRI, SOS, DNL, APP0-15, COM (RST0-7 and TEM stand alone); libjpeg
-# stops at any other marker, and so does this decoder
-_JPEG_SEGMENTS = frozenset([0xC0, 0xC1, 0xC2, 0xC4, 0xDB, 0xDD, 0xDA, 0xDC,
-                            0xFE, *range(0xE0, 0xF0)])
+                3: "a corrupt scan",
+                4: "truncated JPEG (its data ends where libjpeg asks for "
+                   "more)"}
+# markers with a length and a body that libjpeg reads or skips: SOF0-2,
+# SOF9-10, DHT, DAC, DQT, DRI, SOS, DNL, APP0-15, COM (RST0-7 and TEM stand
+# alone); libjpeg stops at any other marker, and so does this decoder
+_JPEG_SEGMENTS = frozenset([0xC0, 0xC1, 0xC2, 0xC9, 0xCA, 0xC4, 0xCC, 0xDB,
+                            0xDD, 0xDA, 0xDC, 0xFE, *range(0xE0, 0xF0)])
+# the segments libjpeg skips (or saves) without checking their length: one
+# below 2 is read as no body at all, and reading goes on after it
+_JPEG_SKIPPED = frozenset([0xDC, 0xFE, *range(0xE0, 0xF0)])
+# frame markers: (progressive, arithmetic-coded)
+_JPEG_FRAMES = {0xC0: (False, False), 0xC1: (False, False),
+                0xC2: (True, False), 0xC9: (False, True), 0xCA: (True, True)}
 # the Huffman tables of ITU-T T.81 Annex K.3 (16 counts, then the symbols),
 # which libjpeg-turbo installs in DC/AC slots 0 and 1 of a sequential JPEG
 # that leaves them undefined (motion-JPEG frames), in the order DC 0, DC 1,
@@ -100,6 +115,13 @@ _ZIGZAG = np.array([
 # the first 10 coefficients (zigzag order) whose partial refinement makes
 # libjpeg smooth a progressive image's blocks (jdcoefct.c, SAVED_COEFS)
 _SMOOTHED = 10
+# EXIF tags whose value cv2's ExifReader reads from an offset, and the bytes
+# it reads there: the ASCII strings (their count; up to 4 are held in the
+# entry) and the rationals (8 bytes each). An offset past the block's end
+# makes it give up on the rest of the IFD.
+_EXIF_STRINGS = frozenset([0x010E, 0x010F, 0x0110, 0x0131, 0x0132, 0x8298])
+_EXIF_RATIONALS = {0x011A: 8, 0x011B: 8, 0x013E: 16, 0x013F: 48, 0x0211: 24,
+                   0x0214: 48}
 
 
 def _chunks(data: bytes):
@@ -153,24 +175,35 @@ def exif_orientation(tiff: bytes) -> Optional[int]:
     """The Orientation tag (0x0112) of a TIFF/EXIF block's first IFD, read
     as cv2's ExifReader reads it: either byte order, the 16-bit value at the
     entry's value field whatever its declared type and count, the first
-    such entry among the IFD's counted entries. None when there is none or
-    the block is malformed (no byte order mark, a magic other than 42, an
-    IFD or entry past the end)."""
-    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+    such entry among the IFD's counted entries. The entries are read in
+    order, and a string or rational tag whose data lies past the block's
+    end stops the reading, so an Orientation after it is not seen. None
+    when there is none or the block is malformed (no byte order mark, a
+    magic other than 42, an IFD or entry past the end)."""
+    n = len(tiff)
+    if n < 8 or tiff[:2] not in (b"II", b"MM"):
         return None
     e = "<" if tiff[:2] == b"II" else ">"
     magic, off = struct.unpack_from(e + "HI", tiff, 2)
-    if magic != 42 or off + 2 > len(tiff):
+    if magic != 42 or off + 2 > n:
         return None
     (count,) = struct.unpack_from(e + "H", tiff, off)
     for i in range(count):
         p = off + 2 + 12 * i
-        if p + 2 > len(tiff):
+        if p + 2 > n:
             return None
-        if struct.unpack_from(e + "H", tiff, p)[0] == 0x0112:
-            if p + 10 > len(tiff):
+        (tag,) = struct.unpack_from(e + "H", tiff, p)
+        if tag == 0x0112:
+            if p + 10 > n:
                 return None
             return struct.unpack_from(e + "H", tiff, p + 8)[0]
+        if tag in _EXIF_STRINGS or tag in _EXIF_RATIONALS:
+            if p + 12 > n:
+                return None
+            cnt, at = struct.unpack_from(e + "II", tiff, p + 4)
+            size = _EXIF_RATIONALS.get(tag, cnt)
+            if (tag in _EXIF_RATIONALS or cnt > 4) and at + size > n:
+                return None
     return None
 
 
@@ -304,15 +337,13 @@ def decode_bmp(data: bytes) -> np.ndarray:
 
 
 def _jpeg_frame(seg: bytes):
-    """A SOF0/1/2 segment -> (height, width, [(id, h, v, table)])."""
+    """A SOF0/1/2/9/10 segment -> (height, width, [(id, h, v, table)])."""
     if len(seg) < 6:
         raise ValueError("truncated JPEG frame header")
     prec, h, w, nf = struct.unpack_from(">BHHB", seg)
     if prec != 8:
         raise ValueError(f"{prec}-bit JPEG is not supported (8-bit only)")
-    if nf == 4:
-        raise ValueError("4-component (CMYK/YCCK) JPEG is not supported")
-    if nf not in (1, 3):
+    if nf not in (1, 3, 4):
         raise ValueError(f"JPEG with {nf} components is not supported")
     if h == 0:
         raise ValueError("JPEG with its height in a DNL marker is not "
@@ -380,6 +411,40 @@ def _next_marker(data: bytes, pos: int):
         pos += 1
 
 
+def _jpeg_dac(seg: bytes, cond: np.ndarray) -> None:
+    """A DAC segment into cond (L[16], U[16], K[16]), as libjpeg reads it."""
+    if len(seg) % 2:
+        raise ValueError("corrupt JPEG arithmetic conditioning (DAC)")
+    for i in range(0, len(seg), 2):
+        index, val = seg[i], seg[i + 1]
+        if index >= 32 or (index < 16 and val & 15 > val >> 4):
+            raise ValueError("corrupt JPEG arithmetic conditioning (DAC)")
+        if index >= 16:
+            cond[32 + index - 16] = val
+        else:
+            cond[index], cond[16 + index] = val & 15, val >> 4
+
+
+def _smoothing(comps, coef_bits: np.ndarray, prev_bits: np.ndarray,
+               scans: int, last_good: int) -> Optional[np.ndarray]:
+    """libjpeg's test for block smoothing (jdcoefct.c, smoothing_ok): every
+    component has its quantisation table, nonzero at the first 10
+    coefficients, and a DC scan, and some of those 10 coefficients are not
+    fully refined. Then per component the 10 precisions, the 10 before its
+    last scan (all -1 in a one-scan file), and last the last iMCU row that
+    uses the first ten (the rows after it use the others); or None."""
+    natural = _ZIGZAG[:_SMOOTHED]
+    if any(c["quant"] is None or not c["quant"][natural].all()
+           for c in comps) or (coef_bits[:, 0] < 0).any():
+        return None
+    if not (coef_bits[:, 1:_SMOOTHED] != 0).any():
+        return None
+    prev = prev_bits[:, :_SMOOTHED] if scans > 1 else np.full_like(
+        prev_bits[:, :_SMOOTHED], -1)
+    latch = np.concatenate([coef_bits[:, :_SMOOTHED], prev], axis=1)
+    return np.append(latch.reshape(-1), last_good).astype(np.int32)
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes → uint8 RGB [H, W, 3], upright by its EXIF orientation,
     as cv2.imdecode(IMREAD_COLOR) and a BGR → RGB swap give it.
@@ -387,17 +452,20 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     The markers are read as libjpeg reads them for cv2. A sequential JPEG
     whose first scan holds every component is done with that scan: cv2
     ignores what follows it (libjpeg reads it only when the image is
-    finished, and cv2 does not look at that step's errors), but the scan's
-    data must end at a marker. Any other JPEG is read to its EOI."""
+    finished, and cv2 does not look at that step's errors), and its data
+    need not end at a marker where libjpeg asks for no byte past the end.
+    Any other JPEG is read to its EOI."""
     if not data.startswith(b"\xff\xd8\xff"):  # cv2's JPEG signature
         raise ValueError("undecodable image payload (not a JPEG)")
     lib = _build.load_host_library("jpeg_decode", _JPEG)
     buf = np.frombuffer(data, np.uint8)
     n, pos = len(data), 2
     qt, huff = {}, np.zeros((8, 272), np.uint8)
-    frame, progressive, comps, restart = None, False, [], 0
+    cond = np.array([0] * 16 + [1] * 16 + [5] * 16, np.uint8)  # DAC defaults
+    frame, progressive, arith, comps, restart = None, False, False, [], 0
     jfif, adobe, exif = False, None, []
-    coef_bits, stop, scans = None, np.zeros(1, np.int64), 0
+    coef_bits, stop, scans = None, np.zeros(2, np.int64), 0
+    last_good = 0  # libjpeg's last good iMCU row of the last scan
     while True:
         m, pos = _next_marker(data, pos)
         if m is None:
@@ -413,15 +481,18 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         if pos + 2 > n:
             raise ValueError("truncated JPEG")
         (length,) = struct.unpack_from(">H", data, pos)
+        if length < 2 and m in _JPEG_SKIPPED:
+            pos += 2
+            continue
         if length < 2 or pos + length > n:
             raise ValueError("truncated JPEG marker segment")
         seg = data[pos + 2:pos + length]
         pos += length
-        if m in (0xC0, 0xC1, 0xC2):
+        if m in _JPEG_FRAMES:
             if frame is not None:
                 raise ValueError("corrupt JPEG (two frame headers)")
             frame = _jpeg_frame(seg)
-            progressive = m == 0xC2
+            progressive, arith = _JPEG_FRAMES[m]
             H, W, fcomps = frame
             hmax = max(c[1] for c in fcomps)
             vmax = max(c[2] for c in fcomps)
@@ -433,8 +504,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                     bw=mcux * h,
                     coef=np.zeros((mcuy * v, mcux * h, 64), np.int16)))
             coef_bits = np.full((len(comps), 64), -1, np.int32)
+            prev_bits = np.zeros_like(coef_bits)
         elif m in (0xDB, 0xC4):
             _jpeg_tables(seg, m, qt, huff)
+        elif m == 0xCC:
+            _jpeg_dac(seg, cond)
         elif m == 0xDD:
             if len(seg) != 2:
                 raise ValueError("corrupt JPEG restart interval")
@@ -460,21 +534,30 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                                 or (ss > 0 and ns != 1) or al > 13
                                 or (ah and al != ah - 1)):
                 raise ValueError("corrupt JPEG (invalid progressive scan)")
-            if not scans and not progressive:
+            if not scans and not progressive and not arith:
                 for slot, spec in _STD_HUFF.items():  # as libjpeg-turbo
                     if not huff[slot, :16].any():
                         huff[slot, :len(spec)] = np.frombuffer(spec, np.uint8)
+            # the tables the scan reads (a DC refinement reads none), each
+            # below 4 (Huffman) or 16 (arithmetic), as libjpeg checks them
+            uses_dc = not progressive or (ss == 0 and ah == 0)
+            uses_ac = not progressive or ss > 0
+            limit = 16 if arith else 4
             ids = [c["id"] for c in comps]
-            desc = [int(progressive), ss, se, ah, al, restart, ns, 0, 0]
-            ptrs, blocks = [None] * 4, 0
             if len(set(seg[1:1 + 2 * ns:2])) != ns:
                 raise ValueError("corrupt JPEG scan header (a component "
                                  "twice)")
+            desc = [int(progressive), ss, se, ah, al, restart, ns, 0, 0]
+            ptrs, blocks = [None] * 4, 0
             for j in range(ns):
                 cs, t = seg[1 + 2 * j:3 + 2 * j]
-                if cs not in ids or t >> 4 > 3 or t & 15 > 3:
+                # libjpeg-turbo takes the frame component with this id only
+                # if scan slot ci is still free: one after a component that
+                # follows it in the frame fails
+                ci = ids.index(cs) if cs in ids else -1
+                if ci < j or (uses_dc and t >> 4 >= limit) \
+                        or (uses_ac and t & 15 >= limit):
                     raise ValueError("corrupt JPEG scan header")
-                ci = ids.index(cs)
                 c = comps[ci]
                 if c["quant"] is None:  # latched at its first scan
                     if c["tq"] not in qt:
@@ -483,9 +566,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                     c["quant"] = qt[c["tq"]].copy()
                 ptrs[j] = c["coef"].ctypes.data
                 desc += [j, c["h"], c["v"], c["bw"], c["wib"], c["hib"],
-                         t >> 4, t & 15]
+                         t >> 4 if uses_dc else 0, t & 15 if uses_ac else 0]
                 blocks += c["h"] * c["v"]
-                if progressive:
+                if progressive:  # as jdphuff.c's start_pass keeps them
+                    span = slice(min(ss, 1), max(se, 9) + 1)
+                    prev_bits[ci, span] = coef_bits[ci, span] if scans else 0
                     coef_bits[ci, ss:se + 1] = al
                 else:
                     coef_bits[ci, :] = 0
@@ -496,29 +581,32 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                     raise ValueError("corrupt JPEG (more than 10 blocks "
                                      "in an MCU)")
                 desc[7:9] = [mcux, mcuy]
-            err = lib.jpeg_decode_scan(
-                buf[pos:].ctypes.data, n - pos,
-                np.asarray(desc, np.int32).ctypes.data, *ptrs,
-                huff.ctypes.data, stop.ctypes.data)
+            decode = (lib.jpeg_decode_scan_arith if arith
+                      else lib.jpeg_decode_scan)
+            err = decode(buf[pos:].ctypes.data, n - pos,
+                         np.asarray(desc, np.int32).ctypes.data, *ptrs,
+                         (cond if arith else huff).ctypes.data,
+                         stop.ctypes.data)
             if err:
-                raise ValueError(f"corrupt JPEG: {_JPEG_ERRORS[err]}")
+                raise ValueError(_JPEG_ERRORS[err] if err == 4
+                                 else f"corrupt JPEG: {_JPEG_ERRORS[err]}")
             pos += int(stop[0])
             scans += 1
+            # the iMCU row of the last MCU begun with data to read (a
+            # one-component scan's MCU rows are block rows, v to an iMCU row)
+            mcu_row = int(stop[1]) // desc[7]
+            last_good = mcu_row // c["v"] if ns == 1 else mcu_row
             if scans == 1 and not progressive and ns == len(comps):
-                if _next_marker(data, pos)[0] is None:
-                    raise ValueError("truncated JPEG (the scan data has no "
-                                     "end)")
                 break
     if frame is None or not scans:
         raise ValueError("corrupt JPEG (no frame or no scan)")
-    if progressive and any(bits[0] >= 0 and (bits[1:_SMOOTHED] != 0).any()
-                           for bits in coef_bits):
-        raise ValueError("progressive JPEG whose scans leave low-frequency "
-                         "coefficients unrefined is not supported (libjpeg "
-                         "smooths its blocks)")
+    smooth = (_smoothing(comps, coef_bits, prev_bits, scans, last_good)
+              if progressive else None)
     H, W, _ = frame
     if len(comps) == 1:
         color = 0
+    elif len(comps) == 4:  # CMYK, or YCCK: Adobe transform 2 (or another)
+        color = 3 if adobe in (None, 0) else 4
     elif jfif:
         color = 1
     elif adobe is not None:
@@ -532,7 +620,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     out = np.empty((H, W, 3), np.uint8)
     ptrs = [c["coef"].ctypes.data for c in comps] + [None] * (4 - len(comps))
     if lib.jpeg_output(H, W, len(comps), cdesc.ctypes.data, *ptrs,
-                       quant.ctypes.data, color, out.ctypes.data):
+                       quant.ctypes.data, color,
+                       None if smooth is None else smooth.ctypes.data,
+                       out.ctypes.data):
         raise ValueError("JPEG with fractional sampling factors is not "
                          "supported")
     for block in exif:  # the first block that has the tag decides

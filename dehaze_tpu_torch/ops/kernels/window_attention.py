@@ -13,14 +13,16 @@ the selection is never redrawn.
 
 Two forward kernels, chosen by shape, dtype, numerics and layout alone
 (`fwd_kernel_for`):
-- "tc", `csrc/window_attention_tc.cu`: bf16, token-major, K1's or K3-v3's
-  numerics, N <= 64, head dim 16, 32, 48 or 64 — every shape of the
-  model's default configuration. QK^T on the float64 tensor cores, PV on
-  the bf16 ones, a warp per window-head; counted in `.launches_tc` of its
-  entry point (`window_attention_fwd`, `window_attention_v3_fwd`);
+- "tc", `csrc/window_attention_tc.cu`: bf16, N <= 64, head dim 16, 32, 48
+  or 64 — every shape of the model's default configuration — in K1's
+  numerics (token-major), K3-v3's (token-major) and K3-v2's and v1's
+  (head-major). QK^T on the float64 tensor cores, PV on the bf16 ones, a
+  warp per window-head; counted in `.launches_tc` of its entry point
+  (`window_attention_fwd`, `window_attention_v3_fwd`,
+  `probsparse_window_attention_v1`, `probsparse_window_attention_v2`);
 - "cuda_core", `window_attention_fwd_kernel` of `csrc/window_attention.cu`:
-  everything else (float32, K3's head-major v1 and v2, larger windows or
-  heads); counted in `.launches` of its entry point.
+  everything else (float32, larger windows or heads); counted in
+  `.launches` of its entry point.
 Both select exactly the rows the twin selects (see the sources' notes).
 Two backward kernels, chosen the same way (`bwd_kernel_for`):
 - "tc", `window_attention_tc_bwd_kernel` of `csrc/window_attention_tc.cu`:
@@ -73,7 +75,7 @@ _SIGNATURES = {
     "window_attention_ws_bytes": [_I] * 3,
 }
 _TC_SIGNATURES = {
-    "window_attention_tc_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    "window_attention_tc_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
     "window_attention_tc_bwd": [_P] * 13 + [_I] * 6 + [_F, _I, _I, _P],
     "window_attention_tc_bwd_slots": [_I] * 5,
 }
@@ -83,7 +85,10 @@ _NUMERICS = {"v4": 0, "v1": 1, "v23": 2}
 # backward also needs u <= TC_BWD_MAX_KEPT.
 TC_MAX_N = 64
 TC_HEAD_DIMS = (16, 32, 48, 64)
-TC_NUMERICS = ("v4", "v23")
+TC_NUMERICS = ("v4", "v1", "v23")
+# the layouts (head-major or not) each numerics has on the tensor cores:
+# K1 token-major, K3-v1 head-major, K3-v3 token-major and K3-v2 head-major
+TC_LAYOUTS = {"v4": (False,), "v1": (True,), "v23": (False, True)}
 TC_BWD_MAX_KEPT = 32
 # Backward CTAs per head count share the windows, each writing one dbias
 # partial: 4 per SM (two are resident at N=64, D=32). A CUDA-core forward
@@ -94,11 +99,11 @@ BWD_CTAS_PER_SM = 4
 def fwd_kernel_for(dtype: torch.dtype, numerics: str, n: int,
                    head_dim: int, head_major: bool = False) -> str:
     """Which forward kernel a CUDA call launches: "tc" (the tensor-core
-    kernel: bf16, token-major [B_, N, C], K1's or K3-v3's numerics, N <=
-    64, head dim 16, 32, 48 or 64) or "cuda_core" (everything else, K3's
-    head-major v1 and v2 among it)."""
+    kernel: bf16, N <= 64, head dim 16, 32, 48 or 64, K1's or K3-v3's
+    numerics token-major [B_, N, C], K3-v2's or v1's head-major [B, H, N,
+    D]) or "cuda_core" (everything else)."""
     if (dtype == torch.bfloat16 and numerics in TC_NUMERICS
-            and not head_major and n <= TC_MAX_N
+            and head_major in TC_LAYOUTS[numerics] and n <= TC_MAX_N
             and head_dim in TC_HEAD_DIMS):
         return "tc"
     return "cuda_core"
@@ -216,7 +221,8 @@ def _launch_fwd(entry, numerics, head_major, q, k, v, *, num_heads,
             err = lib.window_attention_tc_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), cnt.data_ptr(),
                 _ptr(bias), _ptr(region), _ptr(pad), out.data_ptr(), B, N, C,
-                H, nW, u, float(scale), _NUMERICS[numerics], stream)
+                H, nW, u, float(scale), _NUMERICS[numerics], int(head_major),
+                stream)
         _build.check(lib, err, f"window_attention_tc_fwd ({numerics})")
         entry.launches_tc += 1
         return out
@@ -379,7 +385,9 @@ def probsparse_window_attention_v1(
     attention over q/k/v [B, H, N, D] (B = nB·nW window-major) -> [B, H, N,
     D], forward only, with nothing rounded inside the chain ("v1"
     numerics). The kernel on CUDA, `ops.probsparse.probsparse_attention_v1`
-    on the CPU. Counts its launches in `.launches`."""
+    on the CPU. Counts the tensor-core kernel's launches in `.launches_tc`
+    and the CUDA-core kernel's in `.launches` (`fwd_kernel_for(...,
+    head_major=True)` says which runs)."""
     return _head_major_fwd(probsparse_window_attention_v1, "v1",
                             ps_ops.probsparse_attention_v1, q, k, v,
                             sample_idx, rel_pos_bias, sw_region, num_windows,
@@ -396,7 +404,7 @@ def probsparse_window_attention_v2(
     (`dehaze_tpu/ops/pallas/window_attention.py:220`): as
     `probsparse_window_attention_v1` with "v23" numerics (q·scale rounded,
     S and a1 not rounded, a2 rounded before PV). The kernel on CUDA,
-    `ops.probsparse.probsparse_attention_v2` on the CPU."""
+    `ops.probsparse.probsparse_attention_v2` on the CPU, counted as v1."""
     return _head_major_fwd(probsparse_window_attention_v2, "v23",
                             ps_ops.probsparse_attention_v2, q, k, v,
                             sample_idx, rel_pos_bias, sw_region, num_windows,
@@ -408,8 +416,6 @@ for _entry in (window_attention_fwd, window_attention_bwd,
                probsparse_window_attention_v1,
                probsparse_window_attention_v2):
     _entry.launches = 0
-for _entry in (window_attention_fwd, window_attention_bwd,
-               window_attention_v3_fwd, window_attention_v3_bwd):
     _entry.launches_tc = 0
 
 _VERSIONS = {4: (window_attention_fwd, window_attention_bwd),

@@ -3,9 +3,11 @@
 
     python3 scripts/fuzz_jpeg.py [--n 3000] [--seed 0] [--asan]
 
-Seeded mutations of small JPEGs that cv2 writes (bytes flipped or replaced
-in the headers and the scan data, runs deleted, random bytes and
-marker-like pairs inserted) go through the port's `decode_img` and through
+Seeded mutations of small JPEGs (five that cv2 writes, and the committed
+CMYK, YCCK, arithmetic-coded and smoothed-progressive fixtures of
+`scripts/make_jpeg_fixtures.py`: bytes flipped or replaced in the headers
+and the scan data, runs deleted, random bytes and marker-like pairs
+inserted) go through the port's `decode_img` and through
 `cv2.imdecode(IMREAD_COLOR)`, the JAX package's decoder. The port must
 either raise ValueError or decode to exactly cv2's pixels (so where cv2
 returns nothing, the port raises). Anything else is counted, and makes the
@@ -33,9 +35,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SANITIZERS = "-fsanitize=address,undefined"
 
 
+# committed fixtures that seed mutations too: name -> file in tests/data
+FIXTURE_SEEDS = {"cmyk": "cmyk_120x160.jpg",
+                 "ycck-progressive": "ycck_120x160_420.jpg",
+                 "arith-rst": "arith_120x160_420.jpg",
+                 "arith-progressive-rst": "arith_prog_120x160_422.jpg",
+                 "smoothed-progressive": "smoothed_120x160_420.jpg"}
+
+
 def seed_jpegs() -> dict:
     """Name → a 17×33 JPEG cv2 writes in that mode (every sampling the
-    port decodes, sequential and progressive, restart intervals)."""
+    port decodes, sequential and progressive, restart intervals), and the
+    120×160 fixtures of FIXTURE_SEEDS (Adobe CMYK and YCCK, arithmetic
+    coding with DAC conditioning and restarts, block smoothing)."""
     import cv2
 
     rng = np.random.default_rng(19)
@@ -63,6 +75,9 @@ def seed_jpegs() -> dict:
                                [cv2.IMWRITE_JPEG_QUALITY, 80] + params)
         assert ok
         out[name] = buf.tobytes()
+    for name, file in FIXTURE_SEEDS.items():
+        with open(os.path.join(ROOT, "tests", "data", file), "rb") as f:
+            out[name] = f.read()
     return out
 
 

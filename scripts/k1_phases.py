@@ -2,7 +2,8 @@
 """Where K1 spends its time, phase by phase, on one NVIDIA GPU.
 
     python3 scripts/k1_phases.py [--root DIR]
-        [--kernel cuda_core|tc|cuda_core_bwd|tc_bwd] [--numerics v4|v23]
+        [--kernel cuda_core|tc|cuda_core_bwd|tc_bwd]
+        [--numerics v4|v23|v1|v2hm]
 
 Builds an instrumented copy of one K1 source of the port found under
 --root (default: this repository), in a temporary directory; the source
@@ -32,7 +33,9 @@ prints the cycles per CTA of each phase.
 --kernel tc_bwd: `window_attention_tc_bwd_kernel` of
   csrc/window_attention_tc.cu, by its `// phase:` lines as for tc.
 --numerics v23 runs K3-v3's calls (`window_attention_v3_fwd` / `_bwd`,
-the same kernels with K3-v3's rounding points) instead of K1's.
+the same kernels with K3-v3's rounding points) instead of K1's; v1 and
+v2hm the head-major K3-v1 and K3-v2 forwards
+(`probsparse_window_attention_v1` / `_v2`, q/k/v [B_, heads, N, D]).
 The counters and clock reads slow the kernel somewhat; shares are what they
 show. Imports nothing of JAX.
 """
@@ -132,8 +135,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--kernel", choices=tuple(KERNELS), default="tc")
-    ap.add_argument("--numerics", choices=("v4", "v23"), default="v4")
+    ap.add_argument("--numerics", choices=("v4", "v23", "v1", "v2hm"),
+                    default="v4")
     args = ap.parse_args()
+    head_major = args.numerics in ("v1", "v2hm")
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
     import torch
@@ -149,6 +154,8 @@ def main() -> None:
     sigs = (K1._SIGNATURES if lib_name == "window_attention"
             else K1._TC_SIGNATURES)
     bwd = args.kernel.endswith("_bwd")
+    if head_major and bwd:
+        sys.exit("K3-v1 and v2 have no backward")
     with tempfile.TemporaryDirectory() as tmp:
         cu, so = os.path.join(tmp, "k1.cu"), os.path.join(tmp, "k1.so")
         with open(_build.CSRC / f"{lib_name}.cu") as f:
@@ -171,10 +178,14 @@ def main() -> None:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1237)
-    fwd, bwd_fn = ((K1.window_attention_fwd, K1.window_attention_bwd)
-                   if args.numerics == "v4" else
-                   (K1.window_attention_v3_fwd, K1.window_attention_v3_bwd))
-    print(f"{'K1' if args.numerics == 'v4' else 'K3-v3'} "
+    fwd, bwd_fn = {
+        "v4": (K1.window_attention_fwd, K1.window_attention_bwd),
+        "v23": (K1.window_attention_v3_fwd, K1.window_attention_v3_bwd),
+        "v1": (K1.probsparse_window_attention_v1, None),
+        "v2hm": (K1.probsparse_window_attention_v2, None)}[args.numerics]
+    label = {"v4": "K1", "v23": "K3-v3", "v1": "K3-v1",
+             "v2hm": "K3-v2"}[args.numerics]
+    print(f"{label} "
           f"{'backward' if bwd else 'forward'}, {args.kernel} kernel, "
           f"from {lib_name}.cu under {os.path.abspath(args.root)}",
           flush=True)
@@ -187,12 +198,14 @@ def main() -> None:
         if reg_hw is not None:
             region = torch.from_numpy(win_ops.shift_region_ids(
                 reg_hw[0], reg_hw[1], 8, 4)).to(dev)
-        q, k, v = (torch.randn(B, N, C, generator=g, device=dev).mul_(0.5)
+        shape = (B, heads, N, C // heads) if head_major else (B, N, C)
+        q, k, v = (torch.randn(*shape, generator=g, device=dev).mul_(0.5)
                    .bfloat16() for _ in range(3))
         go = torch.randn(B, N, C, generator=g, device=dev).bfloat16()
-        kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
-                  sw_region=region,
+        kw = dict(sample_idx=si, rel_pos_bias=bias, sw_region=region,
                   num_windows=1 if region is None else region.shape[0])
+        if not head_major:
+            kw["num_heads"] = heads
 
         def run():
             if bwd:

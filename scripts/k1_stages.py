@@ -4,7 +4,7 @@ frame (forward) or of one train step (backward, --bwd), on one NVIDIA GPU,
 from the port found under --root.
 
     python3 scripts/k1_stages.py [--root DIR] [--reps N] [--twin] [--bwd]
-        [--numerics v4|v23]
+        [--numerics v4|v23|v1|v2hm]
 
 The shapes are Uformer-32's, N = 64, head dim 32, bf16, q/k/v at std 0.5
 (the output gradient at std 1), a rel-pos bias, seeded inputs: at each
@@ -20,8 +20,12 @@ twin's ms and the largest |kernel - twin| (over dq, dk and dv in the
 backward, relative to each tensor's largest |twin|). --numerics v23 times
 K3-v3 (`window_attention_v3_fwd` / `_bwd`, the same kernels with K3-v3's
 rounding points) at the same shapes instead; no path runs it, but its
-per-stage times compare with K1's. The sample-count matrix is built once,
-as the model builds it once per forward. Imports nothing of JAX.
+per-stage times compare with K1's. --numerics v1 and v2hm time the
+head-major K3-v1 and K3-v2 forwards (`probsparse_window_attention_v1` /
+`_v2`, q/k/v [B_, heads, N, D]) at the same shapes; no path runs them
+either, and they take no precomputed counts, so each call builds its own
+(as chip_smoke.py times them). The sample-count matrix is otherwise built
+once, as the model builds it once per forward. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -76,8 +80,12 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--twin", action="store_true")
     ap.add_argument("--bwd", action="store_true")
-    ap.add_argument("--numerics", choices=("v4", "v23"), default="v4")
+    ap.add_argument("--numerics", choices=("v4", "v23", "v1", "v2hm"),
+                    default="v4")
     args = ap.parse_args()
+    head_major = args.numerics in ("v1", "v2hm")
+    if head_major and args.bwd:
+        sys.exit("K3-v1 and v2 have no backward")
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
     import torch
@@ -89,9 +97,15 @@ def main() -> None:
     from dehaze_tpu_torch.ops.kernels import window_attention as K1
 
     count_matrix = K1.count_matrix
-    fwd, bwd = ((K1.window_attention_fwd, K1.window_attention_bwd)
-                if args.numerics == "v4" else
-                (K1.window_attention_v3_fwd, K1.window_attention_v3_bwd))
+    fwd, bwd = {
+        "v4": (K1.window_attention_fwd, K1.window_attention_bwd),
+        "v23": (K1.window_attention_v3_fwd, K1.window_attention_v3_bwd),
+        "v1": (K1.probsparse_window_attention_v1, None),
+        "v2hm": (K1.probsparse_window_attention_v2, None)}[args.numerics]
+    # the twins' name of the numerics; the head-major twins
+    numerics = {"v1": "v1", "v2hm": "v23"}.get(args.numerics, args.numerics)
+    twin_hm = (ps_ops.probsparse_attention_v1 if args.numerics == "v1"
+               else ps_ops.probsparse_attention_v2)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1238)
@@ -104,7 +118,8 @@ def main() -> None:
     rows = []
     for name, B, C, heads, hw in BWD_STAGES if args.bwd else STAGES:
         bias = torch.randn(heads, N, N, generator=g, device=dev) * 0.1
-        q, k, v = (torch.randn(B, N, C, generator=g, device=dev).mul_(0.5)
+        shape = (B, heads, N, C // heads) if head_major else (B, N, C)
+        q, k, v = (torch.randn(*shape, generator=g, device=dev).mul_(0.5)
                    .bfloat16() for _ in range(3))
         go = (torch.randn(B, N, C, generator=g, device=dev).bfloat16()
               if args.bwd else None)
@@ -114,20 +129,28 @@ def main() -> None:
             kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
                       sw_region=region)
             nW = 1 if region is None else region.shape[0]
-            if args.bwd:
+            if head_major:
+                hkw = dict(sample_idx=si, rel_pos_bias=bias, sw_region=region)
+
+                def kern():
+                    return fwd(q, k, v, num_windows=nW, **hkw)
+
+                def twin():
+                    return twin_hm(q, k, v, **hkw)
+            elif args.bwd:
                 def kern():
                     return bwd(q, k, v, go, num_windows=nW, cnt=cnt, **kw)
 
                 def twin():
                     return ps_ops.probsparse_attention_bnc_bwd(
-                        q, k, v, go, numerics=args.numerics, **kw)
+                        q, k, v, go, numerics=numerics, **kw)
             else:
                 def kern():
                     return fwd(q, k, v, num_windows=nW, cnt=cnt, **kw)
 
                 def twin():
                     return ps_ops.probsparse_attention_bnc(
-                        q, k, v, numerics=args.numerics, **kw)
+                        q, k, v, numerics=numerics, **kw)
             # bytes: q/k/v and out (q/k/v/g and dq/dk/dv, the bias read and
             # dbias written in a backward), the counts, the region ids;
             # operations: S and the kept rows' products (PV; dv, da2, dq
@@ -170,7 +193,8 @@ def main() -> None:
     total = sum(r["ms"] for r in rows)
     what = ("backward calls of a train step" if args.bwd
             else "forward launches of a serving frame")
-    name = "K1" if args.numerics == "v4" else "K3-v3"
+    name = {"v4": "K1", "v23": "K3-v3", "v1": "K3-v1",
+            "v2hm": "K3-v2"}[args.numerics]
     print(f"18 {name} {what}: {total:.3f} ms", flush=True)
     print(json.dumps({"root": os.path.abspath(args.root),
                       "numerics": args.numerics,

@@ -389,6 +389,23 @@ def test_bwd_kernel_for_routes_by_shape_and_dtype():
     assert TPS.probsparse_u(64, 7) > 32
 
 
+def test_fwd_kernel_for_routes_head_major():
+    """The head-major K3 forwards: bf16 v1 and v2 ("v23") at N <= 64 and
+    head dims 16/32/48/64 go to the tensor-core forward; f32, N = 256 and
+    other head dims to the CUDA-core one. K1 ("v4") has no head-major form
+    on the tensor cores, and v1 no token-major one, nor any backward."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for num in ("v1", "v23"):
+        for n, d in ((64, 32), (64, 16), (49, 48), (16, 64), (4, 32)):
+            assert fwd_kernel_for(bf, num, n, d, head_major=True) == "tc"
+        for args in ((f32, num, 64, 32), (bf, num, 256, 32),
+                     (bf, num, 64, 96), (bf, num, 64, 24)):
+            assert fwd_kernel_for(*args, head_major=True) == "cuda_core"
+    assert fwd_kernel_for(bf, "v4", 64, 32, head_major=True) == "cuda_core"
+    assert fwd_kernel_for(bf, "v1", 64, 32) == "cuda_core"
+    assert bwd_kernel_for(bf, "v1", 64, 32) == "cuda_core"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("win,D,dtype", [(8, 32, torch.float32),
                                          (16, 32, torch.bfloat16),
@@ -434,7 +451,9 @@ def test_k1_pad_flag_matches_twin(cuda, heads, shifted, dtype):
     (16, 8, False, torch.float32, True), (4, 4, False, torch.bfloat16, False)])
 def test_k3_v1_v2_match_twins(cuda, version, heads, win, shifted, dtype,
                               bias):
-    """The head-major K3 forwards ([B, H, N, D]) against their twins."""
+    """The head-major K3 forwards ([B, H, N, D]) against their twins, each
+    call counted on the kernel `fwd_kernel_for` names (bf16 on the tensor
+    cores, f32 on the CUDA cores)."""
     entry, twin = {
         "v1": (probsparse_window_attention_v1, TPS.probsparse_attention_v1),
         "v2": (probsparse_window_attention_v2, TPS.probsparse_attention_v2),
@@ -445,9 +464,13 @@ def test_k3_v1_v2_match_twins(cuda, version, heads, win, shifted, dtype,
     q, k, v = (t.reshape(B, N, heads, 32).transpose(1, 2).contiguous()
                for t in (q, k, v))
     kw.pop("num_heads")
-    before = entry.launches
+    numerics = "v1" if version == "v1" else "v23"
+    attr = ("launches_tc" if fwd_kernel_for(dtype, numerics, win * win, 32,
+                                            head_major=True) == "tc"
+            else "launches")
+    before = getattr(entry, attr)
     got = entry(q, k, v, num_windows=nW, **kw)
-    assert entry.launches == before + 1
+    assert getattr(entry, attr) == before + 1
     want = twin(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -544,6 +567,86 @@ def test_k3_v3_tc_ragged_window_counts(cuda, B):
     assert _flipped_rows(out, q, k, v, kw, "v23") == 0
     _assert_grads_close(got, want, torch.bfloat16, q.shape, True)
     assert _bwd_flipped_rows(got[0], want[0], q, k, v, kw, "v23") == 0
+
+
+def _head_major(t, heads):
+    """[B, N, C] -> [B, H, N, D], contiguous."""
+    B, N, C = t.shape
+    return t.reshape(B, N, heads, C // heads).transpose(1, 2).contiguous()
+
+
+def _token_major(t):
+    """[B, H, N, D] -> [B, N, C]."""
+    B, H, N, D = t.shape
+    return t.transpose(1, 2).reshape(B, N, H * D)
+
+
+_HM_CASES = [c[:4] + c[5:] for c in _TC_BWD_CASES]  # no pad flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["v1", "v2"])
+@pytest.mark.parametrize("std", [0.5, 2.0])
+@pytest.mark.parametrize("heads,win,D,shifted,bias", _HM_CASES)
+def test_k3_v1_v2_tc_matches_twin(cuda, version, heads, win, D, shifted,
+                                  bias, std):
+    """K3-v1 and K3-v2 (head-major [B, H, N, D]) on the tensor-core
+    forward (bf16) against their twins at N 4, 16, 49 and 64 and head dims
+    16-64, with and without bias and region ids, q and k at std 0.5 and 2,
+    over 64 windows: K1_TOL per row, exactly the twin's rows kept (0
+    flipped), and the call counted in `.launches_tc` only."""
+    entry, twin, numerics = {
+        "v1": (probsparse_window_attention_v1, TPS.probsparse_attention_v1,
+               "v1"),
+        "v2": (probsparse_window_attention_v2, TPS.probsparse_attention_v2,
+               "v23")}[version]
+    q, k, v, kw, nW = _attn_inputs(cuda, heads, win, D, shifted,
+                                   torch.bfloat16, seed=110 + heads + win + D,
+                                   bias=bias)
+    reps = 64 // q.shape[0]
+    q, k, v = (t.repeat(reps, 1, 1) for t in (q, k, v))
+    q = (q.float() * (std / 0.5) + torch.randn_like(q.float()) * 0.01
+         ).bfloat16()
+    k = (k.float() * (std / 0.5)).bfloat16()
+    qh, kh, vh = (_head_major(t, heads) for t in (q, k, v))
+    hkw = {n: x for n, x in kw.items() if n != "num_heads"}
+    assert fwd_kernel_for(torch.bfloat16, numerics, win * win, D,
+                          head_major=True) == "tc"
+    before = (entry.launches_tc, entry.launches)
+    out = entry(qh, kh, vh, num_windows=nW, **hkw)
+    assert (entry.launches_tc, entry.launches) == (before[0] + 1, before[1])
+    want = twin(qh, kh, vh, **hkw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == qh.shape
+    _assert_rows_close(_token_major(out), _token_major(want), heads, D,
+                       torch.bfloat16)
+    assert _flipped_rows(_token_major(out), q, k, v, kw, numerics) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["v1", "v2"])
+@pytest.mark.parametrize("B", [1, 3, 37, 130])
+def test_k3_v1_v2_tc_ragged_window_counts(cuda, version, B):
+    """K3-v1 and v2 on the tensor cores at window counts below a CTA's
+    warps and off its multiple."""
+    entry, twin, numerics = {
+        "v1": (probsparse_window_attention_v1, TPS.probsparse_attention_v1,
+               "v1"),
+        "v2": (probsparse_window_attention_v2, TPS.probsparse_attention_v2,
+               "v23")}[version]
+    q, k, v, kw, _ = _attn_inputs(cuda, 2, 8, 32, False, torch.bfloat16,
+                                  seed=120 + B)
+    q, k, v = (t.repeat(B, 1, 1)[:B] for t in (q, k, v))
+    q = q + (torch.randn_like(q.float()) * 0.05).bfloat16()
+    hkw = {n: x for n, x in kw.items() if n != "num_heads"}
+    before = entry.launches_tc
+    out = entry(*(_head_major(t, 2) for t in (q, k, v)), **hkw)
+    assert entry.launches_tc == before + 1
+    want = twin(*(_head_major(t, 2) for t in (q, k, v)), **hkw)
+    torch.cuda.synchronize()
+    _assert_rows_close(_token_major(out), _token_major(want), 2, 32,
+                       torch.bfloat16)
+    assert _flipped_rows(_token_major(out), q, k, v, kw, numerics) == 0
 
 
 def _gap(got, ref, own):

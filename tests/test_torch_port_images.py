@@ -236,15 +236,15 @@ def test_png_written_by_cv2_with_its_own_filters():
 
 
 def test_refused_formats_name_themselves():
-    """Formats that stay refused, by name: an arithmetic-coded JPEG (the
-    kinds of JPEG: tests/test_torch_port_jpeg.py), RLE8 BMP, GIF."""
+    """Formats that stay refused, by name: an arithmetic-coded lossless JPEG
+    (the kinds of JPEG: tests/test_torch_port_jpeg.py), RLE8 BMP, GIF."""
     img = _textured(8, 8, 4)
     ok, jpg = cv2.imencode(".jpg", img)
     assert ok
     jpg = jpg.tobytes()
     i = jpg.index(b"\xff\xc0")
-    with pytest.raises(ValueError, match="arithmetic-coded"):
-        images.decode_img(jpg[:i + 1] + b"\xc9" + jpg[i + 2:])
+    with pytest.raises(ValueError, match="arithmetic-coded lossless"):
+        images.decode_img(jpg[:i + 1] + b"\xcb" + jpg[i + 2:])
     data, _ = _bmp(img, 8, False)
     rle = bytearray(data)
     rle[30:34] = struct.pack("<I", 1)  # biCompression = BI_RLE8

@@ -4,12 +4,18 @@ is libjpeg-turbo's decode here), byte for byte: every sampling factor cv2
 writes (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1), baseline, progressive and
 optimised Huffman tables, restart intervals, qualities 5 to 100, sizes
 that are not a multiple of the MCU, grayscale, JPEGs written by PIL, a
-1200×1600 frame, and the EXIF orientations 1-8 of JPEG (APP1) and PNG
-(eXIf) in both byte orders. Also what stays refused, each by name, and
-corrupt input: over-full Huffman tables, coefficients out of the 8-bit
-range, seeded mutations (each decodes to cv2's pixels or raises
+1200×1600 frame, Adobe CMYK and YCCK, arithmetic coding (sequential and
+progressive, DAC conditioning, restarts), progressive files whose scans
+leave low coefficients unrefined (libjpeg's block smoothing), files cut
+short of their EOI, and the EXIF orientations 1-8 of JPEG (APP1) and PNG
+(eXIf) in both byte orders, with the malformed tags that make cv2 give up
+on them. Also what stays refused, each by name, and corrupt input:
+libjpeg's leniencies, over-full Huffman tables, coefficients out of the
+8-bit range, seeded mutations (each decodes to cv2's pixels or raises
 ValueError), and the decoder under AddressSanitizer and UBSan. No JAX
-compile: the JAX package's codec is cv2 itself."""
+compile: the JAX package's codec is cv2 itself. The arithmetic-coded
+files come from `scripts/make_jpeg_fixtures.py`'s libjpeg writer (built
+with cc against Pillow's bundled libjpeg-turbo)."""
 
 import io
 import struct
@@ -55,6 +61,39 @@ def _same_as_cv2(data):
     assert got.dtype == np.uint8 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
     return got
+
+
+def _same_outcome_as_cv2(data):
+    """The port decodes to cv2's pixels where cv2 decodes, and raises
+    ValueError where cv2 returns nothing; True where both decode."""
+    want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    if want is None:
+        with pytest.raises(ValueError, match="JPEG"):
+            images.decode_img(data, u8=True)
+        return False
+    np.testing.assert_array_equal(images.decode_img(data, u8=True),
+                                  want[:, :, ::-1])
+    return True
+
+
+def _script(name):
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", name)
+    spec = importlib.util.spec_from_file_location(name[:-3], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module, path
+
+
+@pytest.fixture(scope="module")
+def libjpeg(tmp_path_factory):
+    """write(pixels, cs, quality, arith, progressive, restart, L, U, K, h0,
+    v0): libjpeg-turbo's encoder, arithmetic coding included."""
+    return _script("make_jpeg_fixtures.py")[0].libjpeg_writer(
+        str(tmp_path_factory.mktemp("writer")))
 
 
 @pytest.mark.parametrize("rst", [0, 2])
@@ -202,6 +241,300 @@ def test_malformed_exif_as_cv2():
     _same_as_cv2(_with_app1(jpeg, b"http://ns.adobe.com/xap/1.0/\0<x/>"))
 
 
+def _ifd_entry(tag, typ, count, value, order="II"):
+    return struct.pack(("<" if order == "II" else ">") + "HHII", tag, typ,
+                       count, value)
+
+
+# (name, the entry put before the Orientation entry, whether cv2 still
+# applies the orientation). The block is 50 bytes: header 8, count 2, three
+# entries, next-IFD 4.
+EXIF_MALFORMED = [
+    ("make-past-end", (0x010F, 2, 20, 40), False),
+    ("make-ends-at-end", (0x010F, 2, 10, 40), True),
+    ("model-offset-huge", (0x0110, 2, 5, 0xFFFFFFF0), False),
+    ("copyright-inline", (0x8298, 2, 4, 0xFFFFFFFF), True),
+    ("datetime-count-huge", (0x0132, 2, 0xFFFFFFFF, 8), False),
+    ("xresolution-past-end", (0x011A, 5, 1, 43), False),
+    ("yresolution-at-end", (0x011B, 5, 1, 42), True),
+    ("whitepoint-past-end", (0x013E, 5, 2, 40), False),
+    ("ycbcr-coefficients-past-end", (0x0211, 5, 3, 30), False),
+    ("primaries-past-end", (0x013F, 5, 6, 8), False),
+    ("reference-black-white-past-end", (0x0214, 5, 6, 8), False),
+    ("resolution-unit-any", (0x0128, 3, 0xFFFFFFFF, 0xFFFFFFFF), True),
+    ("exif-ifd-pointer-any", (0x8769, 4, 1, 0xFFFFFFFF), True),
+    ("unknown-tag-any", (0x9999, 7, 0xFFFFFFFF, 0xFFFFFFFF), True)]
+
+
+@pytest.mark.parametrize("container", ["jpeg", "png"])
+@pytest.mark.parametrize("name,entry,kept", EXIF_MALFORMED,
+                         ids=[m[0] for m in EXIF_MALFORMED])
+def test_exif_malformed_tags_as_cv2(name, entry, kept, container):
+    """cv2's ExifReader reads the IFD's entries in order and gives up at a
+    string tag (count above 4) or a rational one whose data lies past the
+    block's end, so an Orientation after it is lost; the same entry after
+    the Orientation leaves it. Other tags are not read. Each case in both
+    byte orders, from a JPEG's APP1 and a PNG's eXIf."""
+    img = _textured(5, 9, seed=21)
+    for order in ("II", "MM"):
+        e = "<" if order == "II" else ">"
+        orient = struct.pack(e + "HHIH2x", 0x0112, 3, 1, 6)
+        pad = _ifd_entry(0x9999, 7, 1, 0, order)
+        bad = _ifd_entry(*entry, order=order)
+        for entries, rotated in (([bad, orient, pad], kept),
+                                 ([pad, orient, bad], True)):
+            tiff = _tiff(0, order, entries=entries)
+            assert len(tiff) == 50
+            if container == "jpeg":
+                data = _with_app1(_cv2_jpeg(img, cv2.IMWRITE_JPEG_QUALITY,
+                                            95), b"Exif\0\0" + tiff)
+            else:
+                data = _with_exif_chunk(images.encode_img(img), tiff)
+            got = _same_as_cv2(data)
+            assert got.shape == ((9, 5, 3) if rotated else (5, 9, 3))
+            assert images.exif_orientation(tiff) == (6 if rotated else None)
+
+
+# ---- CMYK, YCCK and arithmetic coding ---------------------------------------
+
+def _pil_cmyk(img, subsampling, progressive):
+    bio = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(
+        bio, "JPEG", quality=90, subsampling=subsampling,
+        progressive=progressive)
+    return bio.getvalue()
+
+
+def _adobe(jpeg, transform):
+    """The JPEG with its Adobe APP14 transform byte set, or the marker
+    dropped (transform None)."""
+    i = jpeg.index(b"\xff\xee\x00\x0eAdobe")
+    if transform is None:
+        return jpeg[:i] + jpeg[i + 16:]
+    return jpeg[:i + 15] + bytes([transform]) + jpeg[i + 16:]
+
+
+@pytest.mark.parametrize("transform", [0, 2, 1, None],
+                         ids=["cmyk", "ycck", "transform1", "no-adobe"])
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("subsampling", [0, 2], ids=["1x1", "2x2"])
+def test_four_component_jpeg_matches_cv2(subsampling, progressive,
+                                         transform):
+    """Four-component JPEGs as libjpeg reads them for cv2, then OpenCV's
+    CMYK → BGR: PIL's Adobe CMYK (transform 0, inverted), the same data
+    read as YCCK (transform 2, which libjpeg converts to CMYK; an unknown
+    transform 1 too), and without an Adobe marker (plain CMYK), at 1×1 and
+    2×2 sampling of the first component, baseline and progressive, at
+    sizes off the MCU."""
+    for h, w in ((1, 1), (13, 21), (40, 56)):
+        img = _textured(h, w, seed=h + w)
+        _same_as_cv2(_adobe(_pil_cmyk(img, subsampling, progressive),
+                            transform))
+
+
+ARITH = {"default": (0, 1, 5), "L1-U5-K10": (1, 5, 10),
+         "L0-U0-K1": (0, 0, 1), "L2-U9-K63": (2, 9, 63)}
+
+
+@pytest.mark.parametrize("cond", list(ARITH))
+@pytest.mark.parametrize("rst", [0, 2])
+@pytest.mark.parametrize("progressive", [False, True],
+                         ids=["sof9", "sof10"])
+def test_arithmetic_jpeg_matches_cv2(libjpeg, progressive, rst, cond):
+    """Arithmetic-coded JPEG (SOF9 sequential, SOF10 progressive) with the
+    DAC conditioning (DC L and U, AC K) and restart intervals, at 4:4:4,
+    4:2:0 and 4:2:2, gray, YCCK, quality 10 and 95, and sizes off the MCU,
+    decodes to cv2's pixels (libjpeg's jdarith.c)."""
+    L, U, K = ARITH[cond]
+    for h, w in ((1, 1), (17, 33), (40, 56)):
+        img = _textured(h, w, seed=h * w + 1)
+        for q in (10, 95):
+            for h0, v0 in ((1, 1), (2, 2), (2, 1)):
+                _same_as_cv2(libjpeg(img, 2, q, 1, int(progressive), rst, L,
+                                     U, K, h0, v0))
+        _same_as_cv2(libjpeg(img[:, :, 0], 1, 90, 1, int(progressive), rst,
+                             L, U, K, 1, 1))
+        cmyk = np.concatenate([img, img[:, :, :1]], axis=2)
+        _same_as_cv2(libjpeg(cmyk, 5, 90, 1, int(progressive), rst, L, U, K,
+                             2, 2))
+
+
+def test_refused_arithmetic_kinds_as_cv2(libjpeg):
+    """SOF11 (lossless) and SOF13-15 (hierarchical) stay refused as cv2
+    refuses them; a DAC index above 31, a DC condition with L above U and
+    an odd DAC length raise as libjpeg raises."""
+    data = libjpeg(_textured(16, 16, seed=22), 2, 90, 1, 0, 0, 0, 1, 5, 1, 1)
+    i = data.index(b"\xff\xc9")
+    for marker in (0xCB, 0xCD, 0xCE, 0xCF):
+        bad = data[:i + 1] + bytes([marker]) + data[i + 2:]
+        assert not _same_outcome_as_cv2(bad)
+    j = data.index(b"\xff\xcc")
+    for body in (b"\x20\x05", b"\x00\x23", b"\x10\x05\x00"):
+        bad = (data[:j] + b"\xff\xcc" + struct.pack(">H", len(body) + 2)
+               + body + data[j:])
+        assert not _same_outcome_as_cv2(bad)
+
+
+# ---- progressive block smoothing --------------------------------------------
+
+def _scan_ends(jpeg):
+    return _script("make_jpeg_fixtures.py")[0]._scan_ends(jpeg)
+
+
+@pytest.mark.parametrize("sampling", ["444", "420", "422", "440", "gray"])
+def test_unrefined_progressive_jpeg_is_smoothed_as_cv2(sampling):
+    """A progressive JPEG cut after each of its scans (an EOI put there)
+    leaves some of the first 10 coefficients unrefined, and libjpeg smooths
+    its blocks from their neighbours' DCs (jdcoefct.c, the 5×5 window;
+    the DCs too when only DC scans came): the port gives cv2's pixels, at
+    sizes with one, two and many block columns and rows. Also a last scan
+    cut short mid-way, after which libjpeg smooths the rows it did not
+    reach with the precisions of the scan before."""
+    for h, w in ((17, 9), (9, 130), (37, 53), (120, 8), (64, 80)):
+        img = _textured(h, w, seed=h + 2 * w)
+        if sampling == "gray":
+            jpeg = _cv2_jpeg(img[:, :, :1], cv2.IMWRITE_JPEG_QUALITY, 75,
+                             cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
+        else:
+            jpeg = _cv2_jpeg(img, cv2.IMWRITE_JPEG_QUALITY, 75,
+                             cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                             cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                             SAMPLING[sampling])
+        ends = _scan_ends(jpeg)
+        for k, end in enumerate(ends[:-1]):
+            assert _same_outcome_as_cv2(jpeg[:end] + b"\xff\xd9")
+            sos = jpeg.rindex(b"\xff\xda", 0, end)
+            start = sos + 2 + struct.unpack_from(">H", jpeg, sos + 2)[0]
+            mid = (start + end) // 2
+            while 0xFF in jpeg[mid - 1:mid + 1]:
+                mid += 1
+            if mid < end:  # a scan of a few bytes may have no such cut
+                assert _same_outcome_as_cv2(jpeg[:mid] + b"\xff\xd9")
+
+
+# ---- a missing EOI ----------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["baseline", "restarts", "progressive",
+                                  "arithmetic", "arithmetic-progressive"])
+def test_jpeg_cut_near_its_end_as_cv2(libjpeg, kind):
+    """A JPEG cut at each of the last 64 bytes (and with a few bytes of
+    padding after the cut): cv2's source cannot supply more data, so libjpeg
+    finishes a sequential image only if its bit buffer never asks for a
+    byte past the end (a progressive one never: it reads to the EOI). The
+    port decodes exactly those, to cv2's pixels, and raises for the rest."""
+    decoded = 0
+    for seed, (h, w) in enumerate(((37, 53), (64, 80))):
+        img = _textured(h, w, seed=30 + seed)
+        jpeg = {"baseline": lambda: _cv2_jpeg(img, cv2.IMWRITE_JPEG_QUALITY,
+                                              90),
+                "restarts": lambda: _cv2_jpeg(
+                    img, cv2.IMWRITE_JPEG_QUALITY, 90,
+                    cv2.IMWRITE_JPEG_RST_INTERVAL, 1),
+                "progressive": lambda: _cv2_jpeg(
+                    img, cv2.IMWRITE_JPEG_QUALITY, 90,
+                    cv2.IMWRITE_JPEG_PROGRESSIVE, 1),
+                "arithmetic": lambda: libjpeg(img, 2, 90, 1, 0, 0, 0, 1, 5,
+                                              2, 2),
+                "arithmetic-progressive": lambda: libjpeg(
+                    img, 2, 90, 1, 1, 2, 0, 1, 5, 2, 2)}[kind]()
+        for tail in (b"", b"\0" * 7, b"\0" * 9, b"\x55" * 12):
+            for cut in range(len(jpeg) - 64, len(jpeg)):
+                decoded += _same_outcome_as_cv2(jpeg[:cut] + tail)
+    if not kind.endswith("progressive"):
+        assert decoded > 0  # some cuts leave libjpeg all it asks for
+
+
+# ---- libjpeg's leniencies ---------------------------------------------------
+
+def _insert(jpeg, at_marker, segment):
+    i = jpeg.index(at_marker)
+    return jpeg[:i] + segment + jpeg[i:]
+
+
+def _progressive_scans(jpeg):
+    """Offsets of the SOS markers of a progressive JPEG."""
+    ends = _scan_ends(jpeg)
+    out, p = [], 0
+    for end in ends:
+        out.append(jpeg.rindex(b"\xff\xda", p, end))
+        p = end
+    return out
+
+
+LENIENCIES = ["short-com", "short-app0", "short-app1", "short-app14",
+              "short-app5", "short-dnl", "dac-in-huffman",
+              "dc-refine-tables", "dc-first-ac-table", "ac-dc-table",
+              "scan-order-ok", "scan-order-bad", "component-twice",
+              "short-dqt", "short-dqt-16bit", "short-dht"]
+
+
+@pytest.mark.parametrize("case", LENIENCIES)
+def test_jpeg_leniencies_as_libjpeg(case):
+    """Corrupt headers read as libjpeg-turbo reads them for cv2: a COM,
+    APPn or DNL segment whose length is below 2 is read as empty and
+    reading goes on after its length; a DAC in a Huffman-coded file is read
+    and unused; table numbers above 3 are checked only where the scan reads
+    the table (none in a DC refinement scan, the DC table in a DC first
+    scan, the AC table in an AC scan); scan components after one that
+    follows them in the frame, or named twice, are refused; a short DQT or
+    DHT is refused (libjpeg-turbo 3 no longer fills a short DQT with 1s).
+    Each gives cv2's outcome."""
+    img = _textured(17, 33, seed=23)
+    base = _cv2_jpeg(img, cv2.IMWRITE_JPEG_QUALITY, 80)
+    prog = _cv2_jpeg(img, cv2.IMWRITE_JPEG_QUALITY, 80,
+                     cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
+    decodes = True
+    if case.startswith("short-") and case[6:] in ("com", "app0", "app1",
+                                                   "app14", "app5", "dnl"):
+        marker = {"com": 0xFE, "app0": 0xE0, "app1": 0xE1, "app14": 0xEE,
+                  "app5": 0xE5, "dnl": 0xDC}[case[6:]]
+        datas = [base[:2] + bytes([0xFF, marker]) + struct.pack(">H", n)
+                 + base[2:] for n in (0, 1)]
+    elif case == "dac-in-huffman":
+        datas = [_insert(base, b"\xff\xda", b"\xff\xcc\x00\x06\x00\x21"
+                         b"\x10\x07")]
+    elif case in ("dc-refine-tables", "dc-first-ac-table", "ac-dc-table"):
+        scans = _progressive_scans(prog)
+        datas = []
+        for si in scans:
+            ns, ss, ah = prog[si + 4], prog[si + 5 + 2 * prog[si + 4]], \
+                prog[si + 7 + 2 * prog[si + 4]] >> 4
+            wanted = {"dc-refine-tables": ss == 0 and ah > 0,
+                      "dc-first-ac-table": ss == 0 and ah == 0,
+                      "ac-dc-table": ss > 0}[case]
+            if wanted:
+                t = {"dc-refine-tables": 0xFF, "dc-first-ac-table": 0x0F,
+                     "ac-dc-table": 0xF0}[case]
+                d = bytearray(prog)
+                for j in range(ns):
+                    d[si + 6 + 2 * j] = (d[si + 6 + 2 * j] & (
+                        0x0F if t == 0xF0 else 0xF0) if t != 0xFF else 0) | t
+                datas.append(bytes(d))
+        assert datas
+    elif case.startswith("scan-order") or case == "component-twice":
+        sos = base.index(b"\xff\xda")
+        ids = {"scan-order-ok": (1, 2, 3), "scan-order-bad": (3, 2, 1),
+               "component-twice": (1, 3, 3)}[case]
+        d = bytearray(base)
+        for j, c in enumerate(ids):
+            d[sos + 5 + 2 * j] = c
+        datas = [bytes(d)]
+        decodes = case == "scan-order-ok"
+    else:
+        decodes = False
+        sof = base.index(b"\xff\xc0")
+        if case == "short-dht":
+            body = bytes([0x00, 1] + [0] * 15)  # one code, no symbol
+            seg = b"\xff\xc4" + struct.pack(">H", len(body) + 2) + body
+        else:
+            pq = 0x10 if case.endswith("16bit") else 0
+            body = bytes([pq]) + bytes(range(1, 1 + (20 if pq else 10)))
+            seg = b"\xff\xdb" + struct.pack(">H", len(body) + 2) + body
+        datas = [base[:sof] + seg + base[sof:]]
+    for data in datas:
+        assert _same_outcome_as_cv2(data) == decodes
+
+
 # ---- what stays refused ---------------------------------------------------
 
 def _with_frame_marker(jpeg, marker):
@@ -210,11 +543,14 @@ def _with_frame_marker(jpeg, marker):
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("SOF3", "lossless"), ("SOF9", "arithmetic"), ("SOF10", "arithmetic"),
-    ("SOF5", "hierarchical"), ("12-bit", "12-bit"), ("CMYK", "CMYK")])
+    ("SOF3", "lossless"), ("SOF9", None), ("SOF10", None),
+    ("SOF5", "hierarchical"), ("12-bit", "12-bit"), ("CMYK", None)])
 def test_refused_jpeg_kinds_name_themselves(kind, match):
-    """Lossless, arithmetic-coded, hierarchical, 12-bit and Adobe CMYK
-    JPEG raise a ValueError that names the kind (ROADMAP.md, F6)."""
+    """Lossless, hierarchical and 12-bit JPEG raise a ValueError that names
+    the kind, where cv2 refuses them too (ROADMAP.md, F6). Arithmetic
+    coding (a baseline file relabelled SOF9 or SOF10, its Huffman data read
+    as arithmetic-coded) and Adobe CMYK are no longer refused: the port
+    gives cv2's outcome."""
     jpeg = _cv2_jpeg(_textured(8, 8, seed=13), cv2.IMWRITE_JPEG_QUALITY, 90)
     if kind.startswith("SOF"):
         data = _with_frame_marker(jpeg, 0xC0 + int(kind[3:]))
@@ -226,6 +562,11 @@ def test_refused_jpeg_kinds_name_themselves(kind, match):
         Image.fromarray(_textured(8, 8, seed=13)).convert("CMYK").save(
             bio, "JPEG")
         data = bio.getvalue()
+    if match is None:
+        _same_outcome_as_cv2(data)
+        return
+    assert cv2.imdecode(np.frombuffer(data, np.uint8),
+                        cv2.IMREAD_COLOR) is None
     with pytest.raises(ValueError, match=match):
         images.decode_img(data)
 
@@ -253,7 +594,7 @@ def test_committed_fixtures_match_their_cv2_hashes():
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
     with open(os.path.join(root, "jpeg_fixtures.json")) as f:
         files = json.load(f)["files"]
-    assert len(files) == 3
+    assert len(files) == 10
     for name, want in files.items():
         with open(os.path.join(root, name), "rb") as f:
             data = f.read()
@@ -349,19 +690,7 @@ def test_extreme_coefficients_decode_as_cv2():
         _same_as_cv2(bytes(jpeg))
 
 
-def _fuzz_script():
-    import importlib.util
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "scripts", "fuzz_jpeg.py")
-    spec = importlib.util.spec_from_file_location("fuzz_jpeg", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module, path
-
-
-FUZZ, FUZZ_PATH = _fuzz_script()
+FUZZ, FUZZ_PATH = _script("fuzz_jpeg.py")
 SEED_JPEGS = FUZZ.seed_jpegs()
 
 
@@ -389,10 +718,10 @@ def test_mutated_jpeg_raises_or_matches_cv2(name):
 
 def test_decoder_stays_in_bounds_under_sanitizers():
     """`scripts/fuzz_jpeg.py --asan`: the decoder built with AddressSanitizer
-    and UndefinedBehaviorSanitizer decodes 100 mutations of each seed JPEG
-    and three over-full Huffman tables in each with no out-of-bounds access
-    or undefined arithmetic, and no outcome other than cv2's pixels or a
-    ValueError."""
+    and UndefinedBehaviorSanitizer decodes 100 mutations of each of the 10
+    seed JPEGs and three over-full Huffman tables in each with no
+    out-of-bounds access or undefined arithmetic, and no outcome other than
+    cv2's pixels or a ValueError."""
     import subprocess
     import sys
 
@@ -400,4 +729,4 @@ def test_decoder_stays_in_bounds_under_sanitizers():
                         "--seed", "7"], capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
-    assert "FUZZ_JPEG n=515 bad=0" in r.stdout
+    assert "FUZZ_JPEG n=1030 bad=0" in r.stdout

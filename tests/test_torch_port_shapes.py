@@ -169,10 +169,11 @@ def test_fwd_kernel_for_routes_by_shape_and_dtype(dtype, numerics, N, D,
 ])
 def test_fwd_kernel_for_routes_k3_v3(dtype, numerics, N, D, kernel):
     """The token-major K3-v3 forward takes the tensor-core kernel where
-    K1's does; its head-major form, K3-v2 (same numerics), and K3-v1 stay
-    on the CUDA-core kernel at every shape."""
+    K1's does, and so do its head-major form, K3-v2 (same numerics), and
+    K3-v1; K3-v1 token-major (no entry point has it) stays on the CUDA-core
+    kernel."""
     assert fwd_kernel_for(dtype, numerics, N, D) == kernel
     assert fwd_kernel_for(dtype, numerics, N, D, head_major=False) == kernel
     for num in ("v23", "v1"):
-        assert fwd_kernel_for(dtype, num, N, D, head_major=True) == \
-            "cuda_core"
+        assert fwd_kernel_for(dtype, num, N, D, head_major=True) == kernel
+    assert fwd_kernel_for(dtype, "v1", N, D) == "cuda_core"
