@@ -58,6 +58,10 @@ Phases, in order; any failure exits non-zero before the final line:
      synthetic 1200×1600 pairs (and one 1000×1500 for any-resolution),
      Uformer-32 bf16: s/frame, launches per frame, peak memory, and each
      per-image PSNR against the in-process function;
+  9b. the parity gate: `python -m dehaze_tpu_torch.cli.parity_gate` on
+     the seeded .pth and the three 1200×1600 pairs, once with the
+     in-process mean PSNR expected (--tol 1e-3; exit 0), once 1 dB off
+     (exit 1): s/frame and launches per frame;
  10. Uformer-32 at batch 2 × 128², f32, CUDA (kernels) against CPU
      (twins): the model's backward for one fixed output gradient, then one
      train step with the CR loss on a random VGG19 (loss and every
@@ -66,14 +70,24 @@ Phases, in order; any failure exits non-zero before the final line:
      in a subprocess on synthetic pairs, Uformer-32, batch 32 × 128², bf16,
      CR on, one epoch of 8 steps with 4 evals; losses, launch counts per
      step, checkpoints, reload of model_best.pth, img/s and peak memory;
+ 11b. the device-resident training set: every batch of an epoch gathered
+     on the card equal to the streaming pipeline's bit for bit, then
+     `cli.train --device_data` with --vgg_weights from `cli.convert_vgg`,
+     held as 11 and its img/s and peak memory beside 11's;
+ 11c. --remat: one full-width train step (bf16, CR on, drop_path 0.1)
+     with and without it from the same state: gradients (REMAT_TOL),
+     generator states, 36 against 18 K1 forward launches, step ms and
+     peak memory;
  12. the full-width train step with its batches in memory (ms/step, the
      host's ms to queue it, the calls in it that wait for the card), the
      data pipeline alone (ms/batch), and torch.profiler over two steady
      steps: device time by kernel group, the top kernels, the idle share;
  13. the kernels' JSON line, then the device's JSON line.
 The launch counts in the kernels line are those of the serving path (8),
-the evaluation path (9, the three runs together) and the training path
-(11), each counted from 0 over its own run. Every path runs bf16, so K1's
+the evaluation path (9, the three runs together), the parity gate (9b,
+both runs), the training path (11), the device-resident training path
+(11b) and the remat train step (11c), each counted from 0 over its own
+run. Every path runs bf16, so K1's
 forward and backward go to the tensor-core kernels there and the CUDA-core
 ones have 0 launches. No path runs K3 (no entry point of the JAX package
 runs its TPU kernels either): its launches, on either kernel, are 0.
@@ -144,6 +158,14 @@ MODEL_TOL = 1e-3
 #     which scales that difference up several times for those leaves.
 STEP_TOL = {"model": 1e-4, "loss": 1e-5, "step": 5e-3, "step_scores": 2e-2,
             "atol": 1e-9}
+# 11c: the remat train step's gradient leaves against the plain step's,
+# from the same state, batch and generator states, with deterministic
+# algorithms on: ||Δ|| <= REMAT_TOL·||ref|| per leaf. The recompute runs
+# the same kernels on the same inputs (K1 deterministic, dbias summed in a
+# fixed order), so the aim is 0; 1e-3 leaves room for one op whose CUDA
+# implementation sums in a varying order.
+REMAT_TOL = 1e-3
+REMAT_REPS = 5  # timed steps of each
 # 9: PSNR of the reloaded model_best.pth against the PSNR the run logged.
 RELOAD_TOL = 1e-3
 # The eval CLIs' per-image PSNR (printed to 4 decimals) against the
@@ -1370,9 +1392,28 @@ def phase_train_parity():
         fail(f"train step gradients {bad[:4]}: CUDA and CPU disagree")
 
 
+N_TRAIN, N_VAL = 256, 32
+
+
 def phase_train_cli(tmp: str):
-    """The training path through its CLI entry point, in a subprocess that
-    starts with every launch count at 0 and prints them at its end."""
+    """The training path through its CLI entry point on synthetic pairs
+    (written here; the later training phases share them)."""
+    from dehaze_tpu_torch.data.synth import write_dataset
+
+    t0 = time.perf_counter()
+    write_dataset(os.path.join(tmp, "train"), N_TRAIN, 256, seed=1)
+    write_dataset(os.path.join(tmp, "val"), N_VAL, TRAIN_PS, seed=2)
+    print(f"synthetic data: {N_TRAIN} train pairs at 256², {N_VAL} val "
+          f"pairs at {TRAIN_PS}² in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return _train_cli(tmp, "_smoke", [])
+
+
+def _train_cli(tmp: str, env: str, extra):
+    """`cli.train` with `extra` flags in a subprocess that starts with
+    every launch count at 0 and prints them at its end: losses, launch
+    counts per step, checkpoints, the reload of model_best.pth. Returns
+    (launch counts, the epoch event)."""
     import glob
 
     import numpy as np
@@ -1381,17 +1422,10 @@ def phase_train_cli(tmp: str):
     from dehaze_tpu_torch.cli.common import build_model_and_params
     from dehaze_tpu_torch.config import ModelConfig
     from dehaze_tpu_torch.data.pipeline import PairedFolder, _val_batches
-    from dehaze_tpu_torch.data.synth import write_dataset
     from dehaze_tpu_torch.ops import metrics as M
     from dehaze_tpu_torch.train.checkpoint import load_checkpoint
 
-    n_train, n_val = 256, 32
-    t0 = time.perf_counter()
-    write_dataset(os.path.join(tmp, "train"), n_train, 256, seed=1)
-    write_dataset(os.path.join(tmp, "val"), n_val, TRAIN_PS, seed=2)
-    print(f"synthetic data: {n_train} train pairs at 256², {n_val} val "
-          f"pairs at {TRAIN_PS}² in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    n_train, n_val = N_TRAIN, N_VAL
     code = ("import json, sys\n"
             "from dehaze_tpu_torch.cli import train\n"
             "train.main(sys.argv[1:])\n"
@@ -1408,7 +1442,8 @@ def phase_train_cli(tmp: str):
             "--val_dir", os.path.join(tmp, "val"),
             "--train_ps", str(TRAIN_PS), "--batch_size", str(TRAIN_BATCH),
             "--embed_dim", "32", "--dtype", "bfloat16", "--nepoch", "1",
-            "--w_loss_vgg7", "1", "--save_dir", save, "--env", "_smoke"]
+            "--w_loss_vgg7", "1", "--save_dir", save, "--env", env] + extra
+    what = " ".join(["cli.train"] + extra)
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-c", code] + args,
                        capture_output=True, text=True, timeout=900,
@@ -1416,11 +1451,11 @@ def phase_train_cli(tmp: str):
     secs = time.perf_counter() - t0
     for ln in r.stdout.splitlines():
         if ln.startswith(("Input & GT", "[Ep", "Epoch", "best", "==>")):
-            print(f"  cli.train | {ln}", flush=True)
+            print(f"  {what} | {ln}", flush=True)
     if r.returncode != 0:
-        fail(f"cli.train exited {r.returncode}: {r.stderr[-3000:]}")
+        fail(f"{what} exited {r.returncode}: {r.stderr[-3000:]}")
     counts = json.loads(r.stdout.split("LAUNCHES ")[-1].splitlines()[0])
-    log_dir = os.path.join(save, "uformer_smoke")
+    log_dir = os.path.join(save, "uformer" + env)
     events = [json.loads(ln) for f in glob.glob(os.path.join(log_dir,
                                                              "*.jsonl"))
               for ln in open(f)]
@@ -1434,21 +1469,21 @@ def phase_train_cli(tmp: str):
             "k2": 18 * len(evals) * val_batches}
     models = os.path.join(log_dir, "models")
     best = os.path.join(models, "model_best.pth")
-    print(f"cli.train Uformer-32 b{TRAIN_BATCH}x{TRAIN_PS}² bf16 CR on: "
+    print(f"{what} Uformer-32 b{TRAIN_BATCH}x{TRAIN_PS}² bf16 CR on: "
           f"{len(losses)} steps, losses {[round(x, 4) for x in losses]}, "
           f"{len(evals)} evals; launches {counts} (want {want}); "
           f"steady {epoch['img_per_s']:.2f} img/s, peak device memory "
           f"{epoch.get('peak_mem_gib', float('nan')):.2f} GiB; "
           f"subprocess {secs:.1f}s", flush=True)
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
-        fail("cli.train: a step's loss is missing or not finite")
+        fail(f"{what}: a step's loss is missing or not finite")
     if counts != want:
-        fail("cli.train: kernel launches per step are not 18 K1 forward "
+        fail(f"{what}: kernel launches per step are not 18 K1 forward "
              "and 18 K1 backward, all on the tensor cores (and 18 K2 per "
              "eval forward)")
     for f in (best, os.path.join(models, "epoch_model_1.pth")):
         if not os.path.exists(f):
-            fail(f"cli.train did not write {f}")
+            fail(f"{what} did not write {f}")
     # reload model_best.pth into a fresh model; eval as the trainer does
     payload = load_checkpoint(best)
     model = build_model_and_params(ModelConfig(), best, torch.device("cuda"))
@@ -1467,8 +1502,266 @@ def phase_train_cli(tmp: str):
           f"{payload['extra']['iter']}) reloaded: PSNR {psnr:.4f} vs logged "
           f"{logged:.4f} (|d| {abs(psnr - logged):.2e})", flush=True)
     if abs(psnr - logged) > RELOAD_TOL:
-        fail("the reloaded model_best.pth does not give the logged PSNR")
-    return counts, epoch
+        fail(f"{what}: the reloaded model_best.pth does not give the "
+             "logged PSNR")
+    return counts, epoch, r.stderr
+
+
+def phase_device_data(tmp: str, stream_epoch: dict):
+    """The device-resident training set (`--device_data`): (a) the 256
+    training pairs uploaded once; every batch of an epoch that
+    `Trainer.train_step_data`'s gather (`data.augment.gather_crops`) cuts
+    on the card equals the streaming pipeline's host batch bit for bit;
+    (b) `cli.train --device_data` with the streaming run's arguments and
+    `--vgg_weights` from `cli.convert_vgg` (a seeded random VGG19 in
+    torchvision's key layout): its launch counts, losses and reload are
+    held as the streaming run's; its img/s and peak memory beside them."""
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli import convert_vgg
+    from dehaze_tpu_torch.data.augment import (dihedral_index_maps,
+                                               gather_crops)
+    from dehaze_tpu_torch.data.pipeline import (PairedFolder,
+                                                epoch_schedule_arrays,
+                                                load_all_pairs,
+                                                train_batches)
+    from dehaze_tpu_torch.models.vgg import synthesize_torchvision_state_dict
+
+    folder = PairedFolder(os.path.join(tmp, "train"))
+    t0 = time.perf_counter()
+    hc, hn = load_all_pairs(folder, u8=True, num_workers=8)
+    load_s = time.perf_counter() - t0
+    data_c, data_n = (torch.from_numpy(a).cuda() for a in (hc, hn))
+    sched = epoch_schedule_arrays(len(folder), hc.shape[1:3], TRAIN_BATCH,
+                                  TRAIN_PS, SEED, 1)
+    maps = dihedral_index_maps(TRAIN_PS, "cuda")
+    rows = [torch.from_numpy(b).cuda() for b in sched]
+    host = list(train_batches(folder, batch_size=TRAIN_BATCH,
+                              patch_size=TRAIN_PS, seed=SEED, epoch=1,
+                              num_workers=8, u8=True))
+    if len(host) != len(rows):
+        fail(f"device data: {len(rows)} schedule batches against "
+             f"{len(host)} streaming batches")
+    bad = [i for i, (b, (c, n)) in enumerate(zip(rows, host))
+           if not (np.array_equal(gather_crops(data_c, b, maps).cpu().numpy(),
+                                  c)
+                   and np.array_equal(
+                       gather_crops(data_n, b, maps).cpu().numpy(), n))]
+    gather_ms = cuda_ms(lambda: (gather_crops(data_c, rows[0], maps),
+                                 gather_crops(data_n, rows[0], maps)), 20)
+    print(f"device data: {tuple(data_c.shape)} ×2 uint8 on the card "
+          f"({2 * data_c.numel() / 2**20:.1f} MiB, decoded in {load_s:.2f}s)"
+          f"; {len(rows)} batches of an epoch gathered on the card, "
+          f"{len(rows) - len(bad)} equal to the streaming batches bit for "
+          f"bit; gather {gather_ms:.4f} ms per batch (clean and hazy)",
+          flush=True)
+    if bad:
+        fail(f"device data: gathered batches {bad} differ from the "
+             "streaming pipeline's")
+    del data_c, data_n, rows
+
+    pth = os.path.join(tmp, "vgg19_features.pth")
+    npz = os.path.join(tmp, "vgg19.npz")
+    torch.save(synthesize_torchvision_state_dict("vgg19", seed=SEED), pth)
+    convert_vgg.main(["--pth", pth, "--out", npz])
+    counts, epoch, err = _train_cli(
+        tmp, "_devdata", ["--device_data", "--vgg_weights", npz])
+    if "RANDOM VGG" in err:
+        fail("cli.train --vgg_weights still trained on a random VGG19")
+    print(f"cli.train --device_data: steady {epoch['img_per_s']:.2f} img/s, "
+          f"peak device memory {epoch.get('peak_mem_gib', float('nan')):.2f}"
+          f" GiB; streaming run: {stream_epoch['img_per_s']:.2f} img/s, "
+          f"{stream_epoch.get('peak_mem_gib', float('nan')):.2f} GiB",
+          flush=True)
+    return counts
+
+
+def phase_remat(tmp: str):
+    """One full-width train step (Uformer-32, batch 32 × 128², bf16, CR on,
+    drop_path 0.1, MixUp on) from the same state, batch and generator
+    states: plain, with --remat, and plain again (the step's own
+    run-to-run gap), deterministic algorithms on (then 5 timed steps
+    without them, after one more warm-up). Every gradient leaf of
+    the remat step against the plain one (REMAT_TOL), every generator's
+    state after the step equal, K1's forward launches 36 against 18 and
+    its backward's 18 in both; steady ms per step and peak memory side by
+    side. Returns the remat step's launch counts."""
+    import warnings
+
+    import torch
+
+    from dehaze_tpu_torch.config import (Config, DataConfig, ModelConfig,
+                                         TrainConfig)
+    from dehaze_tpu_torch.data.pipeline import PairedFolder, train_batches
+    from dehaze_tpu_torch.train.trainer import Trainer
+
+    clean, hazy = next(iter(train_batches(
+        PairedFolder(os.path.join(tmp, "train")), batch_size=TRAIN_BATCH,
+        patch_size=TRAIN_PS, seed=SEED, epoch=1, num_workers=8, u8=True)))
+    gens = ("sample_gen", "droppath_gen", "dropout_gen", "mixup_gen")
+    runs, nondet = {}, set()
+    for label, remat in (("plain", False), ("remat", True),
+                         ("plain again", False)):
+        cfg = Config(model=ModelConfig(img_size=TRAIN_PS, remat=remat),
+                     data=DataConfig(batch_size=TRAIN_BATCH),
+                     train=TrainConfig(seed=SEED))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tr = Trainer(cfg, steps_per_epoch=8, device="cuda")
+            torch.cuda.synchronize()
+            reset_counts()
+            # the compared step with deterministic algorithms, the timed
+            # ones as training runs them
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            torch.backends.cudnn.deterministic = True
+            try:
+                m = tr.train_step(clean, hazy, use_mixup=True)
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+                torch.backends.cudnn.deterministic = False
+            counts = read_counts()
+            grads = {k: p.grad.detach().cpu() for k, p in
+                     tr.model.named_parameters()}
+            states = [getattr(tr, g).get_state() for g in gens]
+            ms = peak = None
+            if label != "plain again":
+                tr.train_step(clean, hazy, use_mixup=True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(REMAT_REPS):
+                    tr.train_step(clean, hazy, use_mixup=True)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / REMAT_REPS * 1e3
+                peak = torch.cuda.max_memory_allocated() / 2**30
+        # ops without a deterministic CUDA implementation warn
+        nondet |= {str(w.message)[:60] for w in caught
+                   if "deterministic" in str(w.message)}
+        runs[label] = (float(m["loss"]), grads, states, counts, ms, peak)
+        del tr, m
+        torch.cuda.empty_cache()
+
+    def gap(a, b):
+        worst, n_diff, bad = 0.0, 0, []
+        for k in a:
+            d = (b[k] - a[k]).abs().max().item()
+            worst = max(worst, d)
+            n_diff += d > 0
+            if float((b[k] - a[k]).norm()) > REMAT_TOL * float(a[k].norm()):
+                bad.append(k)
+        return worst, n_diff, bad
+
+    (lp, gp, sp, cp, msp, pkp), (lr, gr, sr, cr, msr, pkr) = (
+        runs["plain"], runs["remat"])
+    worst, n_diff, bad = gap(gp, gr)
+    worst2, n_diff2, _ = gap(gp, runs["plain again"][1])
+    states_equal = all(torch.equal(a, b) for a, b in zip(sp, sr))
+    print(f"remat train step Uformer-32 b{TRAIN_BATCH}x{TRAIN_PS}² bf16 CR "
+          f"on, drop_path 0.1, MixUp: loss {lr:.7f} vs plain {lp:.7f}; "
+          f"{len(gp)} gradient leaves, {n_diff} not bit-identical, max "
+          f"|d| {worst:.3e} (plain against plain again: {n_diff2} leaves, "
+          f"max |d| {worst2:.3e}); generator states equal: {states_equal}; "
+          f"K1 fwd (tensor cores) {cr['k1_fwd_tc']} vs {cp['k1_fwd_tc']}, "
+          f"K1 bwd {cr['k1_bwd_tc']} vs {cp['k1_bwd_tc']}; step "
+          f"{msr:.2f} ms vs {msp:.2f} ms, peak device memory {pkr:.2f} GiB "
+          f"vs {pkp:.2f} GiB; ops without a deterministic implementation: "
+          f"{sorted(nondet) or 'none'}", flush=True)
+    if not math.isfinite(lr) or bad:
+        fail(f"remat: gradient leaves {bad[:4]} beyond {REMAT_TOL:g} of "
+             "the plain step's")
+    if not states_equal:
+        fail("remat: the generators' states after the step differ from "
+             "the plain step's")
+    if (cr["k1_fwd_tc"], cr["k1_bwd_tc"], cp["k1_fwd_tc"],
+            cp["k1_bwd_tc"]) != (36, 18, 18, 18) or cr["k1_fwd"] \
+            or cr["k1_bwd"]:
+        k1 = {k: v for k, v in cr.items() if k.startswith("k1")}
+        fail(f"remat: K1 launches {k1}, not 36 forward and 18 backward on "
+             "the tensor cores (the plain step: 18 and 18)")
+    return cr
+
+
+def phase_parity_gate(tmp: str, pth: str):
+    """`python -m dehaze_tpu_torch.cli.parity_gate` on the seeded
+    Uformer-32 `.pth` and the three 1200×1600 pairs of phase 9 (square
+    canvas, bf16, sampling seeded 0 per frame): with --expected_psnr the
+    in-process mean and --tol 1e-3 it must exit 0, with the expected value
+    1 dB off it must exit 1; 18 K1 and 18 K2 launches per frame. Returns
+    the launches of both runs."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli.common import build_model_and_params
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.data.pipeline import PairedFolder, val_images
+    from dehaze_tpu_torch.infer.tiled import make_whole_image_fn
+    from dehaze_tpu_torch.ops import metrics as M
+
+    folder = os.path.join(tmp, "eval_long")
+    model = build_model_and_params(ModelConfig(), pth, torch.device("cuda"))
+    psnrs = []
+    for clean, hazy, _ in val_images(PairedFolder(folder)):
+        run = make_whole_image_fn(
+            lambda x: model(x, generator=torch.Generator().manual_seed(0)),
+            *hazy.shape[:2], 128, square=True, device="cuda")
+        psnrs.append(float(M.psnr(run(hazy[None])[0],
+                                  torch.from_numpy(clean).cuda())))
+    mean = float(np.mean(psnrs))
+    del model
+    code = ("import json, runpy, sys, torch\n"
+            "try:\n"
+            "    runpy.run_module('dehaze_tpu_torch.cli.parity_gate', "
+            "run_name='__main__', alter_sys=True)\n"
+            "    rc = 0\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "from dehaze_tpu_torch.ops.kernels import leff, window_attention "
+            "as wa\n"
+            "print('STATS ' + json.dumps({'k1_fwd': "
+            "wa.window_attention_fwd.launches, 'k1_fwd_tc': "
+            "wa.window_attention_fwd.launches_tc, 'k2': "
+            "leff.leff_fused.launches}))\n"
+            "sys.exit(rc)\n")
+    total = {}
+    for expected, want_rc in ((mean, 0), (mean + 1.0, 1)):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-c", code, "--ref_ckpt", pth, "--input_dir",
+             folder, "--expected_psnr", repr(expected), "--tol", "1e-3"],
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": REPO})
+        secs = time.perf_counter() - t0
+        for ln in r.stdout.splitlines():
+            if not ln.startswith("STATS"):
+                print(f"  cli.parity_gate | {ln}", flush=True)
+        if "STATS " not in r.stdout:
+            fail(f"cli.parity_gate exited {r.returncode}: "
+                 f"{r.stderr[-3000:]}")
+        stats = json.loads(r.stdout.split("STATS ")[-1].splitlines()[0])
+        n = len(re.findall(r"^\S+: PSNR \S+ SSIM \S+$", r.stdout, re.M))
+        per_frame = float(re.search(r"frames: (\S+) s/frame",
+                                    r.stdout).group(1))
+        print(f"cli.parity_gate --expected_psnr {expected:.6f} --tol 1e-3 "
+              f"(in-process mean {mean:.6f}): exit {r.returncode} (want "
+              f"{want_rc}); {n} frames, {per_frame:.4f} s/frame after the "
+              f"first on the square canvas 1664², launches per frame K1 "
+              f"tensor cores {stats['k1_fwd_tc'] / max(n, 1):g} CUDA cores "
+              f"{stats['k1_fwd'] / max(n, 1):g} K2 "
+              f"{stats['k2'] / max(n, 1):g}; subprocess {secs:.1f}s",
+              flush=True)
+        if r.returncode != want_rc:
+            fail(f"cli.parity_gate exited {r.returncode}, not {want_rc}")
+        if n != 3 or (stats["k1_fwd_tc"], stats["k1_fwd"], stats["k2"]) \
+                != (18 * n, 0, 18 * n):
+            fail("cli.parity_gate: not 3 frames of 18 K1 (tensor-core "
+                 "forward) and 18 K2 launches")
+        for key, v in stats.items():
+            total[key] = total.get(key, 0) + v
+    return total
 
 
 def phase_train_profile(tmp: str):
@@ -1617,8 +1910,11 @@ def main() -> None:
         phase_model_pad(pth)
         serve = phase_serve(pth)
         evals = phase_eval(tmp, pth)
+        gate = phase_parity_gate(tmp, pth)
         phase_train_parity()
-        train, _ = phase_train_cli(tmp)
+        train, stream_epoch, _ = phase_train_cli(tmp)
+        device_data = phase_device_data(tmp, stream_epoch)
+        remat = phase_remat(tmp)
         phase_train_profile(tmp)
 
     def entry(name, source, replaces, res, main, key, paths):
@@ -1632,7 +1928,9 @@ def main() -> None:
                 "ms": row[-4], "plain_ms": row[-3], "bound_ms": row[-2],
                 "bound_by": row[-1], "library_ms": None}
 
-    paths = {"serve": serve, "train": train, "eval": evals}
+    paths = {"serve": serve, "train": train, "eval": evals,
+             "parity_gate": gate, "train_device_data": device_data,
+             "train_step_remat": remat}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
     # K1 rows by kernel, without the kernel column

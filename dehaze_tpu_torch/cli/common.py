@@ -5,8 +5,8 @@ training and evaluation paths use; flag names are the same. `config_from_args`
 returns a `Config`; the serving and evaluation CLIs read its `model`.
 `--weights` takes a `.pth` state_dict (the reference's checkpoint format or
 a bare state_dict). `--arch ffa|unet` parses and is refused by
-`models.uformer.check_config`; `--remat`, `--data_axis`, `--device_data`,
-`--exported` and `--bands` are not ported yet and raise.
+`models.uformer.check_config`; `--data_axis`, `--exported` and `--bands`
+above 1 are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -52,7 +52,8 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="torch device of the model (a missing GPU is an "
                         "error, not a fallback)")
     p.add_argument("--remat", action="store_true",
-                   help="not ported yet (raises)")
+                   help="recompute each LeWin block's activations in the "
+                        "backward pass (less memory, one more forward)")
     # loss
     p.add_argument("--is_ab", action="store_true",
                    help="CR ablation: drop the negative term")
@@ -69,7 +70,8 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    default=True,
                    help="ship batches to the device as uint8 and /255 there")
     p.add_argument("--device_data", action="store_true",
-                   help="not ported yet (raises)")
+                   help="upload the whole (uniform-size) training set to the "
+                        "device once; crop and dihedral run there")
     # train
     p.add_argument("--nepoch", type=int, default=270)
     p.add_argument("--optimizer", default="adamw")
@@ -114,7 +116,7 @@ def add_eval_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 
 def config_from_args(a: argparse.Namespace) -> Config:
-    for flag in ("remat", "data_axis", "device_data", "exported"):
+    for flag in ("data_axis", "exported"):
         if getattr(a, flag, None):
             raise NotImplementedError(f"--{flag} is not ported yet")
     if (getattr(a, "bands", 0) or 0) > 1:
@@ -123,14 +125,16 @@ def config_from_args(a: argparse.Namespace) -> Config:
         model=ModelConfig(arch=a.arch, img_size=a.train_ps,
                           embed_dim=a.embed_dim, win_size=a.win_size,
                           use_rel_pos_bias=not a.no_rel_pos_bias,
-                          dtype=_DTYPES[a.dtype], fast_gelu=a.fast_gelu),
+                          dtype=_DTYPES[a.dtype], fast_gelu=a.fast_gelu,
+                          remat=a.remat),
         loss=LossConfig(w_charbonnier=a.w_loss_CharbonnierLoss,
                         w_contrast=a.w_loss_vgg7, contrast_ablation=a.is_ab,
                         vgg_weights=a.vgg_weights),
         data=DataConfig(train_dir=a.train_dir, val_dir=a.val_dir,
                         train_ps=a.train_ps, batch_size=a.batch_size,
                         num_workers=a.train_workers,
-                        u8_transfer=a.u8_transfer),
+                        u8_transfer=a.u8_transfer,
+                        device_data=a.device_data),
         train=TrainConfig(nepoch=a.nepoch, optimizer=a.optimizer,
                           lr_initial=a.lr_initial,
                           weight_decay=a.weight_decay, warmup=a.warmup,
@@ -180,7 +184,8 @@ def evaluate(args, make_run) -> dict:
     per-image names, PSNRs, SSIMs and wall seconds (forward and metrics;
     the first frame of a geometry includes the kernel builds)."""
     folder = PairedFolder(args.input_dir)
-    os.makedirs(args.result_dir, exist_ok=True)
+    if args.save_images:
+        os.makedirs(args.result_dir, exist_ok=True)
     res = {"names": [], "psnr": [], "ssim": [], "secs": []}
     run, geom = None, None
     for clean, hazy, name in val_images(folder):

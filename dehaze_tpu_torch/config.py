@@ -3,9 +3,9 @@
 Same field names and defaults as the JAX dataclasses, so the CLIs share
 flag names; dtypes are torch dtypes. The JAX flags `use_pallas`/
 `use_pallas_leff` have no counterpart: the tensor's device decides whether
-the kernels run. Fields of mechanisms the port does not have yet (`remat`,
-`band_axis`, `act_store`, the FFA knobs, `device_data`, `data_axis`) are
-left out; their CLI flags raise.
+the kernels run. Fields of mechanisms the port does not have yet
+(`band_axis`, `act_store`, the FFA knobs, `data_axis`) are left out; their
+CLI flags raise.
 """
 
 from __future__ import annotations
@@ -45,6 +45,10 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     # tanh-approximate GELU in LeFF (exact erf by default).
     fast_gelu: bool = False
+    # Recompute each LeWin block's activations in the backward pass
+    # (torch.utils.checkpoint): peak training memory holds one block's
+    # activations instead of every block's, for one more forward per block.
+    remat: bool = False
 
     @property
     def num_enc_layers(self) -> int:
@@ -81,6 +85,11 @@ class DataConfig:
     # Batches leave the pipeline as uint8 and are divided by 255 on the
     # device (4x fewer host-to-device bytes than float32).
     u8_transfer: bool = True
+    # Upload the whole patch set to the device once and crop and dihedral
+    # there (pipeline.load_all_pairs + Trainer.train_step_data): no decode
+    # and no image copy per step; the batches equal the streaming
+    # pipeline's. Needs images of one size and a set that fits on the card.
+    device_data: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

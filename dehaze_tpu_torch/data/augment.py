@@ -3,9 +3,11 @@
 - Host side: the 8-way dihedral (identity, 3 rot90s, and the 4 flipped
   rotations) on HWC NumPy arrays, the aligned random crop, and the plan of
   both draws for an item seed.
-- Device side: MixUp with λ ~ Beta(β, β) per sample and one permutation,
-  the same for gt and hazy. Its draws come from an explicit generator
-  through the module-level `mixup_draw`, which tests can pin.
+- Device side: crop and dihedral of a device-resident dataset as one
+  gather through index maps (the counterpart of `dihedral_dev`); MixUp
+  with λ ~ Beta(β, β) per sample and one permutation, the same for gt and
+  hazy. Its draws come from an explicit generator through the
+  module-level `mixup_draw`, which tests can pin.
 """
 
 from __future__ import annotations
@@ -34,6 +36,31 @@ def crop_augment_plan(seed: int, h: int, w: int, ps: int):
     c = 0 if w == ps else int(rng.integers(0, w - ps))
     k = int(rng.integers(0, 8))
     return r, c, k
+
+
+def dihedral_index_maps(ps: int, device=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rmap, cmap), two [8, ps, ps] int64 maps on `device`: the square
+    patch `dihedral(patch, k)` is `patch[rmap[k], cmap[k]]`. Made by
+    `dihedral` itself from the patch's coordinates, so each k transforms
+    as the host pipeline does."""
+    coords = np.stack(np.meshgrid(np.arange(ps), np.arange(ps),
+                                  indexing="ij"), axis=-1)
+    maps = np.stack([dihedral(coords, k) for k in range(8)])
+    maps = torch.from_numpy(maps.astype(np.int64)).to(device)
+    return maps[..., 0], maps[..., 1]
+
+
+def gather_crops(data: torch.Tensor, sched: torch.Tensor,
+                 maps: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """The batch [B, ps, ps, C] that `sched` [B, 4] of (item, row, col, k)
+    cuts from the stacked images `data` [N, H, W, C], each crop turned by
+    its dihedral k: one indexing op on the data's device."""
+    rmap, cmap = maps
+    s = sched.to(torch.int64)
+    item, r, c = (s[:, i, None, None] for i in range(3))
+    k = s[:, 3]
+    return data[item, r + rmap[k], c + cmap[k]]
 
 
 def random_crop_pair(rng: np.random.Generator, clean: np.ndarray,

@@ -7,6 +7,10 @@ with the port's codec, random-crops ps² patches and applies the 8-way
 dihedral on host NumPy; batches are NHWC uint8 (or float32) NumPy arrays
 that the trainer moves to the device. The random draws are the JAX
 package's, in the same order, so one seed gives the same batches.
+
+The device-resident mode decodes every pair once (`load_all_pairs`) and
+states each epoch's batches as (item, row, col, k) rows
+(`epoch_schedule_arrays`) that the trainer gathers on the device.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from typing import Iterator, List, Tuple
 
 import numpy as np
 
-from dehaze_tpu_torch.data.augment import dihedral, random_crop_pair
+from dehaze_tpu_torch.data.augment import (crop_augment_plan, dihedral,
+                                           random_crop_pair)
 from dehaze_tpu_torch.data.images import is_png_file, load_img
 
 
@@ -105,6 +110,41 @@ def train_batches(folder: PairedFolder, *, batch_size: int, patch_size: int,
             if len(buf_c) == batch_size:
                 yield np.stack(buf_c), np.stack(buf_n)
                 buf_c, buf_n = [], []
+
+
+def load_all_pairs(folder: PairedFolder, *, u8: bool = True,
+                   num_workers: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+    """Every gt/hazy pair decoded into two stacked [N, H, W, 3] arrays,
+    uint8 (or float32 in [0, 1] with `u8=False`), for the device-resident
+    dataset. The images must all have one size (patch folders do)."""
+    def dec(path):
+        return load_img(path, u8=u8)
+
+    with cf.ThreadPoolExecutor(max_workers=num_workers) as ex:
+        cleans = list(ex.map(dec, folder.clean_files))
+        noisys = list(ex.map(dec, folder.noisy_files))
+    shapes = {a.shape for a in cleans} | {a.shape for a in noisys}
+    if len(shapes) != 1:
+        raise ValueError(
+            f"device-resident dataset needs uniform image sizes, got {shapes}"
+            f" under {folder.root} — use the streaming pipeline instead")
+    return np.stack(cleans), np.stack(noisys)
+
+
+def epoch_schedule_arrays(n: int, hw: Tuple[int, int], batch_size: int,
+                          patch_size: int, seed: int, epoch: int
+                          ) -> np.ndarray:
+    """[n_batches, B, 4] int32 rows of (item, row, col, dihedral k) for one
+    epoch: the plan of `train_batches` (`_epoch_schedule`, the wrap-padded
+    short last batch included, and each item's `crop_augment_plan`) as
+    indices into `load_all_pairs`' arrays of images of size `hw`."""
+    h, w = hw
+    plan = _epoch_schedule(n, batch_size, seed, epoch, drop_last=False)
+    out = np.empty((len(plan), batch_size, 4), np.int32)
+    for bi, batch in enumerate(plan):
+        for ri, (i, s) in enumerate(batch):
+            out[bi, ri] = (i,) + crop_augment_plan(s, h, w, patch_size)
+    return out
 
 
 def _val_batches(folder: PairedFolder, ps: int, batch_size: int,

@@ -19,6 +19,12 @@ forward; training lets it advance from step to step. In train mode,
 DropPath and dropout draw their masks from the `droppath` and
 `dropout_gen` generators (none is needed at rate 0), never from torch's
 global RNG.
+
+With `cfg.remat`, each LeWin block runs under `torch.utils.checkpoint`
+when grad is on, and its activations are recomputed in the backward pass.
+The recompute replays the block's draws from the generators (its sample
+tables and DropPath masks), which `preserve_rng_state` alone would not:
+that restores torch's global RNG only.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dehaze_tpu_torch.config import ModelConfig
 from dehaze_tpu_torch.models.layers import (DropPath, InputProj, LeFF,
@@ -184,9 +191,42 @@ class LeWinBlock(nn.Module):
         return x + self.drop_path(self.mlp(x, self.norm2), droppath)
 
 
+def _remat_block(blk: LeWinBlock, x: torch.Tensor,
+                 generator: Optional[torch.Generator],
+                 droppath: Optional[torch.Generator],
+                 pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """blk(x, ...) with its activations recomputed in the backward pass.
+
+    The generators' states at the block's entry are kept; the recompute
+    starts from them, so it draws the forward's sample tables and DropPath
+    masks, and afterwards puts back the states it found (in `finally`: the
+    checkpoint may stop a recompute early), so later blocks and steps see
+    the generators as they would without remat."""
+    gens = [g for g in (generator, droppath) if g is not None]
+    entry = [g.get_state() for g in gens]
+    replay = False
+
+    def run(x, pad_mask):
+        nonlocal replay
+        if not replay:  # the forward itself
+            replay = True
+            return blk(x, generator, droppath, pad_mask)
+        found = [g.get_state() for g in gens]
+        for g, state in zip(gens, entry):
+            g.set_state(state)
+        try:
+            return blk(x, generator, droppath, pad_mask)
+        finally:
+            for g, state in zip(gens, found):
+                g.set_state(state)
+
+    return checkpoint(run, x, pad_mask, use_reentrant=False)
+
+
 class UformerStage(nn.Module):
     """depth × LeWin blocks, shift 0 / win//2 alternating (state_dict
-    `blocks.{j}`)."""
+    `blocks.{j}`); with `cfg.remat` and grad on, each block is
+    recomputed in the backward pass (`_remat_block`)."""
 
     def __init__(self, dim: int, input_resolution: int, depth: int,
                  num_heads: int, cfg: ModelConfig, drop_path, device=None):
@@ -201,13 +241,16 @@ class UformerStage(nn.Module):
                 use_rel_pos_bias=cfg.use_rel_pos_bias,
                 fast_gelu=cfg.fast_gelu, device=device)
             for j in range(depth)])
+        self.remat = cfg.remat
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 droppath: Optional[torch.Generator] = None,
                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, generator, droppath, pad_mask)
+            x = (_remat_block(blk, x, generator, droppath, pad_mask) if remat
+                 else blk(x, generator, droppath, pad_mask))
         return x
 
 

@@ -3,7 +3,9 @@ resume, MixUp gating, logging (counterpart of `dehaze_tpu/train/loop.py`).
 
     fit(cfg, device="cuda") -> (best_psnr, path of model_best.pth)
 
-Per epoch: `train_batches` feeds `Trainer.train_step`; every
+Per epoch: `train_batches` feeds `Trainer.train_step` (with
+`--device_data`, the whole set is decoded and uploaded once, and each
+epoch's `epoch_schedule_arrays` rows feed `Trainer.train_step_data`); every
 `steps_per_epoch // evals_per_epoch` steps the model is evaluated on the
 center-cropped validation set. An improvement is snapshotted to host memory
 at once and written to `model_best.pth` at the epoch's end (and, if the run
@@ -30,7 +32,8 @@ import torch
 
 from dehaze_tpu_torch.config import Config
 from dehaze_tpu_torch.data.pipeline import (PairedFolder, _val_batches,
-                                            train_batches)
+                                            epoch_schedule_arrays,
+                                            load_all_pairs, train_batches)
 from dehaze_tpu_torch.ops import metrics as M
 from dehaze_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from dehaze_tpu_torch.train.schedule import make_epoch_lr, resume_cosine_lr
@@ -69,6 +72,11 @@ def fit(cfg: Config, log_dir: Optional[str] = None, device="cuda"
     logger = RunLogger(log_dir)
     logger.text(str(cfg))
 
+    if d.device_data and t.accum_steps > 1:
+        # the JAX data step runs one microbatch whatever --accum_steps says
+        raise ValueError(f"--device_data with --accum_steps {t.accum_steps}"
+                         " is not supported: the device-resident step runs "
+                         "one microbatch")
     train_folder = PairedFolder(d.train_dir)
     val_folder = PairedFolder(d.val_dir)
     steps_per_epoch = max(1, -(-len(train_folder) // d.batch_size))
@@ -96,6 +104,14 @@ def fit(cfg: Config, log_dir: Optional[str] = None, device="cuda"
                                  u8=d.u8_transfer)
     val = [(torch.from_numpy(c).to(device), torch.from_numpy(n).to(device))
            for c, n in val_np]
+    data_c = data_n = None
+    if d.device_data:
+        hc, hn = load_all_pairs(train_folder, u8=d.u8_transfer,
+                                num_workers=d.num_workers)
+        data_c, data_n = (torch.from_numpy(a).to(device) for a in (hc, hn))
+        del hc, hn
+        logger.text(f"==> device-resident dataset: {tuple(data_c.shape)} ×2 "
+                    f"{data_c.dtype} on {device}")
     # the hazy input against GT, no model involved
     p0 = torch.cat([M.batch_psnr(u8_norm(n), u8_norm(c)) for c, n in val])
     s0 = torch.cat([M.batch_ssim(u8_norm(n), u8_norm(c)) for c, n in val])
@@ -130,19 +146,32 @@ def fit(cfg: Config, log_dir: Optional[str] = None, device="cuda"
             steady_t0 = None  # set after step 0
             steady_images = 0
             use_mixup = epoch > d.mixup_after_epoch
-            it = train_batches(train_folder, batch_size=d.batch_size,
-                               patch_size=d.train_ps, seed=t.seed,
-                               epoch=epoch, num_workers=d.num_workers,
-                               u8=d.u8_transfer)
-            for i, (clean, hazy) in enumerate(it):
-                metrics = trainer.train_step(clean, hazy, use_mixup=use_mixup,
-                                             accum_steps=t.accum_steps)
+            if d.device_data:
+                it = epoch_schedule_arrays(
+                    len(train_folder), tuple(data_c.shape[1:3]),
+                    d.batch_size, d.train_ps, t.seed, epoch)
+            else:
+                it = train_batches(train_folder, batch_size=d.batch_size,
+                                   patch_size=d.train_ps, seed=t.seed,
+                                   epoch=epoch, num_workers=d.num_workers,
+                                   u8=d.u8_transfer)
+            for i, item in enumerate(it):
+                if d.device_data:
+                    metrics = trainer.train_step_data(
+                        data_c, data_n, item, use_mixup=use_mixup)
+                    n_rows = len(item)
+                else:
+                    clean, hazy = item
+                    metrics = trainer.train_step(
+                        clean, hazy, use_mixup=use_mixup,
+                        accum_steps=t.accum_steps)
+                    n_rows = len(clean)
                 step_losses.append(metrics["loss"])
                 if steady_t0 is None:
                     _sync(device)
                     steady_t0 = time.time()
                 else:
-                    steady_images += clean.shape[0]
+                    steady_images += n_rows
 
                 if (i + 1) % eval_every == 0:
                     _sync(device)

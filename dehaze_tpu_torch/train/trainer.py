@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from dehaze_tpu_torch.config import Config
-from dehaze_tpu_torch.data.augment import mixup
+from dehaze_tpu_torch.data.augment import (dihedral_index_maps,
+                                           gather_crops, mixup)
 from dehaze_tpu_torch.models import vgg as vgg_mod
 from dehaze_tpu_torch.models.uformer import Uformer
 from dehaze_tpu_torch.ops import losses as L
@@ -62,7 +63,9 @@ def build_model(cfg: Config, device) -> Uformer:
 
 class Trainer:
     """Owns the model, the VGG19 of the CR loss, the optimizer, the lr table
-    and the generators; `train_step` runs one optimizer update."""
+    and the generators; `train_step` (a batch from the host) and
+    `train_step_data` (a batch gathered from a device-resident dataset)
+    each run one optimizer update."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int, epoch_lr=None,
                  device="cuda"):
@@ -78,6 +81,7 @@ class Trainer:
         self.droppath_gen = torch.Generator().manual_seed(seed + 1)
         self.dropout_gen = torch.Generator().manual_seed(seed + 2)
         self.mixup_gen = torch.Generator().manual_seed(seed + 3)
+        self._dihedral_maps = None  # train_step_data's, built at first use
 
         self.use_cr = cfg.loss.w_contrast > 0
         self.vgg = None
@@ -115,10 +119,31 @@ class Trainer:
         """One optimizer update on a (clean, hazy) batch (uint8 or float,
         NHWC, NumPy or tensors). Returns the step's metrics as detached
         device scalars (no host sync); the gradients stay in `.grad`."""
+        return self._step(to_device(torch.as_tensor(clean), self.device),
+                          to_device(torch.as_tensor(hazy), self.device),
+                          use_mixup, accum_steps)
+
+    def train_step_data(self, data_c: torch.Tensor, data_n: torch.Tensor,
+                        sched, use_mixup: bool) -> Dict[str, torch.Tensor]:
+        """`train_step` on the batch that `sched` [B, 4] of (item, row, col,
+        k) (`pipeline.epoch_schedule_arrays`) cuts from the device-resident
+        images `data_c` and `data_n` [N, H, W, 3]: crop and dihedral are one
+        gather on the device, and only `sched` (16 bytes a row) crosses
+        from the host. One microbatch: `fit` refuses --accum_steps here."""
+        if self._dihedral_maps is None:
+            self._dihedral_maps = dihedral_index_maps(self.cfg.data.train_ps,
+                                                      data_c.device)
+        sched = to_device(torch.as_tensor(sched), data_c.device)
+        return self._step(gather_crops(data_c, sched, self._dihedral_maps),
+                          gather_crops(data_n, sched, self._dihedral_maps),
+                          use_mixup, accum_steps=1)
+
+    def _step(self, clean: torch.Tensor, hazy: torch.Tensor, use_mixup: bool,
+              accum_steps: int) -> Dict[str, torch.Tensor]:
+        """The update on a batch already on the device."""
         cfg = self.cfg
         self.model.train()
-        clean = u8_norm(to_device(torch.as_tensor(clean), self.device))
-        hazy = u8_norm(to_device(torch.as_tensor(hazy), self.device))
+        clean, hazy = u8_norm(clean), u8_norm(hazy)
         if use_mixup:
             # one λ draw over the full batch, before any microbatch split
             clean, hazy = mixup(self.mixup_gen, clean, hazy,

@@ -499,6 +499,9 @@ def test_cli_train_flags_and_refusals():
     assert cfg.loss.w_contrast == 0 and cfg.data.batch_size == 4
     assert cfg.train.nepoch == 3 and cfg.train.accum_steps == 2
     assert cfg.train.lr_initial == 2e-4 and cfg.train.weight_decay == 0.02
-    for flag in (["--remat"], ["--device_data"], ["--data_axis", "2"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            config_from_args(p.parse_args(flag))
+    assert not cfg.model.remat and not cfg.data.device_data
+    cfg = config_from_args(p.parse_args(["--remat", "--device_data"]))
+    assert cfg.model.remat and cfg.data.device_data
+    with pytest.raises(NotImplementedError, match="--data_axis is not "
+                       "ported"):
+        config_from_args(p.parse_args(["--data_axis", "2"]))
