@@ -62,6 +62,15 @@ Phases, in order; any failure exits non-zero before the final line:
      the seeded .pth and the three 1200×1600 pairs, once with the
      in-process mean PSNR expected (--tol 1e-3; exit 0), once 1 dB off
      (exit 1): s/frame and launches per frame;
+  9c. the serving slice (phase_serving): `cli.export` on the card and an
+     artifact traced on the CPU, each loaded onto the card and equal to
+     the eager CUDA forward bit for bit (18 K1 tensor-core and 18 K2
+     launches per frame, no twin call); `cli.stream` with --weights on
+     eight 1200×1600 frames and one 1000×1500, then --exported, each
+     output equal to the in-process forward, with the stream's s/frame
+     and its stages' ms; `cli.test_long --exported` with a square
+     artifact (PSNRs as --weights); `serve --exported` (200 at the baked
+     geometry, 400 at another);
  10. Uformer-32 at batch 2 × 128², f32, CUDA (kernels) against CPU
      (twins): the model's backward for one fixed output gradient, then one
      train step with the CR loss on a random VGG19 (loss and every
@@ -85,9 +94,10 @@ Phases, in order; any failure exits non-zero before the final line:
  13. the kernels' JSON line, then the device's JSON line.
 The launch counts in the kernels line are those of the serving path (8),
 the evaluation path (9, the three runs together), the parity gate (9b,
-both runs), the training path (11), the device-resident training path
-(11b) and the remat train step (11c), each counted from 0 over its own
-run. Every path runs bf16, so K1's
+both runs), the stream with --weights and with --exported, the exported
+evaluation and the exported server (9c), the training path (11), the
+device-resident training path (11b) and the remat train step (11c), each
+counted from 0 over its own run. Every path runs bf16, so K1's
 forward and backward go to the tensor-core kernels there and the CUDA-core
 ones have 0 launches. No path runs K3 (no entry point of the JAX package
 runs its TPU kernels either): its launches, on either kernel, are 0.
@@ -100,11 +110,13 @@ import concurrent.futures as cf
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -260,14 +272,15 @@ def phase_build():
               flush=True)
 
 
-def _textured_frame(seed: int):
-    """A synthetic hazy 1200×1600 scene with sensor-like noise, uint8."""
+def _textured_frame(seed: int, size=FRAME):
+    """A synthetic hazy scene (1200×1600 by default) with sensor-like
+    noise, uint8."""
     import numpy as np
 
     from dehaze_tpu_torch.data.synth import make_scene
 
     rng = np.random.default_rng(seed)
-    _, hazy = make_scene(rng, FRAME)
+    _, hazy = make_scene(rng, size)
     noisy = hazy * 255.0 + rng.normal(0.0, 2.0, size=hazy.shape)
     return np.clip(noisy + 0.5, 0, 255).astype(np.uint8)
 
@@ -1136,7 +1149,8 @@ def phase_eval(tmp: str, pth: str):
     1000×1500 pair, each in a subprocess that starts with every launch
     count at 0; s/frame, launches per frame and peak device memory; each
     per-image PSNR against the in-process function with the same weights
-    and seed. Returns the launches of the three runs together."""
+    and seed. Returns the launches of the three runs together and the
+    square-canvas run's per-image PSNRs."""
     import re
 
     import numpy as np
@@ -1153,16 +1167,6 @@ def phase_eval(tmp: str, pth: str):
     long_dir, any_dir = _write_eval_folders(tmp)
     print(f"eval data: 3 pairs at {FRAME[0]}x{FRAME[1]}, 1 at 1000x1500, "
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
-    code = ("import json, runpy, sys, torch\n"
-            "mod = sys.argv.pop(1)\n"
-            "runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
-            "from dehaze_tpu_torch.ops.kernels import leff, window_attention "
-            "as wa\n"
-            "print('STATS ' + json.dumps({'k1_fwd': "
-            "wa.window_attention_fwd.launches, 'k1_fwd_tc': "
-            "wa.window_attention_fwd.launches_tc, 'k2': "
-            "leff.leff_fused.launches, 'peak_gib': "
-            "torch.cuda.max_memory_allocated() / 2**30}))\n")
     model = build_model_and_params(ModelConfig(), pth, torch.device("cuda"))
 
     def apply_fn(x, pad_mask=None):
@@ -1173,28 +1177,14 @@ def phase_eval(tmp: str, pth: str):
             ("test_long", long_dir, ["--rect_canvas"],
              "rect canvas 1280x1664"),
             ("test_anyres", any_dir, [], "any-resolution, 1664² and 1536²")]
-    total = {}
+    total, square_psnrs = {}, None
     for cli, folder, extra, what in runs:
         args = ["--input_dir", folder, "--weights", pth, "--seed", str(SEED),
                 "--result_dir", os.path.join(tmp, f"res_{cli}")] + extra
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-c", code, f"dehaze_tpu_torch.cli.{cli}"]
-            + args, capture_output=True, text=True, timeout=900,
-            env={**os.environ, "PYTHONPATH": REPO})
-        secs = time.perf_counter() - t0
-        if r.returncode != 0:
-            fail(f"cli.{cli} {' '.join(extra)} exited {r.returncode}: "
-                 f"{r.stderr[-3000:]}")
-        lines = re.findall(r"^(\S+): PSNR (\S+) SSIM (\S+)$", r.stdout,
-                           re.M)
-        per_frame = float(re.search(r"frames: (\S+) s/frame",
-                                    r.stdout).group(1))
-        stats = json.loads(r.stdout.split("STATS ")[-1].splitlines()[0])
+        out, stats, secs = _counted_cli(cli, args, " ".join(extra))
+        lines = re.findall(r"^(\S+): PSNR (\S+) SSIM (\S+)$", out, re.M)
+        per_frame = float(re.search(r"frames: (\S+) s/frame", out).group(1))
         n = len(lines)
-        for ln in r.stdout.splitlines():
-            if not ln.startswith("STATS"):
-                print(f"  cli.{cli} | {ln}", flush=True)
         # the same frames through the in-process function; the second call
         # of each is timed (the frame already on the card)
         worst, fns, timed = 0.0, {}, {}
@@ -1233,16 +1223,15 @@ def phase_eval(tmp: str, pth: str):
               f"|d| {worst:.2e} dB", flush=True)
         if n != 3 or not all(np.isfinite(float(p)) for _, p, _ in lines):
             fail(f"cli.{cli}: expected 3 finite per-image lines")
-        if (stats["k1_fwd_tc"] != 18 * n or stats["k1_fwd"]
-                or stats["k2"] != 18 * n):
-            fail(f"cli.{cli}: not 18 K1 (tensor-core forward) and 18 K2 "
-                 "launches per frame")
+        _check_launches(f"cli.{cli} {' '.join(extra)}", stats, n)
         if worst > EVAL_PSNR_TOL:
             fail(f"cli.{cli}: per-image PSNR differs from the in-process "
                  f"function by {worst:.2e} dB")
         for key in ("k1_fwd", "k1_fwd_tc", "k2"):
             total[key] = total.get(key, 0) + stats[key]
-    return total
+        if cli == "test_long" and not extra:
+            square_psnrs = [float(p) for _, p, _ in lines]
+    return total, square_psnrs
 
 
 def phase_serve(pth: str):
@@ -1302,6 +1291,327 @@ def phase_serve(pth: str):
         fail("serving did not run through K1's tensor-core forward and K2 "
              "alike")
     return counts
+
+
+
+# A subprocess that runs `python -m <module> args...` with every launch
+# count at 0 and the plain twins' calls counted, then prints its counts.
+_COUNTED_CLI = (
+    "import json, runpy, sys, torch\n"
+    "from dehaze_tpu_torch.ops import probsparse as ps\n"
+    "from dehaze_tpu_torch.ops.kernels import leff, window_attention as wa\n"
+    "twins = {'k1': 0, 'k2': 0}\n"
+    "def counted(fn, key):\n"
+    "    def call(*a, **kw):\n"
+    "        twins[key] += 1\n"
+    "        return fn(*a, **kw)\n"
+    "    return call\n"
+    "ps.probsparse_attention_bnc = counted(ps.probsparse_attention_bnc, "
+    "'k1')\n"
+    "leff.leff_reference = counted(leff.leff_reference, 'k2')\n"
+    "mod = sys.argv.pop(1)\n"
+    "runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+    "print('STATS ' + json.dumps({'k1_fwd': wa.window_attention_fwd.launches,"
+    " 'k1_fwd_tc': wa.window_attention_fwd.launches_tc, 'k2': "
+    "leff.leff_fused.launches, 'twin_k1': twins['k1'], 'twin_k2': "
+    "twins['k2'], 'peak_gib': torch.cuda.max_memory_allocated() / 2**30}))"
+    "\n")
+
+
+def _counted_cli(cli: str, args, label: str):
+    """(stdout, counts, seconds) of `python -m dehaze_tpu_torch.cli.<cli>`
+    in a subprocess (_COUNTED_CLI); its lines are echoed."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", _COUNTED_CLI, f"dehaze_tpu_torch.cli.{cli}"]
+        + [str(a) for a in args], capture_output=True, text=True,
+        timeout=900, env={**os.environ, "PYTHONPATH": REPO})
+    secs = time.perf_counter() - t0
+    for ln in r.stdout.splitlines():
+        if not ln.startswith("STATS"):
+            print(f"  cli.{cli} {label} | {ln}", flush=True)
+    if r.returncode != 0 or "STATS " not in r.stdout:
+        fail(f"cli.{cli} {label} exited {r.returncode}: {r.stderr[-3000:]}")
+    stats = json.loads(r.stdout.split("STATS ")[-1].splitlines()[0])
+    return r.stdout, stats, secs
+
+
+def _check_launches(label: str, stats: dict, frames: int):
+    """18 K1 tensor-core forward and 18 K2 launches per frame, no
+    CUDA-core K1 forward and no twin call."""
+    want = (18 * frames, 0, 18 * frames, 0, 0)
+    got = tuple(stats.get(k, 0) for k in ("k1_fwd_tc", "k1_fwd", "k2",
+                                          "twin_k1", "twin_k2"))
+    if got != want:
+        fail(f"{label}: launches (K1 tensor cores, K1 CUDA cores, K2, K1 "
+             f"twin, K2 twin) {got}, want {want} for {frames} frames")
+
+
+class _TwinCounts:
+    """Counts the calls of the plain twins of K1 and K2 in this process
+    while it is entered (the operators' CPU kernels call them)."""
+
+    def __enter__(self):
+        from dehaze_tpu_torch.ops import probsparse as ps
+        from dehaze_tpu_torch.ops.kernels import leff
+
+        self.calls = {"twin_k1": 0, "twin_k2": 0}
+        self.saved = []
+        for mod, name, key in ((ps, "probsparse_attention_bnc", "twin_k1"),
+                               (leff, "leff_reference", "twin_k2")):
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def call(*a, _fn=fn, _key=key, **kw):
+                self.calls[_key] += 1
+                return _fn(*a, **kw)
+
+            setattr(mod, name, call)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_serving(tmp: str, pth: str, square_psnrs):
+    """The serving slice on the seeded Uformer-32 `.pth`, bf16:
+    (a) `cli.export` on the card (rect canvas 1200×1600) and an artifact
+        traced in-process on the CPU, both loaded onto the card: each equal
+        to the eager CUDA forward of the same seed bit for bit, 18 K1
+        tensor-core and 18 K2 launches per frame and no twin call; artifact
+        MB, export s, artifact and eager ms/frame in turns;
+    (b) `cli.stream` (subprocess) with --weights on 8 synthetic 1200×1600
+        PNG frames and one 1000×1500, then with --exported on the 8: each
+        output equal to the in-process quantized forward; s/frame, Mpix/s,
+        the decode and encode ms of a frame and the in-process forward's,
+        and the stage that sets the pace;
+    (c) `cli.test_long --exported` with a --square artifact on phase 9's
+        three pairs: each PSNR equal to the --weights run's within
+        EVAL_PSNR_TOL;
+    (d) the serving CLI's machinery with --exported and --precompile auto:
+        a request at the baked geometry (200, the eager forward's pixels)
+        and one of another (400); /healthz.
+    Returns the launches of each path: stream, stream_exported,
+    eval_exported, serve_exported."""
+    import re
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli.common import (build_model_and_params,
+                                             config_from_args)
+    from dehaze_tpu_torch.cli.serve import (build_dehaze_fn, build_parser,
+                                            make_handler, warm_up)
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.data.images import (decode_img, encode_img,
+                                              load_img, save_img)
+    from dehaze_tpu_torch.infer.export import (WholeImage,
+                                               export_whole_image_bytes,
+                                               load_exported, save_exported)
+    from dehaze_tpu_torch.infer.tiled import make_whole_image_fn, quantize_u8
+    from dehaze_tpu_torch.models.uformer import draw_sample_tables
+
+    def ms_per(fn, reps=3):  # host clock around synchronised calls
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    # (a) the artifacts
+    rect = os.path.join(tmp, "rect.dhz")
+    out, _, _ = _counted_cli("export", ["--weights", pth, "--seed", SEED,
+                                        "--out", rect], "rect")
+    m = re.search(r"\((\S+) MB, traced on (cuda\S*) in (\S+)s\)", out)
+    if not m:
+        fail("cli.export did not trace on the card")
+    rect_mb, rect_s = float(m.group(1)), float(m.group(3))
+    cpu_model = build_model_and_params(ModelConfig(), pth,
+                                       torch.device("cpu"))
+    tables = draw_sample_tables(cpu_model,
+                                torch.Generator().manual_seed(SEED))
+    t0 = time.perf_counter()
+    blob = export_whole_image_bytes(
+        WholeImage(cpu_model, tables, *FRAME, 128, False), *FRAME, "cpu")
+    cpu_s = time.perf_counter() - t0
+    cpu_art = os.path.join(tmp, "cpu_traced.dhz")
+    save_exported(cpu_art, blob, {"arch": "uformer", "height": FRAME[0],
+                                  "width": FRAME[1]})
+    del cpu_model, blob
+    model = build_model_and_params(ModelConfig(), pth, torch.device("cuda"))
+
+    def apply_fn(x):
+        return model(x, generator=torch.Generator().manual_seed(SEED))
+
+    eager = make_whole_image_fn(apply_fn, *FRAME, 128, square=False,
+                                device="cuda")
+    frame = _textured_frame(SEED + 20)
+    x = torch.from_numpy(frame.astype(np.float32) / 255.0)[None].cuda()
+    want = eager(x)
+    for what, path, mb, secs in (
+            ("cli.export, traced on the card", rect, rect_mb, rect_s),
+            ("traced on the CPU, moved to the card", cpu_art,
+             os.path.getsize(cpu_art) / 1e6, cpu_s)):
+        fn, _ = load_exported(path, "cuda")
+        fn(x)
+        torch.cuda.synchronize()
+        reset_counts()
+        with _TwinCounts() as twins:
+            got = fn(x)
+            torch.cuda.synchronize()
+        counts = {**read_counts(), **twins}
+        d = (got.float() - want.float()).abs()
+        times = [ms_per(lambda: fn(x), 10), ms_per(lambda: eager(x), 10),
+                 ms_per(lambda: eager(x), 10), ms_per(lambda: fn(x), 10)]
+        print(f"artifact {what}: {mb:.1f} MB, export {secs:.1f}s; "
+              f"{FRAME[0]}x{FRAME[1]} rect canvas bf16 against the eager "
+              f"CUDA forward (seed {SEED}): equal {torch.equal(got, want)}, "
+              f"max|d| {float(d.max()):.3e}, values differing "
+              f"{int((d > 0).sum())}; launches per frame K1 tensor cores "
+              f"{counts['k1_fwd_tc']} CUDA cores {counts['k1_fwd']} K2 "
+              f"{counts['k2']}, twin calls K1 {twins['twin_k1']} K2 "
+              f"{twins['twin_k2']}; ms/frame artifact, eager, eager, "
+              f"artifact: {', '.join(f'{t:.2f}' for t in times)}",
+              flush=True)
+        _check_launches(f"artifact {what}", counts, 1)
+        if not torch.equal(got, want):
+            fail(f"artifact {what} differs from the eager CUDA forward")
+        del fn
+
+    # (b) cli.stream, --weights then --exported
+    sw, sx = os.path.join(tmp, "stream_w"), os.path.join(tmp, "stream_x")
+    os.makedirs(sw)
+    os.makedirs(sx)
+    for i in range(8):
+        save_img(os.path.join(sw, f"{i:02d}.png"), _textured_frame(100 + i))
+        shutil.copy(os.path.join(sw, f"{i:02d}.png"), sx)
+    save_img(os.path.join(sw, "odd.png"), _textured_frame(108, (1000, 1500)))
+    runs = {}
+
+    def check_outputs(label, src, res, u8):
+        for name in sorted(os.listdir(src)):
+            img = load_img(os.path.join(src, name), u8=u8)
+            h, w = img.shape[:2]
+            run = runs.setdefault((h, w, u8), quantize_u8(
+                make_whole_image_fn(apply_fn, h, w, 128, square=False,
+                                    device="cuda")))
+            ref = run(img[None])[0].cpu().numpy()
+            got = load_img(os.path.join(res, name), u8=True)
+            if not np.array_equal(got, ref):
+                fail(f"cli.stream {label}: {name} differs from the "
+                     f"in-process forward in {int((got != ref).sum())} "
+                     "values")
+
+    stream = {}
+    for label, src, flag, n_frames, u8 in (
+            ("--weights", sw, ["--weights", pth, "--seed", SEED], 9, True),
+            ("--exported", sx, ["--exported", rect], 8, False)):
+        res = os.path.join(tmp, f"res_stream{label}")
+        out, stats, secs = _counted_cli(
+            "stream", ["--input_dir", src, "--result_dir", res] + flag,
+            label)
+        m = re.search(r"(\d+) frames in (\S+)s = (\S+) Mpix/s", out)
+        if not m or int(m.group(1)) != n_frames:
+            fail(f"cli.stream {label}: no summary line for {n_frames} "
+                 "frames")
+        check_outputs(label, src, res, u8)
+        _check_launches(f"cli.stream {label}", stats, n_frames)
+        stream[label] = (float(m.group(2)) / n_frames, float(m.group(3)),
+                         secs, stats)
+    first = os.path.join(sw, "00.png")
+    dec_ms = ms_per(lambda: load_img(first, u8=True))
+    body = load_img(first, u8=True)
+    out_u8 = load_img(os.path.join(tmp, "res_stream--weights", "00.png"),
+                      u8=True)
+    enc_ms = ms_per(lambda: encode_img(out_u8))
+    fwd_ms = ms_per(lambda: runs[FRAME + (True,)](body[None]).cpu())
+    pace = {"decode (2 workers)": dec_ms / 2, "forward": fwd_ms,
+            "encode (2 workers)": enc_ms / 2}
+    for label, (spf, mpix, secs, _) in stream.items():
+        print(f"cli.stream {label} Uformer-32 bf16 rect canvas: {spf:.4f} "
+              f"s/frame, {mpix:.3f} Mpix/s sustained (subprocess "
+              f"{secs:.1f}s); outputs equal to the in-process quantized "
+              "forward", flush=True)
+    print(f"stream stages at {FRAME[0]}x{FRAME[1]} (same call): decode "
+          f"{dec_ms:.1f} ms, in-process forward (to the host) {fwd_ms:.1f} "
+          f"ms, PNG encode {enc_ms:.1f} ms per frame; with 2 decode and 2 "
+          f"encode workers the slowest stage is {max(pace, key=pace.get)} "
+          f"({max(pace.values()):.1f} ms/frame)", flush=True)
+
+    # (c) test_long --exported on a square artifact
+    sq = os.path.join(tmp, "square.dhz")
+    _counted_cli("export", ["--weights", pth, "--seed", SEED, "--square",
+                            "--out", sq], "--square")
+    out, eval_exported, secs = _counted_cli(
+        "test_long", ["--input_dir", os.path.join(tmp, "eval_long"),
+                      "--exported", sq, "--result_dir",
+                      os.path.join(tmp, "res_long_exported")], "--exported")
+    psnrs = [float(p) for p in re.findall(r"^\S+: PSNR (\S+) SSIM", out,
+                                           re.M)]
+    worst = max((abs(a - b) for a, b in zip(psnrs, square_psnrs)),
+                default=math.inf)
+    per_frame = float(re.search(r"frames: (\S+) s/frame", out).group(1))
+    print(f"cli.test_long --exported (square artifact, 1664² canvas): "
+          f"{len(psnrs)} frames, {per_frame:.4f} s/frame after the first, "
+          f"per-image PSNR vs --weights (square) max |d| {worst:.2e} dB, "
+          f"subprocess {secs:.1f}s", flush=True)
+    if len(psnrs) != 3 or worst > EVAL_PSNR_TOL:
+        fail("cli.test_long --exported: PSNRs differ from --weights")
+    _check_launches("cli.test_long --exported", eval_exported, 3)
+
+    # (d) serve --exported
+    args = build_parser().parse_args(["--exported", rect, "--port", "0",
+                                      "--precompile", "auto"])
+    dehaze, info = build_dehaze_fn(args, config_from_args(args).model)
+    print(f"serve --exported warm-up (auto, {info['geometry']}): "
+          f"{warm_up(dehaze, info, 'auto'):.2f}s", flush=True)
+    srv = ThreadingHTTPServer((args.host, 0), make_handler(dehaze, info))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://{args.host}:{srv.server_port}"
+
+    def post(img):
+        req = urllib.request.Request(url + "/dehaze", method="POST",
+                                     data=encode_img(img))
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    reset_counts()
+    try:
+        with _TwinCounts() as twins:
+            t0 = time.perf_counter()
+            status, answer = post(frame)
+            latency = time.perf_counter() - t0
+            other = post(_textured_frame(7, (1000, 1500)))
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+        dehaze.batcher.close()
+    serve_exported = {**read_counts(), **twins}
+    ref = quantize_u8(eager)(x)[0].cpu().numpy()
+    same = status == 200 and np.array_equal(decode_img(answer, u8=True), ref)
+    print(f"serve --exported: request {FRAME[0]}x{FRAME[1]} status {status} "
+          f"latency {latency:.3f}s, equal to the eager forward {same}; "
+          f"1000x1500 request status {other[0]} ({other[1][:80]!r}); "
+          f"healthz max_batch {health['max_batch']} served "
+          f"{health['served']}", flush=True)
+    if not same or other[0] != 400 or health["max_batch"] != 1:
+        fail("serve --exported: wrong answer, no 400 for another "
+             "geometry, or micro-batching on")
+    _check_launches("serve --exported", serve_exported, 1)
+    return {"stream": stream["--weights"][3],
+            "stream_exported": stream["--exported"][3],
+            "eval_exported": eval_exported, "serve_exported": serve_exported}
 
 
 def _grad_check(name, gc, gg, rtol_of, atol):
@@ -1909,8 +2219,9 @@ def main() -> None:
         pth = phase_model(tmp)
         phase_model_pad(pth)
         serve = phase_serve(pth)
-        evals = phase_eval(tmp, pth)
+        evals, square_psnrs = phase_eval(tmp, pth)
         gate = phase_parity_gate(tmp, pth)
+        serving = phase_serving(tmp, pth, square_psnrs)
         phase_train_parity()
         train, stream_epoch, _ = phase_train_cli(tmp)
         device_data = phase_device_data(tmp, stream_epoch)
@@ -1929,8 +2240,8 @@ def main() -> None:
                 "bound_by": row[-1], "library_ms": None}
 
     paths = {"serve": serve, "train": train, "eval": evals,
-             "parity_gate": gate, "train_device_data": device_data,
-             "train_step_remat": remat}
+             "parity_gate": gate, **serving,
+             "train_device_data": device_data, "train_step_remat": remat}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
     # K1 rows by kernel, without the kernel column

@@ -4,9 +4,10 @@ Counterpart of `dehaze_tpu/cli/common.py` for the flags the serving,
 training and evaluation paths use; flag names are the same. `config_from_args`
 returns a `Config`; the serving and evaluation CLIs read its `model`.
 `--weights` takes a `.pth` state_dict (the reference's checkpoint format or
-a bare state_dict). `--arch ffa|unet` parses and is refused by
-`models.uformer.check_config`; `--data_axis`, `--exported` and `--bands`
-above 1 are not ported yet and raise.
+a bare state_dict); `--exported` a `cli.export` artifact, in place of
+`--weights` (`resolve_forward`). `--arch ffa|unet` parses and is refused by
+`models.uformer.check_config`; `--data_axis` and `--bands` above 1 are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -101,8 +102,6 @@ def add_eval_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--input_dir", required=True,
                    help="folder with gt/ and hazy/ PNG pairs")
     p.add_argument("--weights", default=None, help=".pth state_dict")
-    p.add_argument("--exported", default=None,
-                   help="not ported yet (raises)")
     p.add_argument("--result_dir", default="./results/long")
     p.add_argument("--save_images",
                    action=argparse.BooleanOptionalAction, default=True,
@@ -116,9 +115,8 @@ def add_eval_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 
 def config_from_args(a: argparse.Namespace) -> Config:
-    for flag in ("data_axis", "exported"):
-        if getattr(a, flag, None):
-            raise NotImplementedError(f"--{flag} is not ported yet")
+    if getattr(a, "data_axis", None):
+        raise NotImplementedError("--data_axis is not ported yet")
     if (getattr(a, "bands", 0) or 0) > 1:
         raise NotImplementedError("--bands is not ported yet")
     return Config(
@@ -156,15 +154,33 @@ def build_model_and_params(cfg: ModelConfig, weights: str, device
 
 
 def resolve_forward(args, cfg: ModelConfig) -> SimpleNamespace:
-    """--weights scaffolding for the serving and evaluation CLIs. Returns a
-    namespace with `apply_fn` ([B, H, W, 3] float on the device, and an
-    optional padding mask → [B, H, W, 3] float32), `model` and `device`.
-    The ProbSparse generator is re-seeded from `args.seed` at every forward,
-    so a request's output is deterministic."""
-    if not getattr(args, "weights", None):
-        raise SystemExit("pass --weights <state_dict.pth>")
+    """--weights / --exported scaffolding for the serving and evaluation
+    CLIs (`cli.export` uses the weights leg only). Exactly one of
+    args.weights / args.exported must be set (SystemExit otherwise).
+    Returns a namespace:
+      mode      'weights' | 'exported'
+      device    the torch device the forward runs on
+      apply_fn  [B, H, W, 3] float on the device (and an optional padding
+                mask) → [B, H, W, 3] float32 (weights mode); the ProbSparse
+                generator is re-seeded from args.seed at every forward, so
+                a request's output is deterministic
+      model     the built Uformer (weights mode)
+      base_fn, meta, baked_hw  the loaded artifact's callable, its meta
+                and the (H, W) it bakes (exported mode)"""
+    weights = getattr(args, "weights", None)
+    exported = getattr(args, "exported", None)
+    if bool(weights) == bool(exported):
+        raise SystemExit("pass exactly one of --weights / --exported")
     device = torch.device(getattr(args, "device", "cuda"))
-    model = build_model_and_params(cfg, args.weights, device)
+    if exported:
+        from dehaze_tpu_torch.infer.export import load_exported
+
+        base_fn, meta = load_exported(exported, device)
+        return SimpleNamespace(mode="exported", apply_fn=None, model=None,
+                               base_fn=base_fn, meta=meta,
+                               baked_hw=(meta["height"], meta["width"]),
+                               device=device)
+    model = build_model_and_params(cfg, weights, device)
     seed = getattr(args, "seed", 1234)
 
     def apply_fn(x: torch.Tensor, pad_mask=None) -> torch.Tensor:
@@ -172,6 +188,7 @@ def resolve_forward(args, cfg: ModelConfig) -> SimpleNamespace:
                      pad_mask=pad_mask)
 
     return SimpleNamespace(mode="weights", apply_fn=apply_fn, model=model,
+                           base_fn=None, meta=None, baked_hw=None,
                            device=device)
 
 

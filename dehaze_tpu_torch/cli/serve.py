@@ -2,17 +2,23 @@
 
     python -m dehaze_tpu_torch.cli.serve --weights w.pth [--port N]
         [--precompile 1200x1600] [--square] [--max_batch 4]
+    python -m dehaze_tpu_torch.cli.serve --exported model.dhz \
+        [--precompile auto]
 
     POST /dehaze   body = PNG, JPEG or BMP → dehazed PNG (EXIF upright)
-    GET  /healthz  → JSON {status, arch, served, device, batch_hist}
+    GET  /healthz  → JSON {status, arch, served, device, max_batch,
+                    u8_input, batch_hist, geometry (--exported)}
 
-Counterpart of `dehaze_tpu/cli/serve.py` (the `--weights` leg). Handler
-threads decode and encode; one device worker thread runs the forwards and
-MICRO-BATCHES same-geometry requests that queued while a forward was in
-flight (up to `--max_batch`); a lone request runs at once. Forwards are
-built per request geometry and LRU-cached (`--max_geometries`). Decoded
-frames are capped at `--max_pixels`. `--precompile HxW` runs one warm-up
-forward before serving, which also builds the CUDA kernels.
+Counterpart of `dehaze_tpu/cli/serve.py`. Handler threads decode and
+encode; one device worker thread runs the forwards and MICRO-BATCHES
+same-geometry requests that queued while a forward was in flight (up to
+`--max_batch`); a lone request runs at once. With `--weights`, forwards
+are built per request geometry and LRU-cached (`--max_geometries`); with
+`--exported` (a `cli.export` artifact), requests must have the artifact's
+baked geometry (400 otherwise) and are served one at a time (the artifact
+bakes batch 1). Decoded frames are capped at `--max_pixels`. `--precompile
+HxW` (or `auto`: the artifact's geometry) runs one warm-up forward before
+serving, which also builds the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -127,23 +133,43 @@ def build_dehaze_fn(args, cfg):
     """→ (dehaze(img) -> uint8 RGB, info dict); split from main() for
     in-process use."""
     fwd = resolve_forward(args, cfg)
-    info = {"arch": cfg.arch, "served": 0, "device": str(fwd.device)}
+    exported = fwd.mode == "exported"
+    info = {"arch": fwd.meta["arch"] if exported else cfg.arch, "served": 0,
+            "device": str(fwd.device)}
+    # live weights normalize uint8 on the device (4x fewer bytes to the
+    # card); an artifact bakes a float32 input, so it keeps the host /255
+    info["u8_input"] = not exported and getattr(args, "u8_transfer", True)
     max_geoms = max(1, getattr(args, "max_geometries", 8))
     runs = collections.OrderedDict()  # LRU: geometry -> quantized forward
 
-    def get_run(h, w):
-        if (h, w) in runs:
-            runs.move_to_end((h, w))
-        else:
-            runs[(h, w)] = quantize_u8(make_whole_image_fn(
-                fwd.apply_fn, h, w, args.train_ps,
-                square=getattr(args, "square", False), device=fwd.device))
-            while len(runs) > max_geoms:
-                runs.popitem(last=False)
-        return runs[(h, w)]
+    if exported:
+        info["geometry"] = list(fwd.baked_hw)
+        exported_u8 = quantize_u8(fwd.base_fn)
+
+        def get_run(h, w):
+            if (h, w) != fwd.baked_hw:
+                raise ValueError(
+                    f"frame is {h}x{w} but the exported artifact bakes "
+                    f"{fwd.baked_hw[0]}x{fwd.baked_hw[1]}")
+            return exported_u8
+    else:
+        def get_run(h, w):
+            if (h, w) in runs:
+                runs.move_to_end((h, w))
+            else:
+                runs[(h, w)] = quantize_u8(make_whole_image_fn(
+                    fwd.apply_fn, h, w, args.train_ps,
+                    square=getattr(args, "square", False),
+                    device=fwd.device))
+                while len(runs) > max_geoms:
+                    runs.popitem(last=False)
+            return runs[(h, w)]
 
     max_pixels = getattr(args, "max_pixels", 33_554_432)
-    batcher = MicroBatcher(get_run, getattr(args, "max_batch", 4))
+    # the artifact bakes batch 1: micro-batching with --weights only
+    info["max_batch"] = (1 if exported
+                         else max(1, getattr(args, "max_batch", 4)))
+    batcher = MicroBatcher(get_run, info["max_batch"])
     info["batch_hist"] = batcher.hist
     batcher.info = info  # the single worker thread owns the served counter
 
@@ -190,9 +216,10 @@ def make_handler(dehaze, info):
                     self._send(400, b"missing or oversized body",
                                "text/plain")
                     return
-                out = dehaze(decode_img(self.rfile.read(n), u8=True))
+                out = dehaze(decode_img(self.rfile.read(n),
+                                        u8=info["u8_input"]))
                 body, code, ctype = encode_img(out), 200, "image/png"
-            except ValueError as e:  # undecodable / cap exceeded
+            except ValueError as e:  # undecodable / geometry / cap
                 body, code, ctype = str(e).encode(), 400, "text/plain"
             except Exception as e:  # forward failure: answer, keep socket
                 body = f"{type(e).__name__}: {e}".encode()
@@ -206,6 +233,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = add_common_args(argparse.ArgumentParser(description="dehaze server "
                                                  "(PyTorch/CUDA port)"))
     p.add_argument("--weights", default=None, help=".pth state_dict")
+    p.add_argument("--exported", default=None,
+                   help="serve a cli.export artifact instead of --weights")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8350)
     p.add_argument("--square", action="store_true",
@@ -215,21 +244,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_geometries", type=int, default=8,
                    help="LRU cap on per-geometry forwards")
     p.add_argument("--max_batch", type=int, default=4,
-                   help="micro-batching cap for same-geometry requests")
+                   help="micro-batching cap for same-geometry requests "
+                        "(--exported always serves one at a time)")
     p.add_argument("--precompile", default=None,
-                   help="HxW: one warm-up forward before serving (also "
-                        "builds the CUDA kernels)")
+                   help="one warm-up forward before serving (also builds "
+                        "the CUDA kernels): HxW, or 'auto' for the baked "
+                        "geometry of --exported")
     return p
 
 
 def warm_up(dehaze, info, spec: str) -> float:
-    """Run one forward at geometry 'HxW'; returns its seconds."""
-    try:
-        wh, ww = (int(v) for v in spec.lower().split("x"))
-    except ValueError:
-        raise SystemExit(f"--precompile expects HxW, got {spec!r}") from None
+    """Run one forward at geometry 'HxW' ('auto': the artifact's baked
+    geometry); returns its seconds."""
+    if spec == "auto":
+        if "geometry" not in info:
+            raise SystemExit("--precompile auto needs --exported (no baked "
+                             "geometry otherwise); pass --precompile HxW")
+        wh, ww = info["geometry"]
+    else:
+        try:
+            wh, ww = (int(v) for v in spec.lower().split("x"))
+        except ValueError:
+            raise SystemExit(f"--precompile expects 'auto' or HxW, got "
+                             f"{spec!r}") from None
     t0 = time.perf_counter()
-    dehaze(np.zeros((wh, ww, 3), np.uint8))
+    dehaze(np.zeros((wh, ww, 3),
+                    np.uint8 if info["u8_input"] else np.float32))
     info["served"] = 0  # the warm-up is not traffic
     info["batch_hist"].clear()
     return time.perf_counter() - t0

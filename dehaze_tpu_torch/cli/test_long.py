@@ -5,6 +5,12 @@ L×L canvas (or, with --rect_canvas, each side to the next multiple of
 
     python -m dehaze_tpu_torch.cli.test_long --input_dir DS/test \\
         --weights model_best.pth [--rect_canvas] [--device cpu]
+    python -m dehaze_tpu_torch.cli.test_long --input_dir DS/test \\
+        --exported model.dhz
+
+With --exported it evaluates a `cli.export` artifact instead (validate
+before deploy): its canvas and geometry are baked in, so every frame must
+have its geometry, and --rect_canvas, --bands and --data_axis are refused.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from dehaze_tpu_torch.models.uformer import check_config
 def build_parser() -> argparse.ArgumentParser:
     p = add_eval_args(add_common_args(argparse.ArgumentParser(
         description="whole-image eval (PyTorch/CUDA port)")))
+    p.add_argument("--exported", default=None,
+                   help="evaluate a cli.export artifact instead of "
+                        "--weights (fixed geometry, canvas baked in)")
     p.add_argument("--rect_canvas", action="store_true",
                    help="pad H and W independently instead of the square "
                         "LxL canvas: same crop semantics, -23%% compute on "
@@ -30,11 +39,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    if args.exported and ((args.bands and args.bands > 1)
+                          or (args.data_axis and args.data_axis > 1)
+                          or args.rect_canvas):
+        raise SystemExit("--exported bakes its canvas and serves "
+                         "single-device; drop --bands/--data_axis/"
+                         "--rect_canvas")
     cfg = config_from_args(args).model
-    check_config(cfg)
+    if not args.exported:
+        check_config(cfg)
     fwd = resolve_forward(args, cfg)
 
     def make_run(h, w):
+        if fwd.mode == "exported":
+            if (h, w) != fwd.baked_hw:
+                raise SystemExit(
+                    f"a frame is {h}x{w} but the artifact bakes "
+                    f"{fwd.baked_hw[0]}x{fwd.baked_hw[1]}; re-export for "
+                    "this geometry")
+            return fwd.base_fn
         return make_whole_image_fn(fwd.apply_fn, h, w, args.train_ps,
                                    square=not args.rect_canvas,
                                    device=fwd.device)

@@ -178,3 +178,14 @@ def val_images(folder: PairedFolder
     for c, x in zip(folder.clean_files, folder.noisy_files):
         yield load_img(c), load_img(x), os.path.basename(c)
 
+
+
+def test_images(rgb_dir: str, subdir: str = "HAZY"
+                ) -> Iterator[Tuple[np.ndarray, str]]:
+    """Hazy-only (image, file name) pairs, float32 [0, 1], in sorted order,
+    from `rgb_dir/subdir`, or from `rgb_dir` itself with subdir='' (the
+    reference's DataLoaderTest and DataLoaderTestSR)."""
+    root = os.path.join(rgb_dir, subdir) if subdir else rgb_dir
+    for f in sorted(os.listdir(root)):
+        if is_png_file(f):
+            yield load_img(os.path.join(root, f)), f

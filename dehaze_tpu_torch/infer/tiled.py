@@ -15,6 +15,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from dehaze_tpu_torch.utils.transfer import to_device
+
 
 def canvas_size(h: int, w: int, ps: int) -> int:
     """Square canvas side L = (max(H, W) // ps + 1) * ps."""
@@ -49,9 +51,32 @@ def wrap_pad_canvas(img: torch.Tensor, L: int, Lw: Optional[int] = None
 
 
 def _as_tensor(img, device) -> torch.Tensor:
+    """`img` (tensor or ndarray) on `device`; a host frame bound for the
+    card goes through pinned memory, so the copy does not wait for the
+    work already queued there (`utils.transfer.to_device`)."""
     if isinstance(img, np.ndarray):
         img = torch.from_numpy(np.ascontiguousarray(img))
-    return img.to(device, non_blocking=True)
+    return to_device(img, device)
+
+
+def canvas_of(h: int, w: int, ps: int, square: bool):
+    """(L, Lw) of an h×w frame: the square L×L canvas, or with
+    square=False each side padded on its own (1280×1664 instead of 1664²
+    for a 1200×1600 frame)."""
+    if square:
+        L = canvas_size(h, w, ps)
+        return L, L
+    return rect_canvas_size(h, w, ps)
+
+
+def whole_image(apply_fn: Callable[[torch.Tensor], torch.Tensor],
+                img: torch.Tensor, L: int, Lw: int) -> torch.Tensor:
+    """[B, h, w, C] float → wrap-padded onto the L×Lw canvas, `apply_fn`,
+    cropped back to h×w and clamped to [0, 1]. The body of
+    `make_whole_image_fn`, and of the exported artifact (`infer.export`)."""
+    h, w = img.shape[1:3]
+    out = apply_fn(wrap_pad_canvas(img, L, Lw))
+    return torch.clamp(out[:, :h, :w, :], 0.0, 1.0)
 
 
 def make_whole_image_fn(
@@ -64,20 +89,13 @@ def make_whole_image_fn(
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """[B, H, W, C] (float in [0, 1] or raw uint8, tensor or ndarray) →
     restored float32 [B, H, W, C] on `device` (the card unless the caller
-    asks for the CPU), for a fixed geometry.
-
-    square=True is the reference's L×L canvas; square=False pads H and W
-    independently (1280×1664 instead of 1664² for a 1200×1600 frame)."""
-    if square:
-        L = Lw = canvas_size(h, w, ps)
-    else:
-        L, Lw = rect_canvas_size(h, w, ps)
+    asks for the CPU), for a fixed geometry (`canvas_of` says which
+    canvas)."""
+    L, Lw = canvas_of(h, w, ps, square)
 
     @torch.inference_mode()
     def run(img):
-        canvas = wrap_pad_canvas(u8_norm(_as_tensor(img, device)), L, Lw)
-        out = apply_fn(canvas)
-        return torch.clamp(out[:, :h, :w, :], 0.0, 1.0)
+        return whole_image(apply_fn, u8_norm(_as_tensor(img, device)), L, Lw)
 
     return run
 

@@ -15,7 +15,11 @@ Module names follow the reference torch model's state_dict
 ProbSparse key sampling draws from the `generator` passed to forward: each
 attention layer draws its [N, U_part] table in module order, so a forward
 with a freshly seeded generator is deterministic. Serving re-seeds it per
-forward; training lets it advance from step to step. In train mode,
+forward; training lets it advance from step to step. A forward given
+`sample_tables` (one table per attention layer, in module order) draws
+nothing and uses those: `draw_sample_tables` draws the list a forward with
+a generator would, so the two compute the same. An exported artifact
+(`infer.export`) folds such a list in. In train mode,
 DropPath and dropout draw their masks from the `droppath` and
 `dropout_gen` generators (none is needed at rate 0), never from torch's
 global RNG.
@@ -29,8 +33,7 @@ that restores torch's global RNG only.
 
 from __future__ import annotations
 
-import functools
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,7 +51,7 @@ from dehaze_tpu_torch.ops.kernels.window_attention import (
     fused_window_attention)
 
 
-@functools.lru_cache(maxsize=64)
+@win_ops.device_constant_cache
 def _region_ids(H: int, W: int, win: int, shift: int,
                 device: torch.device) -> torch.Tensor:
     """SW-MSA region ids [nW, N] as an int32 tensor on `device`."""
@@ -56,7 +59,7 @@ def _region_ids(H: int, W: int, win: int, shift: int,
         device)
 
 
-@functools.lru_cache(maxsize=64)
+@win_ops.device_constant_cache
 def _legacy_nearest(n_in: int, n_out: int,
                     device: torch.device) -> torch.Tensor:
     """torch F.interpolate's LEGACY nearest source indices for resizing
@@ -114,16 +117,25 @@ class WindowAttention(nn.Module):
                 (2 * win_size - 1) ** 2, num_heads, device=device))
         self.ProbSpare = AttentionLayer(dim, device=device)
 
+    def sample_shape(self):
+        """(N, U_part) of the table a forward draws: N = win²."""
+        n = self.win_size * self.win_size
+        return n, ps_ops.probsparse_u(n, self.factor)
+
     def forward(self, x: torch.Tensor, sw_region: Optional[torch.Tensor],
                 generator: Optional[torch.Generator],
-                pad_flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_flag: Optional[torch.Tensor] = None,
+                sample_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sample_idx: this layer's [N, U_part] table, or None to draw it
+        from `generator`."""
         n = x.shape[1]
         p = self.ProbSpare
         q = _linear(p.query_projection, x)
         k = _linear(p.key_projection, x)
         v = _linear(p.value_projection, x)
-        u_part = ps_ops.probsparse_u(n, self.factor)
-        sample_idx = ps_ops.sample_indices(n, n, u_part, generator)
+        if sample_idx is None:
+            u_part = ps_ops.probsparse_u(n, self.factor)
+            sample_idx = ps_ops.sample_indices(n, n, u_part, generator)
         bias = None
         if self.relative_position_bias_table is not None:
             bias = win_ops.gather_rel_pos_bias(
@@ -168,7 +180,8 @@ class LeWinBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 droppath: Optional[torch.Generator] = None,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None,
+                sample_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, H, W, C = x.shape
         win, shift = self.win, self.shift
         if H % win or W % win:
@@ -183,7 +196,7 @@ class LeWinBlock(nn.Module):
         pad_flag = (None if pad_mask is None
                     else pad_flags(pad_mask, H, W, win))
         y = self.attn(win_ops.window_partition(y, win), sw_region, generator,
-                      pad_flag)
+                      pad_flag, sample_idx)
         y = win_ops.window_reverse(y, win, H, W)
         if shift > 0:
             y = win_ops.cyclic_unshift(y, shift)
@@ -194,7 +207,8 @@ class LeWinBlock(nn.Module):
 def _remat_block(blk: LeWinBlock, x: torch.Tensor,
                  generator: Optional[torch.Generator],
                  droppath: Optional[torch.Generator],
-                 pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                 pad_mask: Optional[torch.Tensor],
+                 sample_idx: Optional[torch.Tensor]) -> torch.Tensor:
     """blk(x, ...) with its activations recomputed in the backward pass.
 
     The generators' states at the block's entry are kept; the recompute
@@ -210,12 +224,12 @@ def _remat_block(blk: LeWinBlock, x: torch.Tensor,
         nonlocal replay
         if not replay:  # the forward itself
             replay = True
-            return blk(x, generator, droppath, pad_mask)
+            return blk(x, generator, droppath, pad_mask, sample_idx)
         found = [g.get_state() for g in gens]
         for g, state in zip(gens, entry):
             g.set_state(state)
         try:
-            return blk(x, generator, droppath, pad_mask)
+            return blk(x, generator, droppath, pad_mask, sample_idx)
         finally:
             for g, state in zip(gens, found):
                 g.set_state(state)
@@ -246,11 +260,16 @@ class UformerStage(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 droppath: Optional[torch.Generator] = None,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None,
+                sample_tables: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """sample_tables: one [N, U_part] table per block, or None to draw
+        them from `generator`."""
         remat = self.remat and torch.is_grad_enabled()
-        for blk in self.blocks:
-            x = (_remat_block(blk, x, generator, droppath, pad_mask) if remat
-                 else blk(x, generator, droppath, pad_mask))
+        for j, blk in enumerate(self.blocks):
+            idx = None if sample_tables is None else sample_tables[j]
+            x = (_remat_block(blk, x, generator, droppath, pad_mask, idx)
+                 if remat else blk(x, generator, droppath, pad_mask, idx))
         return x
 
 
@@ -329,23 +348,55 @@ class Uformer(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 droppath: Optional[torch.Generator] = None,
                 dropout_gen: Optional[torch.Generator] = None,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None,
+                sample_tables: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
         """pad_mask: [1, H, W, 1], 1 on padding (any-resolution inputs, see
-        `infer.anyres`), or None."""
+        `infer.anyres`), or None. sample_tables: the ProbSparse tables of
+        every attention layer in module order (`draw_sample_tables`), used
+        in place of drawing them from `generator`; or None."""
         n_enc = self.cfg.num_enc_layers
+        if sample_tables is not None:
+            n = sum(self.cfg.depths)
+            if len(sample_tables) != n:
+                raise ValueError(f"sample_tables holds {len(sample_tables)} "
+                                 f"tables; the model has {n} attention "
+                                 "layers")
+            tables = iter(sample_tables)
+
+        def run(stage, y):  # the stage's tables come next in module order
+            idx = (None if sample_tables is None
+                   else [next(tables) for _ in stage.blocks])
+            return stage(y, generator, droppath, pad_mask, idx)
+
         y = dropout(self.input_proj(x.to(self.cfg.dtype)), self.cfg.drop_rate,
                     self.training, dropout_gen)
         skips = []
         for i in range(n_enc):
-            y = getattr(self, f"encoderlayer_{i}")(y, generator, droppath,
-                                                   pad_mask)
+            y = run(getattr(self, f"encoderlayer_{i}"), y)
             skips.append(y)
             y = getattr(self, f"dowsample_{i}")(y)
-        y = self.conv(y, generator, droppath, pad_mask)
+        y = run(self.conv, y)
         for i in range(n_enc):
             y = getattr(self, f"upsample_{i}")(y)
             y = torch.cat([y, skips[n_enc - 1 - i]], dim=-1)
-            y = getattr(self, f"decoderlayer_{i}")(y, generator, droppath,
-                                                   pad_mask)
+            y = run(getattr(self, f"decoderlayer_{i}"), y)
         out = self.output_proj(y)
         return x.float() + out.float()
+
+
+def draw_sample_tables(model: Uformer, generator: Optional[torch.Generator],
+                       device=None) -> List[torch.Tensor]:
+    """The [N, U_part] ProbSparse tables a forward of `model` with
+    `generator` draws, one per attention layer in module order (the
+    forward's order), drawn as that forward draws them and then moved to
+    `device` (default: where they were drawn). `model(x,
+    sample_tables=draw_sample_tables(model, torch.Generator().manual_seed(
+    s)))` computes `model(x, generator=torch.Generator().manual_seed(s))`."""
+    tables = []
+    for m in model.modules():
+        if isinstance(m, WindowAttention):
+            n, u_part = m.sample_shape()
+            t = ps_ops.sample_indices(n, n, u_part, generator)
+            tables.append(t if device is None else t.to(device))
+    return tables

@@ -3,11 +3,13 @@
 Replaces `leff_fused` / `_kernel` of `dehaze_tpu/ops/pallas/leff.py`:
 LN (norm2 of the LeWin block) -> Dense(C -> Ch) -> GELU -> depthwise 3×3
 (SAME, zero padding) -> GELU -> Dense(Ch -> C). The residual add stays with
-the caller. On a CUDA tensor it launches `csrc/leff.cu`; on a CPU tensor it
-runs the plain twin `leff_reference`. There is no other path. In bf16 the
-kernel runs both Dense layers on the tensor cores with their weights staged
-in shared memory, tiled per C by `plan_tile`; in float32 it stays on the
-CUDA cores (csrc/leff.cu says why).
+the caller. `leff_fused` calls the operator
+`torch.ops.dehaze_tpu_torch.leff_fused`, which `torch.export` keeps as a
+node of its graph: on a CUDA tensor it launches `csrc/leff.cu`, on a CPU
+tensor it runs the plain twin `leff_reference`. There is no other path. In
+bf16 the kernel runs both Dense layers on the tensor cores with their
+weights staged in shared memory, tiled per C by `plan_tile`; in float32 it
+stays on the CUDA cores (csrc/leff.cu says why).
 
 Public layouts are the JAX kernel's: x [B, H, W, C]; w1 [C, Ch]; dw_kernel
 [3, 3, 1, Ch] (HWIO); w2 [Ch, C]. All parameters are cast to x.dtype, as the
@@ -138,22 +140,46 @@ def kernel_smem_bytes(C: int, dtype: torch.dtype) -> int:
 
 def leff_fused(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
                eps: float = 1e-5, fast_gelu: bool = False) -> torch.Tensor:
-    """LeFF(LN(x)) for x [B, H, W, C], any H and W."""
-    kw = dict(ln_scale=ln_scale, ln_bias=ln_bias, w1=w1, b1=b1,
-              dw_kernel=dw_kernel, dw_bias=dw_bias, w2=w2, b2=b2, eps=eps,
-              fast_gelu=fast_gelu)
-    if x.device.type == "cpu":
-        return leff_reference(x, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if torch.is_grad_enabled() and x.requires_grad:
+    """LeFF(LN(x)) for x [B, H, W, C], any H and W, through the operator
+    `torch.ops.dehaze_tpu_torch.leff_fused` (`leff_fused_op`, below): the
+    kernel on a CUDA tensor, `leff_reference` on a CPU tensor. Forward only
+    on CUDA: a CUDA x that requires grad raises."""
+    if (x.device.type == "cuda" and torch.is_grad_enabled()
+            and x.requires_grad):
         raise NotImplementedError("K2 is forward only (inference)")
+    return leff_fused_op(x, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias,
+                         w2, b2, float(eps), bool(fast_gelu))
+
+
+# K2 as one operator, `torch.ops.dehaze_tpu_torch.leff_fused`, which
+# `torch.export` keeps as a node of its graph. Its CPU kernel is the plain
+# twin `leff_reference`; its CUDA kernel launches csrc/leff.cu and counts the
+# launch in `leff_fused.launches`; any other device raises. (Registered
+# through `torch.library.Library`, as K1's forward: `torch.library.custom_op`
+# imports torch._dynamo at an operator's first call.)
+_LIB = torch.library.Library("dehaze_tpu_torch", "FRAGMENT")
+_LIB.define("leff_fused(Tensor x, Tensor ln_scale, Tensor ln_bias, "
+            "Tensor w1, Tensor b1, Tensor dw_kernel, Tensor dw_bias, "
+            "Tensor w2, Tensor b2, float eps, bool fast_gelu) -> Tensor")
+
+
+def _leff_fused_cpu(x, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
+                    eps, fast_gelu):
+    return leff_reference(x, ln_scale=ln_scale, ln_bias=ln_bias, w1=w1,
+                          b1=b1, dw_kernel=dw_kernel, dw_bias=dw_bias, w2=w2,
+                          b2=b2, eps=eps, fast_gelu=fast_gelu)
+
+
+def _leff_fused_cuda(x, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
+                     b2, eps, fast_gelu):
     if x.dtype not in _DTYPES:
         raise TypeError(f"K2 takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     B, H, W, C = x.shape
     Ch = w1.shape[1]
+    kw = dict(ln_scale=ln_scale, ln_bias=ln_bias, w1=w1, b1=b1,
+              dw_kernel=dw_kernel, dw_bias=dw_bias, w2=w2, b2=b2)
     shapes = {"ln_scale": (C,), "ln_bias": (C,), "w1": (C, Ch), "b1": (Ch,),
               "dw_kernel": (3, 3, 1, Ch), "dw_bias": (Ch,), "w2": (Ch, C),
               "b2": (C,)}
@@ -178,6 +204,18 @@ def leff_fused(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
     _build.check(lib, err, "leff_fwd")
     leff_fused.launches += 1
     return out
+
+
+def _leff_fused_fake(x, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
+                     b2, eps, fast_gelu):
+    return torch.empty_like(x)
+
+
+_LIB.impl("leff_fused", _leff_fused_cpu, "CPU")
+_LIB.impl("leff_fused", _leff_fused_cuda, "CUDA")
+torch.library.register_fake("dehaze_tpu_torch::leff_fused", _leff_fused_fake,
+                            lib=_LIB)
+leff_fused_op = torch.ops.dehaze_tpu_torch.leff_fused
 
 
 leff_fused.launches = 0

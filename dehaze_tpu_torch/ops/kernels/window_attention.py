@@ -7,9 +7,14 @@ K1 replaces `fused_window_attention` (version 4: `_prep_v4`, the custom VJP
 `torch.autograd.Function`: on CUDA tensors its forward and backward launch
 hand-written kernels; on CPU tensors they run the plain twins
 `ops.probsparse.probsparse_attention_bnc` and `probsparse_attention_bnc_bwd`.
-There is no other path: a failed build or launch raises. Gradients go to q,
-k, v and `rel_pos_bias`; the backward reuses the forward's `sample_idx`, so
-the selection is never redrawn.
+There is no other path: a failed build or launch raises. Gradients go to
+q, k, v and `rel_pos_bias`; the backward reuses the forward's
+`sample_idx`, so the selection is never redrawn. The token-major forward
+(K1 and K3-v3) is the torch custom operator
+`torch.ops.dehaze_tpu_torch.window_attention_fwd`
+(`window_attention_fwd_op`; torch dispatches it by device), so a
+`torch.export` graph keeps it as one node and an exported artifact
+launches the kernel on the card.
 
 Two forward kernels, chosen by shape, dtype, numerics and layout alone
 (`fwd_kernel_for`):
@@ -242,19 +247,73 @@ def _launch_fwd(entry, numerics, head_major, q, k, v, *, num_heads,
     return out
 
 
-def _attention_fwd(entry, numerics, q, k, v, *, num_heads, sample_idx,
+# K1's (numerics "v4") and K3-v3's ("v23") token-major forward as one
+# operator, `torch.ops.dehaze_tpu_torch.window_attention_fwd`, which
+# `torch.export` keeps as a node of its graph. cnt is the int32 [N, N] count
+# matrix (`count_matrix`), scale a number. Its CPU kernel runs the plain twin
+# `ps_ops.probsparse_attention_bnc`; its CUDA kernel launches the kernel
+# `fwd_kernel_for` names and counts it on `window_attention_fwd` ("v4") or
+# `window_attention_v3_fwd` ("v23"); any other device raises. (Registered
+# through `torch.library.Library`: `torch.library.custom_op` imports
+# torch._dynamo at an operator's first call, seconds of every process's
+# first frame.)
+_LIB = torch.library.Library("dehaze_tpu_torch", "FRAGMENT")
+_LIB.define("window_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor cnt, "
+            "Tensor? rel_pos_bias, Tensor? sw_region, Tensor? pad_flag, "
+            "int num_heads, int num_windows, int factor, float scale, "
+            "str numerics) -> Tensor")
+
+
+def _window_attention_fwd_cpu(q, k, v, cnt, rel_pos_bias, sw_region,
+                              pad_flag, num_heads, num_windows, factor,
+                              scale, numerics):
+    _check_masks(q.shape[0], q.shape[1], sw_region, pad_flag, num_windows)
+    return ps_ops.probsparse_attention_bnc(
+        q, k, v, num_heads=num_heads, cnt=cnt, rel_pos_bias=rel_pos_bias,
+        sw_region=sw_region, pad_flag=pad_flag, factor=factor, scale=scale,
+        numerics=numerics)
+
+
+def _window_attention_fwd_cuda(q, k, v, cnt, rel_pos_bias, sw_region,
+                               pad_flag, num_heads, num_windows, factor,
+                               scale, numerics):
+    if numerics not in _FWD_ENTRIES:
+        raise ValueError(f"the token-major forward takes numerics "
+                         f"{sorted(_FWD_ENTRIES)}, got {numerics!r}")
+    n = q.shape[1]
+    if (cnt.dtype != torch.int32 or tuple(cnt.shape) != (n, n)
+            or cnt.device != q.device):
+        raise ValueError(f"cnt must be int32 [{n}, {n}] on {q.device}, got "
+                         f"{cnt.dtype} {list(cnt.shape)} on {cnt.device}")
+    return _launch_fwd(_FWD_ENTRIES[numerics], numerics, False, q, k, v,
+                       num_heads=num_heads, sample_idx=None,
+                       rel_pos_bias=rel_pos_bias, sw_region=sw_region,
+                       pad_flag=pad_flag, num_windows=num_windows,
+                       factor=factor, scale=scale, cnt=cnt.contiguous())
+
+
+def _window_attention_fwd_fake(q, k, v, cnt, rel_pos_bias, sw_region,
+                               pad_flag, num_heads, num_windows, factor,
+                               scale, numerics):
+    return torch.empty_like(q)
+
+
+_LIB.impl("window_attention_fwd", _window_attention_fwd_cpu, "CPU")
+_LIB.impl("window_attention_fwd", _window_attention_fwd_cuda, "CUDA")
+torch.library.register_fake("dehaze_tpu_torch::window_attention_fwd",
+                            _window_attention_fwd_fake, lib=_LIB)
+window_attention_fwd_op = torch.ops.dehaze_tpu_torch.window_attention_fwd
+
+
+def _attention_fwd(numerics, q, k, v, *, num_heads, sample_idx=None,
                    rel_pos_bias=None, sw_region=None, pad_flag=None,
                    num_windows=1, factor=5, scale=None, cnt=None):
-    kw = dict(num_heads=num_heads, sample_idx=sample_idx,
-              rel_pos_bias=rel_pos_bias, sw_region=sw_region,
-              pad_flag=pad_flag, factor=factor, scale=scale)
-    if q.device.type == "cpu":
-        _check_masks(q.shape[0], q.shape[1], sw_region, pad_flag,
-                     num_windows)
-        return ps_ops.probsparse_attention_bnc(q, k, v, numerics=numerics,
-                                               **kw)
-    return _launch_fwd(entry, numerics, False, q, k, v,
-                       num_windows=num_windows, cnt=cnt, **kw)
+    if cnt is None:
+        cnt = count_matrix(sample_idx, q.shape[1], q.device)
+    return window_attention_fwd_op(
+        q, k, v, cnt, rel_pos_bias, sw_region, pad_flag, num_heads,
+        num_windows, factor, float(ps_ops._scale(q, num_heads, scale)),
+        numerics)
 
 
 def _attention_bwd(entry, numerics, q, k, v, g, *, num_heads, sample_idx,
@@ -328,12 +387,13 @@ def _attention_bwd(entry, numerics, q, k, v, g, *, num_heads, sample_idx,
 
 
 def window_attention_fwd(q, k, v, **kw):
-    """The K1 forward alone, no autograd: a kernel on CUDA, the twin on
-    the CPU. Keywords as `fused_window_attention`'s, plus `cnt`,
-    `count_matrix(sample_idx, ...)` when the caller has it already. Counts
+    """The K1 forward alone, no autograd, through `window_attention_fwd_op`:
+    a kernel on CUDA, the twin on the CPU. Keywords as
+    `fused_window_attention`'s, plus `cnt`, `count_matrix(sample_idx,
+    ...)` when the caller has it already. Counts
     the tensor-core kernel's launches in `.launches_tc` and the CUDA-core
     kernel's in `.launches` (`fwd_kernel_for` says which runs)."""
-    return _attention_fwd(window_attention_fwd, "v4", q, k, v, **kw)
+    return _attention_fwd("v4", q, k, v, **kw)
 
 
 def window_attention_bwd(q, k, v, g, **kw):
@@ -351,7 +411,7 @@ def window_attention_v3_fwd(q, k, v, **kw):
     """K3-v3 forward (`_fused_attn_v3_fwd`, "v23" numerics), as
     `window_attention_fwd`: the tensor-core kernel's launches in
     `.launches_tc`, the CUDA-core kernel's in `.launches`."""
-    return _attention_fwd(window_attention_v3_fwd, "v23", q, k, v, **kw)
+    return _attention_fwd("v23", q, k, v, **kw)
 
 
 def window_attention_v3_bwd(q, k, v, g, **kw):
@@ -418,6 +478,7 @@ for _entry in (window_attention_fwd, window_attention_bwd,
     _entry.launches = 0
     _entry.launches_tc = 0
 
+_FWD_ENTRIES = {"v4": window_attention_fwd, "v23": window_attention_v3_fwd}
 _VERSIONS = {4: (window_attention_fwd, window_attention_bwd),
              3: (window_attention_v3_fwd, window_attention_v3_bwd)}
 
@@ -431,9 +492,10 @@ class _FusedWindowAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, rel_pos_bias, sample_idx, sw_region, pad_flag,
                 version, kw):
         fwd, _ = _VERSIONS[version]
-        # built once per forward and reused by the backward
-        cnt = (count_matrix(sample_idx, q.shape[1], q.device)
-               if q.device.type == "cuda" else None)
+        # built once per forward, on every device (a traced graph then does
+        # not depend on the device it was traced on), and reused by the
+        # backward
+        cnt = count_matrix(sample_idx, q.shape[1], q.device)
         out = fwd(q, k, v, rel_pos_bias=rel_pos_bias, sample_idx=sample_idx,
                   sw_region=sw_region, pad_flag=pad_flag, cnt=cnt, **kw)
         if any(ctx.needs_input_grad):

@@ -73,6 +73,15 @@ def sample_count_matrix(sample_idx: torch.Tensor, n: int) -> torch.Tensor:
                                                device=sample_idx.device))
 
 
+def _counts(sample_idx: Optional[torch.Tensor], cnt: Optional[torch.Tensor],
+            n: int, device: torch.device) -> torch.Tensor:
+    """float32 [n, n] sample counts on `device`: `cnt` (the kernels' int32
+    count matrix) when given, else built from sample_idx."""
+    if cnt is not None:
+        return cnt.to(device=device, dtype=torch.float32)
+    return sample_count_matrix(sample_idx.to(device), n)
+
+
 def topu_row_mask_sorted(m: torch.Tensor, u: int) -> torch.Tensor:
     """Boolean mask [..., N] of the top-u entries of m; among equal values
     the lower index wins (no reliance on torch.topk's tie order)."""
@@ -115,12 +124,13 @@ def _scale(q: torch.Tensor, num_heads: int, scale: Optional[float]) -> float:
 
 
 def _chain_bhnd(qh, kh, vh, sample_idx, rel_pos_bias, mask, factor, scale,
-                numerics):
+                numerics, cnt=None):
     """The chain up to the second softmax on [B, H, N, D] q/k/v in the
     activation dtype: (q as S saw it, k, v in the compute dtype, row_mask
     [B, H, N], a1 and a2 [B, H, N, N]). a1 is rounded in "v4" only; a2 is
     never rounded here (the forward rounds it before PV in "v4"/"v23").
-    mask: additive [nW, N, N] or None."""
+    mask: additive [nW, N, N] or None. cnt: the [N, N] sample counts
+    (`sample_count_matrix`) in place of sample_idx, or None."""
     if numerics not in NUMERICS:
         raise ValueError(f"numerics must be one of {NUMERICS}, got "
                          f"{numerics!r}")
@@ -128,6 +138,7 @@ def _chain_bhnd(qh, kh, vh, sample_idx, rel_pos_bias, mask, factor, scale,
     u = probsparse_u(N, factor)
     store_t = qh.dtype
     ct = _compute_dtype(qh)
+    cnt = _counts(sample_idx, cnt, N, qh.device)
     if numerics == "v23":
         # q·scale in the activation dtype, the scale rounded to it first
         qh = qh * torch.tensor(scale, dtype=store_t, device=qh.device)
@@ -135,7 +146,6 @@ def _chain_bhnd(qh, kh, vh, sample_idx, rel_pos_bias, mask, factor, scale,
     if numerics == "v4":
         s = s.to(store_t).to(ct)                              # [B, H, N, N]
 
-    cnt = sample_count_matrix(sample_idx.to(qh.device), N)
     m_max = torch.where(cnt > 0, s, torch.tensor(-1e30, dtype=ct,
                                                  device=s.device)).amax(-1)
     m_sum = (s.double() * cnt.double()).sum(-1).to(ct)
@@ -156,10 +166,11 @@ def _chain_bhnd(qh, kh, vh, sample_idx, rel_pos_bias, mask, factor, scale,
 
 
 def _forward_bhnd(qh, kh, vh, sample_idx, rel_pos_bias, mask, factor, scale,
-                  numerics):
+                  numerics, cnt=None):
     """[B, H, N, D] context in the compute dtype."""
     _, _, vf, row_mask, _, a2 = _chain_bhnd(
-        qh, kh, vh, sample_idx, rel_pos_bias, mask, factor, scale, numerics)
+        qh, kh, vh, sample_idx, rel_pos_bias, mask, factor, scale, numerics,
+        cnt)
     if numerics != "v1":
         a2 = a2.to(qh.dtype).to(vf.dtype)
     ctx = torch.matmul(a2, vf)
@@ -185,24 +196,26 @@ def probsparse_attention_bnc(
     v: torch.Tensor,
     *,
     num_heads: int,
-    sample_idx: torch.Tensor,
+    sample_idx: Optional[torch.Tensor] = None,
     rel_pos_bias: Optional[torch.Tensor] = None,
     sw_region: Optional[torch.Tensor] = None,
     pad_flag: Optional[torch.Tensor] = None,
     factor: int = 5,
     scale: Optional[float] = None,
     numerics: str = "v4",
+    cnt: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """ProbSparse attention over window tokens, [B_, N, C] in and out, with
     heads as channel slices (C = num_heads · D).
 
-    sample_idx: [N, U_part] int; rel_pos_bias: [H, N, N] or None; sw_region
+    sample_idx: [N, U_part] int, or cnt: the [N, N] counts the kernels take
+    (`sample_count_matrix`); rel_pos_bias: [H, N, N] or None; sw_region
     and pad_flag: [nW, N] region ids and padding flags, or None (B_ must
     then be a multiple of nW). numerics: "v4" (K1) or "v23" (K3-v3)."""
     out = _forward_bhnd(
         _heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads),
         sample_idx, rel_pos_bias, attention_mask(sw_region, pad_flag), factor,
-        _scale(q, num_heads, scale), numerics)
+        _scale(q, num_heads, scale), numerics, cnt)
     return _tokens(out, v.dtype)
 
 

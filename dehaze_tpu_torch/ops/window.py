@@ -2,7 +2,8 @@
 
 Counterpart of `dehaze_tpu/ops/window.py`. NHWC throughout; the relative
 position index and the SW-MSA region ids are NumPy constants built once per
-geometry (lru_cache) and moved to the device by the caller.
+geometry (lru_cache) and moved to the device by the caller
+(`device_constant_cache`).
 """
 
 from __future__ import annotations
@@ -43,7 +44,23 @@ def relative_position_index(win_h: int, win_w: int) -> np.ndarray:
     return rel.sum(-1).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=None)
+def device_constant_cache(fn):
+    """`functools.lru_cache(maxsize=64)` for a function that makes a constant
+    tensor on a device, bypassed while `torch.export` traces: a tensor made
+    during a trace is fake and must not outlive it (a cached one would
+    reach the next eager forward)."""
+    cached = functools.lru_cache(maxsize=64)(fn)
+
+    @functools.wraps(fn)
+    def get(*args):
+        if torch.compiler.is_exporting():
+            return fn(*args)
+        return cached(*args)
+
+    return get
+
+
+@device_constant_cache
 def _relative_position_index_on(win_h: int, win_w: int,
                                 device: torch.device) -> torch.Tensor:
     """relative_position_index flattened, as an int64 tensor on `device`

@@ -95,7 +95,6 @@ def test_eval_cli_refuses_what_is_not_ported(eval_setup):
             "--device", "cpu"]
     with pytest.raises(ValueError, match="not ported"):
         test_long.main(base + ["--arch", "ffa"])
-    for flag in (["--exported", "m.pt"], ["--bands", "2"],
-                 ["--data_axis", "2"]):
+    for flag in (["--bands", "2"], ["--data_axis", "2"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             test_long.main(base + flag)

@@ -80,15 +80,15 @@ def pinned(monkeypatch, tables):
                             tables[n_q][:, :u_part].copy()))
 
 
-def _port(jax_params, dtype=torch.float32):
-    m = Uformer(ModelConfig(img_size=IMG, embed_dim=8, dtype=dtype))
+def _port(jax_params, dtype=torch.float32, **flags):
+    m = Uformer(ModelConfig(img_size=IMG, embed_dim=8, dtype=dtype, **flags))
     m.load_state_dict(state_dict_from_jax_params(jax_params), strict=True)
     return m.eval()
 
 
-def _jax_apply(dtype=jnp.float32):
+def _jax_apply(dtype=jnp.float32, **flags):
     model = JaxUformer(JaxModelConfig(img_size=IMG, embed_dim=8,
-                                      dtype=dtype))
+                                      dtype=dtype, **flags))
     return lambda p, x: model.apply({"params": p}, x, train=False,
                                     rngs={"sample": jax.random.PRNGKey(0)})
 
@@ -122,13 +122,34 @@ def test_load_weights_reference_format(jax_params, tmp_path):
         assert torch.equal(v, sd[k]), k
 
 
-@pytest.mark.parametrize("size", [32, 64])
-def test_model_matches_jax_f32(jax_params, pinned, size):
+def _without_bias_tables(tree):
+    """The params of the same model built with use_rel_pos_bias=False."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: _without_bias_tables(v) for k, v in tree.items()
+            if k != "relative_position_bias_table"}
+
+
+# the ablation flags an exported artifact bakes in: --no_rel_pos_bias (no
+# bias table, no bias term) and --fast_gelu (tanh GELU in K2)
+_FLAGS = {"": {}, "no_rel_pos_bias": {"use_rel_pos_bias": False},
+          "fast_gelu": {"fast_gelu": True}}
+
+
+@pytest.mark.parametrize("size,variant",
+                         [(32, ""), (64, ""), (32, "no_rel_pos_bias"),
+                          (32, "fast_gelu")],
+                         ids=["32", "64", "32-no_rel_pos_bias",
+                              "32-fast_gelu"])
+def test_model_matches_jax_f32(jax_params, pinned, size, variant):
+    flags = _FLAGS[variant]
+    params = (jax_params if flags.get("use_rel_pos_bias", True)
+              else _without_bias_tables(jax_params))
     x = np.random.default_rng(size).uniform(size=(1, size, size, 3)).astype(
         np.float32)
-    want = np.asarray(jax.jit(_jax_apply())(jax_params, jnp.asarray(x)))
+    want = np.asarray(jax.jit(_jax_apply(**flags))(params, jnp.asarray(x)))
     with torch.inference_mode():
-        got = _port(jax_params)(torch.from_numpy(x)).numpy()
+        got = _port(params, **flags)(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
