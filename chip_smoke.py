@@ -91,16 +91,25 @@ Phases, in order; any failure exits non-zero before the final line:
      host's ms to queue it, the calls in it that wait for the card), the
      data pipeline alone (ms/batch), and torch.profiler over two steady
      steps: device time by kernel group, the top kernels, the idle share;
- 13. the kernels' JSON line, then the device's JSON line.
+ 13. the W-MSA Uformer-32 (`attention='full'`, phase_wmsa): f32 CUDA
+     against CPU for 'linear'+'leff', 'conv'+'ffn'+SE and
+     'linear_concat'+'leff'; the 1200×1600 frame in bf16 (18 K2 and 0 K1
+     launches per frame, no twin call; the attention alone at the frame's
+     shapes; a profile); `cli.parity_gate --attention full`, `cli.export
+     --square` and `cli.test_long --exported`; `cli.train --attention full`
+     for 4 steps at batch 32 × 128²;
+ 14. the kernels' JSON line, then the device's JSON line.
 The launch counts in the kernels line are those of the serving path (8),
 the evaluation path (9, the three runs together), the parity gate (9b,
 both runs), the stream with --weights and with --exported, the exported
 evaluation and the exported server (9c), the training path (11), the
-device-resident training path (11b) and the remat train step (11c), each
-counted from 0 over its own run. Every path runs bf16, so K1's
-forward and backward go to the tensor-core kernels there and the CUDA-core
-ones have 0 launches. No path runs K3 (no entry point of the JAX package
-runs its TPU kernels either): its launches, on either kernel, are 0.
+device-resident training path (11b), the remat train step (11c) and the
+W-MSA paths (13: its frames, its gate, its exported evaluation, its
+training run), each counted from 0 over its own run. Every path runs
+bf16, so K1's forward and backward go to the tensor-core kernels there
+and the CUDA-core ones have 0 launches; the W-MSA paths run no K1. No
+path runs K3 (no entry point of the JAX package runs its TPU kernels
+either): its launches, on either kernel, are 0.
 Imports nothing of JAX.
 """
 
@@ -1295,7 +1304,8 @@ def phase_serve(pth: str):
 
 
 # A subprocess that runs `python -m <module> args...` with every launch
-# count at 0 and the plain twins' calls counted, then prints its counts.
+# count at 0 and the plain twins' calls counted, then prints its counts and
+# exits with the module's exit code.
 _COUNTED_CLI = (
     "import json, runpy, sys, torch\n"
     "from dehaze_tpu_torch.ops import probsparse as ps\n"
@@ -1310,12 +1320,17 @@ _COUNTED_CLI = (
     "'k1')\n"
     "leff.leff_reference = counted(leff.leff_reference, 'k2')\n"
     "mod = sys.argv.pop(1)\n"
-    "runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+    "try:\n"
+    "    runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+    "    rc = 0\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code\n"
     "print('STATS ' + json.dumps({'k1_fwd': wa.window_attention_fwd.launches,"
     " 'k1_fwd_tc': wa.window_attention_fwd.launches_tc, 'k2': "
     "leff.leff_fused.launches, 'twin_k1': twins['k1'], 'twin_k2': "
     "twins['k2'], 'peak_gib': torch.cuda.max_memory_allocated() / 2**30}))"
-    "\n")
+    "\n"
+    "sys.exit(rc)\n")
 
 
 def _counted_cli(cli: str, args, label: str):
@@ -1336,10 +1351,10 @@ def _counted_cli(cli: str, args, label: str):
     return r.stdout, stats, secs
 
 
-def _check_launches(label: str, stats: dict, frames: int):
-    """18 K1 tensor-core forward and 18 K2 launches per frame, no
-    CUDA-core K1 forward and no twin call."""
-    want = (18 * frames, 0, 18 * frames, 0, 0)
+def _check_launches(label: str, stats: dict, frames: int, k1: int = 18):
+    """`k1` K1 tensor-core forward (18, or 0 for a W-MSA model) and 18 K2
+    launches per frame, no CUDA-core K1 forward and no twin call."""
+    want = (k1 * frames, 0, 18 * frames, 0, 0)
     got = tuple(stats.get(k, 0) for k in ("k1_fwd_tc", "k1_fwd", "k2",
                                           "twin_k1", "twin_k2"))
     if got != want:
@@ -1719,11 +1734,14 @@ def phase_train_cli(tmp: str):
     return _train_cli(tmp, "_smoke", [])
 
 
-def _train_cli(tmp: str, env: str, extra):
+def _train_cli(tmp: str, env: str, extra, wmsa: bool = False,
+               train_dir: str = ""):
     """`cli.train` with `extra` flags in a subprocess that starts with
     every launch count at 0 and prints them at its end: losses, launch
-    counts per step, checkpoints, the reload of model_best.pth. Returns
-    (launch counts, the epoch event)."""
+    counts per step, checkpoints, the reload of model_best.pth. `wmsa`:
+    the W-MSA model (extra holds --attention full), which launches no K1.
+    train_dir: phase 11's set unless given. Returns (launch counts, the
+    epoch event)."""
     import glob
 
     import numpy as np
@@ -1735,7 +1753,9 @@ def _train_cli(tmp: str, env: str, extra):
     from dehaze_tpu_torch.ops import metrics as M
     from dehaze_tpu_torch.train.checkpoint import load_checkpoint
 
-    n_train, n_val = N_TRAIN, N_VAL
+    train_dir = train_dir or os.path.join(tmp, "train")
+    n_train = len(os.listdir(os.path.join(train_dir, "gt")))
+    n_val = N_VAL
     code = ("import json, sys\n"
             "from dehaze_tpu_torch.cli import train\n"
             "train.main(sys.argv[1:])\n"
@@ -1748,7 +1768,7 @@ def _train_cli(tmp: str, env: str, extra):
             "wa.window_attention_bwd.launches_tc, 'k2': "
             "leff.leff_fused.launches}))\n")
     save = os.path.join(tmp, "log")
-    args = ["--train_dir", os.path.join(tmp, "train"),
+    args = ["--train_dir", train_dir,
             "--val_dir", os.path.join(tmp, "val"),
             "--train_ps", str(TRAIN_PS), "--batch_size", str(TRAIN_BATCH),
             "--embed_dim", "32", "--dtype", "bfloat16", "--nepoch", "1",
@@ -1774,8 +1794,9 @@ def _train_cli(tmp: str, env: str, extra):
     losses = epoch["step_losses"]
     steps = n_train // TRAIN_BATCH
     val_batches = -(-n_val // TRAIN_BATCH)
-    want = {"k1_fwd": 0, "k1_fwd_tc": 18 * (steps + len(evals) * val_batches),
-            "k1_bwd": 0, "k1_bwd_tc": 18 * steps,
+    k1 = 0 if wmsa else 18
+    want = {"k1_fwd": 0, "k1_fwd_tc": k1 * (steps + len(evals) * val_batches),
+            "k1_bwd": 0, "k1_bwd_tc": k1 * steps,
             "k2": 18 * len(evals) * val_batches}
     models = os.path.join(log_dir, "models")
     best = os.path.join(models, "model_best.pth")
@@ -1788,15 +1809,17 @@ def _train_cli(tmp: str, env: str, extra):
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         fail(f"{what}: a step's loss is missing or not finite")
     if counts != want:
-        fail(f"{what}: kernel launches per step are not 18 K1 forward "
-             "and 18 K1 backward, all on the tensor cores (and 18 K2 per "
-             "eval forward)")
+        fail(f"{what}: kernel launches per step are not {k1} K1 forward "
+             f"and {k1} K1 backward, all on the tensor cores (and 18 K2 "
+             "per eval forward)")
     for f in (best, os.path.join(models, "epoch_model_1.pth")):
         if not os.path.exists(f):
             fail(f"{what} did not write {f}")
     # reload model_best.pth into a fresh model; eval as the trainer does
     payload = load_checkpoint(best)
-    model = build_model_and_params(ModelConfig(), best, torch.device("cuda"))
+    model = build_model_and_params(
+        ModelConfig(attention="full" if wmsa else "probsparse"), best,
+        torch.device("cuda"))
     val, nv = _val_batches(PairedFolder(os.path.join(tmp, "val")), TRAIN_PS,
                            TRAIN_BATCH, u8=True)
     ps = []
@@ -2137,6 +2160,235 @@ def phase_train_profile(tmp: str):
                     2, step_ms)
 
 
+# The stages of Uformer-32 on the serving rect canvas 1280×1664: feature
+# map H × W and heads; head dim 32 and 8×8 windows at each, the second
+# block shifted except in the bottleneck (its configured resolution is the
+# window's).
+WMSA_STAGES = [("enc0", 1280, 1664, 1), ("enc1", 640, 832, 2),
+               ("enc2", 320, 416, 4), ("enc3", 160, 208, 8),
+               ("bottleneck", 80, 104, 16), ("dec0", 160, 208, 16),
+               ("dec1", 320, 416, 8), ("dec2", 640, 832, 4),
+               ("dec3", 1280, 1664, 2)]
+# 13c: the W-MSA training run's data: the first 128 pairs of phase 11's
+# set (4 steps).
+WMSA_TRAIN_PAIRS = 128
+
+
+def _wmsa_attention_ms():
+    """CUDA-event ms of `ops.probsparse.full_window_attention` (plain
+    torch, bf16, token-major) at each of the 18 attention calls of a
+    serving frame: {stage: ms of its two blocks}."""
+    import torch
+
+    from dehaze_tpu_torch.ops import window as win_ops
+    from dehaze_tpu_torch.ops.probsparse import full_window_attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for name, h, w, heads in WMSA_STAGES:
+        nw = (h // 8) * (w // 8)
+        q, k, v = (torch.randn((nw, 64, heads, 32), generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        bias = win_ops.gather_rel_pos_bias(
+            torch.randn((15 * 15, heads), generator=g, device="cuda") * 0.02,
+            8, 8)
+        region = (None if name == "bottleneck" else torch.from_numpy(
+            win_ops.shift_region_ids(h, w, 8, 4)).cuda())
+        ms = 0.0
+        for reg in (None, region):
+            ms += cuda_ms(lambda: full_window_attention(
+                q, k, v, rel_pos_bias=bias, sw_region=reg, layout="bnhd"), 5)
+        out[name] = ms
+        del q, k, v
+    return out
+
+
+def phase_wmsa(tmp: str):
+    """13. The W-MSA Uformer-32 (`attention='full'`: plain torch attention,
+    K2 for LeFF, no K1), seeded random weights:
+    (a) f32 with TF32 off, CUDA (K2) against CPU (its twin), same weights:
+        'linear'+'leff' at 256², 'conv'+'ffn'+`se_layer` and
+        'linear_concat'+'leff' at 128², each within MODEL_TOL;
+    (b) the 1200×1600 frame, bf16, rect canvas, through the whole-image
+        function: s/frame, Mpix/s, peak memory; 18 K2 and 0 K1 launches per
+        frame and no twin call; the attention alone at the frame's 18 shapes
+        (CUDA events) and a profile of one frame;
+    (c) `cli.train --attention full` at batch 32 × 128², CR on, on 128 of
+        phase 11's pairs (4 steps, 4 evals): finite losses, img/s, no K1;
+    (d) `cli.export --square` in process: the artifact bit for bit the
+        eager forward, both timed in turns; `cli.parity_gate --attention
+        full` on phase 9's three pairs at the in-process mean PSNR (--tol
+        1e-3, exit 0; per-image PSNRs as the in-process function's) and
+        `cli.test_long --exported` (its PSNRs as the gate's, which are
+        --weights').
+    Returns the launches of each path: serve_wmsa, eval_wmsa (the gate),
+    eval_exported_wmsa, train_wmsa."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli import export as cli_export
+    from dehaze_tpu_torch.cli.common import build_model_and_params
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.data.pipeline import PairedFolder, val_images
+    from dehaze_tpu_torch.infer.export import load_exported
+    from dehaze_tpu_torch.infer.tiled import make_whole_image_fn
+    from dehaze_tpu_torch.models.uformer import Uformer
+    from dehaze_tpu_torch.ops import metrics as M
+
+    # (a) CUDA against CPU, f32
+    for flags, size in (({}, 256),
+                        (dict(token_projection="conv", token_mlp="ffn",
+                              se_layer=True), 128),
+                        (dict(token_projection="linear_concat"), 128)):
+        torch.manual_seed(SEED)
+        cfg = ModelConfig(attention="full", dtype=torch.float32, **flags)
+        cpu = Uformer(cfg).eval()
+        gpu = Uformer(cfg, device="cuda").eval()
+        gpu.load_state_dict(cpu.state_dict())
+        x = torch.from_numpy(np.random.default_rng(SEED).uniform(
+            size=(1, size, size, 3)).astype(np.float32))
+        reset_counts()
+        with torch.inference_mode():
+            want = cpu(x)
+            got = gpu(x.cuda()).cpu()
+        k2 = read_counts()["k2"]
+        d = (got - want).abs()
+        label = "+".join([flags.get("token_projection", "linear"),
+                          flags.get("token_mlp", "leff")]
+                         + (["se_layer"] if flags.get("se_layer") else []))
+        print(f"W-MSA {label} {size}² f32 CUDA vs CPU: max|d|="
+              f"{float(d.max()):.3e} mean|d|={float(d.mean()):.3e}; K2 "
+              f"launches {k2}", flush=True)
+        if not torch.isfinite(got).all() or float(d.max()) > MODEL_TOL:
+            fail(f"W-MSA {label}: CUDA vs CPU beyond {MODEL_TOL:g}")
+        if k2 != (0 if flags.get("token_mlp") == "ffn" else 18):
+            fail(f"W-MSA {label}: {k2} K2 launches on the card")
+        if label == "linear+leff":
+            pth = os.path.join(tmp, "uformer32_wmsa_seed.pth")
+            torch.save({"state_dict": cpu.state_dict()}, pth)
+        del cpu, gpu
+
+    # (b) the serving frame, bf16
+    model = build_model_and_params(ModelConfig(attention="full"), pth,
+                                   torch.device("cuda"))
+    run = make_whole_image_fn(model, *FRAME, 128, square=False,
+                              device="cuda")
+    frame = np.random.default_rng(SEED).integers(
+        0, 256, size=(1,) + FRAME + (3,), dtype=np.uint8)
+    run(frame)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    reps = 3
+    with _TwinCounts() as twins:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            y = run(frame)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / reps
+    serve = {**read_counts(), **twins}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    attn = _wmsa_attention_ms()
+    total = sum(attn.values())
+    mpix = FRAME[0] * FRAME[1] / 1e6
+    print(f"W-MSA whole image {FRAME[0]}x{FRAME[1]} rect canvas 1280x1664 "
+          f"bf16: {secs:.4f} s/frame {mpix / secs:.3f} Mpix/s peak mem "
+          f"{peak:.2f} GiB; launches over {reps} frames K1 (tensor cores) "
+          f"{serve['k1_fwd_tc']} (CUDA cores) {serve['k1_fwd']} K2 "
+          f"{serve['k2']}, twin calls K1 {twins['twin_k1']} K2 "
+          f"{twins['twin_k2']}; range [{float(y.min()):.4f}, "
+          f"{float(y.max()):.4f}]", flush=True)
+    print(f"W-MSA attention alone at the frame's 18 calls (bf16, CUDA "
+          f"events): {total:.3f} ms, {total / (secs * 1e3):.1%} of the "
+          "frame; by stage (two blocks each): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in attn.items()), flush=True)
+    if tuple(y.shape) != (1,) + FRAME + (3,) \
+            or not bool(torch.isfinite(y).all()):
+        fail("W-MSA whole-image output has the wrong shape or non-finite "
+             "values")
+    _check_launches("W-MSA whole-image forward", serve, reps, k1=0)
+    _profile(f"one W-MSA {FRAME[0]}x{FRAME[1]} serving frame on the rect "
+             "canvas, bf16", lambda: run(frame), 1, secs * 1e3)
+
+    # (d) the gate, the artifact and test_long --exported on phase 9's pairs
+    folder = os.path.join(tmp, "eval_long")
+    psnrs = []
+    for clean, hazy, _ in val_images(PairedFolder(folder)):
+        sq = make_whole_image_fn(model, *hazy.shape[:2], 128, square=True,
+                                 device="cuda")
+        psnrs.append(float(M.psnr(sq(hazy[None])[0],
+                                  torch.from_numpy(clean).cuda())))
+    mean = float(np.mean(psnrs))
+    art = os.path.join(tmp, "wmsa_square.dhz")
+    info = cli_export.main(["--weights", pth, "--attention", "full",
+                            "--square", "--out", art])
+    fn, _ = load_exported(art, "cuda")
+    eager = make_whole_image_fn(model, *FRAME, 128, square=True,
+                                device="cuda")
+    x = torch.from_numpy(frame.astype(np.float32) / 255.0).cuda()
+    same = torch.equal(fn(x), eager(x))
+    times = [cuda_ms(lambda: fn(x), 5), cuda_ms(lambda: eager(x), 5),
+             cuda_ms(lambda: eager(x), 5), cuda_ms(lambda: fn(x), 5)]
+    print(f"W-MSA artifact (square canvas 1664², {info['mb']:.1f} MB, "
+          f"export {info['export_s']:.1f}s) against the eager forward: "
+          f"equal {same}; ms/frame artifact, eager, eager, artifact: "
+          f"{', '.join(f'{t:.2f}' for t in times)}", flush=True)
+    if not same:
+        fail("the W-MSA artifact differs from the eager CUDA forward")
+    del model, run, fn, eager
+    out, gate, secs = _counted_cli(
+        "parity_gate", ["--ref_ckpt", pth, "--input_dir", folder,
+                        "--attention", "full", "--expected_psnr",
+                        repr(mean), "--tol", "1e-3"], "--attention full")
+    gate_psnrs = [float(p) for p in re.findall(r"^\S+: PSNR (\S+) SSIM",
+                                               out, re.M)]
+    worst = max((abs(a - b) for a, b in zip(gate_psnrs, psnrs)),
+                default=math.inf)
+    per_frame = float(re.search(r"frames: (\S+) s/frame", out).group(1))
+    print(f"cli.parity_gate --attention full (in-process mean {mean:.6f}, "
+          f"--tol 1e-3): {'PARITY OK' in out}; {len(gate_psnrs)} frames, "
+          f"{per_frame:.4f} s/frame after the first on the square canvas "
+          f"1664²; per-image PSNR vs the in-process function max |d| "
+          f"{worst:.2e} dB; subprocess {secs:.1f}s", flush=True)
+    if "PARITY OK" not in out or len(gate_psnrs) != 3 \
+            or worst > EVAL_PSNR_TOL:
+        fail("cli.parity_gate --attention full: no PARITY OK at the "
+             "in-process PSNR")
+    _check_launches("cli.parity_gate --attention full", gate, 3, k1=0)
+    out, exported, secs = _counted_cli(
+        "test_long", ["--input_dir", folder, "--exported", art,
+                      "--no-save_images"],
+        "--exported (W-MSA)")
+    got = [float(p) for p in re.findall(r"^\S+: PSNR (\S+) SSIM", out,
+                                        re.M)]
+    per_frame = float(re.search(r"frames: (\S+) s/frame", out).group(1))
+    print(f"cli.test_long --exported (W-MSA square artifact): "
+          f"{per_frame:.4f} s/frame after the first; PSNRs {got} against "
+          f"--weights' {gate_psnrs}; subprocess {secs:.1f}s", flush=True)
+    worst = max((abs(a - b) for a, b in zip(got, gate_psnrs)),
+                default=math.inf)
+    if len(got) != 3 or worst > EVAL_PSNR_TOL:
+        fail("cli.test_long --exported (W-MSA): PSNRs differ from "
+             "--weights")
+    _check_launches("cli.test_long --exported (W-MSA)", exported, 3, k1=0)
+
+    # (c) training, on a 128-pair subset of phase 11's set
+    sub = os.path.join(tmp, "train_wmsa")
+    for part in ("gt", "hazy"):
+        os.makedirs(os.path.join(sub, part))
+        for name in sorted(os.listdir(os.path.join(tmp, "train", part))
+                           )[:WMSA_TRAIN_PAIRS]:
+            os.symlink(os.path.join(tmp, "train", part, name),
+                       os.path.join(sub, part, name))
+    train, _, _ = _train_cli(tmp, "_wmsa", ["--attention", "full"],
+                             wmsa=True, train_dir=sub)
+    return {"serve_wmsa": serve, "eval_wmsa": gate,
+            "eval_exported_wmsa": exported, "train_wmsa": train}
+
+
 _GROUPS = [("K1 bwd (tensor cores)", ("window_attention_tc_bwd",
                                        "dbias_reduce")),
            ("K1 bwd (CUDA cores)", ("window_attention_bwd",)),
@@ -2227,6 +2479,7 @@ def main() -> None:
         device_data = phase_device_data(tmp, stream_epoch)
         remat = phase_remat(tmp)
         phase_train_profile(tmp)
+        wmsa = phase_wmsa(tmp)
 
     def entry(name, source, replaces, res, main, key, paths):
         row = next(r for r in res if r[:len(main)] == main)
@@ -2241,7 +2494,8 @@ def main() -> None:
 
     paths = {"serve": serve, "train": train, "eval": evals,
              "parity_gate": gate, **serving,
-             "train_device_data": device_data, "train_step_remat": remat}
+             "train_device_data": device_data, "train_step_remat": remat,
+             **wmsa}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
     # K1 rows by kernel, without the kernel column

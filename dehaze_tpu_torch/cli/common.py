@@ -5,9 +5,11 @@ training and evaluation paths use; flag names are the same. `config_from_args`
 returns a `Config`; the serving and evaluation CLIs read its `model`.
 `--weights` takes a `.pth` state_dict (the reference's checkpoint format or
 a bare state_dict); `--exported` a `cli.export` artifact, in place of
-`--weights` (`resolve_forward`). `--arch ffa|unet` parses and is refused by
-`models.uformer.check_config`; `--data_axis` and `--bands` above 1 are not
-ported yet and raise.
+`--weights` (`resolve_forward`). `--attention full` selects the W-MSA
+Uformer, with `--token_projection`, `--token_mlp` and `--se_layer`.
+`--arch ffa|unet` parses and is refused by `models.uformer.check_config`,
+as are the combinations the JAX package refuses; `--data_axis` and
+`--bands` above 1 are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -37,6 +39,15 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="only the Uformer is ported; the others raise")
     p.add_argument("--embed_dim", type=int, default=32)
     p.add_argument("--win_size", type=int, default=8)
+    p.add_argument("--token_projection", default="linear",
+                   choices=["linear", "conv", "linear_concat"])
+    p.add_argument("--token_mlp", default="leff", choices=["leff", "ffn"])
+    p.add_argument("--se_layer", action="store_true",
+                   help="squeeze-excite after the attention projection "
+                        "(attention='full' only)")
+    p.add_argument("--attention", default="probsparse",
+                   choices=["probsparse", "full"],
+                   help="'full': the W-MSA Uformer (one softmax per window)")
     p.add_argument("--no_rel_pos_bias", action="store_true",
                    help="ablation: disable relative position bias")
     p.add_argument("--dtype", default="bfloat16", choices=sorted(_DTYPES))
@@ -122,6 +133,9 @@ def config_from_args(a: argparse.Namespace) -> Config:
     return Config(
         model=ModelConfig(arch=a.arch, img_size=a.train_ps,
                           embed_dim=a.embed_dim, win_size=a.win_size,
+                          token_projection=a.token_projection,
+                          token_mlp=a.token_mlp, se_layer=a.se_layer,
+                          attention=a.attention,
                           use_rel_pos_bias=not a.no_rel_pos_bias,
                           dtype=_DTYPES[a.dtype], fast_gelu=a.fast_gelu,
                           remat=a.remat),

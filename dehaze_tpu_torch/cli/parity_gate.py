@@ -10,9 +10,9 @@ it does, 1 when it does not.
 
 Prints a `name: PSNR p SSIM s` line per image, the mean and the s/frame
 lines of the port's eval CLIs, and last the verdict line of the JAX gate.
-The ProbSparse sampling generator is seeded 0 for every frame. The gate
-covers the ProbSparse Uformer; `--attention full` is refused until the
-W-MSA variant is ported.
+The ProbSparse sampling generator is seeded 0 for every frame. The model
+flags are the common ones: `--attention full` (with `--token_projection`,
+`--token_mlp`, `--se_layer`) checks a W-MSA checkpoint.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ import torch
 from dehaze_tpu_torch.cli.common import (add_common_args,
                                          build_model_and_params,
                                          config_from_args, evaluate)
-from dehaze_tpu_torch.config import replace
 from dehaze_tpu_torch.infer.tiled import make_whole_image_fn
 
 
@@ -41,9 +40,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="published NH-HAZE whole-image PSNR")
     p.add_argument("--tol", type=float, default=0.05)
     p.add_argument("--ssim_data_range", type=float, default=2.0)
-    p.add_argument("--attention", default="probsparse",
-                   choices=["probsparse", "full"],
-                   help="'full' (W-MSA) is not ported yet (raises)")
     return p
 
 
@@ -69,7 +65,7 @@ def evaluate_checkpoint(cfg, ref_ckpt: str, input_dir: str, train_ps: int,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    cfg = replace(config_from_args(args).model, attention=args.attention)
+    cfg = config_from_args(args).model
     psnr, ssim = evaluate_checkpoint(cfg, args.ref_ckpt, args.input_dir,
                                      args.train_ps, args.ssim_data_range,
                                      args.device)

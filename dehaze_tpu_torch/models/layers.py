@@ -3,7 +3,9 @@
 All modules take and return NHWC tensors. Parameters are float32 and carry
 the reference torch model's state_dict names (`proj.0`, `conv.0`,
 `deconv.0`, `linear1.0`, `dwconv.0`, `linear2.0`: the reference wraps each
-layer in an `nn.Sequential`), so reference `.pth` checkpoints load
+layer in an `nn.Sequential`; `fc1`/`fc2` of the plain FFN, `fc.0`/`fc.2`
+of the squeeze-excite gate, `depthwise`/`pointwise` of the separable
+conv), so reference `.pth` checkpoints load
 unchanged; each forward casts them to the activation dtype
 at use, as the JAX modules do.
 """
@@ -173,3 +175,72 @@ class LeFF(nn.Module):
             b1=l1.bias, dw_kernel=dw.weight.permute(2, 3, 1, 0),
             dw_bias=dw.bias, w2=l2.weight.t(), b2=l2.bias, eps=norm.eps,
             fast_gelu=self.fast_gelu)
+
+
+class Mlp(nn.Module):
+    """The plain FFN of token_mlp='ffn': Linear(C→hidden) → GELU → dropout
+    → Linear(hidden→C) → dropout (state_dict `fc1`, `fc2`). forward takes
+    the normalised tokens; its dropouts draw from `dropout_gen` in
+    training (none is needed at rate 0)."""
+
+    def __init__(self, dim: int, hidden_dim: int, drop: float = 0.0,
+                 fast_gelu: bool = False, device=None):
+        super().__init__()
+        self.drop = drop
+        self.fast_gelu = fast_gelu
+        self.fc1 = nn.Linear(dim, hidden_dim, device=device)
+        self.fc2 = nn.Linear(hidden_dim, dim, device=device)
+
+    def forward(self, x: torch.Tensor,
+                dropout_gen: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        h = F.linear(x, cast(self.fc1.weight, x), cast(self.fc1.bias, x))
+        h = F.gelu(h, approximate="tanh" if self.fast_gelu else "none")
+        h = dropout(h, self.drop, self.training, dropout_gen)
+        y = F.linear(h, cast(self.fc2.weight, h), cast(self.fc2.bias, h))
+        return dropout(y, self.drop, self.training, dropout_gen)
+
+
+class SELayer(nn.Module):
+    """Squeeze-excite over the tokens of each window, [B, N, C]: mean over
+    N (float32) → Linear(C→C//reduction) → ReLU → Linear(→C) → sigmoid
+    (float32), multiplied back per channel. Both Linears are bias-free
+    (state_dict `fc.0`, `fc.2`); below C = reduction the first is
+    zero-width, as the reference builds it, and the gate is sigmoid(0)."""
+
+    def __init__(self, channels: int, reduction: int = 16, device=None):
+        super().__init__()
+        self.fc = nn.Sequential(
+            nn.Linear(channels, channels // reduction, bias=False,
+                      device=device),
+            nn.ReLU(),
+            nn.Linear(channels // reduction, channels, bias=False,
+                      device=device),
+            nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.float().mean(dim=1).to(x.dtype)
+        y = F.relu(F.linear(y, cast(self.fc[0].weight, x)))
+        y = F.linear(y, cast(self.fc[2].weight, x))
+        return x * torch.sigmoid(y.float()).to(x.dtype)[:, None, :]
+
+
+class SepConv2d(nn.Module):
+    """Separable conv on NHWC: depthwise k×k (zero padding k//2) → ReLU →
+    pointwise 1×1, both with bias (state_dict `depthwise`, `pointwise`)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, device=None):
+        super().__init__()
+        self.depthwise = nn.Conv2d(in_channels, in_channels, kernel_size,
+                                   padding=kernel_size // 2,
+                                   groups=in_channels, device=device)
+        self.pointwise = nn.Conv2d(in_channels, out_channels, 1,
+                                   device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dw, pw = self.depthwise, self.pointwise
+        y = F.conv2d(_nchw(x), cast(dw.weight, x), cast(dw.bias, x),
+                     padding=dw.padding, groups=dw.groups)
+        y = F.conv2d(F.relu(y), cast(pw.weight, x), cast(pw.bias, x))
+        return _nhwc(y)

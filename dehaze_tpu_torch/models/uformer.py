@@ -1,5 +1,16 @@
-"""Uformer with ProbSparse window attention (counterpart of
-`dehaze_tpu/models/uformer.py`, the `attention='probsparse'` flavor).
+"""Uformer with window attention (counterpart of
+`dehaze_tpu/models/uformer.py`), both flavors:
+
+- ``attention='probsparse'``: ProbSparse attention in each window through
+  kernel K1 (the reference's active `My_model_1.py` model);
+- ``attention='full'``: W-MSA, one softmax over each window in plain torch
+  (`ops.probsparse.full_window_attention`; the JAX package has no TPU
+  kernel for it either), with the q/k/v projection named by
+  `token_projection` ('linear', 'conv', 'linear_concat') and an optional
+  squeeze-excite gate (`se_layer`): the reference's `My_model.py`.
+
+The feed-forward part is LeFF (`token_mlp='leff'`, kernel K2 at eval) or
+the plain FFN (`'ffn'`), under either flavor.
 
 InputProj → 4 encoder stages (depth × LeWin block, then a 4×4/s2 conv that
 doubles C) → bottleneck stage → 4 decoder stages (2×2/s2 transposed conv that
@@ -9,30 +20,32 @@ residual x + y. NHWC throughout; parameters float32, activations in
 
 Module names follow the reference torch model's state_dict
 (`encoderlayer_{i}`, `dowsample_{i}`, `conv` for the bottleneck,
-`upsample_{i}`, `decoderlayer_{i}`, `attn.ProbSpare.*_projection`), which
+`upsample_{i}`, `decoderlayer_{i}`, `attn.ProbSpare.*_projection`,
+`attn.qkv.*`, `attn.proj`, `attn.se_layer.fc.*`, `mlp.fc1`), which
 `dehaze_tpu/utils/convert_torch.py` reads.
 
 ProbSparse key sampling draws from the `generator` passed to forward: each
-attention layer draws its [N, U_part] table in module order, so a forward
+ProbSparse layer draws its [N, U_part] table in module order, so a forward
 with a freshly seeded generator is deterministic. Serving re-seeds it per
 forward; training lets it advance from step to step. A forward given
-`sample_tables` (one table per attention layer, in module order) draws
+`sample_tables` (one table per ProbSparse layer, in module order) draws
 nothing and uses those: `draw_sample_tables` draws the list a forward with
 a generator would, so the two compute the same. An exported artifact
-(`infer.export`) folds such a list in. In train mode,
-DropPath and dropout draw their masks from the `droppath` and
-`dropout_gen` generators (none is needed at rate 0), never from torch's
-global RNG.
+(`infer.export`) folds such a list in; a W-MSA model has none and ignores
+the generator. In train mode, DropPath and dropout draw their masks from
+the `droppath` and `dropout_gen` generators (none is needed at rate 0),
+never from torch's global RNG.
 
 With `cfg.remat`, each LeWin block runs under `torch.utils.checkpoint`
 when grad is on, and its activations are recomputed in the backward pass.
 The recompute replays the block's draws from the generators (its sample
-tables and DropPath masks), which `preserve_rng_state` alone would not:
-that restores torch's global RNG only.
+tables, DropPath and dropout masks), which `preserve_rng_state` alone
+would not: that restores torch's global RNG only.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -42,9 +55,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from dehaze_tpu_torch.config import ModelConfig
-from dehaze_tpu_torch.models.layers import (DropPath, InputProj, LeFF,
-                                            OutputProj, Downsample, Upsample,
-                                            cast, dropout, layer_norm)
+from dehaze_tpu_torch.models.layers import (DropPath, InputProj, LeFF, Mlp,
+                                            OutputProj, Downsample, SELayer,
+                                            SepConv2d, Upsample, cast,
+                                            dropout, layer_norm)
 from dehaze_tpu_torch.ops import probsparse as ps_ops
 from dehaze_tpu_torch.ops import window as win_ops
 from dehaze_tpu_torch.ops.kernels.window_attention import (
@@ -85,7 +99,8 @@ def pad_flags(pad_mask: torch.Tensor, H: int, W: int,
 
 
 def _linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, cast(m.weight, x), cast(m.bias, x))
+    return F.linear(x, cast(m.weight, x),
+                    None if m.bias is None else cast(m.bias, x))
 
 
 class AttentionLayer(nn.Module):
@@ -150,8 +165,93 @@ class WindowAttention(nn.Module):
         return _linear(p.out_projection, out)
 
 
+class QKVProjection(nn.Module):
+    """The W-MSA q/k/v projection (state_dict `attn.qkv.*`), by
+    token_projection, as the reference builds it:
+    'linear' `to_q` [C→C] + `to_kv` [C→2C] (LinearProjection);
+    'linear_concat' `to_qkv` [C→3C] + `to_kv` [C→2C], k and v the 2N-token
+    concat of the two (LinearProjection_Concat_kv);
+    'conv' `to_q`, `to_k`, `to_v`, each a 3×3 SepConv2d over the window as
+    a √N × √N tile with zero padding (ConvProjection)."""
+
+    def __init__(self, dim: int, token_projection: str, bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.kind = token_projection
+        if token_projection == "conv":
+            self.to_q, self.to_k, self.to_v = (
+                SepConv2d(dim, dim, 3, device=device) for _ in range(3))
+            return
+        if token_projection == "linear_concat":
+            self.to_qkv = nn.Linear(dim, 3 * dim, bias=bias, device=device)
+        else:
+            self.to_q = nn.Linear(dim, dim, bias=bias, device=device)
+        self.to_kv = nn.Linear(dim, 2 * dim, bias=bias, device=device)
+
+    def forward(self, x: torch.Tensor, heads: int):
+        """x [B_, N, C] → q [B_, N, h, d] and k, v [B_, M, h, d] (M = 2N
+        for 'linear_concat', else N)."""
+        b, n, c = x.shape
+        d = c // heads
+        if self.kind == "conv":
+            side = math.isqrt(n)
+            tile = x.reshape(b, side, side, c)
+            return tuple(m(tile).reshape(b, n, heads, d)
+                         for m in (self.to_q, self.to_k, self.to_v))
+        kv = _linear(self.to_kv, x).reshape(b, n, 2, heads, d)
+        if self.kind == "linear_concat":
+            qkv = _linear(self.to_qkv, x).reshape(b, n, 3, heads, d)
+            return (qkv[:, :, 0],
+                    torch.cat([qkv[:, :, 1], kv[:, :, 0]], dim=1),
+                    torch.cat([qkv[:, :, 2], kv[:, :, 1]], dim=1))
+        q = _linear(self.to_q, x).reshape(b, n, heads, d)
+        return q, kv[:, :, 0], kv[:, :, 1]
+
+
+class FullWindowAttention(nn.Module):
+    """W-MSA with relative-position bias (`attention='full'`): the
+    projection of `token_projection` (`QKVProjection`), single-softmax
+    attention in plain torch (`ops.probsparse.full_window_attention`), the
+    output Linear `proj`, then the squeeze-excite gate `se_layer` if
+    asked."""
+
+    def __init__(self, dim: int, win_size: int, num_heads: int,
+                 token_projection: str = "linear", qkv_bias: bool = True,
+                 se_layer: bool = False, use_rel_pos_bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.win_size = win_size
+        self.num_heads = num_heads
+        self.relative_position_bias_table = None
+        if use_rel_pos_bias:
+            self.relative_position_bias_table = nn.Parameter(torch.empty(
+                (2 * win_size - 1) ** 2, num_heads, device=device))
+        self.qkv = QKVProjection(dim, token_projection, qkv_bias,
+                                 device=device)
+        self.proj = nn.Linear(dim, dim, device=device)
+        self.se_layer = SELayer(dim, device=device) if se_layer else None
+
+    def forward(self, x: torch.Tensor, sw_region: Optional[torch.Tensor],
+                pad_flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, n, c = x.shape
+        q, k, v = self.qkv(x, self.num_heads)
+        bias = None
+        if self.relative_position_bias_table is not None:
+            bias = win_ops.gather_rel_pos_bias(
+                self.relative_position_bias_table, self.win_size,
+                self.win_size)
+        out = ps_ops.full_window_attention(
+            q, k, v, rel_pos_bias=bias, sw_region=sw_region,
+            pad_flag=pad_flag, layout="bnhd")
+        out = _linear(self.proj, out.reshape(b, n, c))
+        return out if self.se_layer is None else self.se_layer(out)
+
+
 class LeWinBlock(nn.Module):
-    """x + WinAttn(LN(x), shift); then x + LeFF(LN(x)).
+    """x + WinAttn(LN(x), shift); then x + LeFF(LN(x)) or x + Mlp(LN(x)).
+    WinAttn is `WindowAttention` (ProbSparse, K1) or `FullWindowAttention`
+    (W-MSA) by `attention`; the feed-forward part LeFF or Mlp by
+    `token_mlp`.
 
     Window and shift collapse (win = resolution, shift 0) when the
     CONFIGURED stage resolution is not bigger than the window, so the
@@ -162,7 +262,10 @@ class LeWinBlock(nn.Module):
                  win_size: int = 8, shift_size: int = 0,
                  mlp_ratio: float = 4.0, drop_path: float = 0.0,
                  factor: int = 5, use_rel_pos_bias: bool = True,
-                 fast_gelu: bool = False, device=None):
+                 fast_gelu: bool = False, attention: str = "probsparse",
+                 token_projection: str = "linear", token_mlp: str = "leff",
+                 se_layer: bool = False, qkv_bias: bool = True,
+                 drop: float = 0.0, device=None):
         super().__init__()
         self.win = win_size
         self.shift = shift_size
@@ -170,18 +273,28 @@ class LeWinBlock(nn.Module):
             self.win = input_resolution
             self.shift = 0
         self.norm1 = nn.LayerNorm(dim, eps=1e-5, device=device)
-        self.attn = WindowAttention(dim, self.win, num_heads, factor,
-                                    use_rel_pos_bias, device=device)
+        if attention == "full":
+            self.attn = FullWindowAttention(
+                dim, self.win, num_heads, token_projection, qkv_bias,
+                se_layer, use_rel_pos_bias, device=device)
+        else:
+            self.attn = WindowAttention(dim, self.win, num_heads, factor,
+                                        use_rel_pos_bias, device=device)
         self.drop_path = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
-        self.mlp = LeFF(dim, int(dim * mlp_ratio), fast_gelu=fast_gelu,
-                        device=device)
+        hidden = int(dim * mlp_ratio)
+        if token_mlp == "leff":
+            self.mlp = LeFF(dim, hidden, fast_gelu=fast_gelu, device=device)
+        else:
+            self.mlp = Mlp(dim, hidden, drop, fast_gelu, device=device)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 droppath: Optional[torch.Generator] = None,
                 pad_mask: Optional[torch.Tensor] = None,
-                sample_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                sample_idx: Optional[torch.Tensor] = None,
+                dropout_gen: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         B, H, W, C = x.shape
         win, shift = self.win, self.shift
         if H % win or W % win:
@@ -195,41 +308,52 @@ class LeWinBlock(nn.Module):
             sw_region = _region_ids(H, W, win, shift, x.device)
         pad_flag = (None if pad_mask is None
                     else pad_flags(pad_mask, H, W, win))
-        y = self.attn(win_ops.window_partition(y, win), sw_region, generator,
-                      pad_flag, sample_idx)
+        y = win_ops.window_partition(y, win)
+        if isinstance(self.attn, WindowAttention):
+            y = self.attn(y, sw_region, generator, pad_flag, sample_idx)
+        else:
+            y = self.attn(y, sw_region, pad_flag)
         y = win_ops.window_reverse(y, win, H, W)
         if shift > 0:
             y = win_ops.cyclic_unshift(y, shift)
         x = x + self.drop_path(y, droppath)
-        return x + self.drop_path(self.mlp(x, self.norm2), droppath)
+        if isinstance(self.mlp, LeFF):
+            z = self.mlp(x, self.norm2)
+        else:
+            z = self.mlp(layer_norm(x, self.norm2), dropout_gen)
+        return x + self.drop_path(z, droppath)
 
 
 def _remat_block(blk: LeWinBlock, x: torch.Tensor,
                  generator: Optional[torch.Generator],
                  droppath: Optional[torch.Generator],
                  pad_mask: Optional[torch.Tensor],
-                 sample_idx: Optional[torch.Tensor]) -> torch.Tensor:
+                 sample_idx: Optional[torch.Tensor],
+                 dropout_gen: Optional[torch.Generator]) -> torch.Tensor:
     """blk(x, ...) with its activations recomputed in the backward pass.
 
     The generators' states at the block's entry are kept; the recompute
-    starts from them, so it draws the forward's sample tables and DropPath
-    masks, and afterwards puts back the states it found (in `finally`: the
-    checkpoint may stop a recompute early), so later blocks and steps see
-    the generators as they would without remat."""
-    gens = [g for g in (generator, droppath) if g is not None]
+    starts from them, so it draws the forward's sample tables, DropPath
+    and dropout masks, and afterwards puts back the states it found (in
+    `finally`: the checkpoint may stop a recompute early), so later blocks
+    and steps see the generators as they would without remat."""
+    gens = [g for g in (generator, droppath, dropout_gen) if g is not None]
     entry = [g.get_state() for g in gens]
     replay = False
+
+    def call(x, pad_mask):
+        return blk(x, generator, droppath, pad_mask, sample_idx, dropout_gen)
 
     def run(x, pad_mask):
         nonlocal replay
         if not replay:  # the forward itself
             replay = True
-            return blk(x, generator, droppath, pad_mask, sample_idx)
+            return call(x, pad_mask)
         found = [g.get_state() for g in gens]
         for g, state in zip(gens, entry):
             g.set_state(state)
         try:
-            return blk(x, generator, droppath, pad_mask, sample_idx)
+            return call(x, pad_mask)
         finally:
             for g, state in zip(gens, found):
                 g.set_state(state)
@@ -253,7 +377,10 @@ class UformerStage(nn.Module):
                 mlp_ratio=cfg.mlp_ratio, drop_path=float(drop_path[j]),
                 factor=cfg.probsparse_factor,
                 use_rel_pos_bias=cfg.use_rel_pos_bias,
-                fast_gelu=cfg.fast_gelu, device=device)
+                fast_gelu=cfg.fast_gelu, attention=cfg.attention,
+                token_projection=cfg.token_projection,
+                token_mlp=cfg.token_mlp, se_layer=cfg.se_layer,
+                qkv_bias=cfg.qkv_bias, drop=cfg.drop_rate, device=device)
             for j in range(depth)])
         self.remat = cfg.remat
 
@@ -261,28 +388,43 @@ class UformerStage(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 droppath: Optional[torch.Generator] = None,
                 pad_mask: Optional[torch.Tensor] = None,
-                sample_tables: Optional[Sequence[torch.Tensor]] = None
+                sample_tables: Optional[Sequence[torch.Tensor]] = None,
+                dropout_gen: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        """sample_tables: one [N, U_part] table per block, or None to draw
-        them from `generator`."""
+        """sample_tables: one [N, U_part] table per block (None for a W-MSA
+        block), or None to draw them from `generator`."""
         remat = self.remat and torch.is_grad_enabled()
         for j, blk in enumerate(self.blocks):
             idx = None if sample_tables is None else sample_tables[j]
-            x = (_remat_block(blk, x, generator, droppath, pad_mask, idx)
-                 if remat else blk(x, generator, droppath, pad_mask, idx))
+            x = (_remat_block(blk, x, generator, droppath, pad_mask, idx,
+                              dropout_gen)
+                 if remat else blk(x, generator, droppath, pad_mask, idx,
+                                   dropout_gen))
         return x
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """Refuse configurations the port does not implement yet."""
+    """Refuse configurations the port does not implement, and the option
+    combinations the JAX package refuses (`dehaze_tpu/models/__init__.py`):
+    the reference's ProbSparse model builds the W-MSA projections and the
+    SE layer but its forward never calls them, so accepting them would
+    train a different model than asked."""
     if cfg.arch != "uformer":
         raise ValueError(f"arch {cfg.arch!r} is not ported yet")
-    if (cfg.attention != "probsparse" or cfg.token_projection != "linear"
-            or cfg.token_mlp != "leff" or cfg.se_layer):
+    for field, allowed in (("attention", ("probsparse", "full")),
+                           ("token_projection",
+                            ("linear", "conv", "linear_concat")),
+                           ("token_mlp", ("leff", "ffn"))):
+        value = getattr(cfg, field)
+        if value not in allowed:
+            raise ValueError(f"unknown {field} {value!r}; expected "
+                             + " | ".join(repr(a) for a in allowed))
+    if cfg.attention == "probsparse" and (cfg.token_projection != "linear"
+                                         or cfg.se_layer):
         raise ValueError(
-            "the port implements the ProbSparse Uformer only (attention="
-            "'probsparse', token_projection='linear', token_mlp='leff', no "
-            "se_layer)")
+            "token_projection='conv'/'linear_concat' and se_layer require "
+            "attention='full'; the reference's ProbSparse forward ignores "
+            "them")
 
 
 class Uformer(nn.Module):
@@ -336,11 +478,12 @@ class Uformer(nn.Module):
         bias tables, zero Linear biases, unit LayerNorms."""
         if isinstance(m, nn.Linear):
             nn.init.trunc_normal_(m.weight, std=0.02)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
-        elif (isinstance(m, WindowAttention)
+        elif (isinstance(m, (WindowAttention, FullWindowAttention))
               and m.relative_position_bias_table is not None):
             nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02)
 
@@ -353,21 +496,23 @@ class Uformer(nn.Module):
                 ) -> torch.Tensor:
         """pad_mask: [1, H, W, 1], 1 on padding (any-resolution inputs, see
         `infer.anyres`), or None. sample_tables: the ProbSparse tables of
-        every attention layer in module order (`draw_sample_tables`), used
-        in place of drawing them from `generator`; or None."""
+        every ProbSparse layer in module order (`draw_sample_tables`; none
+        for a W-MSA model), used in place of drawing them from
+        `generator`; or None."""
         n_enc = self.cfg.num_enc_layers
         if sample_tables is not None:
-            n = sum(self.cfg.depths)
+            n = sum(isinstance(m, WindowAttention) for m in self.modules())
             if len(sample_tables) != n:
                 raise ValueError(f"sample_tables holds {len(sample_tables)} "
-                                 f"tables; the model has {n} attention "
+                                 f"tables; the model has {n} ProbSparse "
                                  "layers")
             tables = iter(sample_tables)
 
         def run(stage, y):  # the stage's tables come next in module order
             idx = (None if sample_tables is None
-                   else [next(tables) for _ in stage.blocks])
-            return stage(y, generator, droppath, pad_mask, idx)
+                   else [next(tables) if isinstance(b.attn, WindowAttention)
+                         else None for b in stage.blocks])
+            return stage(y, generator, droppath, pad_mask, idx, dropout_gen)
 
         y = dropout(self.input_proj(x.to(self.cfg.dtype)), self.cfg.drop_rate,
                     self.training, dropout_gen)
@@ -388,8 +533,8 @@ class Uformer(nn.Module):
 def draw_sample_tables(model: Uformer, generator: Optional[torch.Generator],
                        device=None) -> List[torch.Tensor]:
     """The [N, U_part] ProbSparse tables a forward of `model` with
-    `generator` draws, one per attention layer in module order (the
-    forward's order), drawn as that forward draws them and then moved to
+    `generator` draws, one per ProbSparse layer in module order (the
+    forward's order; none for a W-MSA model), drawn as that forward draws them and then moved to
     `device` (default: where they were drawn). `model(x,
     sample_tables=draw_sample_tables(model, torch.Generator().manual_seed(
     s)))` computes `model(x, generator=torch.Generator().manual_seed(s))`."""

@@ -1,7 +1,9 @@
-"""ProbSparse window attention — the plain torch twins of kernels K1 and K3.
+"""Window attention: the plain torch twins of kernels K1 and K3, and W-MSA.
 
 Counterpart of `dehaze_tpu/ops/probsparse.py` (`probsparse_u`,
-`sample_indices`, `topu_row_mask_sorted`, and the `layout="bnc"` path);
+`sample_indices`, `topu_row_mask_sorted`, the `layout="bnc"` path, and
+`full_window_attention`, the single-softmax W-MSA that no TPU kernel
+computes);
 `probsparse_attention_bnc_bwd` is the plain twin of the K1 backward
 (`_kernel_v4_bwd` of `dehaze_tpu/ops/pallas/window_attention.py`).
 Semantics, per window and head:
@@ -288,3 +290,60 @@ def probsparse_attention_bnc_bwd(
         dk = dk * scale
     return (_tokens(dq, q.dtype), _tokens(dk, q.dtype), _tokens(dv, q.dtype),
             dbias)
+
+
+def _widen(t: torch.Tensor, m: int) -> torch.Tensor:
+    """[..., N] → [..., M] by repeating each column M // N times in place
+    (column j → columns ratio·j … ratio·j + ratio − 1): the reference's
+    interleaving `repeat('... c -> ... (c d)')`, not a tiling."""
+    return t if t.shape[-1] == m else t.repeat_interleave(m // t.shape[-1],
+                                                          dim=-1)
+
+
+def full_window_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    rel_pos_bias: Optional[torch.Tensor] = None,
+    sw_mask: Optional[torch.Tensor] = None,
+    sw_region: Optional[torch.Tensor] = None,
+    pad_flag: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    layout: str = "bhnd",
+) -> torch.Tensor:
+    """W-MSA / SW-MSA with one softmax: softmax(q·kᵀ·scale + bias + mask)
+    @ v, per window and head (the reference's `My_model.py` attention).
+
+    q: [B, H, N, D] ("bhnd") or [B, N, H, D] ("bnhd"); k and v carry M
+    tokens, M = N or, for token_projection='linear_concat', 2N. The
+    scores and the softmax are float32 (float64 for float64 inputs), q and
+    k cast up first, as the JAX einsum with preferred_element_type=f32
+    keeps them; the probabilities are rounded to v's dtype for P·V.
+    rel_pos_bias: [H, N, N] or [H, N, M]. The mask: sw_mask [nW, N, N],
+    or −100 where sw_region ids [nW, N] differ, plus −100 where both tokens
+    are padding (pad_flag [nW, N]); B must be a multiple of nW. An N-wide
+    bias or mask is widened to M by `_widen` (the reference's quirk, kept).
+    Returns the layout of q, in v's dtype."""
+    token_major = layout == "bnhd"
+    if token_major:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    B, H, N, D = q.shape
+    M = k.shape[2]
+    ct = _compute_dtype(q)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    s = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)).mul_(scale)
+    if rel_pos_bias is not None:
+        s += _widen(rel_pos_bias, M).to(ct)
+    if sw_mask is None:
+        mask = attention_mask(sw_region, pad_flag)
+    else:
+        pad = attention_mask(None, pad_flag)
+        mask = sw_mask if pad is None else sw_mask + pad
+    if mask is not None:
+        nW = mask.shape[0]
+        s.view(B // nW, nW, H, N, M).add_(_widen(mask, M).to(ct)[None, :,
+                                                                  None])
+    out = torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v)
+    return out.transpose(1, 2) if token_major else out

@@ -96,6 +96,16 @@ def shift_region_ids(H: int, W: int, win: int, shift: int) -> np.ndarray:
     return np.ascontiguousarray(img.transpose(0, 2, 1, 3).reshape(-1, win * win))
 
 
+@functools.lru_cache(maxsize=None)
+def shift_attn_mask(H: int, W: int, win: int, shift: int) -> np.ndarray:
+    """The full [nW, N, N] float32 {0, -100} SW-MSA mask (the reference's
+    layout), for tests and tools; the model builds it from
+    `shift_region_ids` with `region_mask` instead."""
+    region = shift_region_ids(H, W, win, shift)
+    diff = region[:, None, :] - region[:, :, None]
+    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
 def region_mask(region: torch.Tensor) -> torch.Tensor:
     """[..., N] region ids -> [..., N, N] additive {0, -100} float32 mask."""
     diff = region[..., None, :] != region[..., :, None]

@@ -1,12 +1,14 @@
 """Weights for the port: JAX params → torch state_dict, and `.pth` loading.
 
 `state_dict_from_jax_params` is the inverse of
-`dehaze_tpu/utils/convert_torch.py:convert_uformer_state_dict` for the
-ProbSparse Uformer:
+`dehaze_tpu/utils/convert_torch.py:convert_uformer_state_dict` for both
+attention flavors (every token_projection, the SE layer, LeFF and the
+plain FFN):
   kernel [in, out]          → Linear weight [out, in]
   HWIO [kh, kw, in, out]    → Conv2d weight [out, in, kh, kw]
   HWIO, spatially flipped   → ConvTranspose2d weight [in, out, kh, kw]
   LayerNorm scale/bias      → weight/bias
+  fused W-MSA `qkv` [C, 3C] → `to_q` [C, C] + `to_kv` [2C, C]
 """
 
 from __future__ import annotations
@@ -16,10 +18,13 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-# Keys that reference ProbSparse checkpoints carry but the model never uses:
-# the constructed-but-unused W-MSA projections and the rel-pos index buffer.
-_UNUSED_KEY_PARTS = (".attn.qkv.", ".attn.proj.",
-                     ".attn.relative_position_index")
+# The rel-pos index buffer, which every reference checkpoint carries and the
+# port computes; and the W-MSA projections and SE layer that the reference's
+# ProbSparse model builds but never calls, unused in a ProbSparse checkpoint
+# (one holding `attn.ProbSpare.*`) and the whole attention in a W-MSA one.
+_BUFFER_KEY_PARTS = (".attn.relative_position_index",)
+_PROBSPARSE_UNUSED_KEY_PARTS = (".attn.qkv.", ".attn.proj.",
+                                ".attn.se_layer.")
 
 
 def _t(a) -> torch.Tensor:
@@ -28,7 +33,8 @@ def _t(a) -> torch.Tensor:
 
 def _lin(sd, key, p):
     sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
-    sd[f"{key}.bias"] = _t(p["bias"])
+    if "bias" in p:  # absent: qkv_bias=False, the SE layer
+        sd[f"{key}.bias"] = _t(p["bias"])
 
 
 def _conv(sd, key, p):
@@ -57,14 +63,43 @@ def _stage(sd, prefix: str, stage: Mapping[str, Any]):
         if "relative_position_bias_table" in attn:
             sd[f"{b}.attn.relative_position_bias_table"] = _t(
                 attn["relative_position_bias_table"])
+        _attn(sd, f"{b}.attn", attn)
+        mlp = blk["mlp"]
+        if "fc1" in mlp:  # token_mlp='ffn'
+            _lin(sd, f"{b}.mlp.fc1", mlp["fc1"])
+            _lin(sd, f"{b}.mlp.fc2", mlp["fc2"])
+        else:
+            _lin(sd, f"{b}.mlp.linear1.0", mlp["linear1"])
+            _conv(sd, f"{b}.mlp.dwconv.0", mlp["dwconv"])
+            _lin(sd, f"{b}.mlp.linear2.0", mlp["linear2"])
+
+
+def _attn(sd, a: str, attn: Mapping[str, Any]):
+    """One block's attention params under the prefix `a` (`...attn`)."""
+    if "query" in attn:  # ProbSparse
         for jax_name, torch_name in (("query", "query_projection"),
                                      ("key", "key_projection"),
                                      ("value", "value_projection"),
                                      ("out", "out_projection")):
-            _lin(sd, f"{b}.attn.ProbSpare.{torch_name}", attn[jax_name])
-        _lin(sd, f"{b}.mlp.linear1.0", blk["mlp"]["linear1"])
-        _conv(sd, f"{b}.mlp.dwconv.0", blk["mlp"]["dwconv"])
-        _lin(sd, f"{b}.mlp.linear2.0", blk["mlp"]["linear2"])
+            _lin(sd, f"{a}.ProbSpare.{torch_name}", attn[jax_name])
+        return
+    if "qkv" in attn:  # 'linear': the JAX package fuses to_q and to_kv
+        qkv = attn["qkv"]
+        c = np.asarray(qkv["kernel"]).shape[0]
+        for name, cols in (("to_q", slice(0, c)), ("to_kv", slice(c, None))):
+            _lin(sd, f"{a}.qkv.{name}",
+                 {k: np.asarray(v)[..., cols] for k, v in qkv.items()})
+    elif "to_qkv" in attn:  # 'linear_concat'
+        _lin(sd, f"{a}.qkv.to_qkv", attn["to_qkv"])
+        _lin(sd, f"{a}.qkv.to_kv", attn["to_kv"])
+    else:  # 'conv'
+        for name in ("to_q", "to_k", "to_v"):
+            for part in ("depthwise", "pointwise"):
+                _conv(sd, f"{a}.qkv.{name}.{part}", attn[name][part])
+    _lin(sd, f"{a}.proj", attn["proj"])
+    if "se_layer" in attn:
+        _lin(sd, f"{a}.se_layer.fc.0", attn["se_layer"]["fc1"])
+        _lin(sd, f"{a}.se_layer.fc.2", attn["se_layer"]["fc2"])
 
 
 def state_dict_from_jax_params(params: Mapping[str, Any]
@@ -86,13 +121,18 @@ def state_dict_from_jax_params(params: Mapping[str, Any]
 
 
 def clean_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Strip DataParallel `module.` prefixes and drop the keys that
-    reference ProbSparse checkpoints store but never use."""
+    """Strip DataParallel `module.` prefixes and drop the rel-pos index
+    buffers; in a ProbSparse checkpoint, also the W-MSA projections and SE
+    layer that its forward never uses. A W-MSA checkpoint keeps them: they
+    are its attention."""
+    probsparse = any(".attn.ProbSpare." in k for k in sd)
+    drop = _BUFFER_KEY_PARTS + (_PROBSPARSE_UNUSED_KEY_PARTS if probsparse
+                                else ())
     out = {}
     for k, v in sd.items():
         if k.startswith("module."):
             k = k[len("module."):]
-        if any(part in k for part in _UNUSED_KEY_PARTS):
+        if any(part in k for part in drop):
             continue
         out[k] = torch.as_tensor(v)
     return out

@@ -4,7 +4,8 @@
 JAX gate do, on a seeded port Uformer (embed 8) saved in the reference's
 `{"state_dict": ...}` layout with DataParallel `module.` prefixes; its
 mean PSNR against the JAX gate's `evaluate_checkpoint` on the same `.pth`
-with ProbSparse sampling pinned, within 1e-3 dB (the eval CLIs' bar).
+with ProbSparse sampling pinned, within 1e-3 dB (the eval CLIs' bar), and
+likewise for a W-MSA `.pth` with `--attention full`.
 `cli.convert_vgg`: its `.npz` equals the JAX tool's array for array, and
 loads into both packages' VGG19 to the same features (f32 2e-4).
 """
@@ -96,13 +97,37 @@ def test_parity_gate_pass_and_fail(pth_and_data, capsys):
     assert capsys.readouterr().out.strip().endswith("PARITY FAIL")
 
 
-def test_parity_gate_refuses_full_attention(pth_and_data):
+def test_parity_gate_full_attention_matches_jax_gate(pth_and_data,
+                                                     tmp_path, capsys):
+    """`--attention full`: the port gate on a seeded W-MSA `.pth` in the
+    reference's layout passes at the JAX gate's mean PSNR with --tol 1e-3,
+    and its mean PSNR and SSIM (the 6-decimal line) lie within 1e-3 dB and
+    1e-4 of the JAX gate's `evaluate_checkpoint` on the same file."""
+    from dehaze_tpu.cli.parity_gate import evaluate_checkpoint as jax_eval
+    from dehaze_tpu.utils.convert_torch import load_reference_checkpoint
     from dehaze_tpu_torch.cli.parity_gate import main
 
-    pth, data = pth_and_data
-    with pytest.raises(ValueError, match="ProbSparse Uformer only"):
-        main(["--ref_ckpt", pth, "--input_dir", data, "--attention", "full"]
-             + SIZE)
+    data = pth_and_data[1]
+    torch.manual_seed(1)
+    model = Uformer(ModelConfig(img_size=32, embed_dim=8, attention="full",
+                                dtype=torch.float32))
+    pth = str(tmp_path / "wmsa.pth")
+    torch.save({"epoch": 1, "state_dict": {
+        f"module.{k}": v for k, v in model.state_dict().items()}}, pth)
+    jcfg = JC.Config(model=JC.ModelConfig(img_size=32, embed_dim=8,
+                                          attention="full",
+                                          dtype=jnp.float32))
+    want = jax_eval(jcfg, load_reference_checkpoint(pth, attention="full"),
+                    data, 32)
+    assert main(["--ref_ckpt", pth, "--input_dir", data, "--attention",
+                 "full", "--expected_psnr", repr(want[0]), "--tol", "1e-3"]
+                + SIZE) == 0
+    out = capsys.readouterr().out
+    assert out.strip().endswith("PARITY OK")
+    mean = next(ln for ln in out.splitlines() if ln.startswith("PSNR: "))
+    psnr, ssim = (float(f.split(": ")[1]) for f in mean.split(", "))
+    assert abs(psnr - want[0]) <= 1e-3
+    assert abs(ssim - want[1]) <= 1e-4
 
 
 def test_parity_gate_psnr_matches_jax_gate(pth_and_data, pinned):
