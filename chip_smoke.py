@@ -98,14 +98,27 @@ Phases, in order; any failure exits non-zero before the final line:
      shapes; a profile); `cli.parity_gate --attention full`, `cli.export
      --square` and `cli.test_long --exported`; `cli.train --attention full`
      for 4 steps at batch 32 × 128²;
- 14. the kernels' JSON line, then the device's JSON line.
+ 14. the multi-GPU paths on the one card (phase_multi): two ranks that
+     share it over gloo (NCCL refuses two ranks on one device) run the
+     1200×1600 frame in 2 row bands (infer.halo_sharded; bf16 and f32
+     against the one-process frame; 18 K1 forward launches per band, no
+     K2, no twin call) and 4 DDP steps at 2 × 16 × 128² (CR on, MixUp on
+     every other step), held to one NCCL rank's steps at 32 rows; the NCCL
+     rank's plain step against its DDP step in turns; `cli.test_long
+     --data_axis 2` (two gloo ranks; the one-process PSNRs) and
+     `cli.train --data_axis 1` (one NCCL rank). Two ranks on one card
+     measure no multi-GPU speed;
+ 15. the kernels' JSON line, then the device's JSON line.
 The launch counts in the kernels line are those of the serving path (8),
 the evaluation path (9, the three runs together), the parity gate (9b,
 both runs), the stream with --weights and with --exported, the exported
 evaluation and the exported server (9c), the training path (11), the
 device-resident training path (11b), the remat train step (11c) and the
 W-MSA paths (13: its frames, its gate, its exported evaluation, its
-training run), each counted from 0 over its own run. Every path runs
+training run) and the multi-GPU paths (14: the banded frames over both
+ranks, the frame-parallel evaluation over both ranks, the gloo DDP steps
+over both ranks, the NCCL rank's DDP steps, the NCCL `cli.train`), each
+counted from 0 over its own run. Every path runs
 bf16, so K1's forward and backward go to the tensor-core kernels there
 and the CUDA-core ones have 0 launches; the W-MSA paths run no K1. No
 path runs K3 (no entry point of the JAX package runs its TPU kernels
@@ -1159,7 +1172,7 @@ def phase_eval(tmp: str, pth: str):
     count at 0; s/frame, launches per frame and peak device memory; each
     per-image PSNR against the in-process function with the same weights
     and seed. Returns the launches of the three runs together and the
-    square-canvas run's per-image PSNRs."""
+    per-image PSNRs of the test_long runs by canvas ("square", "rect")."""
     import re
 
     import numpy as np
@@ -1186,7 +1199,7 @@ def phase_eval(tmp: str, pth: str):
             ("test_long", long_dir, ["--rect_canvas"],
              "rect canvas 1280x1664"),
             ("test_anyres", any_dir, [], "any-resolution, 1664² and 1536²")]
-    total, square_psnrs = {}, None
+    total, psnrs = {}, {}
     for cli, folder, extra, what in runs:
         args = ["--input_dir", folder, "--weights", pth, "--seed", str(SEED),
                 "--result_dir", os.path.join(tmp, f"res_{cli}")] + extra
@@ -1238,9 +1251,10 @@ def phase_eval(tmp: str, pth: str):
                  f"function by {worst:.2e} dB")
         for key in ("k1_fwd", "k1_fwd_tc", "k2"):
             total[key] = total.get(key, 0) + stats[key]
-        if cli == "test_long" and not extra:
-            square_psnrs = [float(p) for _, p, _ in lines]
-    return total, square_psnrs
+        if cli == "test_long":
+            psnrs["rect" if extra else "square"] = [float(p)
+                                                    for _, p, _ in lines]
+    return total, psnrs
 
 
 def phase_serve(pth: str):
@@ -1351,10 +1365,12 @@ def _counted_cli(cli: str, args, label: str):
     return r.stdout, stats, secs
 
 
-def _check_launches(label: str, stats: dict, frames: int, k1: int = 18):
-    """`k1` K1 tensor-core forward (18, or 0 for a W-MSA model) and 18 K2
-    launches per frame, no CUDA-core K1 forward and no twin call."""
-    want = (k1 * frames, 0, 18 * frames, 0, 0)
+def _check_launches(label: str, stats: dict, frames: int, k1: int = 18,
+                    k2: int = 18):
+    """`k1` K1 tensor-core forward (18, 0 for a W-MSA model, 36 for a frame
+    in two bands) and `k2` K2 launches (18, or 0 on the banded path) per
+    frame, no CUDA-core K1 forward and no twin call."""
+    want = (k1 * frames, 0, k2 * frames, 0, 0)
     got = tuple(stats.get(k, 0) for k in ("k1_fwd_tc", "k1_fwd", "k2",
                                           "twin_k1", "twin_k2"))
     if got != want:
@@ -1735,13 +1751,14 @@ def phase_train_cli(tmp: str):
 
 
 def _train_cli(tmp: str, env: str, extra, wmsa: bool = False,
-               train_dir: str = ""):
+               train_dir: str = "", rank_env: bool = False):
     """`cli.train` with `extra` flags in a subprocess that starts with
     every launch count at 0 and prints them at its end: losses, launch
     counts per step, checkpoints, the reload of model_best.pth. `wmsa`:
     the W-MSA model (extra holds --attention full), which launches no K1.
-    train_dir: phase 11's set unless given. Returns (launch counts, the
-    epoch event)."""
+    train_dir: phase 11's set unless given. rank_env: run it as the one
+    rank of a process group (the variables torchrun sets). Returns (launch
+    counts, the epoch event)."""
     import glob
 
     import numpy as np
@@ -1775,9 +1792,12 @@ def _train_cli(tmp: str, env: str, extra, wmsa: bool = False,
             "--w_loss_vgg7", "1", "--save_dir", save, "--env", env] + extra
     what = " ".join(["cli.train"] + extra)
     t0 = time.perf_counter()
+    group = ({"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+              "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+             if rank_env else {})
     r = subprocess.run([sys.executable, "-c", code] + args,
                        capture_output=True, text=True, timeout=900,
-                       env={**os.environ, "PYTHONPATH": REPO})
+                       env={**os.environ, "PYTHONPATH": REPO, **group})
     secs = time.perf_counter() - t0
     for ln in r.stdout.splitlines():
         if ln.startswith(("Input & GT", "[Ep", "Epoch", "best", "==>")):
@@ -2389,6 +2409,336 @@ def phase_wmsa(tmp: str):
             "eval_exported_wmsa": exported, "train_wmsa": train}
 
 
+# 14. The multi-GPU paths on the one card: two ranks that share it over
+# gloo (NCCL refuses two ranks on one device: scripts/dist_probe.py) and
+# one NCCL rank. Nothing here measures multi-GPU speed.
+# The banded frame against the one-process frame (max |d|, mean |d|) on
+# the [0, 1] image. f32 (TF32 off): the same ops but K2 against the
+# unfused LeFF, sum order only: MODEL_TOL. bf16: K2 and the unfused LeFF
+# (cuBLAS, cuDNN, GELU in bf16) round at other points, each LeFF within
+# K2_TOL of the other, and 18 blocks carry the difference along the
+# residual stream: 1/16 at a pixel and 2e-3 on average.
+BAND_TOL = {"float32": (MODEL_TOL, MODEL_TOL), "bfloat16": (0.0625, 2e-3)}
+# cli.test_long --bands 2 (bf16) against the one-process PSNRs, dB: a mean
+# |d| of 2e-3 on an image ~0.1 from its ground truth moves the MSE by up to
+# 0.4%, 0.02 dB.
+BAND_PSNR_TOL = 0.05
+# The DDP steps of two ranks (16 rows each) against one rank's (32 rows):
+# the same data, weights and draws; the step losses relative. bf16 GEMMs
+# and convs at another batch may pick other kernels and round differently
+# (first step 2e-3); AdamW's first steps move a weight by about ±lr
+# whatever its gradient's size, so such rounding moves weights from the
+# second step on (2e-2).
+DDP_TOL = (2e-3, 2e-2)
+DDP_STEPS, DDP_REPS = 4, 3  # steps of 32 rows; timed frames and turns
+
+# A rank of phase 14 (argv: mode, tmp, pth). "gloo2": the banded frame
+# (bf16 timed and counted, f32 once) and DDP steps at 16 rows; "nccl1":
+# DDP steps at 32 rows, the reference, and the plain step against the DDP
+# step in turns. Prints one RESULT line of JSON.
+_MULTI_WORKER = r'''
+import json, os, sys, time
+import numpy as np, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from dehaze_tpu_torch.cli.common import build_model_and_params
+from dehaze_tpu_torch.config import (Config, DataConfig, LossConfig,
+                                     ModelConfig, TrainConfig)
+from dehaze_tpu_torch.infer.halo_sharded import make_halo_sharded_frame_fn
+from dehaze_tpu_torch.ops import probsparse as ps
+from dehaze_tpu_torch.ops.kernels import leff, window_attention as wa
+from dehaze_tpu_torch.parallel import dist
+from dehaze_tpu_torch.train.trainer import Trainer
+
+mode, tmp, pth = sys.argv[1:4]
+seed, (H, W), steps, reps = json.loads(sys.argv[4])
+dev = dist.init("cuda:0", "gloo" if mode == "gloo2" else "nccl")
+r, n = dist.rank(), dist.world()
+twins = {"twin_k1": 0, "twin_k2": 0}
+def counted(fn, key):
+    def call(*a, **kw):
+        twins[key] += 1
+        return fn(*a, **kw)
+    return call
+ps.probsparse_attention_bnc = counted(ps.probsparse_attention_bnc, "twin_k1")
+leff.leff_reference = counted(leff.leff_reference, "twin_k2")
+COUNTERS = {"k1_fwd_tc": (wa.window_attention_fwd, "launches_tc"),
+            "k1_fwd": (wa.window_attention_fwd, "launches"),
+            "k1_bwd_tc": (wa.window_attention_bwd, "launches_tc"),
+            "k1_bwd": (wa.window_attention_bwd, "launches"),
+            "k2": (leff.leff_fused, "launches")}
+def reset():
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+    for k in twins:
+        twins[k] = 0
+def counts():
+    return {**{k: getattr(fn, a) for k, (fn, a) in COUNTERS.items()},
+            **twins}
+def sync_ms(t0):
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+res = {"rank": r}
+if mode == "gloo2":
+    frame = np.random.default_rng(seed).integers(
+        0, 256, size=(1, H, W, 3), dtype=np.uint8)
+    model = build_model_and_params(ModelConfig(), pth, dev)
+    run = make_halo_sharded_frame_fn(model, H, W, 128, seed=seed, device=dev)
+    run(frame)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        y = run(frame)
+    res["band_s"] = sync_ms(t0) / 1e3 / reps
+    res["band_counts"] = counts()
+    res["band_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    model32 = build_model_and_params(ModelConfig(dtype=torch.float32), pth,
+                                     dev)
+    y32 = make_halo_sharded_frame_fn(model32, H, W, 128, seed=seed,
+                                     device=dev)(frame)
+    if r == 0:
+        np.savez(os.path.join(tmp, "banded.npz"), bf16=y.cpu().numpy(),
+                 f32=y32.cpu().numpy())
+    del model, model32
+rng = np.random.default_rng(seed)
+clean = rng.integers(0, 256, size=(steps, 32, 128, 128, 3), dtype=np.uint8)
+hazy = np.clip(clean * 0.6 + 60, 0, 255).astype(np.uint8)
+b = 32 // n
+cfg = Config(data=DataConfig(batch_size=32), train=TrainConfig(warmup=False),
+             loss=LossConfig(w_contrast=1.0))
+tr = Trainer(cfg, steps_per_epoch=steps, device=dev, data_parallel=True)
+sl = slice(r * b, (r + 1) * b)
+losses, step_ms = [], []
+torch.cuda.reset_peak_memory_stats()
+reset()
+for s in range(steps):
+    t0 = time.perf_counter()
+    m = tr.train_step(clean[s][sl], hazy[s][sl], use_mixup=s % 2 == 1)
+    losses.append(float(m["loss"]))
+    step_ms.append(sync_ms(t0))
+res.update(losses=losses, step_ms=step_ms, train_counts=counts(),
+           train_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+# the gradient all-reduce alone: DDP's bytes (every parameter, f32)
+flat = torch.cat([p.detach().reshape(-1) for p in tr.model.parameters()])
+res["grad_bytes"] = flat.numel() * 4
+for _ in range(2):
+    dist.barrier()
+    t0 = time.perf_counter()
+    torch.distributed.all_reduce(flat)
+    res["allreduce_ms"] = sync_ms(t0)
+if mode == "nccl1":  # DDP's own cost on one card: plain, DDP, DDP, plain
+    plain = Trainer(cfg, steps_per_epoch=steps, device=dev)
+    times = {"plain": [], "ddp": []}
+    for arm in ("plain", "ddp", "ddp", "plain") * reps:
+        t_ = plain if arm == "plain" else tr
+        t0 = time.perf_counter()
+        t_.train_step(clean[0], hazy[0], use_mixup=False)
+        times[arm].append(sync_ms(t0))
+    res["plain_ms"], res["ddp_ms"] = times["plain"], times["ddp"]
+print("RESULT " + json.dumps(res), flush=True)
+dist.shutdown()
+'''
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ranks(argv, n: int, label: str, timeout: int = 600):
+    """n processes of `python argv...` as the ranks of one process group,
+    all on the one card (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+    MASTER_PORT as torchrun sets them); each in its own session, killed
+    with its children if the group outlives `timeout`. Returns each
+    rank's stdout; fails if a rank fails."""
+    import signal
+
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable] + [str(a) for a in argv], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+        env={**os.environ, "PYTHONPATH": REPO, "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(port), "RANK": str(r),
+             "WORLD_SIZE": str(n), "LOCAL_RANK": str(r)})
+        for r in range(n)]
+    outs, errs = [], []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            outs.append(out)
+            errs.append(err)
+    except subprocess.TimeoutExpired:
+        fail(f"{label}: the ranks did not end within {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            fail(f"{label}: rank {r} exited {p.returncode}: "
+                 f"{errs[r][-3000:]}")
+    return outs
+
+
+def _result(out: str) -> dict:
+    return json.loads(out.split("RESULT ")[-1].splitlines()[0])
+
+
+def phase_multi(tmp: str, pth: str, eval_psnrs):
+    """14. The multi-GPU paths, with the seeded Uformer-32 (bf16):
+    (a) two gloo ranks on the card: the 1200×1600 frame on the rect canvas
+        1280×1664 in 2 bands (`infer.halo_sharded`) against the
+        one-process frame, bf16 and f32 (BAND_TOL); 18 K1 forward launches
+        per band and frame, 0 K2, 0 twin calls; s/frame and peak memory per
+        rank; then DDP_STEPS DDP steps at 2 × 16 × 128², CR on, MixUp on
+        every other step: finite, 18 K1 forward and 18 backward launches
+        per rank and step, step ms, and the gradient all-reduce's ms;
+    (b) one NCCL rank: the same steps at 32 rows, the reference of (a)
+        (DDP_TOL), and the plain step against the DDP step in turns;
+    (c) `cli.test_long --data_axis 2` (two gloo ranks) on the three
+        evaluation pairs: the one-process PSNRs (phase 9), 18 K1 and 18 K2
+        launches per frame over the ranks; then `--rect_canvas --bands 2`:
+        the one-process rect-canvas PSNRs within BAND_PSNR_TOL, 18 K1
+        launches per band and frame, no K2;
+    (d) `cli.train --data_axis 1` as one NCCL rank (phase 11's run).
+    Two ranks that share one card measure no multi-GPU speed."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli.common import build_model_and_params
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.infer.tiled import make_whole_image_fn
+
+    spec = json.dumps([SEED, list(FRAME), DDP_STEPS, DDP_REPS])
+    t0 = time.perf_counter()
+    gloo = [_result(o) for o in _ranks(
+        ["-c", _MULTI_WORKER, "gloo2", tmp, pth, spec], 2,
+        "two gloo ranks")]
+    secs = time.perf_counter() - t0
+    got = np.load(os.path.join(tmp, "banded.npz"))
+    frame = np.random.default_rng(SEED).integers(
+        0, 256, size=(1,) + FRAME + (3,), dtype=np.uint8)
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        model = build_model_and_params(ModelConfig(dtype=dtype), pth,
+                                       torch.device("cuda"))
+        ref = make_whole_image_fn(
+            lambda c: model(c, generator=torch.Generator().manual_seed(SEED)),
+            FRAME[0], FRAME[1], ps=128, square=False, device="cuda")(
+                frame).cpu().numpy()
+        del model
+        d = np.abs(got["bf16" if dname == "bfloat16" else "f32"] - ref)
+        tol = BAND_TOL[dname]
+        print(f"banded frame, 2 gloo ranks, {dname}: max|d| "
+              f"{float(d.max()):.3e} mean|d| {float(d.mean()):.3e} against "
+              f"the one-process frame (tolerance {tol})", flush=True)
+        if not np.isfinite(got["f32"]).all() or d.max() > tol[0] \
+                or d.mean() > tol[1]:
+            fail(f"the banded {dname} frame is not the one-process frame")
+    band = {k: sum(g["band_counts"][k] for g in gloo)
+            for k in gloo[0]["band_counts"]}
+    want = {"k1_fwd_tc": 18 * 2 * DDP_REPS, "k1_fwd": 0, "k1_bwd_tc": 0,
+            "k1_bwd": 0, "k2": 0, "twin_k1": 0, "twin_k2": 0}
+    print(f"banded frame {FRAME[0]}x{FRAME[1]} rect canvas 1280x1664 bf16, "
+          f"2 bands on one card: " + ", ".join(
+              f"rank {g['rank']} {g['band_s']:.4f} s/frame peak "
+              f"{g['band_peak_gib']:.2f} GiB" for g in gloo)
+          + f"; launches over {DDP_REPS} frames {band} (want {want}); both "
+          f"ranks' process {secs:.1f}s", flush=True)
+    if band != want:
+        fail("the banded frame did not launch K1's tensor-core forward 18 "
+             "times per band and frame, and no K2 and no twin")
+
+    t0 = time.perf_counter()
+    nccl = _result(_ranks(["-c", _MULTI_WORKER, "nccl1", tmp, pth, spec], 1,
+                          "one NCCL rank")[0])
+    secs = time.perf_counter() - t0
+    for g in gloo + [nccl]:
+        if not all(math.isfinite(x) for x in g["losses"]):
+            fail("a DDP step's loss is not finite")
+    rel = [abs(a - b) / abs(b) for a, b in zip(gloo[0]["losses"],
+                                                nccl["losses"])]
+    print(f"DDP {DDP_STEPS} steps Uformer-32 bf16 CR on: 2 gloo ranks x "
+          f"16 rows losses {[round(x, 5) for x in gloo[0]['losses']]}"
+          f", 1 NCCL rank x 32 rows {[round(x, 5) for x in nccl['losses']]}"
+          f"; relative |d| {[f'{x:.2e}' for x in rel]} (tolerance "
+          f"{DDP_TOL})", flush=True)
+    if rel[0] > DDP_TOL[0] or max(rel[1:]) > DDP_TOL[1]:
+        fail("the two-rank DDP steps are not the one-rank steps")
+    want = {"k1_fwd_tc": 18 * DDP_STEPS, "k1_fwd": 0,
+            "k1_bwd_tc": 18 * DDP_STEPS, "k1_bwd": 0, "k2": 0,
+            "twin_k1": 0, "twin_k2": 0}
+    for g in gloo + [nccl]:
+        if g["train_counts"] != want:
+            fail(f"DDP rank {g['rank']}: launches {g['train_counts']}, "
+                 f"want {want} over {DDP_STEPS} steps")
+        print(f"  rank {g['rank']} of {2 if g is not nccl else 1} "
+              f"({'gloo' if g is not nccl else 'nccl'}): step ms "
+              f"{[round(x, 1) for x in g['step_ms']]}, gradient all-reduce "
+              f"{g['grad_bytes'] / 1e6:.1f} MB alone "
+              f"{g['allreduce_ms']:.2f} ms, peak {g['train_peak_gib']:.2f} "
+              "GiB", flush=True)
+    print(f"one NCCL rank, batch 32 x 128² CR on, in turns: plain step "
+          f"{[round(x, 2) for x in nccl['plain_ms']]} ms, DDP step "
+          f"{[round(x, 2) for x in nccl['ddp_ms']]} ms (process "
+          f"{secs:.1f}s)", flush=True)
+
+    # (c) frame-parallel, then banded evaluation through the CLI, two gloo
+    # ranks
+    long_dir, runs = os.path.join(tmp, "eval_long"), {}
+    for flags, one in ((["--data_axis", 2], "square"),
+                       (["--rect_canvas", "--bands", 2], "rect")):
+        what = "cli.test_long " + " ".join(str(f) for f in flags)
+        t0 = time.perf_counter()
+        outs = _ranks(["-c", _COUNTED_CLI, "dehaze_tpu_torch.cli.test_long",
+                       "--input_dir", long_dir, "--weights", pth, "--seed",
+                       SEED, "--result_dir", os.path.join(tmp, "res_dp"),
+                       "--device", "cuda:0", "--dist_backend", "gloo"]
+                      + flags, 2, what)
+        secs = time.perf_counter() - t0
+        for ln in outs[0].splitlines():
+            if not ln.startswith("STATS"):
+                print(f"  {what} | {ln}", flush=True)
+        stats = [json.loads(o.split("STATS ")[-1].splitlines()[0])
+                 for o in outs]
+        runs[one] = {k: sum(s[k] for s in stats)
+                     for k in ("k1_fwd", "k1_fwd_tc", "k2", "twin_k1",
+                               "twin_k2")}
+        psnrs = [float(p) for p in re.findall(r"^\S+: PSNR (\S+) SSIM",
+                                              outs[0], re.M)]
+        worst = max(abs(a - b) for a, b in zip(psnrs, eval_psnrs[one]))
+        tol = EVAL_PSNR_TOL if one == "square" else BAND_PSNR_TOL
+        print(f"{what} (2 gloo ranks, {one} canvas): PSNRs {psnrs} against "
+              f"one process {eval_psnrs[one]}: max |d| {worst:.2e} dB "
+              f"(tolerance {tol:g}); launches {runs[one]}; peak per rank "
+              f"{[round(s['peak_gib'], 2) for s in stats]} GiB; {secs:.1f}s",
+              flush=True)
+        if len(psnrs) != 3 or worst > tol:
+            fail(f"{what} does not give the one-process PSNRs")
+    _check_launches("cli.test_long --data_axis 2", runs["square"], 3)
+    _check_launches("cli.test_long --bands 2", runs["rect"], 3, k1=36, k2=0)
+
+    # (d) one NCCL rank through cli.train --data_axis 1
+    train1, _, _ = _train_cli(tmp, "_nccl1", ["--data_axis", "1"],
+                              rank_env=True)
+    return {"bands_frame": band, "eval_data_axis": runs["square"],
+            "eval_bands": runs["rect"],
+            "train_ddp_gloo": {k: sum(g["train_counts"][k] for g in gloo)
+                               for k in want},
+            "train_ddp_nccl": nccl["train_counts"],
+            "train_nccl_cli": train1}
+
+
 _GROUPS = [("K1 bwd (tensor cores)", ("window_attention_tc_bwd",
                                        "dbias_reduce")),
            ("K1 bwd (CUDA cores)", ("window_attention_bwd",)),
@@ -2471,15 +2821,16 @@ def main() -> None:
         pth = phase_model(tmp)
         phase_model_pad(pth)
         serve = phase_serve(pth)
-        evals, square_psnrs = phase_eval(tmp, pth)
+        evals, eval_psnrs = phase_eval(tmp, pth)
         gate = phase_parity_gate(tmp, pth)
-        serving = phase_serving(tmp, pth, square_psnrs)
+        serving = phase_serving(tmp, pth, eval_psnrs["square"])
         phase_train_parity()
         train, stream_epoch, _ = phase_train_cli(tmp)
         device_data = phase_device_data(tmp, stream_epoch)
         remat = phase_remat(tmp)
         phase_train_profile(tmp)
         wmsa = phase_wmsa(tmp)
+        multi = phase_multi(tmp, pth, eval_psnrs)
 
     def entry(name, source, replaces, res, main, key, paths):
         row = next(r for r in res if r[:len(main)] == main)
@@ -2495,7 +2846,7 @@ def main() -> None:
     paths = {"serve": serve, "train": train, "eval": evals,
              "parity_gate": gate, **serving,
              "train_device_data": device_data, "train_step_remat": remat,
-             **wmsa}
+             **wmsa, **multi}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
     # K1 rows by kernel, without the kernel column

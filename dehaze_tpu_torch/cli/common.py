@@ -8,8 +8,10 @@ a bare state_dict); `--exported` a `cli.export` artifact, in place of
 `--weights` (`resolve_forward`). `--attention full` selects the W-MSA
 Uformer, with `--token_projection`, `--token_mlp` and `--se_layer`.
 `--arch ffa|unet` parses and is refused by `models.uformer.check_config`,
-as are the combinations the JAX package refuses; `--data_axis` and
-`--bands` above 1 are not ported yet and raise.
+as are the combinations the JAX package refuses. `--data_axis N` (data-
+parallel training, frame-parallel evaluation and streaming) and `--bands
+N` (one frame's rows over N processes) run one process per GPU under
+`torchrun --nproc_per_node N` (`start_group`).
 """
 
 from __future__ import annotations
@@ -18,16 +20,19 @@ import argparse
 import os
 import time
 from types import SimpleNamespace
+from typing import Optional
 
 import numpy as np
 import torch
 
 from dehaze_tpu_torch.config import (Config, DataConfig, LossConfig,
                                      ModelConfig, TrainConfig)
-from dehaze_tpu_torch.data.images import save_img
-from dehaze_tpu_torch.data.pipeline import PairedFolder, val_images
+from dehaze_tpu_torch.data.images import load_img, save_img
+from dehaze_tpu_torch.data.pipeline import PairedFolder
+from dehaze_tpu_torch.infer.sharded import map_frames
 from dehaze_tpu_torch.models.uformer import Uformer
 from dehaze_tpu_torch.ops import metrics as M
+from dehaze_tpu_torch.parallel import dist
 from dehaze_tpu_torch.utils.convert import load_weights
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -96,7 +101,14 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true", default=False)
     p.add_argument("--pretrain_weights", default="")
     p.add_argument("--data_axis", type=int, default=None,
-                   help="not ported yet (raises)")
+                   help="data parallelism over N processes, one per GPU, "
+                        "under torchrun --nproc_per_node N: DDP training, "
+                        "frames spread over the ranks in evaluation and "
+                        "streaming")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="process group backend with --data_axis/--bands "
+                        "(default: nccl on CUDA, gloo on the CPU; two ranks "
+                        "on one GPU need gloo)")
     p.add_argument("--accum_steps", type=int, default=1,
                    help="microbatches per optimizer update")
     p.add_argument("--keep_ckpts", type=int, default=0,
@@ -121,15 +133,44 @@ def add_eval_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="2.0 replicates skimage's float default used for the "
                         "published numbers; 1.0 is physically correct")
     p.add_argument("--bands", type=int, default=0,
-                   help="not ported yet (raises above 1)")
+                   help="split each frame's canvas rows over N processes, "
+                        "one per GPU, with halo exchange "
+                        "(infer.halo_sharded), under torchrun "
+                        "--nproc_per_node N; 0 = one process")
     return p
 
 
+def start_group(args) -> Optional[str]:
+    """`--bands N` or `--data_axis N`: check that torchrun started N
+    processes, join them (`parallel.dist.init`, --dist_backend) and point
+    args.device at this rank's device. Returns the flag given, or None for
+    one process (which must not have been started as several)."""
+    bands = getattr(args, "bands", 0) or 0
+    axis = getattr(args, "data_axis", None)
+    if bands and axis is not None:
+        raise SystemExit("--bands and --data_axis are mutually exclusive "
+                         "(rows of one frame vs frames per process)")
+    if not bands and axis is None:
+        if dist.env_world() > 1:
+            raise SystemExit(f"{dist.env_world()} processes were launched "
+                             "but neither --data_axis nor --bands says how "
+                             "to use them")
+        return None
+    flag, n = ("--bands", bands) if bands else ("--data_axis", axis)
+    dist.check_world(flag, n)
+    args.device = str(dist.init(args.device, args.dist_backend))
+    return flag
+
+
+def one_process(args, cli: str) -> None:
+    """Refuse --data_axis and --bands in a CLI that runs one process."""
+    if getattr(args, "data_axis", None) is not None or \
+            getattr(args, "bands", 0):
+        raise SystemExit(f"{cli} runs in one process: drop --data_axis "
+                         "and --bands")
+
+
 def config_from_args(a: argparse.Namespace) -> Config:
-    if getattr(a, "data_axis", None):
-        raise NotImplementedError("--data_axis is not ported yet")
-    if (getattr(a, "bands", 0) or 0) > 1:
-        raise NotImplementedError("--bands is not ported yet")
     return Config(
         model=ModelConfig(arch=a.arch, img_size=a.train_ps,
                           embed_dim=a.embed_dim, win_size=a.win_size,
@@ -155,7 +196,7 @@ def config_from_args(a: argparse.Namespace) -> Config:
                           pretrain_weights=a.pretrain_weights,
                           accum_steps=a.accum_steps,
                           keep_ckpts=a.keep_ckpts,
-                          exit_after=a.exit_after),
+                          exit_after=a.exit_after, data_axis=a.data_axis),
     )
 
 
@@ -206,36 +247,64 @@ def resolve_forward(args, cfg: ModelConfig) -> SimpleNamespace:
                            device=device)
 
 
-def evaluate(args, make_run) -> dict:
+def evaluate(args, make_run, spread: bool = False) -> dict:
     """The evaluation loop of `cli.test_long` and `cli.test_anyres`: every
     gt/hazy pair of `args.input_dir`, in sorted order, through
     `make_run(h, w)` (one function per geometry); a `name: PSNR p SSIM s`
     line per image and the mean line, in the JAX CLIs' format; the outputs
     as PNGs under `args.result_dir` unless --no-save_images. Returns the
     per-image names, PSNRs, SSIMs and wall seconds (forward and metrics;
-    the first frame of a geometry includes the kernel builds)."""
+    the first frame of a geometry includes the kernel builds).
+
+    Under a process group only rank 0 prints. With `spread` (--data_axis)
+    frame i is decoded, run, scored and saved on rank i % P, and rank 0
+    prints every line in input order once all are in; without it
+    (--bands) every rank runs every frame together and rank 0 saves."""
     folder = PairedFolder(args.input_dir)
-    if args.save_images:
+    lead = dist.rank() == 0
+    if args.save_images and (lead or spread):
         os.makedirs(args.result_dir, exist_ok=True)
-    res = {"names": [], "psnr": [], "ssim": [], "secs": []}
-    run, geom = None, None
-    for clean, hazy, name in val_images(folder):
+    runs = {}
+
+    def line(row):
+        print(f"{row[0]}: PSNR {row[1]:.4f} SSIM {row[2]:.4f}", flush=True)
+
+    def one(i):
+        clean, hazy = (load_img(folder.clean_files[i]),
+                       load_img(folder.noisy_files[i]))
+        name = os.path.basename(folder.clean_files[i])
         h, w = hazy.shape[:2]
-        if geom != (h, w):
-            run, geom = make_run(h, w), (h, w)
+        if (h, w) not in runs:  # one at a time, as the geometry changes
+            runs.clear()
+            runs[(h, w)] = make_run(h, w)
         t0 = time.perf_counter()
-        out = run(hazy[None])[0]
+        out = runs[(h, w)](hazy[None])[0]
         ref = torch.from_numpy(clean).to(out.device)
         psnr = float(M.psnr(out, ref))
         ssim = float(M.ssim(out, ref, data_range=args.ssim_data_range))
-        res["secs"].append(time.perf_counter() - t0)
-        for key, val in (("names", name), ("psnr", psnr), ("ssim", ssim)):
-            res[key].append(val)
-        print(f"{name}: PSNR {psnr:.4f} SSIM {ssim:.4f}", flush=True)
-        if args.save_images:
+        row = (name, psnr, ssim, time.perf_counter() - t0)
+        if args.save_images and (lead or spread):
             save_img(os.path.join(args.result_dir, name), out.cpu().numpy())
-    secs = res["secs"]
-    print(f"PSNR: {np.mean(res['psnr']):.6f}, SSIM: {np.mean(res['ssim']):.6f}")
-    print(f"{len(secs)} frames: {np.mean(secs[1:] or secs):.4f} s/frame after "
-          f"the first ({secs[0]:.3f} s, kernel builds included)", flush=True)
+        return row
+
+    if spread:
+        rows = map_frames(one, len(folder))
+        for row in rows if lead else ():
+            line(row)
+    else:
+        rows = []
+        for i in range(len(folder)):
+            rows.append(one(i))
+            if lead:
+                line(rows[-1])
+    res = {key: [r[j] for r in rows]
+           for j, key in enumerate(("names", "psnr", "ssim", "secs"))}
+    # each rank's first frame holds its kernel builds
+    secs, first = res["secs"], dist.world() if spread else 1
+    if lead:
+        print(f"PSNR: {np.mean(res['psnr']):.6f}, "
+              f"SSIM: {np.mean(res['ssim']):.6f}")
+        print(f"{len(secs)} frames: {np.mean(secs[first:] or secs):.4f} "
+              f"s/frame after the first ({np.mean(secs[:first]):.3f} s, "
+              "kernel builds included)", flush=True)
     return res

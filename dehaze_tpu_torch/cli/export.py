@@ -26,7 +26,7 @@ import torch
 from torch._export.serde.schema import SCHEMA_VERSION
 
 from dehaze_tpu_torch.cli.common import (add_common_args, config_from_args,
-                                         resolve_forward)
+                                         one_process, resolve_forward)
 from dehaze_tpu_torch.infer.export import (WholeImage,
                                            export_whole_image_bytes,
                                            save_exported)
@@ -47,6 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    one_process(args, "cli.export")
     cfg = config_from_args(args).model
     fwd = resolve_forward(args, cfg)
     # the tables a --weights forward with this seed draws, on the device

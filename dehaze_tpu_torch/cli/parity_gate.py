@@ -26,7 +26,8 @@ import torch
 
 from dehaze_tpu_torch.cli.common import (add_common_args,
                                          build_model_and_params,
-                                         config_from_args, evaluate)
+                                         config_from_args, evaluate,
+                                         one_process)
 from dehaze_tpu_torch.infer.tiled import make_whole_image_fn
 
 
@@ -65,6 +66,7 @@ def evaluate_checkpoint(cfg, ref_ckpt: str, input_dir: str, train_ps: int,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    one_process(args, "cli.parity_gate")
     cfg = config_from_args(args).model
     psnr, ssim = evaluate_checkpoint(cfg, args.ref_ckpt, args.input_dir,
                                      args.train_ps, args.ssim_data_range,

@@ -34,7 +34,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from dehaze_tpu_torch.cli.common import (add_common_args, config_from_args,
-                                         resolve_forward)
+                                         one_process, resolve_forward)
 from dehaze_tpu_torch.data.images import decode_img, encode_img
 from dehaze_tpu_torch.infer.tiled import make_whole_image_fn, quantize_u8
 
@@ -277,6 +277,7 @@ def warm_up(dehaze, info, spec: str) -> float:
 
 def main():
     args = build_parser().parse_args()
+    one_process(args, "cli.serve")
     dehaze, info = build_dehaze_fn(args, config_from_args(args).model)
     if args.precompile:
         secs = warm_up(dehaze, info, args.precompile)

@@ -7,6 +7,16 @@ L×L canvas (or, with --rect_canvas, each side to the next multiple of
         --weights model_best.pth [--rect_canvas] [--device cpu]
     python -m dehaze_tpu_torch.cli.test_long --input_dir DS/test \\
         --exported model.dhz
+    torchrun --nproc_per_node N -m dehaze_tpu_torch.cli.test_long \\
+        --input_dir DS/test --weights model_best.pth --bands N
+    torchrun --nproc_per_node N -m dehaze_tpu_torch.cli.test_long \\
+        --input_dir DS/test --weights model_best.pth --data_axis N
+
+--bands N splits each frame's canvas rows over the N processes with halo
+exchange (`infer.halo_sharded`); --data_axis N spreads the frames over
+them, one whole frame per process at a time (`infer.sharded`; the square
+canvas, as in the JAX package). Rank 0 prints the lines of the one-process
+run, in its order.
 
 With --exported it evaluates a `cli.export` artifact instead (validate
 before deploy): its canvas and geometry are baked in, so every frame must
@@ -19,9 +29,11 @@ import argparse
 
 from dehaze_tpu_torch.cli.common import (add_common_args, add_eval_args,
                                          config_from_args, evaluate,
-                                         resolve_forward)
+                                         resolve_forward, start_group)
+from dehaze_tpu_torch.infer.halo_sharded import make_halo_sharded_frame_fn
 from dehaze_tpu_torch.infer.tiled import make_whole_image_fn
 from dehaze_tpu_torch.models.uformer import check_config
+from dehaze_tpu_torch.parallel import dist
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,15 +51,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.exported and ((args.bands and args.bands > 1)
-                          or (args.data_axis and args.data_axis > 1)
+    if args.exported and (args.bands or args.data_axis is not None
                           or args.rect_canvas):
         raise SystemExit("--exported bakes its canvas and serves "
                          "single-device; drop --bands/--data_axis/"
                          "--rect_canvas")
+    if args.data_axis is not None and args.rect_canvas:
+        raise SystemExit("--data_axis uses the square published-protocol "
+                         "canvas (infer.sharded); drop --rect_canvas")
     cfg = config_from_args(args).model
     if not args.exported:
         check_config(cfg)
+    group = start_group(args)
     fwd = resolve_forward(args, cfg)
 
     def make_run(h, w):
@@ -58,12 +73,17 @@ def main(argv=None) -> dict:
                     f"{fwd.baked_hw[0]}x{fwd.baked_hw[1]}; re-export for "
                     "this geometry")
             return fwd.base_fn
+        if group == "--bands":
+            return make_halo_sharded_frame_fn(
+                fwd.model, h, w, args.train_ps, square=not args.rect_canvas,
+                seed=args.seed, device=fwd.device)
         return make_whole_image_fn(fwd.apply_fn, h, w, args.train_ps,
                                    square=not args.rect_canvas,
                                    device=fwd.device)
 
-    return evaluate(args, make_run)
+    return evaluate(args, make_run, spread=group == "--data_axis")
 
 
 if __name__ == "__main__":
     main()
+    dist.shutdown()

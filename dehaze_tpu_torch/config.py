@@ -3,8 +3,9 @@
 Same field names and defaults as the JAX dataclasses, so the CLIs share
 flag names; dtypes are torch dtypes. The JAX flags `use_pallas`/
 `use_pallas_leff` have no counterpart: the tensor's device decides whether
-the kernels run. Fields of mechanisms the port does not have yet
-(`band_axis`, `act_store`, the FFA knobs, `data_axis`) are left out; their
+the kernels run. `band_axis` has none either: a banded forward takes its
+band as an argument (`Uformer.forward(..., bands=)`). Fields of mechanisms
+the port does not have yet (`act_store`, the FFA knobs) are left out; their
 CLI flags raise.
 """
 
@@ -123,6 +124,10 @@ class TrainConfig:
     # Stop after this many epochs in this process (0 = run to nepoch);
     # continue with --resume.
     exit_after: int = 0
+    # Data-parallel training over this many processes, one per GPU, started
+    # by torchrun (DDP; train.loop.fit checks the count); None: one process
+    # without a process group.
+    data_axis: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)

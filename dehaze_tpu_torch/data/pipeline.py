@@ -1,7 +1,8 @@
 """Host-side input pipeline: paired gt/hazy folders → fixed-shape batches.
 
-Counterpart of `dehaze_tpu/data/pipeline.py` (single process; `val_images`
-for evaluation) and of the validation batches of
+Counterpart of `dehaze_tpu/data/pipeline.py` (`val_images` for evaluation;
+under data-parallel training each process decodes only its rows of every
+global batch) and of the validation batches of
 `dehaze_tpu/train/loop.py`. A thread pool decodes PNGs
 with the port's codec, random-crops ps² patches and applies the 8-way
 dihedral on host NumPy; batches are NHWC uint8 (or float32) NumPy arrays
@@ -84,14 +85,26 @@ def _epoch_schedule(n: int, batch_size: int, seed: int, epoch: int,
 
 def train_batches(folder: PairedFolder, *, batch_size: int, patch_size: int,
                   seed: int, epoch: int, num_workers: int = 8,
-                  drop_last: bool = False, u8: bool = False
+                  drop_last: bool = False, u8: bool = False,
+                  process_index: int = 0, process_count: int = 1
                   ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """One epoch of shuffled (clean, noisy) NHWC batches, float32 in [0, 1]
     or, with `u8=True`, uint8. Deterministic given (seed, epoch). Decoding
-    runs `num_workers` items ahead of the consumer."""
+    runs `num_workers` items ahead of the consumer.
+
+    `batch_size` is the GLOBAL batch. Process p of P (the ranks of a
+    data-parallel run) decodes only rows [p·B/P, (p+1)·B/P) of every
+    global batch and yields those, so the P processes' batches stacked in
+    rank order are the one-process batches."""
+    if batch_size % process_count:
+        raise ValueError(
+            f"global batch_size {batch_size} must divide evenly across "
+            f"{process_count} processes")
+    local_bs = batch_size // process_count
+    lo = process_index * local_bs
     plan = _epoch_schedule(len(folder), batch_size, seed, epoch, drop_last)
     args = [((folder.clean_files[i], folder.noisy_files[i]), patch_size, s,
-             u8) for batch in plan for (i, s) in batch]
+             u8) for batch in plan for (i, s) in batch[lo:lo + local_bs]]
     with cf.ThreadPoolExecutor(max_workers=num_workers) as ex:
         lookahead = num_workers + 2
         futs = deque(ex.submit(_load_train_item, *a)
@@ -107,7 +120,7 @@ def train_batches(folder: PairedFolder, *, batch_size: int, patch_size: int,
             c, x = f.result()
             buf_c.append(c)
             buf_n.append(x)
-            if len(buf_c) == batch_size:
+            if len(buf_c) == local_bs:
                 yield np.stack(buf_c), np.stack(buf_n)
                 buf_c, buf_n = [], []
 

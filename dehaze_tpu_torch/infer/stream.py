@@ -11,6 +11,12 @@ Frames are grouped by geometry; each distinct (H, W) builds one forward.
 On the card the host queues a frame's kernels and its device-to-host copy
 (into pinned memory) and goes on; it waits only for the oldest of the
 frames in flight, on that frame's event, before handing it to an encoder.
+
+With `data_parallel` (`--data_axis N`: one process per GPU under torchrun)
+each rank streams its share of the frames (`infer.sharded.frame_share`)
+through the same pipeline, on its own device; the stats are summed over
+the ranks, and the sustained rate is every rank's pixels over the slowest
+rank's wall time, from a common start.
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from dehaze_tpu_torch.infer.sharded import frame_share
 from dehaze_tpu_torch.infer.tiled import make_whole_image_fn, quantize_u8
+from dehaze_tpu_torch.parallel import dist
 
 
 def _decoded_frames(frames, dec, load_fn, lookahead, waits=None):
@@ -76,7 +84,7 @@ def stream_dehaze(
     encode_workers: int = 2,
     load_fn: Optional[Callable[[str], np.ndarray]] = None,
     save_fn: Optional[Callable[[str, np.ndarray], None]] = None,
-    mesh=None,
+    data_parallel: bool = False,
     base_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     base_hw: Optional[Tuple[int, int]] = None,
     device="cuda",
@@ -96,13 +104,30 @@ def stream_dehaze(
 
     With `base_fn` + `base_hw`, the prebuilt fixed-geometry forward (an
     artifact from `infer.export.load_exported`) replaces apply_fn and
-    every frame must match `base_hw`: artifacts bake one geometry.
-    `mesh` (one frame per card over several cards) is not ported yet.
+    every frame must match `base_hw`: artifacts bake one geometry, and
+    serve in one process, as in the JAX package.
+
+    With `data_parallel`, every rank passes the same `frames` and streams
+    its share; every rank returns the stats of all of them.
     """
-    if mesh is not None:
-        raise ValueError("mesh mode (one frame per card over several "
-                         "cards) is not ported yet: ROADMAP.md queue 1, "
-                         "item 4 (multi-GPU)")
+    if data_parallel and base_fn is not None:
+        raise ValueError("an exported artifact serves single-device: "
+                         "stream it without --data_axis, or serve from "
+                         "--weights")
+    if data_parallel:
+        frames = list(frames)
+        frames = [frames[i] for i in frame_share(len(frames))]
+        dist.barrier()  # a common start for the sustained rate
+        stats = stream_dehaze(apply_fn, frames, ps, square, decode_workers,
+                              encode_workers, load_fn, save_fn,
+                              device=device)
+        parts = dist.gather_objects(stats)
+        summed = {k: sum(p[k] for p in parts) for k in stats}
+        summed["sec"] = max(p["sec"] for p in parts)
+        # every rank's megapixels (mpix_s · sec) over the slowest wall
+        summed["mpix_s"] = sum(p["mpix_s"] * p["sec"] for p in parts) / \
+            summed["sec"]
+        return summed
     if load_fn is None:
         from dehaze_tpu_torch.data.images import load_img as load_fn
     if save_fn is None:

@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dehaze_tpu_torch.ops.kernels.leff import leff_fused
+from dehaze_tpu_torch.parallel.halo import Bands, halo_rows
 from dehaze_tpu_torch.utils.transfer import to_device
 
 
@@ -35,21 +36,55 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+def _conv_rows(x: torch.Tensor, bands: Optional[Bands]):
+    """(input, padding) of a 3×3 or 4×4/p1 conv over NHWC x: one zero row
+    and column on each side, or, on a band of a canvas, the neighbour
+    bands' rows (`parallel.halo.halo_rows`, zeros at the canvas edge) and
+    zero columns. Returned as NCHW."""
+    if bands is None:
+        return _nchw(x), 1
+    return _nchw(halo_rows(x, 1, 1, bands)), (0, 1)
+
+
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm with float32 statistics and affine, rounded to x.dtype."""
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
                         norm.bias, norm.eps).to(x.dtype)
 
 
-def _keep_mask(shape, keep: float, generator: Optional[torch.Generator],
-               device) -> torch.Tensor:
+class RowShare:
+    """A generator for the per-sample draws of a batch of `total` rows of
+    which this process holds rows [lo, lo + its batch): each mask is drawn
+    for all `total` rows, as one process holding the whole batch draws it,
+    and this process's rows are kept. Data-parallel training passes one in
+    place of each DropPath and dropout generator, so P ranks apply the
+    masks of the one-process step. get_state/set_state are the generator's
+    (the remat replay uses them)."""
+
+    def __init__(self, generator: torch.Generator, lo: int, total: int):
+        self.generator, self.lo, self.total = generator, lo, total
+
+    def get_state(self) -> torch.Tensor:
+        return self.generator.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.generator.set_state(state)
+
+
+def _keep_mask(shape, keep: float, generator, device) -> torch.Tensor:
     """Bernoulli(keep) mask drawn from an explicit generator (on its device,
-    the CPU unless the caller gave a CUDA one), moved to `device`."""
+    the CPU unless the caller gave a CUDA one) or a `RowShare` of one,
+    moved to `device`."""
     if generator is None:
         raise ValueError("a random layer in training needs an explicit "
                          "torch.Generator")
-    return to_device(torch.rand(shape, generator=generator,
-                                device=generator.device) < keep, device)
+    rows = slice(None)
+    if isinstance(generator, RowShare):
+        rows = slice(generator.lo, generator.lo + shape[0])
+        shape = (generator.total,) + tuple(shape[1:])
+        generator = generator.generator
+    draw = torch.rand(shape, generator=generator, device=generator.device)
+    return to_device(draw[rows] < keep, device)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -88,10 +123,12 @@ class InputProj(nn.Module):
         self.proj = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 3, padding=1, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bands: Optional[Bands] = None
+                ) -> torch.Tensor:
         conv = self.proj[0]
-        y = F.conv2d(_nchw(x), cast(conv.weight, x), cast(conv.bias, x),
-                     padding=1)
+        x_, pad = _conv_rows(x, bands)
+        y = F.conv2d(x_, cast(conv.weight, x), cast(conv.bias, x),
+                     padding=pad)
         return _nhwc(F.leaky_relu(y, 0.01))
 
 
@@ -103,10 +140,12 @@ class OutputProj(nn.Module):
         self.proj = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 3, padding=1, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bands: Optional[Bands] = None
+                ) -> torch.Tensor:
         conv = self.proj[0]
-        return _nhwc(F.conv2d(_nchw(x), cast(conv.weight, x),
-                              cast(conv.bias, x), padding=1))
+        x_, pad = _conv_rows(x, bands)
+        return _nhwc(F.conv2d(x_, cast(conv.weight, x), cast(conv.bias, x),
+                              padding=pad))
 
 
 class Downsample(nn.Module):
@@ -118,10 +157,12 @@ class Downsample(nn.Module):
                                             stride=2, padding=1,
                                             device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bands: Optional[Bands] = None
+                ) -> torch.Tensor:
         conv = self.conv[0]
-        return _nhwc(F.conv2d(_nchw(x), cast(conv.weight, x),
-                              cast(conv.bias, x), stride=2, padding=1))
+        x_, pad = _conv_rows(x, bands)
+        return _nhwc(F.conv2d(x_, cast(conv.weight, x), cast(conv.bias, x),
+                              stride=2, padding=pad))
 
 
 class Upsample(nn.Module):
@@ -144,10 +185,12 @@ class LeFF(nn.Module):
 
     forward(x, norm) computes LeFF(norm(x)). At eval it is one call of
     kernel K2 (`ops.kernels.leff.leff_fused`): on CUDA the fused kernel, on
-    CPU its plain twin. In training it runs the unfused path the JAX package
-    trains with (K2 is inference only there too): LayerNorm, `F.linear`,
-    GELU, grouped `F.conv2d`, GELU, `F.linear`. The residual add stays with
-    the block."""
+    CPU its plain twin. In training, and on a band of a canvas (`bands`),
+    it runs the unfused path the JAX package runs there (K2 is inference
+    only there too, and its zero halo is the canvas edge's, not a band's):
+    LayerNorm, `F.linear`, GELU, grouped `F.conv2d` (over the neighbour
+    bands' rows), GELU, `F.linear`. The residual add stays with the
+    block."""
 
     def __init__(self, dim: int, hidden_dim: int, fast_gelu: bool = False,
                  device=None):
@@ -159,15 +202,17 @@ class LeFF(nn.Module):
                       device=device))
         self.linear2 = nn.Sequential(nn.Linear(hidden_dim, dim, device=device))
 
-    def forward(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, norm: nn.LayerNorm,
+                bands: Optional[Bands] = None) -> torch.Tensor:
         l1, dw, l2 = self.linear1[0], self.dwconv[0], self.linear2[0]
-        if self.training:
+        if self.training or bands is not None:
             approx = "tanh" if self.fast_gelu else "none"
             h = F.linear(layer_norm(x, norm), cast(l1.weight, x),
                          cast(l1.bias, x))
             h = F.gelu(h, approximate=approx)
-            h = F.conv2d(_nchw(h), cast(dw.weight, h), cast(dw.bias, h),
-                         padding=1, groups=h.shape[-1])
+            h_, pad = _conv_rows(h, bands)
+            h = F.conv2d(h_, cast(dw.weight, h), cast(dw.bias, h),
+                         padding=pad, groups=h.shape[-1])
             h = F.gelu(_nhwc(h), approximate=approx)
             return F.linear(h, cast(l2.weight, h), cast(l2.bias, h))
         return leff_fused(

@@ -36,6 +36,15 @@ the generator. In train mode, DropPath and dropout draw their masks from
 the `droppath` and `dropout_gen` generators (none is needed at rate 0),
 never from torch's global RNG.
 
+A forward given `bands` (`parallel.halo.Bands`) runs on this process's
+row band of a canvas whose other bands run on the other ranks of the
+process group, as the JAX model runs under `band_axis`: the convs take
+their neighbours' rows, the SW-MSA roll rotates rows across the band ring,
+the region ids and the padding flags are the global canvas's, sliced to
+the band's rows, and LeFF runs unfused (K2's zero halo is the canvas
+edge's). The sample tables are [N, u] and shared by every window, so each
+band draws the tables of the whole canvas.
+
 With `cfg.remat`, each LeWin block runs under `torch.utils.checkpoint`
 when grad is on, and its activations are recomputed in the backward pass.
 The recompute replays the block's draws from the generators (its sample
@@ -63,6 +72,7 @@ from dehaze_tpu_torch.ops import probsparse as ps_ops
 from dehaze_tpu_torch.ops import window as win_ops
 from dehaze_tpu_torch.ops.kernels.window_attention import (
     fused_window_attention)
+from dehaze_tpu_torch.parallel import halo
 
 
 @win_ops.device_constant_cache
@@ -86,14 +96,17 @@ def _legacy_nearest(n_in: int, n_out: int,
         return torch.from_numpy(idx.astype(np.int64)).to(device)
 
 
-def pad_flags(pad_mask: torch.Tensor, H: int, W: int,
-              win: int) -> torch.Tensor:
+def pad_flags(pad_mask: torch.Tensor, H: int, W: int, win: int,
+              bands: Optional[halo.Bands] = None) -> torch.Tensor:
     """The full-resolution padding mask [1, X, X', 1] (1 on padding) resized
     to a stage's H × W with legacy nearest indices and windowed: [nW, N]
     flags. Built from unshifted coordinates even for shifted blocks, as the
-    reference does."""
+    reference does. On a band (H its rows), the mask of the whole canvas is
+    resized to the stage's global height and the band's rows kept."""
     dev = pad_mask.device
-    pm = pad_mask[:, _legacy_nearest(pad_mask.shape[1], H, dev)]
+    n = 1 if bands is None else bands.count
+    pm = halo.band_rows(
+        pad_mask[:, _legacy_nearest(pad_mask.shape[1], H * n, dev)], bands)
     pm = pm[:, :, _legacy_nearest(pad_mask.shape[2], W, dev)]
     return win_ops.window_partition(pm, win)[..., 0]
 
@@ -293,8 +306,8 @@ class LeWinBlock(nn.Module):
                 droppath: Optional[torch.Generator] = None,
                 pad_mask: Optional[torch.Tensor] = None,
                 sample_idx: Optional[torch.Tensor] = None,
-                dropout_gen: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                dropout_gen: Optional[torch.Generator] = None,
+                bands: Optional[halo.Bands] = None) -> torch.Tensor:
         B, H, W, C = x.shape
         win, shift = self.win, self.shift
         if H % win or W % win:
@@ -303,11 +316,16 @@ class LeWinBlock(nn.Module):
                              "win*2^4 (see infer.tiled)")
         y = layer_norm(x, self.norm1)
         sw_region = None
-        if shift > 0:
+        if shift > 0 and bands is None:
             y = win_ops.cyclic_shift(y, shift)
             sw_region = _region_ids(H, W, win, shift, x.device)
+        elif shift > 0:  # the global window grid's ids, the band's windows
+            y = halo.cyclic_shift_banded(y, shift, bands)
+            per_band = (H // win) * (W // win)
+            sw_region = _region_ids(H * bands.count, W, win, shift, x.device)[
+                bands.index * per_band:(bands.index + 1) * per_band]
         pad_flag = (None if pad_mask is None
-                    else pad_flags(pad_mask, H, W, win))
+                    else pad_flags(pad_mask, H, W, win, bands))
         y = win_ops.window_partition(y, win)
         if isinstance(self.attn, WindowAttention):
             y = self.attn(y, sw_region, generator, pad_flag, sample_idx)
@@ -315,10 +333,11 @@ class LeWinBlock(nn.Module):
             y = self.attn(y, sw_region, pad_flag)
         y = win_ops.window_reverse(y, win, H, W)
         if shift > 0:
-            y = win_ops.cyclic_unshift(y, shift)
+            y = (win_ops.cyclic_unshift(y, shift) if bands is None
+                 else halo.cyclic_unshift_banded(y, shift, bands))
         x = x + self.drop_path(y, droppath)
         if isinstance(self.mlp, LeFF):
-            z = self.mlp(x, self.norm2)
+            z = self.mlp(x, self.norm2, bands)
         else:
             z = self.mlp(layer_norm(x, self.norm2), dropout_gen)
         return x + self.drop_path(z, droppath)
@@ -329,7 +348,8 @@ def _remat_block(blk: LeWinBlock, x: torch.Tensor,
                  droppath: Optional[torch.Generator],
                  pad_mask: Optional[torch.Tensor],
                  sample_idx: Optional[torch.Tensor],
-                 dropout_gen: Optional[torch.Generator]) -> torch.Tensor:
+                 dropout_gen: Optional[torch.Generator],
+                 bands: Optional[halo.Bands]) -> torch.Tensor:
     """blk(x, ...) with its activations recomputed in the backward pass.
 
     The generators' states at the block's entry are kept; the recompute
@@ -342,7 +362,8 @@ def _remat_block(blk: LeWinBlock, x: torch.Tensor,
     replay = False
 
     def call(x, pad_mask):
-        return blk(x, generator, droppath, pad_mask, sample_idx, dropout_gen)
+        return blk(x, generator, droppath, pad_mask, sample_idx, dropout_gen,
+                   bands)
 
     def run(x, pad_mask):
         nonlocal replay
@@ -389,17 +410,17 @@ class UformerStage(nn.Module):
                 droppath: Optional[torch.Generator] = None,
                 pad_mask: Optional[torch.Tensor] = None,
                 sample_tables: Optional[Sequence[torch.Tensor]] = None,
-                dropout_gen: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                dropout_gen: Optional[torch.Generator] = None,
+                bands: Optional[halo.Bands] = None) -> torch.Tensor:
         """sample_tables: one [N, U_part] table per block (None for a W-MSA
         block), or None to draw them from `generator`."""
         remat = self.remat and torch.is_grad_enabled()
         for j, blk in enumerate(self.blocks):
             idx = None if sample_tables is None else sample_tables[j]
             x = (_remat_block(blk, x, generator, droppath, pad_mask, idx,
-                              dropout_gen)
+                              dropout_gen, bands)
                  if remat else blk(x, generator, droppath, pad_mask, idx,
-                                   dropout_gen))
+                                   dropout_gen, bands))
         return x
 
 
@@ -492,13 +513,15 @@ class Uformer(nn.Module):
                 droppath: Optional[torch.Generator] = None,
                 dropout_gen: Optional[torch.Generator] = None,
                 pad_mask: Optional[torch.Tensor] = None,
-                sample_tables: Optional[Sequence[torch.Tensor]] = None
-                ) -> torch.Tensor:
+                sample_tables: Optional[Sequence[torch.Tensor]] = None,
+                bands: Optional[halo.Bands] = None) -> torch.Tensor:
         """pad_mask: [1, H, W, 1], 1 on padding (any-resolution inputs, see
         `infer.anyres`), or None. sample_tables: the ProbSparse tables of
         every ProbSparse layer in module order (`draw_sample_tables`; none
         for a W-MSA model), used in place of drawing them from
-        `generator`; or None."""
+        `generator`; or None. bands: x is this rank's band of the canvas
+        (`infer.halo_sharded`), and pad_mask the whole canvas's; or
+        None."""
         n_enc = self.cfg.num_enc_layers
         if sample_tables is not None:
             n = sum(isinstance(m, WindowAttention) for m in self.modules())
@@ -512,21 +535,22 @@ class Uformer(nn.Module):
             idx = (None if sample_tables is None
                    else [next(tables) if isinstance(b.attn, WindowAttention)
                          else None for b in stage.blocks])
-            return stage(y, generator, droppath, pad_mask, idx, dropout_gen)
+            return stage(y, generator, droppath, pad_mask, idx, dropout_gen,
+                         bands)
 
-        y = dropout(self.input_proj(x.to(self.cfg.dtype)), self.cfg.drop_rate,
-                    self.training, dropout_gen)
+        y = dropout(self.input_proj(x.to(self.cfg.dtype), bands),
+                    self.cfg.drop_rate, self.training, dropout_gen)
         skips = []
         for i in range(n_enc):
             y = run(getattr(self, f"encoderlayer_{i}"), y)
             skips.append(y)
-            y = getattr(self, f"dowsample_{i}")(y)
+            y = getattr(self, f"dowsample_{i}")(y, bands)
         y = run(self.conv, y)
         for i in range(n_enc):
             y = getattr(self, f"upsample_{i}")(y)
             y = torch.cat([y, skips[n_enc - 1 - i]], dim=-1)
             y = run(getattr(self, f"decoderlayer_{i}"), y)
-        out = self.output_proj(y)
+        out = self.output_proj(y, bands)
         return x.float() + out.float()
 
 

@@ -7,7 +7,7 @@ and perceptual losses lives in `dehaze_tpu_torch.models.vgg`.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,25 +39,34 @@ def contrast_loss_from_features(
     n_feats: Sequence[torch.Tensor],
     weights: Sequence[float] = (1 / 32, 1 / 16, 1 / 8, 1 / 4, 1.0),
     ablation: bool = False,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Contrastive regularization over precomputed VGG features:
 
     loss = Σᵢ wᵢ · d(aᵢ, pᵢ) / (d(aᵢ, nᵢ) + 1e-7), d = mean L1, with the
     positive and negative features detached. `ablation=True` drops the
-    negative term. Returns (loss, Σ d_ap, Σ d_an)."""
+    negative term. `reduce` maps the stacked batch means [d_ap…, d_an…]
+    to the means over a larger batch before the ratios are taken (a
+    data-parallel step passes `parallel.dist.mean_over_ranks`: the loss is
+    a ratio of batch means, which per-rank ratios would not give). Returns
+    (loss, Σ d_ap, Σ d_an)."""
+    d_ap = [l1(af, pf.detach()) for af, pf in zip(a_feats, p_feats)]
+    d_an = ([] if ablation else
+            [l1(af, nf.detach()) for af, nf in zip(a_feats, n_feats)])
+    if reduce is not None:
+        ds = reduce(torch.stack(d_ap + d_an)).unbind()
+        d_ap, d_an = list(ds[:len(d_ap)]), list(ds[len(d_ap):])
     dev = a_feats[0].device
     loss = torch.zeros((), device=dev)
     all_ap = torch.zeros((), device=dev)
     all_an = torch.zeros((), device=dev)
-    for w, af, pf, nf in zip(weights, a_feats, p_feats, n_feats):
-        d_ap = l1(af, pf.detach())
-        all_ap = all_ap + d_ap
+    for i, w in enumerate(weights[:len(d_ap)]):
+        all_ap = all_ap + d_ap[i]
         if ablation:
-            contrastive = d_ap
+            contrastive = d_ap[i]
         else:
-            d_an = l1(af, nf.detach())
-            all_an = all_an + d_an
-            contrastive = d_ap / (d_an + 1e-7)
+            all_an = all_an + d_an[i]
+            contrastive = d_ap[i] / (d_an[i] + 1e-7)
         loss = loss + w * contrastive
     return loss, all_ap, all_an
 

@@ -17,6 +17,15 @@ seed the best tracker from `model_best.pth`'s extra.
 
 The epoch line reports steady training img/s: after step 0, excluding the
 evals, with the device synchronised at both ends.
+
+With `TrainConfig.data_axis` (`--data_axis N`, one process per GPU under
+`torchrun --nproc_per_node N`, the process group already up) the trainer
+runs under DDP on each rank's slice of every global batch
+(`train_batches(process_index=, process_count=)`), evaluation spreads the
+validation batches over the ranks and gives the one-process PSNR, resume
+loads on every rank, and only rank 0 logs and writes checkpoints (the
+module's keys, no `module.` prefix). `--device_data` is refused with it,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from dehaze_tpu_torch.data.pipeline import (PairedFolder, _val_batches,
                                             epoch_schedule_arrays,
                                             load_all_pairs, train_batches)
 from dehaze_tpu_torch.ops import metrics as M
+from dehaze_tpu_torch.parallel import dist
 from dehaze_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from dehaze_tpu_torch.train.schedule import make_epoch_lr, resume_cosine_lr
 from dehaze_tpu_torch.train.trainer import Trainer, u8_norm
@@ -61,15 +71,39 @@ def _prune_epoch_ckpts(model_dir: str, keep: int, current_epoch: int) -> None:
             pass
 
 
+class _Silent:
+    """The logger of the ranks other than 0."""
+
+    def text(self, msg: str) -> None:
+        pass
+
+    def event(self, kind: str, **fields) -> None:
+        pass
+
+
 def fit(cfg: Config, log_dir: Optional[str] = None, device="cuda"
         ) -> Tuple[float, str]:
-    """Train per cfg on `device`; returns (best_psnr, best_ckpt_path)."""
+    """Train per cfg on `device` (this rank's, data-parallel); returns
+    (best_psnr, best_ckpt_path)."""
     t, d = cfg.train, cfg.data
     device = torch.device(device)
+    data_parallel = t.data_axis is not None
+    if data_parallel and d.device_data:
+        raise NotImplementedError(
+            "--device_data with --data_axis is not supported (each rank "
+            "would need its share of the device-resident set); use the "
+            "streaming pipeline for data-parallel runs")
+    if data_parallel and (not dist.is_on() or dist.world() != t.data_axis):
+        raise SystemExit(f"{dist.launch_hint('--data_axis', t.data_axis)}; "
+                         f"the process group has {dist.world()} rank(s)"
+                         + ("" if dist.is_on() else " (none is up)"))
+    lead = dist.rank() == 0  # logs and writes the checkpoints
+    n_proc = t.data_axis or 1
     log_dir = log_dir or os.path.join(t.save_dir, cfg.model.arch + t.env)
     model_dir = os.path.join(log_dir, "models")
-    os.makedirs(model_dir, exist_ok=True)
-    logger = RunLogger(log_dir)
+    if lead:
+        os.makedirs(model_dir, exist_ok=True)
+    logger = RunLogger(log_dir) if lead else _Silent()
     logger.text(str(cfg))
 
     if d.device_data and t.accum_steps > 1:
@@ -91,7 +125,8 @@ def fit(cfg: Config, log_dir: Optional[str] = None, device="cuda"
         base_lr = resume_cosine_lr(t, start_epoch, resumed_lr)
         epoch_lr = lambda e0: base_lr(e0 + 1)  # e0: 0-based absolute epoch
 
-    trainer = Trainer(cfg, steps_per_epoch, epoch_lr=epoch_lr, device=device)
+    trainer = Trainer(cfg, steps_per_epoch, epoch_lr=epoch_lr, device=device,
+                      data_parallel=data_parallel)
     if resume_payload is not None:
         trainer.model.load_state_dict(resume_payload["state_dict"])
         if "optimizer" in resume_payload:
@@ -154,7 +189,9 @@ def fit(cfg: Config, log_dir: Optional[str] = None, device="cuda"
                 it = train_batches(train_folder, batch_size=d.batch_size,
                                    patch_size=d.train_ps, seed=t.seed,
                                    epoch=epoch, num_workers=d.num_workers,
-                                   u8=d.u8_transfer)
+                                   u8=d.u8_transfer,
+                                   process_index=dist.rank(),
+                                   process_count=n_proc)
             for i, item in enumerate(it):
                 if d.device_data:
                     metrics = trainer.train_step_data(
@@ -165,7 +202,7 @@ def fit(cfg: Config, log_dir: Optional[str] = None, device="cuda"
                     metrics = trainer.train_step(
                         clean, hazy, use_mixup=use_mixup,
                         accum_steps=t.accum_steps)
-                    n_rows = len(clean)
+                    n_rows = len(clean) * n_proc  # the global batch
                 step_losses.append(metrics["loss"])
                 if steady_t0 is None:
                     _sync(device)
@@ -179,12 +216,13 @@ def fit(cfg: Config, log_dir: Optional[str] = None, device="cuda"
                     psnr, ssim = trainer.evaluate(val, n_valid=n_val)
                     if psnr > best_psnr:
                         best_psnr, best_epoch, best_iter = psnr, epoch, i
-                        best_pending = (
-                            epoch,
-                            {k: v.detach().cpu().clone() for k, v in
-                             trainer.model.state_dict().items()},
-                            {"psnr": psnr, "ssim": ssim, "epoch": epoch,
-                             "iter": i})
+                        if lead:  # written at the epoch's end
+                            best_pending = (
+                                epoch,
+                                {k: v.detach().cpu().clone() for k, v in
+                                 trainer.model.state_dict().items()},
+                                {"psnr": psnr, "ssim": ssim, "epoch": epoch,
+                                 "iter": i})
                     logger.text(
                         f"[Ep {epoch} it {i}] PSNR {psnr:.4f} | SSIM "
                         f"{ssim:.4f} ---- [best Ep {best_epoch} it "
@@ -216,10 +254,12 @@ def fit(cfg: Config, log_dir: Optional[str] = None, device="cuda"
             logger.event("epoch", epoch=epoch, loss=epoch_loss,
                          step_losses=losses, seconds=time.time() - t0,
                          img_per_s=img_per_s, **mem)
-            save_checkpoint(
-                os.path.join(model_dir, f"epoch_model_{epoch}.pth"), epoch,
-                trainer.model.state_dict(), trainer.opt.state_dict())
-            if t.keep_ckpts > 0:
+            if lead:
+                save_checkpoint(
+                    os.path.join(model_dir, f"epoch_model_{epoch}.pth"),
+                    epoch, trainer.model.state_dict(),
+                    trainer.opt.state_dict())
+            if t.keep_ckpts > 0 and lead:
                 _prune_epoch_ckpts(model_dir, t.keep_ckpts, epoch)
             if t.exit_after and (epoch - start_epoch + 1) >= t.exit_after \
                     and epoch < t.nepoch:

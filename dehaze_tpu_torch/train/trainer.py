@@ -15,12 +15,26 @@ times lr, and the same timeline across resumes.
 Random sources are explicit generators, seeded from `TrainConfig.seed`:
 ProbSparse sampling (advancing from step to step), DropPath, dropout and
 MixUp. Evaluation samples from a generator seeded 0 for every batch.
+
+Data-parallel (`data_parallel=True`, one process per GPU, the process
+group up; `--data_axis`): the model runs under `DistributedDataParallel`,
+each rank on its rows of the global batch (`pipeline.train_batches`'
+process slice), and the step is the one-process step on the global batch,
+not a mean of per-rank steps: MixUp mixes the gathered global batch with
+one draw and keeps the rank's rows; DropPath and dropout masks are drawn
+for the global batch (`models.layers.RowShare`); the CR loss takes its
+ratios of the global batch means (`parallel.dist.mean_over_ranks`); the
+sample tables, the lr table and AdamW are the same on every rank, and the
+metrics are the global ones. With --accum_steps, microbatch j joins every
+rank's j-th share of its rows: another split of the global batch than one
+process's accumulation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,10 +42,13 @@ import torch
 from dehaze_tpu_torch.config import Config
 from dehaze_tpu_torch.data.augment import (dihedral_index_maps,
                                            gather_crops, mixup)
+from dehaze_tpu_torch.infer.sharded import frame_share
 from dehaze_tpu_torch.models import vgg as vgg_mod
+from dehaze_tpu_torch.models.layers import RowShare
 from dehaze_tpu_torch.models.uformer import Uformer
 from dehaze_tpu_torch.ops import losses as L
 from dehaze_tpu_torch.ops import metrics as M
+from dehaze_tpu_torch.parallel import dist
 from dehaze_tpu_torch.train.schedule import epoch_lr_table, make_epoch_lr
 from dehaze_tpu_torch.utils.transfer import to_device
 
@@ -68,10 +85,18 @@ class Trainer:
     each run one optimizer update."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int, epoch_lr=None,
-                 device="cuda"):
+                 device="cuda", data_parallel: bool = False):
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = build_model(cfg, self.device)
+        # the DDP wrapper runs the training forward; `model` (its module,
+        # rank 0's weights after the wrapper's broadcast) is what evaluation
+        # runs and checkpoints save
+        self.ddp = None
+        if data_parallel:
+            self.ddp = torch.nn.parallel.DistributedDataParallel(
+                self.model, device_ids=(
+                    [self.device] if self.device.type == "cuda" else None))
         self.opt = make_optimizer(cfg, self.model.parameters())
         self._spe = steps_per_epoch
         self.lr_table = epoch_lr_table(epoch_lr or make_epoch_lr(cfg.train))
@@ -96,10 +121,19 @@ class Trainer:
 
     def _loss(self, clean: torch.Tensor, hazy: torch.Tensor
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(the loss to back-propagate, the step's metrics). Data-parallel,
+        the first is this rank's share, whose gradient DDP averages into
+        the global one (`parallel.dist.mean_over_ranks` says why), and the
+        metrics are the global batch's."""
         cfg = self.cfg
-        restored = self.model(hazy, generator=self.sample_gen,
-                              droppath=self.droppath_gen,
-                              dropout_gen=self.dropout_gen)
+        droppath, dropout_gen = self.droppath_gen, self.dropout_gen
+        if self.ddp is not None:  # masks of the global batch, our rows
+            b, p = clean.shape[0], dist.world()
+            droppath = RowShare(droppath, dist.rank() * b, p * b)
+            dropout_gen = RowShare(dropout_gen, dist.rank() * b, p * b)
+        restored = (self.ddp or self.model)(
+            hazy, generator=self.sample_gen, droppath=droppath,
+            dropout_gen=dropout_gen)
         restored = torch.clamp(restored, 0.0, 1.0)
         l_char = L.charbonnier_loss(restored, clean, cfg.loss.charbonnier_eps)
         zero = torch.zeros((), device=clean.device)
@@ -109,8 +143,15 @@ class Trainer:
                 p, n = self.vgg(clean), self.vgg(hazy)
             l_cr, all_ap, all_an = L.contrast_loss_from_features(
                 self.vgg(restored), p, n, weights=cfg.loss.contrast_weights,
-                ablation=cfg.loss.contrast_ablation)
-        loss = cfg.loss.w_charbonnier * l_char + cfg.loss.w_contrast * l_cr
+                ablation=cfg.loss.contrast_ablation,
+                reduce=dist.mean_over_ranks if self.ddp is not None else None)
+        w_char, w_cr = cfg.loss.w_charbonnier, cfg.loss.w_contrast
+        loss = w_char * l_char + w_cr * l_cr
+        if self.ddp is not None:  # the global batch's Charbonnier
+            l_char = dist.mean_over_ranks(l_char.detach())
+            return loss, {"loss": w_char * l_char + w_cr * l_cr.detach(),
+                          "charbonnier": l_char, "contrast": l_cr,
+                          "all_ap": all_ap, "all_an": all_an}
         return loss, {"loss": loss, "charbonnier": l_char, "contrast": l_cr,
                       "all_ap": all_ap, "all_an": all_an}
 
@@ -143,11 +184,19 @@ class Trainer:
         """The update on a batch already on the device."""
         cfg = self.cfg
         self.model.train()
-        clean, hazy = u8_norm(clean), u8_norm(hazy)
         if use_mixup:
-            # one λ draw over the full batch, before any microbatch split
-            clean, hazy = mixup(self.mixup_gen, clean, hazy,
-                                cfg.data.mixup_beta)
+            # one λ draw over the full (global) batch, before any
+            # microbatch split: data-parallel, the ranks' rows are
+            # gathered, mixed with a draw that is the same on every rank,
+            # and each rank keeps its own rows
+            b, lo = clean.shape[0], 0
+            if self.ddp is not None:
+                lo = dist.rank() * b
+                clean, hazy = dist.gather_rows(clean), dist.gather_rows(hazy)
+            clean, hazy = mixup(self.mixup_gen, u8_norm(clean),
+                                u8_norm(hazy), cfg.data.mixup_beta)
+            clean, hazy = clean[lo:lo + b], hazy[lo:lo + b]
+        clean, hazy = u8_norm(clean), u8_norm(hazy)
         self.opt.zero_grad(set_to_none=True)
         b = clean.shape[0]
         if b % accum_steps:
@@ -169,8 +218,11 @@ class Trainer:
         for j in range(accum_steps):
             self.sample_gen.set_state(sample_state)
             sl = slice(j * mb, (j + 1) * mb)
-            loss, metrics = self._loss(clean[sl], hazy[sl])
-            (loss / accum_steps).backward()
+            # DDP averages the gradients once, in the last backward
+            defer = self.ddp is not None and j < accum_steps - 1
+            with self.ddp.no_sync() if defer else contextlib.nullcontext():
+                loss, metrics = self._loss(clean[sl], hazy[sl])
+                (loss / accum_steps).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0) + v.detach() / accum_steps
         lr = float(self.lr_table[min(self.step // self._spe,
@@ -193,15 +245,21 @@ class Trainer:
         return M.batch_psnr(restored, clean), M.batch_ssim(restored, clean), \
             restored
 
-    def evaluate(self, batches: Iterable, n_valid: Optional[int] = None
+    def evaluate(self, batches: Sequence, n_valid: Optional[int] = None
                  ) -> Tuple[float, float]:
         """Mean PSNR/SSIM over (clean, hazy) batches; `n_valid` drops the
-        wrap-padded tail rows. One host sync at the end."""
-        psnrs, ssims = [], []
-        for clean, hazy in batches:
-            p, s, _ = self.eval_step(clean, hazy)
-            psnrs.append(p)
-            ssims.append(s)
-        p_all = torch.cat(psnrs)[:n_valid].cpu().numpy()
-        s_all = torch.cat(ssims)[:n_valid].cpu().numpy()
-        return float(np.mean(p_all)), float(np.mean(s_all))
+        wrap-padded tail rows. The host waits once, after every batch is
+        queued. Under a process group each rank scores its share of the
+        batches (`infer.sharded.frame_share`) and every rank gets the means
+        over all of them."""
+        share = frame_share(len(batches))
+        scores = [self.eval_step(*batches[i])[:2] for i in share]
+        merged = {}
+        for part in dist.gather_objects({
+                i: (p.cpu().numpy(), s.cpu().numpy())
+                for i, (p, s) in zip(share, scores)}):
+            merged.update(part)
+        p_all = np.concatenate([merged[i][0] for i in range(len(batches))])
+        s_all = np.concatenate([merged[i][1] for i in range(len(batches))])
+        return (float(np.mean(p_all[:n_valid])),
+                float(np.mean(s_all[:n_valid])))

@@ -96,5 +96,6 @@ def test_eval_cli_refuses_what_is_not_ported(eval_setup):
     with pytest.raises(ValueError, match="not ported"):
         test_long.main(base + ["--arch", "ffa"])
     for flag in (["--bands", "2"], ["--data_axis", "2"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        # ported: they need as many processes, started by torchrun
+        with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
             test_long.main(base + flag)

@@ -209,8 +209,10 @@ def test_stream_refuses_other_geometry_and_mesh(setup):
                                          "bakes 40x56"):
         stream_dehaze(None, frames, base_fn=fn,
                       base_hw=(meta["height"], meta["width"]), device="cpu")
-    with pytest.raises(ValueError, match="queue 1, item 4"):
-        stream_dehaze(None, frames, mesh=object())
+    with pytest.raises(ValueError, match="artifact serves single-device"):
+        stream_dehaze(None, frames, base_fn=fn,
+                      base_hw=(meta["height"], meta["width"]),
+                      device="cpu", data_parallel=True)
 
 
 def _args(**kw):

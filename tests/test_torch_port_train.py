@@ -502,6 +502,7 @@ def test_cli_train_flags_and_refusals():
     assert not cfg.model.remat and not cfg.data.device_data
     cfg = config_from_args(p.parse_args(["--remat", "--device_data"]))
     assert cfg.model.remat and cfg.data.device_data
-    with pytest.raises(NotImplementedError, match="--data_axis is not "
-                       "ported"):
-        config_from_args(p.parse_args(["--data_axis", "2"]))
+    cfg = config_from_args(p.parse_args(["--data_axis", "2"]))
+    assert cfg.train.data_axis == 2
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
+        fit(cfg, device="cpu")  # no process group of 2 ranks
