@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero before the final line:
+Phases, in order; any failure exits non-zero before the final line; each
+prints its seconds (`phase <name>: N s`) and the run its total:
   1. the card's name and power limit (nvidia-smi); a CUDA device is required;
   2. build kernels K1/K3 (ProbSparse window attention on the CUDA cores,
      forward and backward, one source), K1's and K3-v3's tensor-core
      forward and backward (one source) and K2 (fused LN+LeFF) from
      dehaze_tpu_torch/csrc/, one nvcc per source, all at once, for sm_90a,
-     and the PNG unfilter and JPEG decoder (host C) beside them;
+     and the PNG unfilter and JPEG decoder (host C) beside them; while
+     they build, the synthetic data of the later phases is written and
+     phase 15a (FFA-Net and the UNet, which need no kernel) runs;
   2b. the image codec on the host: a 1200×1600 textured frame through the
      port's PNG encoder (per-row filters) and decoder, and as a 24-bit BMP,
      each against the pixels; the committed JPEG fixtures (tests/data/)
@@ -54,23 +57,26 @@ Phases, in order; any failure exits non-zero before the final line:
      --weights, three PNG requests of synthetic hazy scenes (two
      concurrent) and /healthz;
   9. the evaluation path: `cli.test_long` (square canvas, then
-     --rect_canvas) and `cli.test_anyres` as `python -m` subprocesses on
-     synthetic 1200×1600 pairs (and one 1000×1500 for any-resolution),
-     Uformer-32 bf16: s/frame, launches per frame, peak memory, and each
-     per-image PSNR against the in-process function;
-  9b. the parity gate: `python -m dehaze_tpu_torch.cli.parity_gate` on
-     the seeded .pth and the three 1200×1600 pairs, once with the
-     in-process mean PSNR expected (--tol 1e-3; exit 0), once 1 dB off
-     (exit 1): s/frame and launches per frame;
+     --rect_canvas) and `cli.test_anyres`, one after another in a
+     subprocess (the CLIs of a phase share one process, each run with its
+     counts from 0: `_counted_clis`), on synthetic 1200×1600 pairs (and
+     one 1000×1500 for any-resolution), Uformer-32 bf16: s/frame,
+     launches per frame, peak memory, and each per-image PSNR against the
+     in-process function;
+  9b. the parity gate: `cli.parity_gate` on the seeded .pth and the three
+     1200×1600 pairs, once with the in-process mean PSNR expected (--tol
+     1e-3; exit 0), once 1 dB off (exit 1): s/frame and launches per
+     frame;
   9c. the serving slice (phase_serving): `cli.export` on the card and an
      artifact traced on the CPU, each loaded onto the card and equal to
      the eager CUDA forward bit for bit (18 K1 tensor-core and 18 K2
      launches per frame, no twin call); `cli.stream` with --weights on
-     eight 1200×1600 frames and one 1000×1500, then --exported, each
-     output equal to the in-process forward, with the stream's s/frame
-     and its stages' ms; `cli.test_long --exported` with a square
-     artifact (PSNRs as --weights); `serve --exported` (200 at the baked
-     geometry, 400 at another);
+     STREAM_FRAMES 1200×1600 frames and one 1000×1500, then --exported,
+     each output equal to the in-process forward, with the stream's
+     s/frame and its stages' ms; `cli.test_long --exported` on that
+     rect artifact (PSNRs as --weights --rect_canvas) and on a square
+     one from `cli.export --square` (PSNRs as --weights); `serve
+     --exported` (200 at the baked geometry, 400 at another);
  10. Uformer-32 at batch 2 × 128², f32, CUDA (kernels) against CPU
      (twins): the model's backward for one fixed output gradient, then one
      train step with the CR loss on a random VGG19 (loss and every
@@ -106,19 +112,37 @@ Phases, in order; any failure exits non-zero before the final line:
      every other step), held to one NCCL rank's steps at 32 rows; the NCCL
      rank's plain step against its DDP step in turns; `cli.test_long
      --data_axis 2` (two gloo ranks; the one-process PSNRs) and
-     `cli.train --data_axis 1` (one NCCL rank). Two ranks on one card
-     measure no multi-GPU speed;
- 15. the kernels' JSON line, then the device's JSON line.
+     `cli.train --data_axis 1` (one NCCL rank); the gloo ranks also run
+     FFA-Net's native frame in 2 bands (bf16 and f32 against the
+     one-process frame). Two ranks on one card measure no multi-GPU
+     speed;
+ 15. FFA-Net (full width and depth) and the UNet-32, seeded weights:
+     (a, during the build) FFA-Net f32 CUDA against CPU on a small frame,
+     the 1200×1600 native frame in bf16 and f32 (ms, peak memory, bound,
+     a profile with the NCHW<->NHWC copies' share), the UNet frame on the
+     rect canvas; (b) `cli.test_long --arch ffa`, `cli.export --arch ffa`
+     (its native artifact bit for bit the eager forward) and `test_long
+     --exported`, `cli.stream --arch ffa`, a `serve --arch ffa` request;
+     (c) `cli.ffa_train` at batch 2 × 240² with --perloss, its
+     ffa_best.pk reloaded strictly; (d) `test_long --arch ffa --bands 2`
+     on two gloo ranks (the banded frame itself is held in 14); (e)
+     `cli.train --arch unet` and `test_long --arch unet`: each path with
+     0 launches of every kernel and 0 twin calls. The runs of (b)-(e)
+     need no kernel and run while the kernels build (phase_ffa_runs);
+     their checks come last (phase_ffa);
+ 16. the kernels' JSON line, then the device's JSON line.
 The launch counts in the kernels line are those of the serving path (8),
 the evaluation path (9, the three runs together), the parity gate (9b,
 both runs), the stream with --weights and with --exported, the exported
-evaluation and the exported server (9c), the training path (11), the
+evaluation (rect and square artifacts) and the exported server (9c), the training path (11), the
 device-resident training path (11b), the remat train step (11c) and the
 W-MSA paths (13: its frames, its gate, its exported evaluation, its
-training run) and the multi-GPU paths (14: the banded frames over both
-ranks, the frame-parallel evaluation over both ranks, the gloo DDP steps
-over both ranks, the NCCL rank's DDP steps, the NCCL `cli.train`), each
-counted from 0 over its own run. Every path runs
+training run), the multi-GPU paths (14: the banded frames over both
+ranks, the Uformer's and FFA-Net's, the frame-parallel evaluation over both ranks, the gloo DDP steps
+over both ranks, the NCCL rank's DDP steps, the NCCL `cli.train`) and
+the FFA-Net and UNet paths (15: frames, evaluation, artifact, stream,
+serve, `ffa_train`, bands, `cli.train --arch unet`), each counted from 0
+over its own run. Every path runs
 bf16, so K1's forward and backward go to the tensor-core kernels there
 and the CUDA-core ones have 0 launches; the W-MSA paths run no K1. No
 path runs K3 (no entry point of the JAX package runs its TPU kernels
@@ -205,6 +229,7 @@ RELOAD_TOL = 1e-3
 # The eval CLIs' per-image PSNR (printed to 4 decimals) against the
 # in-process function with the same weights and seed, in dB.
 EVAL_PSNR_TOL = 1e-3
+STREAM_FRAMES = 4  # 1200×1600 frames of phase 9c's streams
 TRAIN_BATCH, TRAIN_PS = 32, 128
 # The nine stages of Uformer-32 (ModelConfig defaults) on the serving rect
 # canvas 1280×1664: K2's x, with hidden width 4C; two K2 launches each per
@@ -1168,8 +1193,9 @@ def phase_eval(tmp: str, pth: str):
     .pth): `python -m dehaze_tpu_torch.cli.test_long` on three 1200×1600
     pairs (square canvas 1664², then --rect_canvas) and
     `python -m dehaze_tpu_torch.cli.test_anyres` on two of them and a
-    1000×1500 pair, each in a subprocess that starts with every launch
-    count at 0; s/frame, launches per frame and peak device memory; each
+    1000×1500 pair (phase_data's folders), one after another in a
+    subprocess, each with every launch count at 0 (_counted_clis);
+    s/frame, launches per frame and peak device memory; each
     per-image PSNR against the in-process function with the same weights
     and seed. Returns the launches of the three runs together and the
     per-image PSNRs of the test_long runs by canvas ("square", "rect")."""
@@ -1185,10 +1211,8 @@ def phase_eval(tmp: str, pth: str):
     from dehaze_tpu_torch.infer.tiled import make_whole_image_fn
     from dehaze_tpu_torch.ops import metrics as M
 
-    t0 = time.perf_counter()
-    long_dir, any_dir = _write_eval_folders(tmp)
-    print(f"eval data: 3 pairs at {FRAME[0]}x{FRAME[1]}, 1 at 1000x1500, "
-          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+    long_dir = os.path.join(tmp, "eval_long")
+    any_dir = os.path.join(tmp, "eval_anyres")
     model = build_model_and_params(ModelConfig(), pth, torch.device("cuda"))
 
     def apply_fn(x, pad_mask=None):
@@ -1200,10 +1224,13 @@ def phase_eval(tmp: str, pth: str):
              "rect canvas 1280x1664"),
             ("test_anyres", any_dir, [], "any-resolution, 1664² and 1536²")]
     total, psnrs = {}, {}
-    for cli, folder, extra, what in runs:
-        args = ["--input_dir", folder, "--weights", pth, "--seed", str(SEED),
-                "--result_dir", os.path.join(tmp, f"res_{cli}")] + extra
-        out, stats, secs = _counted_cli(cli, args, " ".join(extra))
+    done, secs = _counted_clis([
+        (cli, ["--input_dir", folder, "--weights", pth, "--seed", SEED,
+               "--result_dir", os.path.join(tmp, f"res_{cli}")] + extra,
+         " ".join(extra)) for cli, folder, extra, _ in runs])
+    for (cli, folder, extra, what), (out, stats) in zip(runs, done):
+        if stats["rc"] != 0:
+            fail(f"cli.{cli} {' '.join(extra)} exited {stats['rc']}")
         lines = re.findall(r"^(\S+): PSNR (\S+) SSIM (\S+)$", out, re.M)
         per_frame = float(re.search(r"frames: (\S+) s/frame", out).group(1))
         n = len(lines)
@@ -1240,9 +1267,10 @@ def phase_eval(tmp: str, pth: str):
               f"{per_frame:.4f} s/frame after the first, launches per frame "
               f"K1 tensor cores {stats['k1_fwd_tc'] / n:g} CUDA cores "
               f"{stats['k1_fwd'] / n:g} K2 {stats['k2'] / n:g}, peak "
-              f"device memory {stats['peak_gib']:.2f} GiB, subprocess "
-              f"{secs:.1f}s; per-image PSNR vs the in-process function: max "
-              f"|d| {worst:.2e} dB", flush=True)
+              f"device memory {stats['peak_gib']:.2f} GiB, run "
+              f"{stats['secs']:.1f}s (the three in one process "
+              f"{secs:.1f}s); per-image PSNR vs the in-process function: "
+              f"max |d| {worst:.2e} dB", flush=True)
         if n != 3 or not all(np.isfinite(float(p)) for _, p, _ in lines):
             fail(f"cli.{cli}: expected 3 finite per-image lines")
         _check_launches(f"cli.{cli} {' '.join(extra)}", stats, n)
@@ -1317,52 +1345,104 @@ def phase_serve(pth: str):
 
 
 
-# A subprocess that runs `python -m <module> args...` with every launch
-# count at 0 and the plain twins' calls counted, then prints its counts and
-# exits with the module's exit code.
-_COUNTED_CLI = (
-    "import json, runpy, sys, torch\n"
-    "from dehaze_tpu_torch.ops import probsparse as ps\n"
-    "from dehaze_tpu_torch.ops.kernels import leff, window_attention as wa\n"
-    "twins = {'k1': 0, 'k2': 0}\n"
-    "def counted(fn, key):\n"
-    "    def call(*a, **kw):\n"
-    "        twins[key] += 1\n"
-    "        return fn(*a, **kw)\n"
-    "    return call\n"
-    "ps.probsparse_attention_bnc = counted(ps.probsparse_attention_bnc, "
-    "'k1')\n"
-    "leff.leff_reference = counted(leff.leff_reference, 'k2')\n"
-    "mod = sys.argv.pop(1)\n"
-    "try:\n"
-    "    runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
-    "    rc = 0\n"
-    "except SystemExit as e:\n"
-    "    rc = e.code\n"
-    "print('STATS ' + json.dumps({'k1_fwd': wa.window_attention_fwd.launches,"
-    " 'k1_fwd_tc': wa.window_attention_fwd.launches_tc, 'k2': "
-    "leff.leff_fused.launches, 'twin_k1': twins['k1'], 'twin_k2': "
-    "twins['k2'], 'peak_gib': torch.cuda.max_memory_allocated() / 2**30}))"
-    "\n"
-    "sys.exit(rc)\n")
-
-
-def _counted_cli(cli: str, args, label: str):
-    """(stdout, counts, seconds) of `python -m dehaze_tpu_torch.cli.<cli>`
-    in a subprocess (_COUNTED_CLI); its lines are echoed."""
+# A subprocess that runs port CLIs one after another, each through the
+# `main(argv)` that `python -m dehaze_tpu_torch.cli.<cli>` calls, with
+# every launch count, the plain twins' calls and the peak memory reset
+# before each. argv[1]: JSON [[cli, [args...]], ...]. Each run's output
+# follows a `RUN i` line and ends with `STATS i {counts, rc, secs,
+# peak_gib}`. Started as the ranks of a process group (the variables
+# torchrun sets), the group the first CLI joins serves the next ones and
+# is shut down at the end. One process for several runs saves each its
+# start (~8 s: torch, CUDA, the kernels' libraries).
+_RUNNER = r'''
+import importlib, json, sys, time, torch
+from dehaze_tpu_torch.ops import probsparse as ps
+from dehaze_tpu_torch.ops.kernels import leff, window_attention as wa
+from dehaze_tpu_torch.parallel import dist
+twins = {"twin_k1": 0, "twin_k2": 0}
+def counted(fn, key):
+    def call(*a, **kw):
+        twins[key] += 1
+        return fn(*a, **kw)
+    return call
+ps.probsparse_attention_bnc = counted(ps.probsparse_attention_bnc, "twin_k1")
+leff.leff_reference = counted(leff.leff_reference, "twin_k2")
+kern = {"k1_fwd_tc": (wa.window_attention_fwd, "launches_tc"),
+        "k1_fwd": (wa.window_attention_fwd, "launches"),
+        "k1_bwd_tc": (wa.window_attention_bwd, "launches_tc"),
+        "k1_bwd": (wa.window_attention_bwd, "launches"),
+        "k2": (leff.leff_fused, "launches")}
+for v in ("v1", "v2"):
+    fn = getattr(wa, "probsparse_window_attention_" + v)
+    kern["k3_" + v + "_tc"] = (fn, "launches_tc")
+    kern["k3_" + v] = (fn, "launches")
+for d in ("fwd", "bwd"):
+    fn = getattr(wa, "window_attention_v3_" + d)
+    kern["k3_v3_" + d + "_tc"] = (fn, "launches_tc")
+    kern["k3_v3_" + d] = (fn, "launches")
+for i, (cli, args) in enumerate(json.loads(sys.argv[1])):
+    for fn, attr in kern.values():
+        setattr(fn, attr, 0)
+    for k in twins:
+        twins[k] = 0
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    print(f"RUN {i}", flush=True)
     t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-c", _COUNTED_CLI, f"dehaze_tpu_torch.cli.{cli}"]
-        + [str(a) for a in args], capture_output=True, text=True,
-        timeout=900, env={**os.environ, "PYTHONPATH": REPO})
+    try:
+        out = importlib.import_module("dehaze_tpu_torch.cli." + cli).main(args)
+        rc = out if type(out) is int else 0
+    except SystemExit as e:
+        rc = e.code if type(e.code) is int else int(e.code is not None)
+        if type(e.code) is str:
+            print(e.code, file=sys.stderr, flush=True)
+    stats = {k: getattr(fn, a) for k, (fn, a) in kern.items()}
+    stats.update(twins, rc=rc, secs=time.perf_counter() - t0,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30
+                 if torch.cuda.is_available() else 0.0)
+    print(f"STATS {i} " + json.dumps(stats), flush=True)
+dist.shutdown()
+'''
+
+
+def _split_runs(out: str):
+    """[(stdout, stats)] of each run in a _RUNNER's output, in order."""
+    runs, cur = {}, None
+    for ln in out.splitlines():
+        if ln.startswith("RUN "):
+            cur = int(ln.split()[1])
+            runs[cur] = [[], None]
+        elif ln.startswith("STATS "):
+            _, i, js = ln.split(" ", 2)
+            runs[int(i)][1] = json.loads(js)
+            cur = None
+        elif cur is not None:
+            runs[cur][0].append(ln)
+    return [("\n".join(lines), stats) for lines, stats in
+            (runs[i] for i in sorted(runs))]
+
+
+def _counted_clis(runs, timeout: int = 900):
+    """`runs` [(cli, args, label)] in one subprocess (_RUNNER): ([(stdout,
+    counts)] of each run in order, the process's seconds). Each run's
+    lines are echoed as `cli.<cli> <label> | line`; a process that fails
+    fails the smoke, and the callers check each run's exit code."""
+    spec = json.dumps([[cli, [str(a) for a in args]] for cli, args, _ in
+                       runs])
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _RUNNER, spec],
+                       capture_output=True, text=True, timeout=timeout,
+                       env={**os.environ, "PYTHONPATH": REPO})
     secs = time.perf_counter() - t0
-    for ln in r.stdout.splitlines():
-        if not ln.startswith("STATS"):
+    res = _split_runs(r.stdout)
+    for (cli, _, label), (out, _) in zip(runs, res):
+        for ln in out.splitlines():
             print(f"  cli.{cli} {label} | {ln}", flush=True)
-    if r.returncode != 0 or "STATS " not in r.stdout:
-        fail(f"cli.{cli} {label} exited {r.returncode}: {r.stderr[-3000:]}")
-    stats = json.loads(r.stdout.split("STATS ")[-1].splitlines()[0])
-    return r.stdout, stats, secs
+    if r.returncode != 0 or len(res) != len(runs) or any(
+            st is None for _, st in res):
+        fail(f"the CLI runs {[f'{c} {lb}' for c, _, lb in runs]} exited "
+             f"{r.returncode}: {r.stderr[-3000:]}")
+    return res, secs
 
 
 def _check_launches(label: str, stats: dict, frames: int, k1: int = 18,
@@ -1405,26 +1485,31 @@ class _TwinCounts:
             setattr(mod, name, fn)
 
 
-def phase_serving(tmp: str, pth: str, square_psnrs):
-    """The serving slice on the seeded Uformer-32 `.pth`, bf16:
-    (a) `cli.export` on the card (rect canvas 1200×1600) and an artifact
-        traced in-process on the CPU, both loaded onto the card: each equal
-        to the eager CUDA forward of the same seed bit for bit, 18 K1
-        tensor-core and 18 K2 launches per frame and no twin call; artifact
-        MB, export s, artifact and eager ms/frame in turns;
-    (b) `cli.stream` (subprocess) with --weights on 8 synthetic 1200×1600
-        PNG frames and one 1000×1500, then with --exported on the 8: each
-        output equal to the in-process quantized forward; s/frame, Mpix/s,
-        the decode and encode ms of a frame and the in-process forward's,
-        and the stage that sets the pace;
-    (c) `cli.test_long --exported` with a --square artifact on phase 9's
-        three pairs: each PSNR equal to the --weights run's within
-        EVAL_PSNR_TOL;
+def phase_serving(tmp: str, pth: str, eval_psnrs):
+    """The serving slice on the seeded Uformer-32 `.pth`, bf16. First, one
+    after another in one subprocess (_counted_clis): `cli.export` on the
+    card (rect canvas 1200×1600), `cli.stream` with --weights on
+    STREAM_FRAMES synthetic 1200×1600 PNG frames and one 1000×1500, then
+    with --exported on the 1200×1600 ones, `cli.test_long --exported` on
+    phase 9's three pairs, and `cli.export --square` with `cli.test_long
+    --exported` on that square artifact. Then:
+    (a) that artifact and one traced in-process on the CPU, both loaded
+        onto the card: each equal to the eager CUDA forward of the same
+        seed bit for bit, 18 K1 tensor-core and 18 K2 launches per frame
+        and no twin call; artifact MB, export s, artifact and eager
+        ms/frame in turns;
+    (b) each stream output equal to the in-process quantized forward;
+        s/frame, Mpix/s, the decode and encode ms of a frame and the
+        in-process forward's, and the stage that sets the pace;
+    (c) the `test_long --exported` PSNRs equal to the --weights run's
+        within EVAL_PSNR_TOL on each canvas: the rect artifact against
+        --rect_canvas, the square one (the protocol's 1664² canvas, 18 K1
+        and 18 K2 launches per frame) against the square run;
     (d) the serving CLI's machinery with --exported and --precompile auto:
         a request at the baked geometry (200, the eager forward's pixels)
         and one of another (400); /healthz.
     Returns the launches of each path: stream, stream_exported,
-    eval_exported, serve_exported."""
+    eval_exported, eval_exported_square, serve_exported."""
     import re
     from http.server import ThreadingHTTPServer
 
@@ -1453,10 +1538,48 @@ def phase_serving(tmp: str, pth: str, square_psnrs):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / reps * 1e3
 
-    # (a) the artifacts
+    # the CLIs, in one process
     rect = os.path.join(tmp, "rect.dhz")
-    out, _, _ = _counted_cli("export", ["--weights", pth, "--seed", SEED,
-                                        "--out", rect], "rect")
+    sq = os.path.join(tmp, "square.dhz")
+    long_dir = os.path.join(tmp, "eval_long")
+    sw, sx = os.path.join(tmp, "stream_w"), os.path.join(tmp, "stream_x")
+    os.makedirs(sw)
+    os.makedirs(sx)
+    for i in range(STREAM_FRAMES):
+        save_img(os.path.join(sw, f"{i:02d}.png"), _textured_frame(100 + i))
+        shutil.copy(os.path.join(sw, f"{i:02d}.png"), sx)
+    save_img(os.path.join(sw, "odd.png"), _textured_frame(108, (1000, 1500)))
+    streams = (("--weights", sw, ["--weights", pth, "--seed", SEED],
+                STREAM_FRAMES + 1, True),
+               ("--exported", sx, ["--exported", rect], STREAM_FRAMES,
+                False))
+    done, cli_secs = _counted_clis(
+        [("export", ["--weights", pth, "--seed", SEED, "--height",
+                     FRAME[0], "--width", FRAME[1], "--out", rect], "rect")]
+        + [("stream", ["--input_dir", src, "--result_dir",
+                       os.path.join(tmp, f"res_stream{label}")] + flag,
+            label) for label, src, flag, _, _ in streams]
+        + [("test_long", ["--input_dir", long_dir, "--exported", rect,
+                          "--result_dir",
+                          os.path.join(tmp, "res_long_exported")],
+            "--exported"),
+           ("export", ["--weights", pth, "--seed", SEED, "--square",
+                       "--out", sq], "--square"),
+           ("test_long", ["--input_dir", long_dir, "--exported", sq,
+                          "--result_dir",
+                          os.path.join(tmp, "res_long_exported_sq")],
+            "--exported (square)")])
+    for (out, stats), what in zip(done, ("export", "stream --weights",
+                                         "stream --exported",
+                                         "test_long --exported",
+                                         "export --square",
+                                         "test_long --exported (square)")):
+        if stats["rc"] != 0:
+            fail(f"cli.{what} exited {stats['rc']}")
+    print(f"the serving CLIs in one process: {cli_secs:.1f}s", flush=True)
+
+    # (a) the artifacts
+    out = done[0][0]
     m = re.search(r"\((\S+) MB, traced on (cuda\S*) in (\S+)s\)", out)
     if not m:
         fail("cli.export did not trace on the card")
@@ -1496,8 +1619,8 @@ def phase_serving(tmp: str, pth: str, square_psnrs):
             torch.cuda.synchronize()
         counts = {**read_counts(), **twins}
         d = (got.float() - want.float()).abs()
-        times = [ms_per(lambda: fn(x), 10), ms_per(lambda: eager(x), 10),
-                 ms_per(lambda: eager(x), 10), ms_per(lambda: fn(x), 10)]
+        times = [ms_per(lambda: fn(x), 5), ms_per(lambda: eager(x), 5),
+                 ms_per(lambda: eager(x), 5), ms_per(lambda: fn(x), 5)]
         print(f"artifact {what}: {mb:.1f} MB, export {secs:.1f}s; "
               f"{FRAME[0]}x{FRAME[1]} rect canvas bf16 against the eager "
               f"CUDA forward (seed {SEED}): equal {torch.equal(got, want)}, "
@@ -1514,13 +1637,6 @@ def phase_serving(tmp: str, pth: str, square_psnrs):
         del fn
 
     # (b) cli.stream, --weights then --exported
-    sw, sx = os.path.join(tmp, "stream_w"), os.path.join(tmp, "stream_x")
-    os.makedirs(sw)
-    os.makedirs(sx)
-    for i in range(8):
-        save_img(os.path.join(sw, f"{i:02d}.png"), _textured_frame(100 + i))
-        shutil.copy(os.path.join(sw, f"{i:02d}.png"), sx)
-    save_img(os.path.join(sw, "odd.png"), _textured_frame(108, (1000, 1500)))
     runs = {}
 
     def check_outputs(label, src, res, u8):
@@ -1538,13 +1654,10 @@ def phase_serving(tmp: str, pth: str, square_psnrs):
                      "values")
 
     stream = {}
-    for label, src, flag, n_frames, u8 in (
-            ("--weights", sw, ["--weights", pth, "--seed", SEED], 9, True),
-            ("--exported", sx, ["--exported", rect], 8, False)):
+    for (label, src, _, n_frames, u8), (out, stats) in zip(streams,
+                                                          done[1:3]):
         res = os.path.join(tmp, f"res_stream{label}")
-        out, stats, secs = _counted_cli(
-            "stream", ["--input_dir", src, "--result_dir", res] + flag,
-            label)
+        secs = stats["secs"]
         m = re.search(r"(\d+) frames in (\S+)s = (\S+) Mpix/s", out)
         if not m or int(m.group(1)) != n_frames:
             fail(f"cli.stream {label}: no summary line for {n_frames} "
@@ -1564,35 +1677,34 @@ def phase_serving(tmp: str, pth: str, square_psnrs):
             "encode (2 workers)": enc_ms / 2}
     for label, (spf, mpix, secs, _) in stream.items():
         print(f"cli.stream {label} Uformer-32 bf16 rect canvas: {spf:.4f} "
-              f"s/frame, {mpix:.3f} Mpix/s sustained (subprocess "
-              f"{secs:.1f}s); outputs equal to the in-process quantized "
-              "forward", flush=True)
+              f"s/frame, {mpix:.3f} Mpix/s sustained (run {secs:.1f}s); "
+              "outputs equal to the in-process quantized forward",
+              flush=True)
     print(f"stream stages at {FRAME[0]}x{FRAME[1]} (same call): decode "
           f"{dec_ms:.1f} ms, in-process forward (to the host) {fwd_ms:.1f} "
           f"ms, PNG encode {enc_ms:.1f} ms per frame; with 2 decode and 2 "
           f"encode workers the slowest stage is {max(pace, key=pace.get)} "
           f"({max(pace.values()):.1f} ms/frame)", flush=True)
 
-    # (c) test_long --exported on a square artifact
-    sq = os.path.join(tmp, "square.dhz")
-    _counted_cli("export", ["--weights", pth, "--seed", SEED, "--square",
-                            "--out", sq], "--square")
-    out, eval_exported, secs = _counted_cli(
-        "test_long", ["--input_dir", os.path.join(tmp, "eval_long"),
-                      "--exported", sq, "--result_dir",
-                      os.path.join(tmp, "res_long_exported")], "--exported")
-    psnrs = [float(p) for p in re.findall(r"^\S+: PSNR (\S+) SSIM", out,
-                                           re.M)]
-    worst = max((abs(a - b) for a, b in zip(psnrs, square_psnrs)),
-                default=math.inf)
-    per_frame = float(re.search(r"frames: (\S+) s/frame", out).group(1))
-    print(f"cli.test_long --exported (square artifact, 1664² canvas): "
-          f"{len(psnrs)} frames, {per_frame:.4f} s/frame after the first, "
-          f"per-image PSNR vs --weights (square) max |d| {worst:.2e} dB, "
-          f"subprocess {secs:.1f}s", flush=True)
-    if len(psnrs) != 3 or worst > EVAL_PSNR_TOL:
-        fail("cli.test_long --exported: PSNRs differ from --weights")
-    _check_launches("cli.test_long --exported", eval_exported, 3)
+    # (c) test_long --exported on the rect and on the square artifact
+    eval_exported = {}
+    for (out, stats), canvas, what in (
+            (done[3], "rect", "rect artifact, 1280x1664 canvas"),
+            (done[5], "square", "square artifact, 1664² canvas")):
+        psnrs = [float(p) for p in re.findall(r"^\S+: PSNR (\S+) SSIM",
+                                               out, re.M)]
+        worst = max((abs(a - b) for a, b in zip(psnrs, eval_psnrs[canvas])),
+                    default=math.inf)
+        per_frame = float(re.search(r"frames: (\S+) s/frame", out).group(1))
+        print(f"cli.test_long --exported ({what}): {len(psnrs)} frames, "
+              f"{per_frame:.4f} s/frame after the first, per-image PSNR vs "
+              f"--weights on the {canvas} canvas max |d| {worst:.2e} dB, "
+              f"run {stats['secs']:.1f}s", flush=True)
+        if len(psnrs) != 3 or worst > EVAL_PSNR_TOL:
+            fail(f"cli.test_long --exported ({canvas}): PSNRs differ from "
+                 "--weights")
+        _check_launches(f"cli.test_long --exported ({canvas})", stats, 3)
+        eval_exported[canvas] = stats
 
     # (d) serve --exported
     args = build_parser().parse_args(["--exported", rect, "--port", "0",
@@ -1642,7 +1754,9 @@ def phase_serving(tmp: str, pth: str, square_psnrs):
     _check_launches("serve --exported", serve_exported, 1)
     return {"stream": stream["--weights"][3],
             "stream_exported": stream["--exported"][3],
-            "eval_exported": eval_exported, "serve_exported": serve_exported}
+            "eval_exported": eval_exported["rect"],
+            "eval_exported_square": eval_exported["square"],
+            "serve_exported": serve_exported}
 
 
 def _grad_check(name, gc, gg, rtol_of, atol):
@@ -1736,17 +1850,24 @@ def phase_train_parity():
 N_TRAIN, N_VAL = 256, 32
 
 
-def phase_train_cli(tmp: str):
-    """The training path through its CLI entry point on synthetic pairs
-    (written here; the later training phases share them)."""
+def phase_data(tmp: str):
+    """The synthetic data of the later phases: phase 9's evaluation pairs
+    (`_write_eval_folders`) and phase 11's training set, which the later
+    training phases share."""
     from dehaze_tpu_torch.data.synth import write_dataset
 
     t0 = time.perf_counter()
+    _write_eval_folders(tmp)
     write_dataset(os.path.join(tmp, "train"), N_TRAIN, 256, seed=1)
     write_dataset(os.path.join(tmp, "val"), N_VAL, TRAIN_PS, seed=2)
-    print(f"synthetic data: {N_TRAIN} train pairs at 256², {N_VAL} val "
-          f"pairs at {TRAIN_PS}² in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    print(f"synthetic data: 3 eval pairs at {FRAME[0]}x{FRAME[1]}, 1 at "
+          f"1000x1500; {N_TRAIN} train pairs at 256², {N_VAL} val pairs at "
+          f"{TRAIN_PS}², in {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def phase_train_cli(tmp: str):
+    """The training path through its CLI entry point on phase_data's
+    synthetic pairs."""
     return _train_cli(tmp, "_smoke", [])
 
 
@@ -2065,55 +2186,33 @@ def phase_parity_gate(tmp: str, pth: str):
                                   torch.from_numpy(clean).cuda())))
     mean = float(np.mean(psnrs))
     del model
-    code = ("import json, runpy, sys, torch\n"
-            "try:\n"
-            "    runpy.run_module('dehaze_tpu_torch.cli.parity_gate', "
-            "run_name='__main__', alter_sys=True)\n"
-            "    rc = 0\n"
-            "except SystemExit as e:\n"
-            "    rc = e.code\n"
-            "from dehaze_tpu_torch.ops.kernels import leff, window_attention "
-            "as wa\n"
-            "print('STATS ' + json.dumps({'k1_fwd': "
-            "wa.window_attention_fwd.launches, 'k1_fwd_tc': "
-            "wa.window_attention_fwd.launches_tc, 'k2': "
-            "leff.leff_fused.launches}))\n"
-            "sys.exit(rc)\n")
+    cases = ((mean, 0), (mean + 1.0, 1))
+    done, secs = _counted_clis([
+        ("parity_gate", ["--ref_ckpt", pth, "--input_dir", folder,
+                         "--expected_psnr", repr(expected), "--tol", "1e-3"],
+         f"expected {expected:.4f}") for expected, _ in cases])
     total = {}
-    for expected, want_rc in ((mean, 0), (mean + 1.0, 1)):
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-c", code, "--ref_ckpt", pth, "--input_dir",
-             folder, "--expected_psnr", repr(expected), "--tol", "1e-3"],
-            capture_output=True, text=True, timeout=600,
-            env={**os.environ, "PYTHONPATH": REPO})
-        secs = time.perf_counter() - t0
-        for ln in r.stdout.splitlines():
-            if not ln.startswith("STATS"):
-                print(f"  cli.parity_gate | {ln}", flush=True)
-        if "STATS " not in r.stdout:
-            fail(f"cli.parity_gate exited {r.returncode}: "
-                 f"{r.stderr[-3000:]}")
-        stats = json.loads(r.stdout.split("STATS ")[-1].splitlines()[0])
-        n = len(re.findall(r"^\S+: PSNR \S+ SSIM \S+$", r.stdout, re.M))
+    for (expected, want_rc), (out, stats) in zip(cases, done):
+        n = len(re.findall(r"^\S+: PSNR \S+ SSIM \S+$", out, re.M))
         per_frame = float(re.search(r"frames: (\S+) s/frame",
-                                    r.stdout).group(1))
+                                    out).group(1))
         print(f"cli.parity_gate --expected_psnr {expected:.6f} --tol 1e-3 "
-              f"(in-process mean {mean:.6f}): exit {r.returncode} (want "
+              f"(in-process mean {mean:.6f}): exit {stats['rc']} (want "
               f"{want_rc}); {n} frames, {per_frame:.4f} s/frame after the "
               f"first on the square canvas 1664², launches per frame K1 "
               f"tensor cores {stats['k1_fwd_tc'] / max(n, 1):g} CUDA cores "
               f"{stats['k1_fwd'] / max(n, 1):g} K2 "
-              f"{stats['k2'] / max(n, 1):g}; subprocess {secs:.1f}s",
-              flush=True)
-        if r.returncode != want_rc:
-            fail(f"cli.parity_gate exited {r.returncode}, not {want_rc}")
+              f"{stats['k2'] / max(n, 1):g}; run {stats['secs']:.1f}s "
+              f"(both in one process {secs:.1f}s)", flush=True)
+        if stats["rc"] != want_rc:
+            fail(f"cli.parity_gate exited {stats['rc']}, not {want_rc}")
         if n != 3 or (stats["k1_fwd_tc"], stats["k1_fwd"], stats["k2"]) \
                 != (18 * n, 0, 18 * n):
             fail("cli.parity_gate: not 3 frames of 18 K1 (tensor-core "
                  "forward) and 18 K2 launches")
         for key, v in stats.items():
-            total[key] = total.get(key, 0) + v
+            if key not in ("rc", "secs", "peak_gib"):
+                total[key] = total.get(key, 0) + v
     return total
 
 
@@ -2359,10 +2458,12 @@ def phase_wmsa(tmp: str):
     if not same:
         fail("the W-MSA artifact differs from the eager CUDA forward")
     del model, run, fn, eager
-    out, gate, secs = _counted_cli(
-        "parity_gate", ["--ref_ckpt", pth, "--input_dir", folder,
-                        "--attention", "full", "--expected_psnr",
-                        repr(mean), "--tol", "1e-3"], "--attention full")
+    ((out, gate), (out_x, exported)), secs = _counted_clis([
+        ("parity_gate", ["--ref_ckpt", pth, "--input_dir", folder,
+                         "--attention", "full", "--expected_psnr",
+                         repr(mean), "--tol", "1e-3"], "--attention full"),
+        ("test_long", ["--input_dir", folder, "--exported", art,
+                       "--no-save_images"], "--exported (W-MSA)")])
     gate_psnrs = [float(p) for p in re.findall(r"^\S+: PSNR (\S+) SSIM",
                                                out, re.M)]
     worst = max((abs(a - b) for a, b in zip(gate_psnrs, psnrs)),
@@ -2372,25 +2473,23 @@ def phase_wmsa(tmp: str):
           f"--tol 1e-3): {'PARITY OK' in out}; {len(gate_psnrs)} frames, "
           f"{per_frame:.4f} s/frame after the first on the square canvas "
           f"1664²; per-image PSNR vs the in-process function max |d| "
-          f"{worst:.2e} dB; subprocess {secs:.1f}s", flush=True)
-    if "PARITY OK" not in out or len(gate_psnrs) != 3 \
+          f"{worst:.2e} dB; run {gate['secs']:.1f}s (with test_long "
+          f"--exported, one process {secs:.1f}s)", flush=True)
+    if gate["rc"] != 0 or "PARITY OK" not in out or len(gate_psnrs) != 3 \
             or worst > EVAL_PSNR_TOL:
         fail("cli.parity_gate --attention full: no PARITY OK at the "
              "in-process PSNR")
     _check_launches("cli.parity_gate --attention full", gate, 3, k1=0)
-    out, exported, secs = _counted_cli(
-        "test_long", ["--input_dir", folder, "--exported", art,
-                      "--no-save_images"],
-        "--exported (W-MSA)")
-    got = [float(p) for p in re.findall(r"^\S+: PSNR (\S+) SSIM", out,
+    got = [float(p) for p in re.findall(r"^\S+: PSNR (\S+) SSIM", out_x,
                                         re.M)]
-    per_frame = float(re.search(r"frames: (\S+) s/frame", out).group(1))
+    per_frame = float(re.search(r"frames: (\S+) s/frame", out_x).group(1))
     print(f"cli.test_long --exported (W-MSA square artifact): "
           f"{per_frame:.4f} s/frame after the first; PSNRs {got} against "
-          f"--weights' {gate_psnrs}; subprocess {secs:.1f}s", flush=True)
+          f"--weights' {gate_psnrs}; run {exported['secs']:.1f}s",
+          flush=True)
     worst = max((abs(a - b) for a, b in zip(got, gate_psnrs)),
                 default=math.inf)
-    if len(got) != 3 or worst > EVAL_PSNR_TOL:
+    if exported["rc"] != 0 or len(got) != 3 or worst > EVAL_PSNR_TOL:
         fail("cli.test_long --exported (W-MSA): PSNRs differ from "
              "--weights")
     _check_launches("cli.test_long --exported (W-MSA)", exported, 3, k1=0)
@@ -2423,6 +2522,15 @@ BAND_TOL = {"float32": (MODEL_TOL, MODEL_TOL), "bfloat16": (0.0625, 2e-3)}
 # |d| of 2e-3 on an image ~0.1 from its ground truth moves the MSE by up to
 # 0.4%, 0.02 dB.
 BAND_PSNR_TOL = 0.05
+# FFA-Net's banded native frame against the one-process frame (max |d|,
+# mean |d|) on the clamped [0, 1] image: the bands run the same convs on
+# 601-row slabs (cuDNN may sum in another order) and average the pooled
+# means over the ranks, rounded to bf16 at another point than one process
+# rounds them. Read on the H100: f32 (TF32 off) 1.371e-6 / 2.420e-8, bf16
+# 1.270e-2 / 2.830e-4; the limits leave 2-7x, where a seam fault moves
+# the rows next to the seam by tenths (zeros for the halo above the second
+# band: max |d| 0.63 on a 48×64 frame, in f32 and in bf16).
+FFA_BAND_TOL = {"float32": (1e-5, 1e-7), "bfloat16": (0.03, 1e-3)}
 # The DDP steps of two ranks (16 rows each) against one rank's (32 rows):
 # the same data, weights and draws; the step losses relative. bf16 GEMMs
 # and convs at another batch may pick other kernels and round differently
@@ -2433,7 +2541,9 @@ DDP_TOL = (2e-3, 2e-2)
 DDP_STEPS, DDP_REPS = 4, 3  # steps of 32 rows; timed frames and turns
 
 # A rank of phase 14 (argv: mode, tmp, pth). "gloo2": the banded frame
-# (bf16 timed and counted, f32 once) and DDP steps at 16 rows; "nccl1":
+# (bf16 timed and counted, f32 once), FFA-Net's native frame in the same
+# two bands (phase 15's seeded .pk, bf16 and f32, counted) and DDP steps
+# at 16 rows; "nccl1":
 # DDP steps at 32 rows, the reference, and the plain step against the DDP
 # step in turns. Prints one RESULT line of JSON.
 _MULTI_WORKER = r'''
@@ -2444,7 +2554,9 @@ torch.backends.cudnn.allow_tf32 = False
 from dehaze_tpu_torch.cli.common import build_model_and_params
 from dehaze_tpu_torch.config import (Config, DataConfig, LossConfig,
                                      ModelConfig, TrainConfig)
-from dehaze_tpu_torch.infer.halo_sharded import make_halo_sharded_frame_fn
+from dehaze_tpu_torch.infer.halo_sharded import (
+    make_halo_sharded_frame_fn, make_halo_sharded_native_fn)
+from dehaze_tpu_torch.infer.tiled import normalize_hazy
 from dehaze_tpu_torch.ops import probsparse as ps
 from dehaze_tpu_torch.ops.kernels import leff, window_attention as wa
 from dehaze_tpu_torch.parallel import dist
@@ -2502,6 +2614,20 @@ if mode == "gloo2":
         np.savez(os.path.join(tmp, "banded.npz"), bf16=y.cpu().numpy(),
                  f32=y32.cpu().numpy())
     del model, model32
+    # FFA-Net's native frame, normalized as the protocol does
+    x = normalize_hazy(torch.from_numpy(frame).to(dev).float() / 255.0)
+    reset()
+    ffa = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = build_model_and_params(
+            ModelConfig(arch="ffa", dtype=dt),
+            os.path.join(tmp, "ffa_seed.pk"), dev)
+        ffa[name] = make_halo_sharded_native_fn(model, device=dev)(
+            x).cpu().numpy()
+        del model
+    res["ffa_band_counts"] = counts()
+    if r == 0:
+        np.savez(os.path.join(tmp, "banded_ffa.npz"), **ffa)
 rng = np.random.default_rng(seed)
 clean = rng.integers(0, 256, size=(steps, 32, 128, 128, 3), dtype=np.uint8)
 hazy = np.clip(clean * 0.6 + 60, 0, 255).astype(np.uint8)
@@ -2609,6 +2735,10 @@ def phase_multi(tmp: str, pth: str, eval_psnrs):
         the one-process rect-canvas PSNRs within BAND_PSNR_TOL, 18 K1
         launches per band and frame, no K2;
     (d) `cli.train --data_axis 1` as one NCCL rank (phase 11's run).
+    The gloo ranks of (a) also run FFA-Net's native 1200×1600 frame in the
+    same two bands (halo convs, rank-averaged pools; phase 15's seeded
+    .pk), bf16 and f32, against the one-process native frame
+    (FFA_BAND_TOL), with no kernel of the port and no twin.
     Two ranks that share one card measure no multi-GPU speed."""
     import re
 
@@ -2658,6 +2788,27 @@ def phase_multi(tmp: str, pth: str, eval_psnrs):
     if band != want:
         fail("the banded frame did not launch K1's tensor-core forward 18 "
              "times per band and frame, and no K2 and no twin")
+    # FFA-Net's native frame in the same two bands
+    got = np.load(os.path.join(tmp, "banded_ffa.npz"))
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        model, run = _ffa_native(_ffa_weights(tmp), dtype)
+        ref = run(frame).cpu().numpy()
+        del model, run
+        y = got["bf16" if dname == "bfloat16" else "f32"]
+        d = np.abs(y - ref)
+        tol = FFA_BAND_TOL[dname]
+        print(f"FFA-Net banded native frame {FRAME[0]}x{FRAME[1]}, 2 gloo "
+              f"ranks, {dname}: max|d| {float(d.max()):.3e} mean|d| "
+              f"{float(d.mean()):.3e} against the one-process frame "
+              f"(tolerance {tol})", flush=True)
+        if y.shape != ref.shape or not np.isfinite(y).all() \
+                or d.max() > tol[0] or d.mean() > tol[1]:
+            fail(f"the banded FFA-Net {dname} frame is not the one-process "
+                 "frame")
+    ffa_band = {k: sum(g["ffa_band_counts"][k] for g in gloo)
+                for k in gloo[0]["ffa_band_counts"]}
+    _zero_launches("the banded FFA-Net frame", ffa_band)
 
     t0 = time.perf_counter()
     nccl = _result(_ranks(["-c", _MULTI_WORKER, "nccl1", tmp, pth, spec], 1,
@@ -2694,36 +2845,38 @@ def phase_multi(tmp: str, pth: str, eval_psnrs):
           f"{secs:.1f}s)", flush=True)
 
     # (c) frame-parallel, then banded evaluation through the CLI, two gloo
-    # ranks
+    # ranks that run both (_RUNNER keeps their process group)
     long_dir, runs = os.path.join(tmp, "eval_long"), {}
-    for flags, one in ((["--data_axis", 2], "square"),
-                       (["--rect_canvas", "--bands", 2], "rect")):
+    cases = ((["--data_axis", 2], "square"),
+             (["--rect_canvas", "--bands", 2], "rect"))
+    spec = json.dumps([["test_long", [str(a) for a in [
+        "--input_dir", long_dir, "--weights", pth, "--seed", SEED,
+        "--result_dir", os.path.join(tmp, "res_dp"), "--device", "cuda:0",
+        "--dist_backend", "gloo"] + flags]] for flags, _ in cases])
+    t0 = time.perf_counter()
+    outs = [_split_runs(o) for o in _ranks(["-c", _RUNNER, spec], 2,
+                                           "cli.test_long over two ranks")]
+    secs = time.perf_counter() - t0
+    for j, (flags, one) in enumerate(cases):
         what = "cli.test_long " + " ".join(str(f) for f in flags)
-        t0 = time.perf_counter()
-        outs = _ranks(["-c", _COUNTED_CLI, "dehaze_tpu_torch.cli.test_long",
-                       "--input_dir", long_dir, "--weights", pth, "--seed",
-                       SEED, "--result_dir", os.path.join(tmp, "res_dp"),
-                       "--device", "cuda:0", "--dist_backend", "gloo"]
-                      + flags, 2, what)
-        secs = time.perf_counter() - t0
-        for ln in outs[0].splitlines():
-            if not ln.startswith("STATS"):
-                print(f"  {what} | {ln}", flush=True)
-        stats = [json.loads(o.split("STATS ")[-1].splitlines()[0])
-                 for o in outs]
-        runs[one] = {k: sum(s[k] for s in stats)
+        out = outs[0][j][0]
+        for ln in out.splitlines():
+            print(f"  {what} | {ln}", flush=True)
+        stats = [o[j][1] for o in outs]
+        runs[one] = {k: sum(st[k] for st in stats)
                      for k in ("k1_fwd", "k1_fwd_tc", "k2", "twin_k1",
                                "twin_k2")}
         psnrs = [float(p) for p in re.findall(r"^\S+: PSNR (\S+) SSIM",
-                                              outs[0], re.M)]
+                                              out, re.M)]
         worst = max(abs(a - b) for a, b in zip(psnrs, eval_psnrs[one]))
         tol = EVAL_PSNR_TOL if one == "square" else BAND_PSNR_TOL
         print(f"{what} (2 gloo ranks, {one} canvas): PSNRs {psnrs} against "
               f"one process {eval_psnrs[one]}: max |d| {worst:.2e} dB "
               f"(tolerance {tol:g}); launches {runs[one]}; peak per rank "
-              f"{[round(s['peak_gib'], 2) for s in stats]} GiB; {secs:.1f}s",
+              f"{[round(st['peak_gib'], 2) for st in stats]} GiB; run "
+              f"{stats[0]['secs']:.1f}s (both runs {secs:.1f}s)",
               flush=True)
-        if len(psnrs) != 3 or worst > tol:
+        if any(st["rc"] for st in stats) or len(psnrs) != 3 or worst > tol:
             fail(f"{what} does not give the one-process PSNRs")
     _check_launches("cli.test_long --data_axis 2", runs["square"], 3)
     _check_launches("cli.test_long --bands 2", runs["rect"], 3, k1=36, k2=0)
@@ -2731,7 +2884,8 @@ def phase_multi(tmp: str, pth: str, eval_psnrs):
     # (d) one NCCL rank through cli.train --data_axis 1
     train1, _, _ = _train_cli(tmp, "_nccl1", ["--data_axis", "1"],
                               rank_env=True)
-    return {"bands_frame": band, "eval_data_axis": runs["square"],
+    return {"bands_frame": band, "bands_frame_ffa": ffa_band,
+            "eval_data_axis": runs["square"],
             "eval_bands": runs["rect"],
             "train_ddp_gloo": {k: sum(g["train_counts"][k] for g in gloo)
                                for k in want},
@@ -2739,15 +2893,19 @@ def phase_multi(tmp: str, pth: str, eval_psnrs):
             "train_nccl_cli": train1}
 
 
+_LAYOUT = "layout copies (NCHW<->NHWC)"
 _GROUPS = [("K1 bwd (tensor cores)", ("window_attention_tc_bwd",
                                        "dbias_reduce")),
            ("K1 bwd (CUDA cores)", ("window_attention_bwd",)),
            ("K1 fwd (tensor cores)", ("window_attention_tc",)),
            ("K1 fwd (CUDA cores)", ("window_attention_fwd",)),
            ("K2", ("leff_fwd",)),
-           ("GEMM (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
-           ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad",
+           # cuDNN's implicit-GEMM convolutions name themselves fprop/
+           # dgrad/wgrad ..._implicit_gemm: conv before GEMM
+           ("conv (cuDNN)", ("conv", "implicit", "wgrad", "dgrad",
                              "fprop")),
+           (_LAYOUT, ("nchwtonhwc", "nhwctonchw")),
+           ("GEMM (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
            ("optimizer", ("adam", "multi_tensor", "foreach")),
            ("softmax/LN/reductions", ("softmax", "layer_norm", "reduce"))]
 
@@ -2798,6 +2956,470 @@ def _profile(what: str, step, steps: int, step_ms: float):
     return wall, total, ms
 
 
+# 15. FFA-Net (full width and depth: 3 groups of 19 blocks, width 64) and
+# the residual conv UNet (width 32). Neither runs a kernel of the port:
+# cuDNN convolutions and plain torch, as the JAX package computes them
+# outside any pallas_call.
+FFA_SMALL = (64, 96)
+FFA_REPS = {"bfloat16": 5, "float32": 2}  # timed 1200×1600 frames
+# 3×3 convs of 64 → 64 channels: 2 a block, 19 blocks and a tail conv a
+# group, 3 groups, post.0; FLOPs of a frame (the other convs add < 2%).
+FFA_CONVS = 118
+FFA_TRAIN_STEPS, FFA_TRAIN_EVERY = 6, 3
+UNET_REPS = 5
+
+
+def _zero_launches(label: str, counts: dict) -> None:
+    """A path of FFA-Net or the UNet: no kernel of the port and no twin."""
+    busy = {k: v for k, v in counts.items()
+            if k not in ("peak_gib", "secs", "rc") and v}
+    if busy:
+        fail(f"{label}: launched {busy}; FFA-Net and the UNet run no kernel "
+             "of the port and no twin")
+
+
+def _ffa_weights(tmp: str) -> str:
+    """The seeded FFA-Net as a `.pk` in the reference layout."""
+    import torch
+
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.models import get_arch
+
+    pk = os.path.join(tmp, "ffa_seed.pk")
+    if not os.path.exists(pk):
+        torch.manual_seed(SEED)
+        torch.save({"step": 0, "max_psnr": 0.0, "max_ssim": 0.0,
+                    "psnrs": [], "ssims": [], "losses": [],
+                    "model": get_arch(ModelConfig(arch="ffa")).state_dict()},
+                   pk)
+    return pk
+
+
+def _ffa_native(pk: str, dtype, dev: str = "cuda"):
+    """(model, the protocol's native forward: normalized input, clamped
+    output) of the seeded FFA-Net."""
+    import torch
+
+    from dehaze_tpu_torch.cli.common import build_model_and_params
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.infer.tiled import (make_native_image_fn,
+                                              normalize_hazy)
+
+    model = build_model_and_params(ModelConfig(arch="ffa", dtype=dtype), pk,
+                                   torch.device(dev))
+    return model, make_native_image_fn(lambda x: model(normalize_hazy(x)),
+                                       device=dev)
+
+
+def phase_ffa_frames(tmp: str):
+    """15a, run while the kernels build (it needs none; its times are CUDA
+    events on the card): FFA-Net f32 (TF32 off) CUDA against CPU on a
+    64×96 frame, the protocol's normalized input, clamped output within
+    MODEL_TOL; the 1200×1600 native frame in bf16 and f32 (TF32 off): ms,
+    peak memory, bound and a profile of each (the share of NCHW<->NHWC
+    layout copies); the UNet-32's frame on the rect canvas 1280×1664,
+    bf16. No launch of a port kernel, no twin call. Returns (the counts
+    by path, {dtype: FFA ms/frame})."""
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli.common import build_model_and_params
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.infer.tiled import make_whole_image_fn
+    from dehaze_tpu_torch.models import get_arch
+
+    pk = _ffa_weights(tmp)
+    x = np.random.default_rng(SEED).uniform(
+        size=(1,) + FFA_SMALL + (3,)).astype(np.float32)
+    outs = {dev: _ffa_native(pk, torch.float32, dev)[1](x).cpu()
+            for dev in ("cpu", "cuda")}
+    d = (outs["cuda"] - outs["cpu"]).abs()
+    print(f"FFA-Net {FFA_SMALL[0]}x{FFA_SMALL[1]} f32 (TF32 off) CUDA vs "
+          f"CPU, normalized input: max|d|={float(d.max()):.3e} "
+          f"mean|d|={float(d.mean()):.3e}", flush=True)
+    if not torch.isfinite(outs["cuda"]).all() or float(d.max()) > MODEL_TOL:
+        fail(f"FFA-Net f32 CUDA vs CPU beyond {MODEL_TOL:g}")
+    frame = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, size=(1,) + FRAME + (3,), dtype=np.uint8)).cuda()
+    px = FRAME[0] * FRAME[1]
+    flops = FFA_CONVS * px * 64 * 64 * 9 * 2
+    paths, ffa_ms = {}, {}
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        model, run = _ffa_native(pk, dtype)
+        run(frame)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with _TwinCounts() as twins:
+            ms = cuda_ms(lambda: run(frame), FFA_REPS[dname])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        paths["frame_ffa"] = {**read_counts(), **twins}
+        y = run(frame)
+        # the u8 frame read once, the f32 output written once
+        bms, by = bound(px * 3 * (1 + 4), flops, dname)
+        print(f"FFA-Net {FRAME[0]}x{FRAME[1]} native frame {dname} (TF32 "
+              f"off): {ms:.2f} ms/frame ({FFA_REPS[dname]} frames, CUDA "
+              f"events), peak {peak:.2f} GiB, {flops / 1e12:.1f} TFLOP of "
+              f"3x3 convs, bound {bms:.2f} ms ({by}), {bms / ms:.1%} of it; "
+              f"out range [{float(y.min()):.4f}, {float(y.max()):.4f}]",
+              flush=True)
+        if tuple(y.shape) != (1,) + FRAME + (3,) or not bool(
+                torch.isfinite(y).all()):
+            fail(f"FFA-Net {dname} frame: wrong shape or not finite")
+        _zero_launches(f"FFA-Net {dname} frame", paths["frame_ffa"])
+        prof = _profile(f"one FFA-Net {FRAME[0]}x{FRAME[1]} native frame, "
+                        f"{dname}", lambda: run(frame), 1, ms)
+        if prof:
+            layout = prof[2].get(_LAYOUT, 0.0)
+            print(f"  NCHW<->NHWC layout copies: {layout:.3f} ms, "
+                  f"{layout / prof[1]:.1%} of the device time", flush=True)
+        ffa_ms[dname] = ms
+        if dname == "bfloat16":  # the server's micro-batch of 4 frames
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            y = run(frame.expand(4, -1, -1, -1))
+            torch.cuda.synchronize()
+            print(f"  a micro-batch of 4 frames: peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                  f"({(torch.cuda.max_memory_allocated() - base) / 2**30:.2f}"
+                  " GiB above the resident weights and frame)", flush=True)
+            if not bool(torch.isfinite(y).all()):
+                fail("FFA-Net micro-batch of 4: not finite")
+        del model, run, y
+
+    torch.manual_seed(SEED)
+    upth = os.path.join(tmp, "unet32_seed.pth")
+    torch.save({"state_dict": get_arch(ModelConfig(arch="unet")
+                                       ).state_dict()}, upth)
+    model = build_model_and_params(ModelConfig(arch="unet"), upth,
+                                   torch.device("cuda"))
+    run = make_whole_image_fn(model, FRAME[0], FRAME[1], ps=128,
+                              square=False, device="cuda")
+    run(frame)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with _TwinCounts() as twins:
+        ms = cuda_ms(lambda: run(frame), UNET_REPS)
+    paths["frame_unet"] = {**read_counts(), **twins}
+    y = run(frame)
+    print(f"UNet-32 {FRAME[0]}x{FRAME[1]} rect canvas 1280x1664 bf16: "
+          f"{ms:.2f} ms/frame ({UNET_REPS} frames, CUDA events), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if tuple(y.shape) != (1,) + FRAME + (3,) or not bool(
+            torch.isfinite(y).all()):
+        fail("UNet frame: wrong shape or not finite")
+    _zero_launches("UNet frame", paths["frame_unet"])
+    return paths, ffa_ms
+
+
+def _ffa_files(tmp: str) -> dict:
+    """The files of phase 15's runs under `tmp`."""
+    return {"pk": _ffa_weights(tmp),
+            "upth": os.path.join(tmp, "unet32_seed.pth"),  # phase_ffa_frames'
+            "long": os.path.join(tmp, "eval_long"),
+            "art": os.path.join(tmp, "ffa_native.dhz"),
+            "mdir": os.path.join(tmp, "ffa_train"),
+            "save": os.path.join(tmp, "log")}
+
+
+def phase_ffa_runs(tmp: str):
+    """15b-e, the runs: FFA-Net's and the UNet's entry points one after
+    another in one subprocess (_counted_clis), then `test_long --arch ffa
+    --bands 2` as two gloo ranks. No kernel of the port is on these paths,
+    so they run on the card while the kernels build (on the host, beside
+    nvcc); `phase_ffa` checks what they wrote. Returns (the CLI runs, their
+    process's seconds, the two ranks' runs, their seconds)."""
+    f = _ffa_files(tmp)
+    flags = ["--arch", "ffa", "--input_dir", f["long"]]
+    done, secs = _counted_clis([
+        ("test_long", flags + ["--weights", f["pk"], "--result_dir",
+                               os.path.join(tmp, "res_ffa")], "--arch ffa"),
+        ("export", ["--arch", "ffa", "--weights", f["pk"], "--height",
+                    FRAME[0], "--width", FRAME[1], "--out", f["art"]],
+         "--arch ffa"),
+        ("test_long", flags + ["--exported", f["art"], "--result_dir",
+                               os.path.join(tmp, "res_ffa_x")],
+         "--exported"),
+        ("stream", ["--arch", "ffa", "--input_dir",
+                    os.path.join(f["long"], "hazy"), "--weights", f["pk"],
+                    "--result_dir", os.path.join(tmp, "stream_ffa")],
+         "--arch ffa"),
+        ("ffa_train", ["--train_dir", os.path.join(tmp, "train"),
+                       "--val_dir", os.path.join(tmp, "val"), "--steps",
+                       FFA_TRAIN_STEPS, "--eval_step", FFA_TRAIN_EVERY,
+                       "--bs", 2, "--crop_size", 240, "--perloss",
+                       "--model_dir", f["mdir"]], "--perloss"),
+        ("train", ["--arch", "unet", "--train_dir",
+                   os.path.join(tmp, "train"), "--val_dir",
+                   os.path.join(tmp, "val"), "--train_ps", TRAIN_PS,
+                   "--batch_size", TRAIN_BATCH, "--nepoch", 1,
+                   "--save_dir", f["save"], "--env", "_smoke"],
+         "--arch unet"),
+        ("test_long", ["--arch", "unet", "--input_dir", f["long"],
+                       "--weights", f["upth"], "--result_dir",
+                       os.path.join(tmp, "res_unet")], "--arch unet")])
+    spec = json.dumps([["test_long", [str(a) for a in flags + [
+        "--weights", f["pk"], "--result_dir", os.path.join(tmp, "res_ffa_b"),
+        "--device", "cuda:0", "--dist_backend", "gloo", "--bands", 2]]]])
+    t0 = time.perf_counter()
+    bands = [_split_runs(o)[0] for o in _ranks(["-c", _RUNNER, spec], 2,
+                                               "FFA-Net --bands 2")]
+    return done, secs, bands, time.perf_counter() - t0
+
+
+def phase_ffa(tmp: str, runs):
+    """15b-e, the checks of `phase_ffa_runs`' runs (`runs`):
+    (b) `cli.test_long --arch ffa` (bf16) on phase 9's pairs, each PSNR
+        against the in-process native forward; `cli.export --arch ffa` on
+        the card, its artifact bit for bit the eager forward, and
+        `test_long --exported` with the `--weights` lines exactly;
+        `cli.stream --arch ffa` (each PNG the in-process quantized
+        forward); one `serve --arch ffa` request in process;
+    (c) `cli.ffa_train` at batch 2 × 240², --perloss (random VGG16), f32
+        with the CLI's TF32 default: finite losses, img/s, `ffa_best.pk`
+        reloaded strictly gives the logged PSNR;
+    (d) `test_long --arch ffa --bands 2`, two gloo ranks on the card: the
+        one-process lines within BAND_PSNR_TOL;
+    (e) `cli.train --arch unet` (phase 11's set and recipe), its
+        model_best.pth reloaded strictly giving the logged PSNR; `cli.
+        test_long --arch unet` (square canvas) on phase 9's pairs, each
+        PSNR against the in-process forward.
+    Every path launches no kernel of the port and calls no twin. The runs'
+    host-clock times (s/frame, img/s) were taken while nvcc built the
+    kernels on the same host. Returns the launch counts by path."""
+    import glob
+    import re
+    from http.server import ThreadingHTTPServer
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli.common import build_model_and_params
+    from dehaze_tpu_torch.cli.serve import build_dehaze_fn, make_handler
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.data.images import decode_img, encode_img, load_img
+    from dehaze_tpu_torch.data.pipeline import (PairedFolder, _val_batches,
+                                                val_images)
+    from dehaze_tpu_torch.infer.export import load_exported
+    from dehaze_tpu_torch.infer.tiled import make_whole_image_fn, quantize_u8
+    from dehaze_tpu_torch.ops import metrics as M
+    from dehaze_tpu_torch.train.ffa_trainer import FFATrainer
+    from dehaze_tpu_torch.utils.convert import load_weights
+
+    paths = {}
+    f = _ffa_files(tmp)
+    pk, upth, long_dir = f["pk"], f["upth"], f["long"]
+    art, mdir, save = f["art"], f["mdir"], f["save"]
+    done, secs, outs, band_secs = runs
+    names = ("cli.test_long --arch ffa", "cli.export --arch ffa",
+             "cli.test_long --exported (FFA)", "cli.stream --arch ffa",
+             "cli.ffa_train", "cli.train --arch unet",
+             "cli.test_long --arch unet")
+    for name, (_, stats) in zip(names, done):
+        if stats["rc"] != 0:
+            fail(f"{name} exited {stats['rc']}")
+        _zero_launches(name, stats)
+    print(f"the FFA-Net and UNet CLIs in one process: {secs:.1f}s",
+          flush=True)
+    (out, stats), (_, ex_stats), (out_x, x_stats), (_, st_stats), \
+        (out_t, t_stats), (_, u_stats), (out_u, eu_stats) = done
+
+    # (b) evaluation, export, stream and serve, bf16
+    model, run = _ffa_native(pk, torch.bfloat16)
+    lines = re.findall(r"^(\S+): PSNR (\S+) SSIM (\S+)$", out, re.M)
+    worst = 0.0
+    for (name, psnr, _), (clean, hazy, fname) in zip(
+            lines, val_images(PairedFolder(long_dir))):
+        y = run(hazy[None])[0]
+        ref = float(M.psnr(y, torch.from_numpy(clean).cuda()))
+        worst = max(worst, abs(ref - float(psnr)))
+    per_frame = float(re.search(r"frames: (\S+) s/frame", out).group(1))
+    print(f"cli.test_long --arch ffa (native, bf16): {len(lines)} frames, "
+          f"{per_frame:.4f} s/frame after the first, peak "
+          f"{stats['peak_gib']:.2f} GiB, run {stats['secs']:.1f}s; "
+          f"per-image PSNR vs the in-process forward: max |d| {worst:.2e} "
+          "dB", flush=True)
+    if len(lines) != 3 or worst > EVAL_PSNR_TOL:
+        fail("cli.test_long --arch ffa does not give the in-process PSNRs")
+    paths["eval_ffa"] = stats
+    base, meta = load_exported(art, "cuda")
+    _, hazy, _ = next(val_images(PairedFolder(long_dir)))
+    with _TwinCounts() as twins:
+        reset_counts()
+        same = torch.equal(base(hazy[None]), run(hazy[None]))
+        counts = {**read_counts(), **twins}
+    print(f"FFA-Net artifact ({meta['canvas']}, "
+          f"{os.path.getsize(art) / 1e6:.1f} MB, export run "
+          f"{ex_stats['secs']:.1f}s) against the eager forward: "
+          f"{'equal bit for bit' if same else 'DIFFERENT'}", flush=True)
+    _zero_launches("the FFA-Net artifact", counts)
+    if meta["canvas"] != "native" or not same:
+        fail("the FFA-Net artifact is not the eager native forward")
+    lines_x = re.findall(r"^(\S+): PSNR (\S+) SSIM (\S+)$", out_x, re.M)
+    print(f"cli.test_long --exported (FFA-Net native artifact): lines "
+          f"{'equal' if lines_x == lines else 'DIFFERENT'} to --weights', "
+          f"run {x_stats['secs']:.1f}s", flush=True)
+    if lines_x != lines:
+        fail("test_long --exported (FFA) does not print the --weights lines")
+    paths["eval_exported_ffa"] = x_stats
+    q = quantize_u8(run)
+    for src in sorted(glob.glob(os.path.join(long_dir, "hazy", "*.png"))):
+        img = load_img(src, u8=True)
+        got = load_img(os.path.join(tmp, "stream_ffa",
+                                    os.path.basename(src)), u8=True)
+        if not np.array_equal(got, q(img[None])[0].cpu().numpy()):
+            fail(f"cli.stream --arch ffa: {src} differs from the in-process "
+                 "forward")
+    print(f"cli.stream --arch ffa: 3 outputs equal to the in-process "
+          f"forward, run {st_stats['secs']:.1f}s", flush=True)
+    paths["stream_ffa"] = st_stats
+
+    args = SimpleNamespace(weights=pk, train_ps=128, square=False,
+                           device="cuda", seed=SEED, max_batch=4)
+    with _TwinCounts() as twins:
+        reset_counts()
+        dehaze, info = build_dehaze_fn(args, ModelConfig(arch="ffa"))
+        srv = ThreadingHTTPServer(("127.0.0.1", 0),
+                                  make_handler(dehaze, info))
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        img = load_img(os.path.join(long_dir, "hazy", "00000.png"), u8=True)
+        url = f"http://127.0.0.1:{srv.server_port}"
+        try:
+            t0 = time.perf_counter()
+            req = urllib.request.Request(url + "/dehaze",
+                                         data=encode_img(img), method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                status, body = r.status, r.read()
+            latency = time.perf_counter() - t0
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+            dehaze.batcher.close()
+        counts = {**read_counts(), **twins}
+    same = status == 200 and np.array_equal(
+        decode_img(body, u8=True), q(img[None])[0].cpu().numpy())
+    print(f"serve --arch ffa: status {status}, latency {latency:.3f}s (the "
+          f"first request of the process), healthz arch {health['arch']}, "
+          f"output {'equal' if same else 'DIFFERENT'} to the in-process "
+          "forward", flush=True)
+    if not same or health["arch"] != "ffa":
+        fail("serve --arch ffa did not answer with the native forward")
+    _zero_launches("serve --arch ffa", counts)
+    paths["serve_ffa"] = counts
+    del model, run, base, q
+
+    # (c) cli.ffa_train on phase 11's set
+    hist = json.load(open(os.path.join(mdir, "ffa_history.json")))
+    img_s = float(re.search(r"steady (\S+) img/s", out_t).group(1))
+    print(f"cli.ffa_train FFA-Net b2x240² f32 (TF32 on, the CLI default), "
+          f"L1 + perceptual: {FFA_TRAIN_STEPS} steps, losses "
+          f"{[round(v, 4) for v in hist['losses']]}, PSNRs "
+          f"{[round(v, 4) for v in hist['psnrs']]}; steady {img_s:.2f} "
+          f"img/s ({2e3 / img_s:.1f} ms/step), peak "
+          f"{t_stats['peak_gib']:.2f} GiB, run {t_stats['secs']:.1f}s",
+          flush=True)
+    if len(hist["losses"]) != FFA_TRAIN_STEPS or not all(
+            math.isfinite(v) for v in hist["losses"]):
+        fail("cli.ffa_train: a step's loss is missing or not finite")
+    paths["train_ffa"] = t_stats
+    best = os.path.join(mdir, "ffa_best.pk")
+    payload = torch.load(best, map_location="cpu", weights_only=True)
+    tr = FFATrainer(device="cuda")
+    tr.model.load_state_dict(load_weights(best, "ffa"), strict=True)
+    val, nv = _val_batches(PairedFolder(os.path.join(tmp, "val")), 240, 2,
+                           u8=True)
+    torch.backends.cudnn.allow_tf32 = True  # the mode the CLI evaluated in
+    try:
+        psnr = tr.evaluate(val, n_valid=nv)[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"ffa_best.pk (step {payload['step']}) reloaded strictly: PSNR "
+          f"{psnr:.4f} vs logged {payload['max_psnr']:.4f} (|d| "
+          f"{abs(psnr - payload['max_psnr']):.2e})", flush=True)
+    if abs(psnr - payload["max_psnr"]) > RELOAD_TOL:
+        fail("the reloaded ffa_best.pk does not give the logged PSNR")
+    del tr
+
+    # (d) two gloo ranks, the frame's rows in 2 bands
+    what = "cli.test_long --arch ffa --bands 2"
+    for ln in outs[0][0].splitlines():
+        print(f"  {what} | {ln}", flush=True)
+    band_lines = re.findall(r"^(\S+): PSNR (\S+) SSIM (\S+)$", outs[0][0],
+                            re.M)
+    worst = max(abs(float(a[1]) - float(b[1]))
+                for a, b in zip(band_lines, lines))
+    per_frame = float(re.search(r"frames: (\S+) s/frame",
+                                outs[0][0]).group(1))
+    print(f"{what} (2 gloo ranks on one card, bf16): {per_frame:.4f} "
+          f"s/frame after the first, peak per rank "
+          f"{[round(o[1]['peak_gib'], 2) for o in outs]} GiB; PSNRs against "
+          f"one process: max |d| {worst:.2e} dB (tolerance "
+          f"{BAND_PSNR_TOL:g}); {band_secs:.1f}s", flush=True)
+    if any(o[1]["rc"] for o in outs) or len(band_lines) != 3 \
+            or worst > BAND_PSNR_TOL:
+        fail(f"{what} does not give the one-process PSNRs")
+    band = {k: sum(o[1][k] for o in outs) for k in outs[0][1]
+            if k not in ("peak_gib", "secs", "rc")}
+    _zero_launches(what, band)
+    paths["eval_bands_ffa"] = band
+
+    # (e) cli.train --arch unet
+    ev = [json.loads(ln) for f in glob.glob(os.path.join(
+        save, "unet_smoke", "*.jsonl")) for ln in open(f)]
+    epoch = next(e for e in ev if e["kind"] == "epoch")
+    losses = epoch["step_losses"]
+    print(f"cli.train --arch unet UNet-32 b{TRAIN_BATCH}x{TRAIN_PS}² bf16 CR "
+          f"on: {len(losses)} steps, losses {[round(v, 4) for v in losses]}"
+          f"; steady {epoch['img_per_s']:.2f} img/s, peak "
+          f"{u_stats['peak_gib']:.2f} GiB, run {u_stats['secs']:.1f}s",
+          flush=True)
+    if len(losses) != N_TRAIN // TRAIN_BATCH or not all(
+            math.isfinite(v) for v in losses):
+        fail("cli.train --arch unet: a step's loss is missing or not finite")
+    paths["train_unet"] = u_stats
+    best = os.path.join(save, "unet_smoke", "models", "model_best.pth")
+    logged = torch.load(best, weights_only=True)["extra"]["psnr"]
+    model = build_model_and_params(ModelConfig(arch="unet"), best,
+                                   torch.device("cuda"))
+    val, nv = _val_batches(PairedFolder(os.path.join(tmp, "val")), TRAIN_PS,
+                           TRAIN_BATCH, u8=True)
+    with torch.no_grad():
+        ps = torch.cat([M.batch_psnr(torch.clamp(model(
+            torch.from_numpy(n).cuda().float() / 255.0), 0.0, 1.0),
+            torch.from_numpy(c).cuda().float() / 255.0) for c, n in val])
+    psnr = float(ps[:nv].mean())
+    print(f"UNet model_best.pth reloaded strictly: PSNR {psnr:.4f} vs "
+          f"logged {logged:.4f}", flush=True)
+    if abs(psnr - logged) > RELOAD_TOL:
+        fail("the reloaded UNet model_best.pth does not give the logged PSNR")
+    # the UNet's evaluation on the square canvas, as the Uformer's
+    model = build_model_and_params(ModelConfig(arch="unet"), upth,
+                                   torch.device("cuda"))
+    lines = re.findall(r"^(\S+): PSNR (\S+) SSIM (\S+)$", out_u, re.M)
+    worst = 0.0
+    for (_, psnr, _), (clean, hazy, _) in zip(
+            lines, val_images(PairedFolder(long_dir))):
+        y = make_whole_image_fn(model, *hazy.shape[:2], 128, square=True,
+                                device="cuda")(hazy[None])[0]
+        worst = max(worst, abs(float(M.psnr(
+            y, torch.from_numpy(clean).cuda())) - float(psnr)))
+    per_frame = float(re.search(r"frames: (\S+) s/frame", out_u).group(1))
+    print(f"cli.test_long --arch unet (square canvas 1664², bf16): "
+          f"{per_frame:.4f} s/frame after the first, run "
+          f"{eu_stats['secs']:.1f}s; per-image PSNR vs the in-process "
+          f"forward: max |d| {worst:.2e} dB", flush=True)
+    if len(lines) != 3 or worst > EVAL_PSNR_TOL:
+        fail("cli.test_long --arch unet does not give the in-process PSNRs")
+    paths["eval_unet"] = eu_stats
+    return paths
+
 def main() -> None:
     sys.path.insert(0, REPO)
     try:
@@ -2806,31 +3428,53 @@ def main() -> None:
         fail("torch is not installed")
     if not os.path.isdir(os.path.join(REPO, "dehaze_tpu_torch")):
         fail("dehaze_tpu_torch/ not found beside chip_smoke.py")
-    card = phase_device()
+    t_start = time.perf_counter()
+
+    def timed(phase, *args):
+        """phase(*args), then its seconds on a line of their own."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return out
+
+    card = timed(phase_device)
     # the plain twins compute in float32 where the kernels do: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
-    phase_codec()
-    k1_res = phase_k1()
-    k1p_res = phase_k1_pad()
-    k1b_res = phase_k1_bwd()
-    k3_res = phase_k3()
-    k2_res = phase_k2()
-    with tempfile.TemporaryDirectory() as tmp:
-        pth = phase_model(tmp)
-        phase_model_pad(pth)
-        serve = phase_serve(pth)
-        evals, eval_psnrs = phase_eval(tmp, pth)
-        gate = phase_parity_gate(tmp, pth)
-        serving = phase_serving(tmp, pth, eval_psnrs["square"])
-        phase_train_parity()
-        train, stream_epoch, _ = phase_train_cli(tmp)
-        device_data = phase_device_data(tmp, stream_epoch)
-        remat = phase_remat(tmp)
-        phase_train_profile(tmp)
-        wmsa = phase_wmsa(tmp)
-        multi = phase_multi(tmp, pth, eval_psnrs)
+    with tempfile.TemporaryDirectory() as tmp, \
+            cf.ThreadPoolExecutor(2) as behind:
+        # nvcc builds the kernels on the host while the data is written
+        # and FFA-Net and the UNet, which need no kernel of the port, run
+        # on the card: their frames (timed by CUDA events), then their
+        # entry points, done before any kernel is timed
+        build = behind.submit(timed, phase_build)
+        timed(phase_data, tmp)
+        ffa_frames, _ = timed(phase_ffa_frames, tmp)
+        ffa_runs = behind.submit(timed, phase_ffa_runs, tmp)
+        build.result()
+        ffa_runs = ffa_runs.result()
+        timed(phase_codec)
+        k1_res = timed(phase_k1)
+        k1p_res = timed(phase_k1_pad)
+        k1b_res = timed(phase_k1_bwd)
+        k3_res = timed(phase_k3)
+        k2_res = timed(phase_k2)
+        pth = timed(phase_model, tmp)
+        timed(phase_model_pad, pth)
+        serve = timed(phase_serve, pth)
+        evals, eval_psnrs = timed(phase_eval, tmp, pth)
+        gate = timed(phase_parity_gate, tmp, pth)
+        serving = timed(phase_serving, tmp, pth, eval_psnrs)
+        timed(phase_train_parity)
+        train, stream_epoch, _ = timed(phase_train_cli, tmp)
+        device_data = timed(phase_device_data, tmp, stream_epoch)
+        remat = timed(phase_remat, tmp)
+        timed(phase_train_profile, tmp)
+        wmsa = timed(phase_wmsa, tmp)
+        multi = timed(phase_multi, tmp, pth, eval_psnrs)
+        ffa = {**ffa_frames, **timed(phase_ffa, tmp, ffa_runs)}
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, res, main, key, paths):
         row = next(r for r in res if r[:len(main)] == main)
@@ -2846,7 +3490,7 @@ def main() -> None:
     paths = {"serve": serve, "train": train, "eval": evals,
              "parity_gate": gate, **serving,
              "train_device_data": device_data, "train_step_remat": remat,
-             **wmsa, **multi}
+             **wmsa, **multi, **ffa}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
     # K1 rows by kernel, without the kernel column

@@ -13,5 +13,7 @@ and run their plain torch twins on CPU tensors. Dispatch is by device only.
 
 Paths: whole-image serving (`infer/tiled.py`, `cli/serve.py`), evaluation
 (`infer/anyres.py`, `cli/test_long.py`, `cli/test_anyres.py`) and training
-(`train/`, `cli/train.py`).
+(`train/`, `cli/train.py`), for the Uformer and, as cuDNN convolutions
+with no kernel of their own, FFA-Net (`models/ffa.py`, `cli/ffa_train.py`,
+the native-resolution protocol) and the conv UNet (`models/unet.py`).
 """

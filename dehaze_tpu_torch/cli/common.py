@@ -3,15 +3,16 @@
 Counterpart of `dehaze_tpu/cli/common.py` for the flags the serving,
 training and evaluation paths use; flag names are the same. `config_from_args`
 returns a `Config`; the serving and evaluation CLIs read its `model`.
-`--weights` takes a `.pth` state_dict (the reference's checkpoint format or
-a bare state_dict); `--exported` a `cli.export` artifact, in place of
-`--weights` (`resolve_forward`). `--attention full` selects the W-MSA
-Uformer, with `--token_projection`, `--token_mlp` and `--se_layer`.
-`--arch ffa|unet` parses and is refused by `models.uformer.check_config`,
-as are the combinations the JAX package refuses. `--data_axis N` (data-
-parallel training, frame-parallel evaluation and streaming) and `--bands
-N` (one frame's rows over N processes) run one process per GPU under
-`torchrun --nproc_per_node N` (`start_group`).
+`--weights` takes a `.pth`, `.pt` or `.pk` checkpoint (the reference's
+formats or a bare state_dict); `--exported` a `cli.export` artifact, in
+place of `--weights` (`resolve_forward`). `--attention full` selects the
+W-MSA Uformer, with `--token_projection`, `--token_mlp` and `--se_layer`;
+`--arch ffa` FFA-Net (`--ffa_gps`, `--ffa_blocks`, `--ffa_dim`) and
+`--arch unet` the conv UNet (`--embed_dim` wide), built by
+`models.get_arch`, which refuses the combinations the JAX package refuses.
+`--data_axis N` (data-parallel training, frame-parallel evaluation and
+streaming) and `--bands N` (one frame's rows over N processes) run one
+process per GPU under `torchrun --nproc_per_node N` (`start_group`).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from dehaze_tpu_torch.config import (Config, DataConfig, LossConfig,
 from dehaze_tpu_torch.data.images import load_img, save_img
 from dehaze_tpu_torch.data.pipeline import PairedFolder
 from dehaze_tpu_torch.infer.sharded import map_frames
-from dehaze_tpu_torch.models.uformer import Uformer
+from dehaze_tpu_torch.models import get_arch
 from dehaze_tpu_torch.ops import metrics as M
 from dehaze_tpu_torch.parallel import dist
 from dehaze_tpu_torch.utils.convert import load_weights
@@ -41,7 +42,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--arch", default="uformer",
                    choices=["uformer", "ffa", "unet"],
-                   help="only the Uformer is ported; the others raise")
+                   help="the Uformer, FFA-Net (--ffa_*) or the conv UNet "
+                        "(--embed_dim wide)")
     p.add_argument("--embed_dim", type=int, default=32)
     p.add_argument("--win_size", type=int, default=8)
     p.add_argument("--token_projection", default="linear",
@@ -58,6 +60,10 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bfloat16", choices=sorted(_DTYPES))
     p.add_argument("--fast_gelu", action="store_true",
                    help="tanh-approximate GELU in LeFF")
+    p.add_argument("--ffa_gps", type=int, default=3)
+    p.add_argument("--ffa_blocks", type=int, default=19)
+    p.add_argument("--ffa_dim", type=int, default=64,
+                   help="FFA conv width (the reference's default 64)")
     p.add_argument("--train_ps", type=int, default=128,
                    help="training patch size: the configured resolution "
                         "and the canvas multiple of whole-image inference")
@@ -70,7 +76,9 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "error, not a fallback)")
     p.add_argument("--remat", action="store_true",
                    help="recompute each LeWin block's activations in the "
-                        "backward pass (less memory, one more forward)")
+                        "backward pass (less memory, one more forward); "
+                        "the Uformer only: FFA-Net and the UNet ignore it, "
+                        "as in the JAX package")
     # loss
     p.add_argument("--is_ab", action="store_true",
                    help="CR ablation: drop the negative term")
@@ -124,7 +132,8 @@ def add_eval_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """The flags `cli.test_long` and `cli.test_anyres` share."""
     p.add_argument("--input_dir", required=True,
                    help="folder with gt/ and hazy/ PNG pairs")
-    p.add_argument("--weights", default=None, help=".pth state_dict")
+    p.add_argument("--weights", default=None,
+                   help=".pth, .pt or .pk checkpoint")
     p.add_argument("--result_dir", default="./results/long")
     p.add_argument("--save_images",
                    action=argparse.BooleanOptionalAction, default=True,
@@ -179,7 +188,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
                           attention=a.attention,
                           use_rel_pos_bias=not a.no_rel_pos_bias,
                           dtype=_DTYPES[a.dtype], fast_gelu=a.fast_gelu,
-                          remat=a.remat),
+                          remat=a.remat, ffa_gps=a.ffa_gps,
+                          ffa_blocks=a.ffa_blocks, ffa_dim=a.ffa_dim),
         loss=LossConfig(w_charbonnier=a.w_loss_CharbonnierLoss,
                         w_contrast=a.w_loss_vgg7, contrast_ablation=a.is_ab,
                         vgg_weights=a.vgg_weights),
@@ -201,25 +211,33 @@ def config_from_args(a: argparse.Namespace) -> Config:
 
 
 def build_model_and_params(cfg: ModelConfig, weights: str, device
-                           ) -> Uformer:
-    """Build the Uformer on `device`, load `weights` strictly, eval mode."""
-    model = Uformer(cfg, device=device)
-    model.load_state_dict(load_weights(weights), strict=True)
+                           ) -> torch.nn.Module:
+    """Build cfg.arch's model on `device` (`models.get_arch`), load
+    `weights` strictly (`utils.convert.load_weights` reads the arch's
+    checkpoint format), eval mode."""
+    model = get_arch(cfg, device=device)
+    model.load_state_dict(load_weights(weights, cfg.arch), strict=True)
     return model.eval()
 
 
-def resolve_forward(args, cfg: ModelConfig) -> SimpleNamespace:
+def resolve_forward(args, cfg: ModelConfig, ffa_normalize: bool = True
+                    ) -> SimpleNamespace:
     """--weights / --exported scaffolding for the serving and evaluation
     CLIs (`cli.export` uses the weights leg only). Exactly one of
     args.weights / args.exported must be set (SystemExit otherwise).
     Returns a namespace:
       mode      'weights' | 'exported'
+      is_ffa    FFA-Net, whose protocol is the native resolution (no
+                canvas): from cfg.arch, or the artifact's meta
       device    the torch device the forward runs on
-      apply_fn  [B, H, W, 3] float on the device (and an optional padding
-                mask) → [B, H, W, 3] float32 (weights mode); the ProbSparse
-                generator is re-seeded from args.seed at every forward, so
-                a request's output is deterministic
-      model     the built Uformer (weights mode)
+      apply_fn  [B, H, W, 3] float on the device (and, for the Uformer, an
+                optional padding mask) → [B, H, W, 3] float32 (weights
+                mode); the ProbSparse generator is re-seeded from
+                args.seed at every forward, so a request's output is
+                deterministic; FFA-Net's input is normalized first
+                (`infer.tiled.normalize_hazy`) unless
+                `ffa_normalize` is False
+      model     the built model (weights mode)
       base_fn, meta, baked_hw  the loaded artifact's callable, its meta
                 and the (H, W) it bakes (exported mode)"""
     weights = getattr(args, "weights", None)
@@ -231,20 +249,30 @@ def resolve_forward(args, cfg: ModelConfig) -> SimpleNamespace:
         from dehaze_tpu_torch.infer.export import load_exported
 
         base_fn, meta = load_exported(exported, device)
-        return SimpleNamespace(mode="exported", apply_fn=None, model=None,
-                               base_fn=base_fn, meta=meta,
+        return SimpleNamespace(mode="exported", is_ffa=meta["arch"] == "ffa",
+                               apply_fn=None, model=None, base_fn=base_fn,
+                               meta=meta,
                                baked_hw=(meta["height"], meta["width"]),
                                device=device)
     model = build_model_and_params(cfg, weights, device)
     seed = getattr(args, "seed", 1234)
+    is_ffa = cfg.arch == "ffa"
 
-    def apply_fn(x: torch.Tensor, pad_mask=None) -> torch.Tensor:
-        return model(x, generator=torch.Generator().manual_seed(seed),
-                     pad_mask=pad_mask)
+    if cfg.arch == "uformer":
+        def apply_fn(x: torch.Tensor, pad_mask=None) -> torch.Tensor:
+            return model(x, generator=torch.Generator().manual_seed(seed),
+                         pad_mask=pad_mask)
+    elif is_ffa and ffa_normalize:
+        from dehaze_tpu_torch.infer.tiled import normalize_hazy
 
-    return SimpleNamespace(mode="weights", apply_fn=apply_fn, model=model,
-                           base_fn=None, meta=None, baked_hw=None,
-                           device=device)
+        def apply_fn(x: torch.Tensor) -> torch.Tensor:
+            return model(normalize_hazy(x))
+    else:
+        apply_fn = model
+
+    return SimpleNamespace(mode="weights", is_ffa=is_ffa, apply_fn=apply_fn,
+                           model=model, base_fn=None, meta=None,
+                           baked_hw=None, device=device)
 
 
 def evaluate(args, make_run, spread: bool = False) -> dict:

@@ -13,7 +13,10 @@ code or the checkpoint:
 
 An artifact traced on the CPU (`--device cpu`) serves on the card too: the
 loader moves it there. K1's forward and K2 stay in it as the port's
-operators, which launch the CUDA kernels on the card.
+operators, which launch the CUDA kernels on the card. With --arch ffa the
+artifact is FFA-Net's native-resolution forward (`canvas: "native"`, the
+hazy-input normalization folded in, --height × --width baked); the UNet
+exports on the canvas, as the Uformer does.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from torch._export.serde.schema import SCHEMA_VERSION
 
 from dehaze_tpu_torch.cli.common import (add_common_args, config_from_args,
                                          one_process, resolve_forward)
-from dehaze_tpu_torch.infer.export import (WholeImage,
+from dehaze_tpu_torch.infer.export import (Native, WholeImage,
                                            export_whole_image_bytes,
                                            save_exported)
 from dehaze_tpu_torch.models.uformer import draw_sample_tables
@@ -36,7 +39,8 @@ from dehaze_tpu_torch.models.uformer import draw_sample_tables
 def build_parser() -> argparse.ArgumentParser:
     p = add_common_args(argparse.ArgumentParser(
         description="export a serving artifact (PyTorch/CUDA port)"))
-    p.add_argument("--weights", required=True, help=".pth state_dict")
+    p.add_argument("--weights", required=True,
+                   help=".pth, .pt or .pk checkpoint")
     p.add_argument("--height", type=int, default=1200)
     p.add_argument("--width", type=int, default=1600)
     p.add_argument("--out", required=True, help="output artifact path")
@@ -50,15 +54,21 @@ def main(argv=None) -> dict:
     one_process(args, "cli.export")
     cfg = config_from_args(args).model
     fwd = resolve_forward(args, cfg)
-    # the tables a --weights forward with this seed draws, on the device
-    tables = draw_sample_tables(fwd.model, torch.Generator().manual_seed(
-        args.seed), device=fwd.device)
-    run = WholeImage(fwd.model, tables, args.height, args.width,
-                     args.train_ps, args.square)
+    if fwd.is_ffa:
+        # the protocol's normalization folds in, so serving needs no
+        # protocol knowledge
+        run, canvas = Native(fwd.model), "native"
+    else:
+        # the tables a --weights forward with this seed draws, on the
+        # device (the UNet draws none)
+        tables = (draw_sample_tables(fwd.model, torch.Generator().manual_seed(
+            args.seed), device=fwd.device) if cfg.arch == "uformer" else None)
+        run = WholeImage(fwd.model, tables, args.height, args.width,
+                         args.train_ps, args.square)
+        canvas = "square" if args.square else "rect"
     t0 = time.perf_counter()
     blob = export_whole_image_bytes(run, args.height, args.width, fwd.device)
     secs = time.perf_counter() - t0
-    canvas = "square" if args.square else "rect"
     meta = {
         "arch": cfg.arch,
         "height": args.height,

@@ -68,6 +68,10 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     one_process(args, "cli.parity_gate")
     cfg = config_from_args(args).model
+    if cfg.arch != "uformer":
+        raise SystemExit("cli.parity_gate checks a reference Uformer .pth "
+                         "(the JAX gate converts Uformer keys only); "
+                         f"--arch {cfg.arch} has no gate")
     psnr, ssim = evaluate_checkpoint(cfg, args.ref_ckpt, args.input_dir,
                                      args.train_ps, args.ssim_data_range,
                                      args.device)

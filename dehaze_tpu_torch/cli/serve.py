@@ -13,7 +13,8 @@ Counterpart of `dehaze_tpu/cli/serve.py`. Handler threads decode and
 encode; one device worker thread runs the forwards and MICRO-BATCHES
 same-geometry requests that queued while a forward was in flight (up to
 `--max_batch`); a lone request runs at once. With `--weights`, forwards
-are built per request geometry and LRU-cached (`--max_geometries`); with
+are built per request geometry and LRU-cached (`--max_geometries`;
+FFA-Net's run each frame at its own resolution, with no canvas); with
 `--exported` (a `cli.export` artifact), requests must have the artifact's
 baked geometry (400 otherwise) and are served one at a time (the artifact
 bakes batch 1). Decoded frames are capped at `--max_pixels`. `--precompile
@@ -36,7 +37,8 @@ import numpy as np
 from dehaze_tpu_torch.cli.common import (add_common_args, config_from_args,
                                          one_process, resolve_forward)
 from dehaze_tpu_torch.data.images import decode_img, encode_img
-from dehaze_tpu_torch.infer.tiled import make_whole_image_fn, quantize_u8
+from dehaze_tpu_torch.infer.tiled import (make_native_image_fn,
+                                          make_whole_image_fn, quantize_u8)
 
 
 class MicroBatcher:
@@ -157,10 +159,12 @@ def build_dehaze_fn(args, cfg):
             if (h, w) in runs:
                 runs.move_to_end((h, w))
             else:
-                runs[(h, w)] = quantize_u8(make_whole_image_fn(
-                    fwd.apply_fn, h, w, args.train_ps,
-                    square=getattr(args, "square", False),
-                    device=fwd.device))
+                runs[(h, w)] = quantize_u8(
+                    make_native_image_fn(fwd.apply_fn, device=fwd.device)
+                    if fwd.is_ffa else make_whole_image_fn(
+                        fwd.apply_fn, h, w, args.train_ps,
+                        square=getattr(args, "square", False),
+                        device=fwd.device))
                 while len(runs) > max_geoms:
                     runs.popitem(last=False)
             return runs[(h, w)]
@@ -232,7 +236,8 @@ def make_handler(dehaze, info):
 def build_parser() -> argparse.ArgumentParser:
     p = add_common_args(argparse.ArgumentParser(description="dehaze server "
                                                  "(PyTorch/CUDA port)"))
-    p.add_argument("--weights", default=None, help=".pth state_dict")
+    p.add_argument("--weights", default=None,
+                   help=".pth, .pt or .pk checkpoint")
     p.add_argument("--exported", default=None,
                    help="serve a cli.export artifact instead of --weights")
     p.add_argument("--host", default="127.0.0.1")

@@ -13,7 +13,8 @@ card idles during host IO.
         --input_dir .../test/hazy --weights model_best.pth --data_axis N
 
 Reads PNG, JPEG and BMP frames and writes each result as a PNG of the
-input's name. Prints one summary line with the sustained Mpix/s (decode,
+input's name; FFA-Net (--arch ffa) runs each frame at its own resolution,
+with no canvas. Prints one summary line with the sustained Mpix/s (decode,
 forward and encode together). With --data_axis N each of the N processes
 decodes, runs and encodes its share of the folder on its own GPU, and
 rank 0 prints the time split summed over them and the rate of all frames.
@@ -37,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="streaming dehaze (PyTorch/CUDA port)"))
     p.add_argument("--input_dir", required=True,
                    help="directory of hazy images (flat, or a HAZY/ subdir)")
-    p.add_argument("--weights", default=None, help=".pth state_dict")
+    p.add_argument("--weights", default=None,
+                   help=".pth, .pt or .pk checkpoint")
     p.add_argument("--exported", default=None,
                    help="serve a cli.export artifact instead of --weights "
                         "(no model rebuild; fixed geometry)")
@@ -78,9 +80,10 @@ def main(argv=None) -> dict:
     stats = stream_dehaze(fwd.apply_fn, frames, ps=args.train_ps,
                           square=args.square, load_fn=load_fn,
                           base_fn=fwd.base_fn, base_hw=fwd.baked_hw,
-                          device=fwd.device,
+                          device=fwd.device, native=fwd.is_ffa,
                           data_parallel=group == "--data_axis")
     canvas = ("exported" if fwd.mode == "exported"
+              else "native" if fwd.is_ffa
               else "square" if args.square else "rect")
     if dist.rank() > 0:
         return stats

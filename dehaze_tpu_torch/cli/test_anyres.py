@@ -10,7 +10,8 @@ attention; per-image PSNR/SSIM and their means.
 
 --bands N splits each canvas's rows over the N processes with halo
 exchange (`infer.halo_sharded.make_halo_sharded_anyres_fn`); rank 0 prints.
-The JAX CLI has no --data_axis: it is refused here too.
+The JAX CLI has no --data_axis: it is refused here too, as are --arch
+ffa|unet (the padding mask exists only in the Uformer).
 """
 
 from __future__ import annotations
@@ -39,6 +40,9 @@ def main(argv=None) -> dict:
         raise SystemExit("test_anyres has no --data_axis (nor has the JAX "
                          "CLI); use --bands N")
     cfg = config_from_args(args).model
+    if cfg.arch != "uformer":
+        raise SystemExit("test_anyres is Uformer-only: the pad-mask input "
+                         "path exists only in the Uformer")
     check_config(cfg)
     group = start_group(args)
     fwd = resolve_forward(args, cfg)

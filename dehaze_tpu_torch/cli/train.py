@@ -8,7 +8,10 @@
         --data_axis N
 
 --data_axis N trains data-parallel over N processes, one per GPU
-(`train.loop.fit`): --batch_size stays the global batch.
+(`train.loop.fit`): --batch_size stays the global batch. --arch ffa|unet
+trains FFA-Net or the UNet under this recipe (Charbonnier + CR, AdamW,
+the epoch lr table), as the JAX trainer does; FFA-Net's own recipe is
+`cli.ffa_train`.
 """
 
 import argparse

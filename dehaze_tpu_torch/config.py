@@ -4,9 +4,9 @@ Same field names and defaults as the JAX dataclasses, so the CLIs share
 flag names; dtypes are torch dtypes. The JAX flags `use_pallas`/
 `use_pallas_leff` have no counterpart: the tensor's device decides whether
 the kernels run. `band_axis` has none either: a banded forward takes its
-band as an argument (`Uformer.forward(..., bands=)`). Fields of mechanisms
-the port does not have yet (`act_store`, the FFA knobs) are left out; their
-CLI flags raise.
+band as an argument (`Uformer.forward(..., bands=)`, `FFA.forward(...,
+bands=)`). `act_store`, a mechanism the port does not have yet, is left
+out.
 """
 
 from __future__ import annotations
@@ -19,9 +19,11 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Uformer architecture config; defaults are the flagship Uformer-32
-    (embed 32, nine stages of 2 LeWin blocks, heads 1→16→2, 8×8 windows,
-    LeFF ×4, ProbSparse attention, bf16 activations)."""
+    """Model config; defaults are the flagship Uformer-32 (embed 32, nine
+    stages of 2 LeWin blocks, heads 1→16→2, 8×8 windows, LeFF ×4,
+    ProbSparse attention, bf16 activations). `arch` picks the model
+    (`models.get_arch`): 'uformer', 'ffa' (FFA-Net, the `ffa_*` fields) or
+    'unet' (the residual conv UNet, `embed_dim` wide)."""
 
     arch: str = "uformer"
     img_size: int = 128
@@ -50,6 +52,11 @@ class ModelConfig:
     # (torch.utils.checkpoint): peak training memory holds one block's
     # activations instead of every block's, for one more forward per block.
     remat: bool = False
+    # FFA-Net (arch='ffa'): residual groups (the reference asserts 3),
+    # blocks per group, conv width.
+    ffa_gps: int = 3
+    ffa_blocks: int = 19
+    ffa_dim: int = 64
 
     @property
     def num_enc_layers(self) -> int:

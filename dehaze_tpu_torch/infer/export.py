@@ -2,10 +2,13 @@
 `torch.export` program (counterpart of `dehaze_tpu/infer/export.py`).
 
 The artifact holds the [1, h, w, 3] float32 → [1, h, w, 3] forward of
-`infer.tiled.make_whole_image_fn` (wrap-pad canvas, model, crop, clamp)
-with the weights and the ProbSparse sample tables folded in, so it
-computes what `--weights --seed S` computes for the seed it was drawn
-with. K1's forward and K2 stay in its graph as the operators
+`infer.tiled.make_whole_image_fn` (wrap-pad canvas, model, crop, clamp;
+`WholeImage`) with the weights and the ProbSparse sample tables folded
+in, so it computes what `--weights --seed S` computes for the seed it was
+drawn with; or, for FFA-Net, the native-resolution forward of
+`infer.tiled.make_native_image_fn` with the protocol's input
+normalization folded in (`Native`). K1's forward and K2 stay in its
+graph as the operators
 `dehaze_tpu_torch::window_attention_fwd` and `dehaze_tpu_torch::leff_fused`
 (`ops/kernels/`): on the card they launch the CUDA kernels, on the CPU they
 run the plain twins.
@@ -30,12 +33,13 @@ import io
 import json
 import warnings
 import zipfile
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.utils._pytree as pytree
 
-from dehaze_tpu_torch.infer.tiled import _as_tensor, canvas_of, whole_image
+from dehaze_tpu_torch.infer.tiled import (FFA_MEAN, FFA_STD, _as_tensor,
+                                          canvas_of, whole_image)
 # registers the operators the artifact's graph calls
 from dehaze_tpu_torch.ops.kernels import leff, window_attention  # noqa: F401
 
@@ -45,23 +49,44 @@ _MEMBER_META = "meta.json"
 
 class WholeImage(torch.nn.Module):
     """`model`'s whole-image forward for one h×w geometry on the canvas
-    `canvas_of(h, w, ps, square)`, with the sample tables as buffers:
+    `canvas_of(h, w, ps, square)`, with the sample tables as buffers (a
+    Uformer's; None for a model that takes none, the UNet):
     [1, h, w, 3] float32 in [0, 1] → restored [1, h, w, 3] float32."""
 
     def __init__(self, model: torch.nn.Module,
-                 tables: Sequence[torch.Tensor], h: int, w: int, ps: int,
-                 square: bool):
+                 tables: Optional[Sequence[torch.Tensor]], h: int, w: int,
+                 ps: int, square: bool):
         super().__init__()
         self.model = model
-        self.n_tables = len(tables)
-        for i, t in enumerate(tables):
+        self.tabled = tables is not None
+        self.n_tables = len(tables or ())
+        for i, t in enumerate(tables or ()):
             self.register_buffer(f"table_{i}", t)
         self.canvas = canvas_of(h, w, ps, square)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.tabled:
+            return whole_image(self.model, x, *self.canvas)
         tables = [getattr(self, f"table_{i}") for i in range(self.n_tables)]
         return whole_image(lambda c: self.model(c, sample_tables=tables), x,
                            *self.canvas)
+
+
+class Native(torch.nn.Module):
+    """FFA-Net's native-resolution forward: [1, h, w, 3] float32 in
+    [0, 1] → `model` on the normalized input (`infer.tiled.
+    normalize_hazy`, with the mean and std as buffers), clamped to
+    [0, 1]."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+        dev = next(model.parameters()).device
+        self.register_buffer("mean", torch.as_tensor(FFA_MEAN, device=dev))
+        self.register_buffer("std", torch.as_tensor(FFA_STD, device=dev))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(self.model((x - self.mean) / self.std), 0.0, 1.0)
 
 
 def export_whole_image_bytes(run_module: torch.nn.Module, h: int, w: int,

@@ -6,7 +6,8 @@ Each rank builds the whole canvas, runs the Uformer on its band
 (`models.uformer.Uformer.forward(..., bands=)`, `parallel.halo`), and the
 bands are gathered back in rank order, so every rank returns the whole
 output. The result is the single-process forward, not an overlap-tile
-approximation.
+approximation. FFA-Net's protocol has no canvas: its frame's own rows are
+banded (`make_halo_sharded_native_fn`).
 
 Alignment: every band must stay window-aligned through the four
 downsamplings, so the canvas height is padded up to a multiple of
@@ -131,9 +132,40 @@ def make_halo_sharded_anyres_fn(
     return run
 
 
-def make_halo_sharded_native_fn(*args, **kwargs):
-    """The banded raw-resolution forward of FFA-Net (its halo convs and
-    rank-averaged pools): FFA-Net is not ported yet."""
-    raise NotImplementedError(
-        "FFA-Net is not ported yet (queue 1, item 5): no banded native "
-        "forward")
+def make_halo_sharded_native_fn(
+    model: torch.nn.Module,
+    bands: Optional[Bands] = None,
+    device="cuda",
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """FFA-Net's raw-resolution protocol (no canvas, `infer.tiled.
+    make_native_image_fn`) with the frame's rows banded over the process
+    group: [B, H, W, C] (float or raw uint8, tensor or ndarray; the same
+    frame on every rank, normalized by the caller if the protocol wants
+    it) → the clamped float32 output on `device`, on every rank. Each
+    rank runs its band (`models.ffa.FFA.forward(..., bands=)`: 1-row halos
+    for the 3×3 convs, rank-averaged global pools), so the result is the
+    one-process forward. H must divide by the band count: the average of
+    unequal bands' means would not be the frame's mean."""
+    from dehaze_tpu_torch.models.ffa import FFA
+
+    if not isinstance(model, FFA):
+        arch = getattr(getattr(model, "cfg", None), "arch",
+                       type(model).__name__.lower())
+        raise ValueError(
+            "native banded inference is FFA-only (halo convs + rank-"
+            f"averaged pools); got arch={arch!r} — use "
+            "make_halo_sharded_frame_fn for the Uformer canvas protocol")
+    bands = bands or Bands.of_group()
+
+    @torch.inference_mode()
+    def run(img):
+        x = u8_norm(_as_tensor(img, device))
+        if x.shape[1] % bands.count:
+            raise ValueError(
+                f"native banded inference needs rows % bands == 0 (got "
+                f"{x.shape[1]} rows over {bands.count} bands — unequal "
+                "bands would skew the FFA global-mean pools)")
+        out = model(halo.band_rows(x, bands), bands=bands)
+        return torch.clamp(halo.gather_bands(out, bands), 0.0, 1.0)
+
+    return run

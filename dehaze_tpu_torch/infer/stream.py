@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from dehaze_tpu_torch.infer.sharded import frame_share
-from dehaze_tpu_torch.infer.tiled import make_whole_image_fn, quantize_u8
+from dehaze_tpu_torch.infer.tiled import (make_native_image_fn,
+                                          make_whole_image_fn, quantize_u8)
 from dehaze_tpu_torch.parallel import dist
 
 
@@ -88,6 +89,7 @@ def stream_dehaze(
     base_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     base_hw: Optional[Tuple[int, int]] = None,
     device="cuda",
+    native: bool = False,
 ) -> Dict[str, float]:
     """Dehaze a stream of frames with decode/compute/encode overlap.
 
@@ -99,8 +101,10 @@ def stream_dehaze(
     Decode runs at most `decode_workers + 2` frames ahead; encode is
     fire-and-forget (joined before returning). `square=False` uses the
     rectangular wrap-pad canvas (the same crop, less compute); True the
-    reference's square one. `device` is where `apply_fn`'s forwards run
-    (the card unless the caller asks for the CPU).
+    reference's square one; `native=True` runs each frame at its own
+    resolution with no canvas (FFA-Net's protocol). `device` is where
+    `apply_fn`'s forwards run (the card unless the caller asks for the
+    CPU).
 
     With `base_fn` + `base_hw`, the prebuilt fixed-geometry forward (an
     artifact from `infer.export.load_exported`) replaces apply_fn and
@@ -120,7 +124,7 @@ def stream_dehaze(
         dist.barrier()  # a common start for the sustained rate
         stats = stream_dehaze(apply_fn, frames, ps, square, decode_workers,
                               encode_workers, load_fn, save_fn,
-                              device=device)
+                              device=device, native=native)
         parts = dist.gather_objects(stats)
         summed = {k: sum(p[k] for p in parts) for k in stats}
         summed["sec"] = max(p["sec"] for p in parts)
@@ -153,6 +157,8 @@ def stream_dehaze(
                         f"{base_hw[0]}x{base_hw[1]}; re-export for this "
                         "geometry")
                 base = base_fn
+            elif native:
+                base = make_native_image_fn(apply_fn, device=device)
             else:
                 base = make_whole_image_fn(apply_fn, h, w, ps, square=square,
                                            device=device)

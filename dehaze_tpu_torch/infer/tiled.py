@@ -5,7 +5,8 @@ H×W frame on a canvas whose sides are the NEXT multiple of `ps` (even when
 already divisible), fills the margins by wrapping, runs one forward, crops
 back to H×W and clamps to [0, 1]. The wrap keeps the reference's quirk: the
 bottom rows are copied from the already right-padded canvas, so the
-bottom-right corner holds the top-left strip.
+bottom-right corner holds the top-left strip. FFA-Net's protocol has no
+canvas: the frame at its own resolution (`make_native_image_fn`).
 """
 
 from __future__ import annotations
@@ -96,6 +97,36 @@ def make_whole_image_fn(
     @torch.inference_mode()
     def run(img):
         return whole_image(apply_fn, u8_norm(_as_tensor(img, device)), L, Lw)
+
+    return run
+
+
+# FFA-Net's protocol normalizes the hazy input only, per channel (the
+# reference's FFA data path); `train.ffa_trainer` trains on the same.
+FFA_MEAN = np.array([0.64, 0.60, 0.58], np.float32)
+FFA_STD = np.array([0.14, 0.15, 0.152], np.float32)
+
+
+def normalize_hazy(hazy: torch.Tensor) -> torch.Tensor:
+    """(hazy - FFA_MEAN) / FFA_STD per channel, NHWC float in [0, 1]."""
+    mean = torch.as_tensor(FFA_MEAN, device=hazy.device)
+    std = torch.as_tensor(FFA_STD, device=hazy.device)
+    return (hazy - mean) / std
+
+
+def make_native_image_fn(
+    apply_fn: Callable[[torch.Tensor], torch.Tensor],
+    device="cuda",
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The FFA-Net protocol: [B, H, W, C] (float in [0, 1] or raw uint8,
+    tensor or ndarray) → `apply_fn` at the frame's own resolution, no
+    canvas, clamped to [0, 1]: float32 [B, H, W, C] on `device`. Any
+    geometry (the net is fully convolutional)."""
+
+    @torch.inference_mode()
+    def run(img):
+        return torch.clamp(apply_fn(u8_norm(_as_tensor(img, device))), 0.0,
+                           1.0)
 
     return run
 

@@ -425,13 +425,11 @@ class UformerStage(nn.Module):
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """Refuse configurations the port does not implement, and the option
-    combinations the JAX package refuses (`dehaze_tpu/models/__init__.py`):
-    the reference's ProbSparse model builds the W-MSA projections and the
-    SE layer but its forward never calls them, so accepting them would
-    train a different model than asked."""
-    if cfg.arch != "uformer":
-        raise ValueError(f"arch {cfg.arch!r} is not ported yet")
+    """Refuse the Uformer option combinations the JAX package refuses
+    (`dehaze_tpu/models/__init__.py`): the reference's ProbSparse model
+    builds the W-MSA projections and the SE layer but its forward never
+    calls them, so accepting them would train a different model than
+    asked."""
     for field, allowed in (("attention", ("probsparse", "full")),
                            ("token_projection",
                             ("linear", "conv", "linear_concat")),

@@ -10,6 +10,9 @@ band-local except
   - the SW-MSA cyclic roll: a true cyclic rotation of rows across the band
     ring (`roll_rows`); columns roll locally.
 
+FFA-Net's 3×3 convs take the same one-row halos, and its global average
+pools average the bands' means (`mean_over_bands`).
+
 Without `wrap` the edge bands receive zero rows, which is the zero padding
 the single-process conv applies at the canvas edge; with `wrap` the ring
 is cyclic. Every exchange is one `all_gather` of each band's edge rows:
@@ -99,6 +102,20 @@ def cyclic_shift_banded(x: torch.Tensor, shift: int, bands: Bands
 def cyclic_unshift_banded(x: torch.Tensor, shift: int, bands: Bands
                           ) -> torch.Tensor:
     return roll_rows(torch.roll(x, shift, dims=2), -shift, bands)
+
+
+def mean_over_bands(x: torch.Tensor, bands: Bands) -> torch.Tensor:
+    """The mean of every band's `x` (each band's mean over its rows), the
+    same on every rank: the canvas's mean when the bands have equal
+    heights. Summed in band order from one `all_gather`, so every rank
+    gets the same bits."""
+    if bands.count == 1:
+        return x
+    parts = _gather(x, bands)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total / bands.count
 
 
 def gather_bands(x: torch.Tensor, bands: Bands) -> torch.Tensor:

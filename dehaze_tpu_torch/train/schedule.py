@@ -1,6 +1,7 @@
 """Epoch learning-rate schedules (counterpart of `dehaze_tpu/train/schedule.py`).
 
-The reference's timeline, stepped at epoch end:
+The reference's timeline, stepped at epoch end (FFA-Net's trainer steps its
+own cosine every update, `ffa_cosine_lr`):
 - warmup + cosine: linear from 0 (epoch 1 trains at lr 0, a faithful quirk)
   to the base lr over W epochs, then a cosine over nepoch - W epochs down to
   eta_min;
@@ -58,3 +59,14 @@ def epoch_lr_table(epoch_lr: Callable[[int], float], max_epochs: int = 4096
     """An epoch-lr function tabulated as [max_epochs] float32."""
     return np.array([epoch_lr(e) for e in range(max_epochs)],
                     dtype=np.float32)
+
+
+def ffa_cosine_lr(base_lr: float, total_steps: int) -> Callable[[int], float]:
+    """FFA-Net's per-step cosine: 0.5 · (1 + cos(π · step / total)) · lr,
+    for the update that follows `step` earlier ones (counterpart of
+    `dehaze_tpu/train/schedule.py:ffa_cosine_lr`)."""
+
+    def lr(step: int) -> float:
+        return 0.5 * (1 + math.cos(math.pi * step / total_steps)) * base_lr
+
+    return lr

@@ -1,6 +1,8 @@
 """The training step: MixUp, clamp, Charbonnier + CR loss, AdamW, lr table.
 
-Counterpart of `dehaze_tpu/train/trainer.py`. The recipe is the
+Counterpart of `dehaze_tpu/train/trainer.py`. It trains any arch of
+`models.get_arch` (`--arch uformer|ffa|unet`, as the JAX trainer does;
+FFA-Net's own recipe is `train.ffa_trainer`). The recipe is the
 reference's: AdamW (lr 2e-4, wd 0.02, β 0.9/0.999, eps 1e-8), Charbonnier
 (eps 1e-3) plus the VGG19 contrastive loss, the restored image clamped to
 [0, 1] before the losses, MixUp after epoch 5, bf16 activations over
@@ -44,8 +46,8 @@ from dehaze_tpu_torch.data.augment import (dihedral_index_maps,
                                            gather_crops, mixup)
 from dehaze_tpu_torch.infer.sharded import frame_share
 from dehaze_tpu_torch.models import vgg as vgg_mod
+from dehaze_tpu_torch.models import get_arch
 from dehaze_tpu_torch.models.layers import RowShare
-from dehaze_tpu_torch.models.uformer import Uformer
 from dehaze_tpu_torch.ops import losses as L
 from dehaze_tpu_torch.ops import metrics as M
 from dehaze_tpu_torch.parallel import dist
@@ -68,13 +70,14 @@ def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
     return torch.optim.AdamW(params, weight_decay=t.weight_decay, **kw)
 
 
-def build_model(cfg: Config, device) -> Uformer:
-    """The Uformer with its reference init drawn from `cfg.train.seed` (on
-    the CPU, so every device gets the same weights), moved to `device`.
+def build_model(cfg: Config, device) -> torch.nn.Module:
+    """cfg.model.arch's model (`models.get_arch`: the Uformer, FFA-Net or
+    the UNet) with its reference init drawn from `cfg.train.seed` (on the
+    CPU, so every device gets the same weights), moved to `device`.
     torch's global RNG is left as it was."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.seed)
-        model = Uformer(cfg.model)
+        model = get_arch(cfg.model)
     return model.to(device)
 
 
@@ -89,6 +92,7 @@ class Trainer:
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = build_model(cfg, self.device)
+        self.uformer = cfg.model.arch == "uformer"
         # the DDP wrapper runs the training forward; `model` (its module,
         # rank 0's weights after the wrapper's broadcast) is what evaluation
         # runs and checkpoints save
@@ -131,9 +135,11 @@ class Trainer:
             b, p = clean.shape[0], dist.world()
             droppath = RowShare(droppath, dist.rank() * b, p * b)
             dropout_gen = RowShare(dropout_gen, dist.rank() * b, p * b)
-        restored = (self.ddp or self.model)(
-            hazy, generator=self.sample_gen, droppath=droppath,
-            dropout_gen=dropout_gen)
+        # FFA-Net and the UNet draw nothing: no sampling, DropPath or
+        # dropout
+        restored = (self.ddp or self.model)(hazy, **(dict(
+            generator=self.sample_gen, droppath=droppath,
+            dropout_gen=dropout_gen) if self.uformer else {}))
         restored = torch.clamp(restored, 0.0, 1.0)
         l_char = L.charbonnier_loss(restored, clean, cfg.loss.charbonnier_eps)
         zero = torch.zeros((), device=clean.device)
@@ -240,7 +246,9 @@ class Trainer:
         self.model.eval()
         clean = u8_norm(to_device(torch.as_tensor(clean), self.device))
         hazy = u8_norm(to_device(torch.as_tensor(hazy), self.device))
-        restored = self.model(hazy, generator=torch.Generator().manual_seed(0))
+        restored = self.model(hazy, **(dict(
+            generator=torch.Generator().manual_seed(0)) if self.uformer
+            else {}))
         restored = torch.clamp(restored, 0.0, 1.0)
         return M.batch_psnr(restored, clean), M.batch_ssim(restored, clean), \
             restored

@@ -1,9 +1,12 @@
-"""Weights for the port: JAX params → torch state_dict, and `.pth` loading.
+"""Weights for the port: JAX params → torch state_dict, and checkpoint
+loading.
 
 `state_dict_from_jax_params` is the inverse of
 `dehaze_tpu/utils/convert_torch.py:convert_uformer_state_dict` for both
 attention flavors (every token_projection, the SE layer, LeFF and the
-plain FFN):
+plain FFN); `ffa_state_dict_from_jax_params` and
+`unet_state_dict_from_jax_params` invert `convert_ffa_state_dict` and
+`convert_unet_state_dict`:
   kernel [in, out]          → Linear weight [out, in]
   HWIO [kh, kw, in, out]    → Conv2d weight [out, in, kh, kw]
   HWIO, spatially flipped   → ConvTranspose2d weight [in, out, kh, kw]
@@ -17,6 +20,13 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+# The numpy scalars and dtypes a reference FFA checkpoint pickles beside its
+# weights (its PSNR/SSIM history holds np.float64s), allowed past
+# `torch.load(weights_only=True)`.
+_NUMPY_SAFE = [(getattr(np, "_core", None) or np.core).multiarray.scalar,
+               np.dtype] + [
+    type(np.dtype(t)) for t in ("float64", "float32", "int64", "int32")]
 
 # The rel-pos index buffer, which every reference checkpoint carries and the
 # port computes; and the W-MSA projections and SE layer that the reference's
@@ -120,6 +130,54 @@ def state_dict_from_jax_params(params: Mapping[str, Any]
     return sd
 
 
+def _pa_ca(sd, prefix: str, p: Mapping[str, Any]):
+    """A PALayer/CALayer's 1×1 conv pair: `{prefix}.0` and `{prefix}.2`."""
+    _conv(sd, f"{prefix}.0", p["conv1"])
+    _conv(sd, f"{prefix}.2", p["conv2"])
+
+
+def ffa_state_dict_from_jax_params(params: Mapping[str, Any]
+                                   ) -> Dict[str, torch.Tensor]:
+    """The JAX FFA-Net params → torch state_dict with the reference
+    FFA.py's key names."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "pre.0", params["pre"])
+    for g in (1, 2, 3):
+        grp = params[f"g{g}"]
+        blocks = sum(1 for k in grp if k.startswith("block_"))
+        for i in range(blocks):
+            b, p = f"g{g}.gp.{i}", grp[f"block_{i}"]
+            _conv(sd, f"{b}.conv1", p["conv1"])
+            _conv(sd, f"{b}.conv2", p["conv2"])
+            _pa_ca(sd, f"{b}.calayer.ca", p["calayer"])
+            _pa_ca(sd, f"{b}.palayer.pa", p["palayer"])
+        _conv(sd, f"g{g}.gp.{blocks}", grp["conv"])
+    _conv(sd, "ca.1", params["ca_conv1"])
+    _conv(sd, "ca.3", params["ca_conv2"])
+    _pa_ca(sd, "palayer.pa", params["palayer"])
+    _conv(sd, "post.0", params["post1"])
+    _conv(sd, "post.1", params["post2"])
+    return sd
+
+
+def unet_state_dict_from_jax_params(params: Mapping[str, Any]
+                                    ) -> Dict[str, torch.Tensor]:
+    """The JAX UNet params → torch state_dict with the reference's key
+    names (the transposed convs in torch's [in, out, kh, kw] layout)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(1, 10):
+        p = params[f"block{i}"]
+        _conv(sd, f"ConvBlock{i}.block.0", p["conv1"])
+        _conv(sd, f"ConvBlock{i}.block.2", p["conv2"])
+        _conv(sd, f"ConvBlock{i}.conv11", p["conv11"])
+    for i in range(1, 5):
+        _conv(sd, f"pool{i}", params[f"pool{i}"])
+    for i in range(6, 10):
+        _deconv(sd, f"upv{i}", params[f"up{i}"])
+    _conv(sd, "conv10", params["conv10"])
+    return sd
+
+
 def clean_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Strip DataParallel `module.` prefixes and drop the rel-pos index
     buffers; in a ProbSparse checkpoint, also the W-MSA projections and SE
@@ -138,10 +196,15 @@ def clean_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_weights(path: str) -> Dict[str, torch.Tensor]:
-    """Read a `.pth` file — `{'state_dict': ...}` (the reference's
-    checkpoint format) or a bare state_dict — for `load_state_dict`."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+def load_weights(path: str, arch: str = "uformer"
+                 ) -> Dict[str, torch.Tensor]:
+    """Read a `.pth`, `.pt` or `.pk` checkpoint of `arch` for
+    `load_state_dict`: the reference's formats, `{'state_dict': ...}` (the
+    Uformer's and the UNet's) or `{'model': ...}` (FFA-Net's `.pk`, as
+    `cli.ffa_train` writes it), or a bare state_dict."""
+    with torch.serialization.safe_globals(_NUMPY_SAFE):
+        payload = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(payload, Mapping):
         raise ValueError(f"{path}: not a state_dict checkpoint")
-    return clean_state_dict(payload.get("state_dict", payload))
+    key = "model" if arch == "ffa" else "state_dict"
+    return clean_state_dict(payload.get(key, payload))

@@ -286,8 +286,11 @@ def test_band_unit_and_alignment_warnings():
         warnings.simplefilter("error")
         thalo.make_halo_sharded_frame_fn(model, 230, 60, PS_, square=False,
                                          bands=Bands(0, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        thalo.make_halo_sharded_native_fn(None)
+    # the native (no-canvas) banded forward is FFA-Net's only
+    with pytest.raises(ValueError, match="native banded inference is "
+                                         "FFA-only.*arch='uformer'"):
+        thalo.make_halo_sharded_native_fn(model, bands=Bands(0, 2),
+                                          device="cpu")
 
 
 # ------------------------------------------------------------------ CLIs

@@ -93,8 +93,14 @@ def test_eval_cli_refuses_what_is_not_ported(eval_setup):
     root, pth = eval_setup
     base = ["--input_dir", str(root / "DS"), "--weights", pth,
             "--device", "cpu"]
-    with pytest.raises(ValueError, match="not ported"):
-        test_long.main(base + ["--arch", "ffa"])
+    # ported: FFA-Net runs natively, but has no any-resolution protocol
+    # and the UNet no banded forward (as in the JAX package)
+    from dehaze_tpu_torch.cli import test_anyres
+
+    with pytest.raises(SystemExit, match="Uformer-only"):
+        test_anyres.main(base + ["--arch", "ffa"])
+    with pytest.raises(SystemExit, match="halo-banded inference exists"):
+        test_long.main(base + ["--arch", "unet", "--bands", "2"])
     for flag in (["--bands", "2"], ["--data_axis", "2"]):
         # ported: they need as many processes, started by torchrun
         with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):

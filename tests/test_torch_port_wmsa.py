@@ -364,8 +364,13 @@ def test_config_refusals_mirror_jax():
     for kw in (dict(attention="sparse"), dict(token_mlp="mlp")):
         with pytest.raises(ValueError, match="unknown"):
             Uformer(ModelConfig(**kw))
-    with pytest.raises(ValueError, match="not ported"):
-        Uformer(ModelConfig(arch="ffa"))
+    # an unknown arch is refused by the registry, in both packages
+    from dehaze_tpu_torch.models import get_arch as port_get_arch
+
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_arch(JaxModelConfig(arch="cnn"))
+    with pytest.raises(ValueError, match="unknown arch"):
+        port_get_arch(ModelConfig(arch="cnn"))
     small = dict(img_size=IMG, embed_dim=8)
     Uformer(ModelConfig(attention="full", token_projection="conv", **small))
     Uformer(ModelConfig(attention="full", token_projection="linear_concat",
