@@ -93,6 +93,17 @@ prints its seconds (`phase <name>: N s`) and the run its total:
      with and without it from the same state: gradients (REMAT_TOL),
      generator states, 36 against 18 K1 forward launches, step ms and
      peak memory;
+ 11d. the analysis stack (phase_analysis, run after 11): `cli.landscape`
+     on Uformer-32 (bf16, CR on the random VGG19, a 3×3 grid of 2 batches
+     of 32 × 128²) serially and with --points_per_batch 3 (the same CSV
+     byte for byte; 18 K1 and 18 K2 launches per point and batch, no
+     twin), on FFA-Net (no launch), `cli.landscape_pair`, and with
+     --data_axis 2 on two gloo ranks (the serial CSV); `cli.train` for 3
+     short epochs, `cli.archive_params` and `cli.trajectory`;
+     `cli.params_flops`, `cli.monitor`, `cli.generate_patches`; the (0, 0)
+     loss in f32 on the card against the CPU, and one point × batch timed
+     for Uformer-32 and FFA-Net; figures only where matplotlib is
+     installed;
  12. the full-width train step with its batches in memory (ms/step, the
      host's ms to queue it, the calls in it that wait for the card), the
      data pipeline alone (ms/batch), and torch.profiler over two steady
@@ -135,7 +146,9 @@ The launch counts in the kernels line are those of the serving path (8),
 the evaluation path (9, the three runs together), the parity gate (9b,
 both runs), the stream with --weights and with --exported, the exported
 evaluation (rect and square artifacts) and the exported server (9c), the training path (11), the
-device-resident training path (11b), the remat train step (11c) and the
+device-resident training path (11b), the remat train step (11c), the
+analysis stack (11d: the three Uformer-32 sweeps together as `landscape`,
+FFA-Net's sweep, `params_flops` and the trajectory's training run) and the
 W-MSA paths (13: its frames, its gate, its exported evaluation, its
 training run), the multi-GPU paths (14: the banded frames over both
 ranks, the Uformer's and FFA-Net's, the frame-parallel evaluation over both ranks, the gloo DDP steps
@@ -2279,6 +2292,387 @@ def phase_train_profile(tmp: str):
                     2, step_ms)
 
 
+# 11d, the analysis stack: the landscape grid (n × n points, LS_BATCHES
+# batches of TRAIN_BATCH × TRAIN_PS² each), the (0, 0) loss in f32 and in
+# bf16 on the card against the CPU in the same precision (relative, f32:
+# 9.31e-08 measured), the timed point ×
+# batch, and the short training run whose epoch files the trajectory
+# reads.
+LS_N, LS_BATCHES = 3, 2
+LANDSCAPE_TOL = 1e-4
+# the point in bf16 on the card (the sweep's precision: tensor-core K1,
+# bf16 K2) against the CPU's plain twins in bf16: the weights and the
+# stage outputs round alike, so the two differ by rounding flips and
+# accumulation order (8.24e-04 measured at batch 32), not by bf16's whole
+# gap to f32 (1.18e-02 on the card, 1.10e-02 on the CPU). On a batch of
+# LS_BF16_BATCH: bf16 on the CPU is slower than f32, and this batch ends
+# with the phase's other groups.
+LANDSCAPE_BF16_TOL = 1e-2
+LS_BF16_BATCH = 8
+LANDSCAPE_REPS = 5
+TRAJ_PAIRS, TRAJ_BATCH, TRAJ_EPOCHS = 8, 8, 3
+CPU_REFERENCE_THREADS = 4  # half the host's cores: the CLIs run beside it
+
+
+def _landscape_setup(tmp: str, pth: str, extra, batch: int = TRAIN_BATCH):
+    """(model, point_loss, shared) of cli.landscape's loss with `extra`
+    flags, on the card or the CPU (--device in extra): `shared` holds the
+    first batch of a sweep with --batch_size `batch`, its MixUp and its
+    tables drawn as the sweep draws them (a generator seeded 1)."""
+    import torch
+
+    from dehaze_tpu_torch.cli import landscape as TCLI
+    from dehaze_tpu_torch.cli.common import (build_model_and_params,
+                                             config_from_args)
+    from dehaze_tpu_torch.data.pipeline import PairedFolder, train_batches
+    from dehaze_tpu_torch.utils.transfer import to_device
+
+    args = TCLI.build_parser().parse_args(
+        ["--weights", pth, "--train_dir", os.path.join(tmp, "train"),
+         "--train_ps", str(TRAIN_PS), "--batch_size", str(batch)]
+        + [str(a) for a in extra])
+    cfg = config_from_args(args)
+    device = torch.device(args.device)
+    model = build_model_and_params(cfg.model, args.weights, device)
+    prepare, point_loss = TCLI.make_landscape_loss(cfg, args, model, device)
+    clean, hazy = next(iter(train_batches(
+        PairedFolder(cfg.data.train_dir), batch_size=batch,
+        patch_size=TRAIN_PS, seed=cfg.train.seed, epoch=0, u8=True)))
+    with torch.no_grad():
+        shared = prepare(to_device(torch.from_numpy(clean), device),
+                         to_device(torch.from_numpy(hazy), device),
+                         torch.Generator().manual_seed(1))
+    return model, point_loss, shared
+
+
+def _landscape_cpu_point(tmp: str, pth: str, dtype: str, batch: str) -> float:
+    """The landscape's (0, 0) loss in `dtype` on the CPU (the plain twins),
+    on the first batch of a sweep with --batch_size `batch`."""
+    import torch
+
+    from dehaze_tpu_torch.ops import landscape as LS
+
+    model, point_loss, shared = _landscape_setup(
+        tmp, pth, ["--dtype", dtype, "--device", "cpu"], int(batch))
+    with torch.no_grad():
+        return float(point_loss(LS.model_params(model), shared))
+
+
+def landscape_cpu_reference(tmp: str, pth: str, dtype: str, batch: int):
+    """11d's reference in `dtype` on a batch of `batch`, in a process of
+    its own on CPU_REFERENCE_THREADS threads, beside the phase's CLIs:
+    (`_landscape_cpu_point`, its seconds)."""
+    code = ("import json, sys\n"
+            "import chip_smoke as c\n"
+            "print('RESULT ' + json.dumps(c._landscape_cpu_point(*sys.argv[1:]"
+            ")))\n")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code, tmp, pth, dtype,
+                        str(batch)],
+                       capture_output=True,
+                       text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": REPO,
+                            "OMP_NUM_THREADS": str(CPU_REFERENCE_THREADS)})
+    if r.returncode != 0:
+        fail(f"the landscape's {dtype} CPU reference exited {r.returncode}: "
+             f"{r.stderr[-3000:]}")
+    return _result(r.stdout), time.perf_counter() - t0
+
+
+def phase_analysis(tmp: str, pth: str):
+    """11d. The analysis stack on the card, its CLIs in one subprocess
+    (_counted_clis), on phase 11's training set and phase 7's seeded
+    Uformer-32 .pth:
+    (a) `cli.landscape`, Uformer-32 bf16 with the CR loss on the random
+        VGG19, LS_N × LS_N points of LS_BATCHES batches of 32 × 128²,
+        serially and with --points_per_batch 3: the two CSVs equal byte for
+        byte; 18 K1 forward launches (tensor cores) and 18 K2 per point and
+        batch, no twin call; the same grid on FFA-Net (3 × 19 blocks, width
+        64, L1), with no kernel launch; `cli.landscape_pair` on the two
+        CSVs (its JSON line);
+    (b) `cli.train` (no CR) for TRAJ_EPOCHS epochs of TRAJ_BATCH × 128²
+        on a TRAJ_PAIRS-pair set, `cli.archive_params` over its epoch
+        files and `cli.trajectory` over the archive with --best
+        model_best.pth;
+    (c) `cli.params_flops` (Uformer-32 at 128²: 18 K1 and 18 K2 launches,
+        a finite positive GFLOPs count; the count's value is held against
+        a hand count in tests/test_torch_port_analysis.py),
+        `cli.monitor --count 2` and `cli.generate_patches` on two pairs
+        (each crop the source's at the draw's offsets);
+    (d) `cli.landscape --points_per_batch 2 --data_axis 2` as two gloo
+        ranks on the card: rank 0's CSV equals the serial one;
+    (e) the (0, 0) loss of the sweep's first batch on the card against
+        the CPU's (`landscape_cpu_reference`, in the same precision): in
+        f32 (LANDSCAPE_TOL relative) and in the sweep's bf16 on a batch of
+        LS_BF16_BATCH (LANDSCAPE_BF16_TOL), and one point × batch timed by
+        CUDA events in bf16 for Uformer-32 and FFA-Net.
+    The sweeps and the pair, the training tools and the rest, (d) and the
+    CPU's two sides of (e) run at the same time, in five groups of processes
+    (their seconds are not measurements); the card's side of (e) runs
+    alone in this process, after them. The figures are drawn where
+    matplotlib is installed (else only in the CPU tests, and a line says
+    so)."""
+    import glob
+    import importlib.util
+    import re
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.data.images import load_img
+    from dehaze_tpu_torch.data.synth import write_dataset
+    from dehaze_tpu_torch.ops import landscape as LS
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    has_psutil = importlib.util.find_spec("psutil") is not None
+    print(f"this host: matplotlib "
+          f"{'installed' if has_mpl else 'NOT installed'}, psutil "
+          f"{'installed' if has_psutil else 'NOT installed'}", flush=True)
+    if not has_mpl:
+        print("no matplotlib here: the figures of cli.landscape, "
+              "cli.landscape_pair and cli.trajectory are drawn only by the "
+              "CPU tests (tests/test_torch_port_landscape.py, "
+              "tests/test_torch_port_analysis.py); their sweeps, statistics "
+              "and points run here", flush=True)
+
+    def fig(name):
+        return os.path.join(tmp, name) if has_mpl else ""
+
+    def csv_of(name):
+        return os.path.join(tmp, f"landscape_{name}.csv")
+
+    grid = ["--train_dir", os.path.join(tmp, "train"), "--train_ps",
+            TRAIN_PS, "--batch_size", TRAIN_BATCH, "--n", LS_N,
+            "--max_batches", LS_BATCHES]
+    uformer = ["--weights", pth] + grid
+    traj_train = os.path.join(tmp, "traj_train")
+    write_dataset(traj_train, TRAJ_PAIRS, TRAIN_PS, seed=7)
+    patch_src = os.path.join(tmp, "patch_src")
+    write_dataset(patch_src, 2, 256, seed=8)
+    models = os.path.join(tmp, "traj_log", "uformer_traj", "models")
+    archive = os.path.join(tmp, "traj_archive")
+    runs = [
+        ("landscape", uformer + ["--out_csv", csv_of("serial"),
+                                 "--out_plot", fig("landscape.jpg")],
+         "Uformer-32 serial"),
+        ("landscape", uformer + ["--points_per_batch", 3, "--out_csv",
+                                 csv_of("p3"), "--out_plot", ""],
+         "Uformer-32 --points_per_batch 3"),
+        ("landscape", ["--arch", "ffa", "--weights", _ffa_weights(tmp)]
+         + grid + ["--out_csv", csv_of("ffa"), "--out_plot", ""], "FFA-Net"),
+        ("landscape_pair", [csv_of("serial"), csv_of("ffa"), "--labels",
+                            "Uformer-32", "FFA-Net", "--out",
+                            fig("landscape_pair.jpg")], ""),
+        ("train", ["--train_dir", traj_train, "--val_dir",
+                   os.path.join(tmp, "val"), "--train_ps", TRAIN_PS,
+                   "--batch_size", TRAJ_BATCH, "--nepoch", TRAJ_EPOCHS,
+                   "--w_loss_vgg7", 0, "--save_dir",
+                   os.path.join(tmp, "traj_log"), "--env", "_traj"],
+         f"{TRAJ_EPOCHS} epochs"),
+        ("archive_params", ["--models_dir", models, "--out_dir", archive],
+         ""),
+        ("trajectory", ["--ckpt_dir", archive, "--best",
+                        os.path.join(models, "model_best.pth"), "--out",
+                        fig("trajectory.png")], ""),
+        ("params_flops", [], "Uformer-32 128²"),
+        ("monitor", ["--count", 2, "--interval", 0], "--count 2"),
+        ("generate_patches", ["--src_dir", patch_src, "--tar_dir",
+                              os.path.join(tmp, "patches"), "--ps", 64,
+                              "--num_patches", 4, "--num_cores", 2,
+                              "--seed", 7], "2 pairs"),
+    ]
+    spec = json.dumps([["landscape", [str(a) for a in uformer + [
+        "--points_per_batch", 2, "--data_axis", 2, "--device", "cuda:0",
+        "--dist_backend", "gloo", "--out_csv", csv_of("data_axis"),
+        "--out_plot", ""]]]])
+    f32 = ["--dtype", "float32"]
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(5) as ex:
+        # the sweeps and the tools in two processes, the ranks and the CPU
+        # references beside them
+        groups = [ex.submit(_counted_clis, runs[:4]),
+                  ex.submit(_counted_clis, runs[4:])]
+        ranks = ex.submit(_ranks, ["-c", _RUNNER, spec], 2,
+                          "cli.landscape --data_axis 2")
+        cpu_reference = {
+            dt: ex.submit(landscape_cpu_reference, tmp, pth, dt, batch)
+            for dt, batch in (("float32", TRAIN_BATCH),
+                              ("bfloat16", LS_BF16_BATCH))}
+        (res_a, secs_a), (res_b, secs_b) = (g.result() for g in groups)
+        outs = [_split_runs(o)[0] for o in ranks.result()]
+        (host, cpu_secs), (host16, cpu16_secs) = (
+            cpu_reference[dt].result() for dt in ("float32", "bfloat16"))
+    together = time.perf_counter() - t0
+    res, secs = res_a + res_b, (secs_a, secs_b)
+    for (cli, _, label), (_, st) in zip(runs, res):
+        if st["rc"]:
+            fail(f"cli.{cli} {label} exited {st['rc']}")
+    out = {name: r for name, r in zip(
+        ("serial", "p3", "ffa", "pair", "train", "archive", "trajectory",
+         "flops", "monitor", "patches"), res)}
+
+    # (a) the sweeps
+    points = LS_N * LS_N
+    rows = {k: LS.load_landscape_csv(csv_of(k)) for k in
+            ("serial", "p3", "ffa")}
+    for k, r in rows.items():
+        if len(r) != points or not all(
+                math.isfinite(v) for row in r for v in row.values()):
+            fail(f"the {k} landscape CSV is not {points} finite rows")
+    with open(csv_of("serial")) as a, open(csv_of("p3")) as b:
+        if a.read() != b.read():
+            fail("cli.landscape --points_per_batch 3 did not write the "
+                 "serial sweep's CSV")
+    per = points * LS_BATCHES
+    for k in ("serial", "p3"):
+        _check_launches(f"cli.landscape {k}", out[k][1], per)
+    _zero_launches("cli.landscape --arch ffa", out["ffa"][1])
+    center = {k: next(r["loss"] for r in rows[k]
+                      if r["x"] == 0.0 and r["y"] == 0.0)
+              for k in ("serial", "ffa")}
+    print(f"cli.landscape {LS_N}x{LS_N} x {LS_BATCHES} batches of "
+          f"{TRAIN_BATCH}x{TRAIN_PS}² bf16: Uformer-32 (CR on) run "
+          f"{out['serial'][1]['secs']:.1f}s, --points_per_batch 3 run "
+          f"{out['p3'][1]['secs']:.1f}s (CSV byte for byte the serial "
+          f"one), FFA-Net run {out['ffa'][1]['secs']:.1f}s; (0, 0) loss "
+          f"Uformer-32 {center['serial']:.6f}, FFA-Net "
+          f"{center['ffa']:.6f}; launches per point x batch: K1 "
+          f"{out['serial'][1]['k1_fwd_tc'] / per:g}, K2 "
+          f"{out['serial'][1]['k2'] / per:g}", flush=True)
+    stats = json.loads(out["pair"][0].strip().splitlines()[-1])
+    if set(stats) != {"Uformer-32", "FFA-Net", "flatter"}:
+        fail(f"cli.landscape_pair printed {stats}")
+
+    # (b) the training tools
+    eps = sorted(os.listdir(models))
+    want_eps = [f"epoch_model_{e}.pth" for e in range(1, TRAJ_EPOCHS + 1)]
+    if [e for e in eps if e.startswith("epoch_model_")] != want_eps:
+        fail(f"cli.train wrote {eps}, want {want_eps} and model_best.pth")
+    if f"archived {TRAJ_EPOCHS} new ({TRAJ_EPOCHS} total)" not in \
+            out["archive"][0]:
+        fail(f"cli.archive_params: {out['archive'][0]!r}")
+    for e in want_eps:
+        if "optimizer" in torch.load(os.path.join(archive, e),
+                                     weights_only=True):
+            fail(f"the archived {e} holds the optimizer state")
+    traj = [(float(t), float(r)) for t, r in re.findall(
+        r"epoch_model_\d+\.pth: theta=(\S+) r=(\S+)", out["trajectory"][0])]
+    if len(traj) != TRAJ_EPOCHS or not all(
+            math.isfinite(v) for p in traj for v in p):
+        fail(f"cli.trajectory printed {traj}")
+    tr = out["train"][1]
+    logs = glob.glob(os.path.join(tmp, "traj_log", "uformer_traj",
+                                  "*.jsonl"))
+    evals = sum(json.loads(ln)["kind"] == "eval" for f in logs
+                for ln in open(f))
+    steps = TRAJ_EPOCHS * (TRAJ_PAIRS // TRAJ_BATCH)
+    fwd = steps + evals * -(-N_VAL // TRAJ_BATCH)
+    want = (18 * fwd, 18 * steps, 18 * evals * -(-N_VAL // TRAJ_BATCH))
+    if (tr["k1_fwd_tc"], tr["k1_bwd_tc"], tr["k2"]) != want or tr["k1_fwd"] \
+            or tr["k1_bwd"]:
+        fail(f"cli.train for the trajectory: launches {tr}, want (K1 fwd, "
+             f"K1 bwd, K2) {want} on the tensor cores")
+    print(f"cli.train {TRAJ_EPOCHS} epochs x {steps // TRAJ_EPOCHS} steps "
+          f"({TRAJ_BATCH}x{TRAIN_PS}², {evals} evals) run {tr['secs']:.1f}s"
+          f"; cli.archive_params run {out['archive'][1]['secs']:.1f}s; "
+          f"cli.trajectory (theta, r) {[(round(t, 4), round(r, 4)) for t, r in traj]} "
+          f"run {out['trajectory'][1]['secs']:.1f}s", flush=True)
+
+    # (c) params_flops, monitor, generate_patches
+    st = out["flops"][1]
+    _check_launches("cli.params_flops", st, 1)
+    gflops = float(re.search(r"GFLOPs .*: (\S+)", out["flops"][0]).group(1))
+    if not (math.isfinite(gflops) and gflops > 0):
+        fail(f"cli.params_flops counted {gflops} GFLOPs")
+    lines = out["monitor"][0].strip().splitlines()
+    if len(lines) != 2 or not all(re.fullmatch(
+            r"\d\d:\d\d:\d\d cpu +\d+\.\d%  mem +\d+\.\d%", ln)
+            for ln in lines):
+        fail(f"cli.monitor printed {lines}")
+    ptar = os.path.join(tmp, "patches")
+    for i, pair in enumerate(zip(*(sorted(os.listdir(os.path.join(
+            patch_src, sub))) for sub in ("gt", "hazy")))):
+        rng = np.random.default_rng((7, i))
+        for j in range(4):
+            r0, c0 = (int(rng.integers(0, 256 - 64)) for _ in range(2))
+            for sub, name in zip(("gt", "hazy"), pair):
+                src = load_img(os.path.join(patch_src, sub, name), u8=True)
+                got = load_img(os.path.join(ptar, sub, f"{i + 1}_{j + 1}.png"),
+                               u8=True)
+                if not np.array_equal(got, src[r0:r0 + 64, c0:c0 + 64]):
+                    fail(f"cli.generate_patches: {sub}/{i + 1}_{j + 1}.png "
+                         "is not the source's crop")
+    print(f"cli.params_flops Uformer-32 128²: {gflops} GFLOPs, run "
+          f"{st['secs']:.1f}s; cli.monitor "
+          f"{lines}; cli.generate_patches 2 pairs x 4 patches run "
+          f"{out['patches'][1]['secs']:.1f}s; the two CLI processes "
+          f"{secs[0]:.1f}s and {secs[1]:.1f}s", flush=True)
+
+    # (d) two gloo ranks, --data_axis 2
+    if any(st["rc"] for _, st in outs):
+        fail("cli.landscape --data_axis 2 failed on a rank")
+    with open(csv_of("serial")) as a, open(csv_of("data_axis")) as b:
+        if a.read() != b.read():
+            fail("cli.landscape --data_axis 2 (two gloo ranks) did not "
+                 "write the serial sweep's CSV")
+    dp = {k: sum(st[k] for _, st in outs) for k in
+          ("k1_fwd_tc", "k1_fwd", "k2", "twin_k1", "twin_k2")}
+    chunks = -(-points // 2)
+    _check_launches("cli.landscape --data_axis 2", dp, 2 * chunks * LS_BATCHES)
+    print(f"cli.landscape --points_per_batch 2 --data_axis 2, two gloo ranks "
+          f"on one card: CSV byte for byte the serial one; launches over "
+          f"both ranks {dp} ({2 * chunks} points with the padded one); "
+          f"rank runs {[round(st['secs'], 1) for _, st in outs]} s; "
+          f"the five groups together {together:.1f}s", flush=True)
+
+    # (e) the (0, 0) loss in f32, card against CPU; the timed point
+    model, point_loss, shared = _landscape_setup(tmp, pth, f32)
+    with torch.no_grad():
+        card = float(point_loss(LS.model_params(model), shared))
+    del model, shared
+    rel = abs(card - host) / abs(host)
+    print(f"landscape (0, 0) loss, first batch {TRAIN_BATCH}x{TRAIN_PS}², "
+          f"f32, CR on: card {card:.7f}, CPU {host:.7f} (plain twins, "
+          f"{cpu_secs:.1f}s): relative |d| {rel:.2e} (tolerance "
+          f"{LANDSCAPE_TOL:g})", flush=True)
+    if not rel <= LANDSCAPE_TOL:
+        fail("the landscape's (0, 0) loss on the card is not the CPU's")
+    ms = {}
+    for name, extra in (("Uformer-32", []),
+                        ("FFA-Net", ["--arch", "ffa"])):
+        weights = _ffa_weights(tmp) if extra else pth
+        model, point_loss, shared = _landscape_setup(tmp, weights, extra)
+        params = LS.model_params(model)
+        with torch.no_grad():
+            ms[name] = cuda_ms(lambda: point_loss(params, shared),
+                               LANDSCAPE_REPS)
+        del model, shared, params
+    # the sweep's own precision: the bf16 tensor-core K1 and the bf16 K2
+    model, point_loss, shared = _landscape_setup(tmp, pth, [], LS_BF16_BATCH)
+    with torch.no_grad():
+        bf16 = float(point_loss(LS.model_params(model), shared))
+    del model, shared
+    rel16 = abs(bf16 - host16) / abs(host16)
+    print(f"landscape (0, 0) loss, first batch of a --batch_size "
+          f"{LS_BF16_BATCH} sweep ({TRAIN_PS}²), bf16 (the sweep's "
+          f"kernels), CR on: card {bf16:.7f}, CPU bf16 {host16:.7f} (plain "
+          f"twins, {cpu16_secs:.1f}s): relative |d| {rel16:.2e} (tolerance "
+          f"{LANDSCAPE_BF16_TOL:g})", flush=True)
+    if not rel16 <= LANDSCAPE_BF16_TOL:
+        fail("the landscape's bf16 (0, 0) loss on the card is not the "
+             "CPU's bf16 one")
+    print(f"landscape point x batch ({TRAIN_BATCH}x{TRAIN_PS}², bf16, CUDA "
+          f"events, {LANDSCAPE_REPS} reps): Uformer-32 "
+          f"{ms['Uformer-32']:.2f} ms (forward + Charbonnier + CR on VGG19 "
+          f"of the restored batch), FFA-Net {ms['FFA-Net']:.2f} ms "
+          "(forward + L1)", flush=True)
+    landscape = {k: out["serial"][1].get(k, 0) + out["p3"][1].get(k, 0)
+                 + dp.get(k, 0) for k in _counters()}
+    return {"landscape": landscape, "landscape_ffa": out["ffa"][1],
+            "params_flops": out["flops"][1],
+            "train_trajectory": out["train"][1]}
+
+
 # The stages of Uformer-32 on the serving rect canvas 1280×1664: feature
 # map H × W and heads; head dim 32 and 8×8 windows at each, the second
 # block shifted except in the bottleneck (its configured resolution is the
@@ -3468,6 +3862,7 @@ def main() -> None:
         serving = timed(phase_serving, tmp, pth, eval_psnrs)
         timed(phase_train_parity)
         train, stream_epoch, _ = timed(phase_train_cli, tmp)
+        analysis = timed(phase_analysis, tmp, pth)
         device_data = timed(phase_device_data, tmp, stream_epoch)
         remat = timed(phase_remat, tmp)
         timed(phase_train_profile, tmp)
@@ -3490,7 +3885,7 @@ def main() -> None:
     paths = {"serve": serve, "train": train, "eval": evals,
              "parity_gate": gate, **serving,
              "train_device_data": device_data, "train_step_remat": remat,
-             **wmsa, **multi, **ffa}
+             **analysis, **wmsa, **multi, **ffa}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
     # K1 rows by kernel, without the kernel column

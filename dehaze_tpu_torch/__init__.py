@@ -15,5 +15,9 @@ Paths: whole-image serving (`infer/tiled.py`, `cli/serve.py`), evaluation
 (`infer/anyres.py`, `cli/test_long.py`, `cli/test_anyres.py`) and training
 (`train/`, `cli/train.py`), for the Uformer and, as cuDNN convolutions
 with no kernel of their own, FFA-Net (`models/ffa.py`, `cli/ffa_train.py`,
-the native-resolution protocol) and the conv UNet (`models/unet.py`).
+the native-resolution protocol) and the conv UNet (`models/unet.py`); and
+the analysis stack: loss landscapes (`ops/landscape.py`, `cli/landscape.py`,
+`cli/landscape_pair.py`, through the eval forward and its kernels),
+optimization trajectories (`ops/trajectory.py`), training curves, FLOP
+counts (`utils/flops.py`) and the host monitor.
 """
