@@ -141,7 +141,17 @@ prints its seconds (`phase <name>: N s`) and the run its total:
      0 launches of every kernel and 0 twin calls. The runs of (b)-(e)
      need no kernel and run while the kernels build (phase_ffa_runs);
      their checks come last (phase_ffa);
- 16. the kernels' JSON line, then the device's JSON line.
+ 17. the zoo and JAX checkpoints (phase_zoo): 17 zoo models at their
+     published sizes on 32² (ZOO_MODELS), seeded, eval mode: f32 logits on
+     the card against the CPU (MODEL_TOL; the MC-dropout model with the
+     same CPU generator on both sides), then a batch of 128 in bf16 and f32
+     (ms, images/s, peak memory), with 0 launches of every kernel; the
+     committed `.msgpack` fixture (tests/data/uformer_e4_bf16) read on this
+     host, which has no flax or msgpack, and held to its SHA-256s, a
+     Uformer-32 checkpoint in flax's format read back and timed, and
+     `cli.test_long` with --weights the fixture and its `.pth`: the same
+     per-image PSNRs, K1 and K2 launched;
+ 18. the kernels' JSON line, then the device's JSON line.
 The launch counts in the kernels line are those of the serving path (8),
 the evaluation path (9, the three runs together), the parity gate (9b,
 both runs), the stream with --weights and with --exported, the exported
@@ -154,8 +164,10 @@ training run), the multi-GPU paths (14: the banded frames over both
 ranks, the Uformer's and FFA-Net's, the frame-parallel evaluation over both ranks, the gloo DDP steps
 over both ranks, the NCCL rank's DDP steps, the NCCL `cli.train`) and
 the FFA-Net and UNet paths (15: frames, evaluation, artifact, stream,
-serve, `ffa_train`, bands, `cli.train --arch unet`), each counted from 0
-over its own run. Every path runs
+serve, `ffa_train`, bands, `cli.train --arch unet`) and phase 17's (the
+zoo's 17 models, `zoo`, and the two `cli.test_long` runs of the
+`.msgpack` fixture and its `.pth`, `test_long_msgpack`), each counted
+from 0 over its own run. Every path runs
 bf16, so K1's forward and backward go to the tensor-core kernels there
 and the CUDA-core ones have 0 launches; the W-MSA paths run no K1. No
 path runs K3 (no entry point of the JAX package runs its TPU kernels
@@ -3814,6 +3826,273 @@ def phase_ffa(tmp: str, runs):
     paths["eval_unet"] = eu_stats
     return paths
 
+# Phase 17: the zoo's 17 models at their published sizes on CIFAR
+# geometry (32², 10 classes). The transformer families take the geometry
+# of the JAX package's parity cases (tests/test_zoo_parity.py): ViT and
+# ConViT 4×4 patches, the Mixer 8×8, AlterNet 4×4 windows (its default 7
+# tiles none of its maps at 32², which both packages refuse); Swin keeps
+# its window 7 and pools, so its windows collapse to 4, 4, 2, 1.
+ZOO_MODELS = [
+    ("resnet_dnn_18", {}), ("preresnet_18", {}), ("seresnet_18", {}),
+    ("cbamresnet_18", {}), ("resnext_50", {}), ("wideresnet_50", {}),
+    ("resnet_mcdo_smoothing_18", {}), ("vgg_16", {}), ("prevgg_11", {}),
+    ("alexnet", {}), ("mobilenet", {}), ("vit_ti", {"patch_size": 4}),
+    ("pit_ti", {}), ("mixer_ti", {"patch_size": 8}), ("swin_t", {}),
+    ("convit_ti", {"patch_size": 4}), ("alternet_18", {"window_size": 4})]
+ZOO_BATCH = 128      # timed batch
+ZOO_CHECK = 4        # images of the card-against-CPU check
+ZOO_REPS = (10, 5)   # forwards timed, forwards per synchronize
+ZOO_FIXTURE = os.path.join(REPO, "tests", "data", "uformer_e4_bf16")
+
+
+def _pack(obj, out: bytearray) -> None:
+    """msgpack-python's `packb` encoding of the subset flax writes (maps
+    with their keys sorted, str, bytes, ints, floats, None, bools, tuples
+    as arrays, numpy arrays as flax's ext 1), byte for byte."""
+    import struct
+
+    import numpy as np
+
+    def head(n, fix, fixmax, codes):
+        if n <= fixmax and fix is not None:
+            out.append(fix | n)
+            return
+        for code, fmt, lim in codes:
+            if n < lim:
+                out.append(code)
+                out.extend(struct.pack(fmt, n))
+                return
+        raise ValueError("too long for msgpack")
+
+    big = ((0xDC, ">H", 1 << 16), (0xDD, ">I", 1 << 32))
+    if obj is None or obj is True or obj is False:
+        out.append({None: 0xC0, False: 0xC2, True: 0xC3}[obj])
+    elif isinstance(obj, int):
+        if 0 <= obj < 128 or -32 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+        else:
+            for code, fmt, lo, hi in (
+                    (0xCC, ">B", 0, 1 << 8), (0xCD, ">H", 0, 1 << 16),
+                    (0xCE, ">I", 0, 1 << 32), (0xCF, ">Q", 0, 1 << 64),
+                    (0xD0, ">b", -(1 << 7), 0), (0xD1, ">h", -(1 << 15), 0),
+                    (0xD2, ">i", -(1 << 31), 0),
+                    (0xD3, ">q", -(1 << 63), 0)):
+                if lo <= obj < hi:
+                    out.append(code)
+                    out += struct.pack(fmt, obj)
+                    break
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        b = obj.encode()
+        head(len(b), 0xA0, 31, ((0xD9, ">B", 1 << 8), (0xDA, ">H", 1 << 16),
+                                (0xDB, ">I", 1 << 32)))
+        out += b
+    elif isinstance(obj, (bytes, bytearray)):
+        head(len(obj), None, -1, ((0xC4, ">B", 1 << 8),
+                                  (0xC5, ">H", 1 << 16),
+                                  (0xC6, ">I", 1 << 32)))
+        out += obj
+    elif isinstance(obj, (list, tuple)):
+        head(len(obj), 0x90, 15, big)
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        head(len(obj), 0x80, 15, ((0xDE, ">H", 1 << 16),
+                                  (0xDF, ">I", 1 << 32)))
+        for k in sorted(obj):  # flax's tree_map copy sorts the keys
+            _pack(k, out)
+            _pack(obj[k], out)
+    elif isinstance(obj, np.ndarray):
+        rec = bytearray()
+        _pack((obj.shape, obj.dtype.name, obj.tobytes("C")), rec)
+        n = len(rec)
+        if n in (1, 2, 4, 8, 16):
+            out.append(0xD4 + (1, 2, 4, 8, 16).index(n))
+        else:
+            head(n, None, -1, ((0xC7, ">B", 1 << 8), (0xC8, ">H", 1 << 16),
+                               (0xC9, ">I", 1 << 32)))
+        out.append(1)
+        out += rec
+    else:
+        raise TypeError(f"cannot pack {type(obj)}")
+
+
+def pack_jax_checkpoint(epoch: int, params: dict, extra: dict) -> bytes:
+    """The bytes `dehaze_tpu.train.checkpoint.save_checkpoint(path, epoch,
+    params, None, extra)` writes (params a tree of dicts of float arrays
+    under 2**30 bytes each), written without flax or msgpack."""
+    inner = bytearray()
+    _pack(params, inner)
+    out = bytearray()
+    _pack({"epoch": epoch, "params": bytes(inner), "opt_state": b"",
+           "extra": json.dumps(extra)}, out)
+    return bytes(out)
+
+
+def phase_zoo(tmp: str):
+    """(a) The zoo: each of ZOO_MODELS built by `zoo.get_model` on the card
+    from a seeded torch init, eval mode: f32 (TF32 off) logits of
+    ZOO_CHECK images against the port's CPU forward of the same weights
+    (MODEL_TOL; the MC-dropout model with the same CPU generator on both
+    sides, so the same masks), then a batch of ZOO_BATCH timed in bf16 and
+    f32 by `zoo.checkpoint.measure_executive_time` (CUDA events): ms per
+    batch, images/s, peak device memory. No kernel of the port runs on
+    this path: every launch count must stay 0. (b) `.msgpack` on this host
+    (no flax, no msgpack): the committed fixture read by the port's reader
+    and held to its SHA-256s; a Uformer-32 state_dict written in flax's
+    format (`pack_jax_checkpoint`) read back and timed; then
+    `python -m dehaze_tpu_torch.cli.test_long` with --weights the fixture
+    and with --weights a `.pth` of the same state_dict on phase 9's pairs:
+    the same per-image PSNRs, K1 and K2 launched. Returns the launch
+    counts of the zoo path and of the two evaluations."""
+    import hashlib
+    import re
+
+    import torch
+
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.models.uformer import Uformer
+    from dehaze_tpu_torch.train.checkpoint import load_jax_checkpoint
+    from dehaze_tpu_torch.utils.convert import load_weights
+    from dehaze_tpu_torch.zoo import get_model
+    from dehaze_tpu_torch.zoo.checkpoint import (count_parameters,
+                                                 measure_executive_time)
+
+    reset_counts()
+    g = torch.Generator().manual_seed(SEED)
+    x_cpu = torch.randn(ZOO_CHECK, 3, 32, 32, generator=g)
+    n_rep, chunk = ZOO_REPS
+    for name, kw in ZOO_MODELS:
+        torch.manual_seed(SEED)
+        model = get_model(name, num_classes=10, image_size=32,
+                          device="cuda", **kw).eval()
+        cpu = get_model(name, num_classes=10, image_size=32, **kw).eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             model.state_dict().items()})
+        mc = "mcdo" in name
+
+        def gens():
+            return ({"dropout": torch.Generator().manual_seed(SEED)} if mc
+                    else None)
+
+        with torch.inference_mode():
+            got = model(x_cpu.cuda(), generators=gens()).float().cpu()
+            want = cpu(x_cpu, generators=gens())
+        err = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or got.shape != (ZOO_CHECK, 10) \
+                or err > MODEL_TOL:
+            fail(f"zoo {name}: card against CPU max |d| {err:.2e} "
+                 f"(tolerance {MODEL_TOL}), shape {tuple(got.shape)}")
+        del cpu
+        ms = {}
+        for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            timed = model
+            if dt != torch.float32:
+                timed = get_model(name, num_classes=10, image_size=32,
+                                  dtype=dt, device="cuda", **kw).eval()
+                timed.load_state_dict(model.state_dict())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            secs = measure_executive_time(
+                timed, size=(ZOO_BATCH, 3, 32, 32), n=n_rep, seed=SEED,
+                chunk=chunk, generators=({"dropout": torch.Generator(
+                    "cuda").manual_seed(SEED)} if mc else None))
+            ms[dname] = (secs * 1e3,
+                         torch.cuda.max_memory_allocated() / 2**30)
+        print(f"zoo {name}: {count_parameters(model) / 1e6:.2f}M params, "
+              f"card vs CPU f32 max |d| {err:.2e}; batch {ZOO_BATCH} at 32²: "
+              + "; ".join(f"{d} {m:.3f} ms ({ZOO_BATCH / m * 1e3:.0f} "
+                          f"img/s, peak {p:.2f} GiB)"
+                          for d, (m, p) in ms.items()), flush=True)
+        del model
+    zoo = read_counts()
+    if any(zoo.values()):
+        fail(f"zoo: kernels of the port launched {zoo}; the zoo runs none")
+    torch.cuda.empty_cache()
+
+    with open(ZOO_FIXTURE + ".json") as f:
+        meta = json.load(f)
+    t0 = time.perf_counter()
+    sd = load_weights(ZOO_FIXTURE + ".msgpack")
+    secs_fixture = time.perf_counter() - t0
+    sha = {k: hashlib.sha256(v.float().contiguous().numpy().tobytes())
+           .hexdigest() for k, v in sd.items()}
+    if sha != meta["sha256"]:
+        bad = sorted(k for k in meta["sha256"] if sha.get(k) !=
+                     meta["sha256"][k])
+        fail(f"msgpack fixture: {len(bad)} tensors differ from their "
+             f"SHA-256, e.g. {bad[:3]}")
+    torch.manual_seed(SEED)
+    big = Uformer(ModelConfig()).state_dict()
+    tree: dict = {}
+    for k, v in big.items():
+        node = tree
+        *path, leaf = k.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v.numpy()
+    path32 = os.path.join(tmp, "uformer32.msgpack")
+    with open(path32, "wb") as f:
+        f.write(pack_jax_checkpoint(7, tree, {"psnr": 1.0}))
+    nbytes = sum(v.numel() * 4 for v in big.values())
+    t0 = time.perf_counter()
+    back = load_jax_checkpoint(path32)
+    secs32 = time.perf_counter() - t0
+    for k, v in big.items():
+        node = back["params"]
+        for part in k.split("."):
+            node = node[part]
+        if not torch.equal(torch.from_numpy(node), v):
+            fail(f"msgpack round trip: {k} differs")
+    print(f"msgpack on this host (no flax, no msgpack): the fixture "
+          f"({os.path.getsize(ZOO_FIXTURE + '.msgpack')} bytes, bf16, "
+          f"{len(sha)} tensors) read and bridged in {secs_fixture:.3f} s, "
+          f"its SHA-256s equal; a Uformer-32 checkpoint ({len(big)} "
+          f"float32 leaves, {nbytes / 1e6:.1f} MB of params, "
+          f"{os.path.getsize(path32) / 1e6:.1f} MB file) read in "
+          f"{secs32:.3f} s", flush=True)
+
+    pth = os.path.join(tmp, "fixture.pth")
+    torch.save({"state_dict": sd}, pth)
+    long_dir = os.path.join(tmp, "eval_long")
+    base = ["--input_dir", long_dir, "--seed", SEED, "--no-save_images",
+            *meta["flags"]]
+    runs, secs = _counted_clis([
+        ("test_long", base + ["--weights", ZOO_FIXTURE + ".msgpack",
+                              "--result_dir", os.path.join(tmp, "zm")],
+         "--weights fixture.msgpack"),
+        ("test_long", base + ["--weights", pth, "--result_dir",
+                              os.path.join(tmp, "zp")],
+         "--weights fixture.pth")])
+    lines, counts = [], {}
+    for (out, stats), what in zip(runs, ("msgpack", "pth")):
+        if stats["rc"] != 0:
+            fail(f"cli.test_long --weights {what} exited {stats['rc']}")
+        found = re.findall(r"^(\S+): PSNR (\S+) SSIM (\S+)$", out, re.M)
+        if len(found) != 3:
+            fail(f"cli.test_long --weights {what}: {len(found)} frames")
+        lines.append(found)
+        k1 = stats["k1_fwd"] + stats["k1_fwd_tc"]
+        if not k1 or not stats["k2"] or stats["twin_k1"] or stats["twin_k2"]:
+            fail(f"cli.test_long --weights {what}: K1 {k1}, K2 "
+                 f"{stats['k2']}, twins {stats['twin_k1']}/"
+                 f"{stats['twin_k2']}; want K1 and K2 and no twin")
+        for key in ("k1_fwd", "k1_fwd_tc", "k2"):
+            counts[key] = counts.get(key, 0) + stats[key]
+    if lines[0] != lines[1]:
+        fail(f"cli.test_long: the .msgpack gives {lines[0]}, the .pth "
+             f"{lines[1]}")
+    print(f"cli.test_long on 3 {FRAME[0]}x{FRAME[1]} pairs, Uformer "
+          f"embed_dim 4 (bf16): --weights fixture.msgpack and --weights "
+          f".pth give the same per-image PSNR and SSIM "
+          f"({', '.join(p for _, p, _ in lines[0])} dB); K1 "
+          f"{counts['k1_fwd'] + counts['k1_fwd_tc']} and K2 {counts['k2']} "
+          f"launches over both runs ({secs:.1f} s)", flush=True)
+    return {"zoo": zoo, "test_long_msgpack": counts}
+
+
 def main() -> None:
     sys.path.insert(0, REPO)
     try:
@@ -3869,6 +4148,7 @@ def main() -> None:
         wmsa = timed(phase_wmsa, tmp)
         multi = timed(phase_multi, tmp, pth, eval_psnrs)
         ffa = {**ffa_frames, **timed(phase_ffa, tmp, ffa_runs)}
+        zoo = timed(phase_zoo, tmp)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, res, main, key, paths):
@@ -3885,7 +4165,7 @@ def main() -> None:
     paths = {"serve": serve, "train": train, "eval": evals,
              "parity_gate": gate, **serving,
              "train_device_data": device_data, "train_step_remat": remat,
-             **analysis, **wmsa, **multi, **ffa}
+             **analysis, **wmsa, **multi, **ffa, **zoo}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
     # K1 rows by kernel, without the kernel column

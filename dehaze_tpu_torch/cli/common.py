@@ -4,7 +4,8 @@ Counterpart of `dehaze_tpu/cli/common.py` for the flags the serving,
 training and evaluation paths use; flag names are the same. `config_from_args`
 returns a `Config`; the serving and evaluation CLIs read its `model`.
 `--weights` takes a `.pth`, `.pt` or `.pk` checkpoint (the reference's
-formats or a bare state_dict); `--exported` a `cli.export` artifact, in
+formats or a bare state_dict) or a `.msgpack` the JAX package wrote;
+`--exported` a `cli.export` artifact, in
 place of `--weights` (`resolve_forward`). `--attention full` selects the
 W-MSA Uformer, with `--token_projection`, `--token_mlp` and `--se_layer`;
 `--arch ffa` FFA-Net (`--ffa_gps`, `--ffa_blocks`, `--ffa_dim`) and
@@ -133,7 +134,7 @@ def add_eval_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--input_dir", required=True,
                    help="folder with gt/ and hazy/ PNG pairs")
     p.add_argument("--weights", default=None,
-                   help=".pth, .pt or .pk checkpoint")
+                   help=".pth, .pt, .pk or JAX .msgpack checkpoint")
     p.add_argument("--result_dir", default="./results/long")
     p.add_argument("--save_images",
                    action=argparse.BooleanOptionalAction, default=True,

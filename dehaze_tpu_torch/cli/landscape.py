@@ -54,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = add_common_args(argparse.ArgumentParser(
         description="loss landscape (PyTorch/CUDA port)"))
     p.add_argument("--weights", required=True,
-                   help=".pth, .pt or .pk checkpoint of --arch")
+                   help=".pth, .pt, .pk or JAX .msgpack checkpoint of "
+                        "--arch")
     p.add_argument("--n", type=int, default=21)
     p.add_argument("--scale", type=float, default=1.0)
     p.add_argument("--out_csv", default="losslandscape.csv")

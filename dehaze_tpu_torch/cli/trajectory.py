@@ -2,7 +2,9 @@
 `dehaze_tpu/cli/trajectory.py`; ≙ `My_Trajectories in polar
 coordinates.py`): every `epoch_model_{e}.pth` of --ckpt_dir (as
 `cli.train` or `cli.archive_params` writes them) in epoch order, every
---stride-th, against --best.
+--stride-th, against --best. A directory of the JAX package's run, with
+no `.pth`, gives its `epoch_model_{e}.msgpack` files; --best may be
+either kind.
 
     python -m dehaze_tpu_torch.cli.trajectory --ckpt_dir LOG/models \\
         --best LOG/models/model_best.pth --out trajectory.png
@@ -28,7 +30,8 @@ from dehaze_tpu_torch.utils.convert import load_weights
 def main(argv=None) -> int:
     p = add_common_args(argparse.ArgumentParser(description="trajectory plot"))
     p.add_argument("--ckpt_dir", required=True,
-                   help="dir of epoch_model_{e}.pth checkpoints")
+                   help="dir of epoch_model_{e}.pth (or, with none, the "
+                        "JAX package's .msgpack) checkpoints")
     p.add_argument("--best", required=True)
     p.add_argument("--out", default="trajectory.png",
                    help="the polar figure ('' for none; needs matplotlib)")
@@ -48,12 +51,15 @@ def main(argv=None) -> int:
                              f"--arch {cfg.arch}, e.g. {missing[0]}")
         return {k: sd[k].to(device) for k in names}
 
-    paths = glob.glob(os.path.join(args.ckpt_dir, "epoch_model_*.pth"))
+    paths = (glob.glob(os.path.join(args.ckpt_dir, "epoch_model_*.pth"))
+             or glob.glob(os.path.join(args.ckpt_dir,
+                                       "epoch_model_*.msgpack")))
     paths.sort(key=lambda s: int(re.search(r"epoch_model_(\d+)",
                                            s).group(1)))
     paths = paths[::args.stride]
     if not paths:
-        raise SystemExit(f"no epoch_model_*.pth under {args.ckpt_dir}")
+        raise SystemExit(f"no epoch_model_*.pth or .msgpack under "
+                         f"{args.ckpt_dir}")
     ckpts = [load(p_) for p_ in paths]
     pts = trajectory(ckpts, load(args.best))
     if args.out:

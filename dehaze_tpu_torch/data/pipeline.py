@@ -202,3 +202,49 @@ def test_images(rgb_dir: str, subdir: str = "HAZY"
     for f in sorted(os.listdir(root)):
         if is_png_file(f):
             yield load_img(os.path.join(root, f)), f
+
+
+def gaussian_train_batches(clean_dir: str, *, batch_size: int,
+                           patch_size: int, seed: int, epoch: int,
+                           noise_level: float = 5.0, num_workers: int = 8
+                           ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """The denoising variant (counterpart of `dehaze_tpu/data/pipeline.py:
+    gaussian_train_batches`, ≙ the reference's DataLoaderTrain_Gaussian):
+    one epoch of the PNGs under `clean_dir` in the order of
+    `default_rng((seed, epoch, 7))`, each item with noisy = clean +
+    N(0, level)/255 clipped to [0, 1] from its own seed, then the crop and
+    dihedral draws; a short last batch wrap-pads with its own items. The
+    same bytes as the JAX package's."""
+    files = sorted(os.path.join(clean_dir, f) for f in os.listdir(clean_dir)
+                   if is_png_file(f))
+    rng = np.random.default_rng((seed, epoch, 7))
+    order = rng.permutation(len(files))
+    item_seeds = rng.integers(0, 2**63 - 1, size=len(files))
+
+    def load(i, s):
+        r = np.random.default_rng(int(s))
+        clean = load_img(files[i])
+        noisy = np.clip(clean + r.normal(0, noise_level, clean.shape)
+                        .astype(np.float32) / 255.0, 0.0, 1.0)
+        clean, noisy = random_crop_pair(r, clean, noisy, patch_size)
+        k = int(r.integers(0, 8))
+        return dihedral(clean, k), dihedral(noisy, k)
+
+    with cf.ThreadPoolExecutor(max_workers=num_workers) as ex:
+        futs = [ex.submit(load, int(i), int(s))
+                for i, s in zip(order, item_seeds)]
+        buf_c: List[np.ndarray] = []
+        buf_n: List[np.ndarray] = []
+        for f in futs:
+            c, x = f.result()
+            buf_c.append(c)
+            buf_n.append(x)
+            if len(buf_c) == batch_size:
+                yield np.stack(buf_c), np.stack(buf_n)
+                buf_c, buf_n = [], []
+        if buf_c:
+            orig = len(buf_c)
+            while len(buf_c) < batch_size:
+                buf_c.append(buf_c[len(buf_c) % orig])
+                buf_n.append(buf_n[len(buf_n) % orig])
+            yield np.stack(buf_c), np.stack(buf_n)

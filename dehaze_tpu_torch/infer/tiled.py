@@ -101,6 +101,17 @@ def make_whole_image_fn(
     return run
 
 
+def dehaze_whole_image(apply_fn: Callable[[torch.Tensor], torch.Tensor],
+                       img: np.ndarray, ps: int = 128, device="cuda"
+                       ) -> np.ndarray:
+    """One [H, W, C] float image in [0, 1] through the square-canvas
+    protocol (`make_whole_image_fn`) on `device`: the same, restored, as a
+    numpy array."""
+    h, w = img.shape[0], img.shape[1]
+    run = make_whole_image_fn(apply_fn, h, w, ps, device=device)
+    return run(img[None])[0].cpu().numpy()
+
+
 # FFA-Net's protocol normalizes the hazy input only, per channel (the
 # reference's FFA data path); `train.ffa_trainer` trains on the same.
 FFA_MEAN = np.array([0.64, 0.60, 0.58], np.float32)

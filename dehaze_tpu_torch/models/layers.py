@@ -97,9 +97,21 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth scaled by 1/keep; the identity at eval
+    or rate 0."""
+    if rate == 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    mask = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), keep, generator,
+                      x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class DropPath(nn.Module):
-    """Per-sample stochastic depth scaled by 1/keep; the identity at eval or
-    rate 0. The mask comes from the generator passed to forward."""
+    """`drop_path` as a module. The mask comes from the generator passed
+    to forward."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -107,12 +119,7 @@ class DropPath(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.rate == 0.0 or not self.training:
-            return x
-        keep = 1.0 - self.rate
-        mask = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), keep,
-                          generator, x.device)
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return drop_path(x, self.rate, self.training, generator)
 
 
 class InputProj(nn.Module):

@@ -86,6 +86,12 @@ def fit(cfg: Config, log_dir: Optional[str] = None, device="cuda"
     """Train per cfg on `device` (this rank's, data-parallel); returns
     (best_psnr, best_ckpt_path)."""
     t, d = cfg.train, cfg.data
+    if t.resume and t.pretrain_weights.endswith(".msgpack"):
+        raise SystemExit(
+            f"--resume cannot continue {t.pretrain_weights}: a JAX "
+            "checkpoint holds optax's optimizer state, which no torch "
+            "optimizer takes; resume from an epoch_model_{e}.pth of the "
+            "port (its weights alone load through --weights)")
     device = torch.device(device)
     data_parallel = t.data_axis is not None
     if data_parallel and d.device_data:

@@ -61,6 +61,20 @@ def epoch_lr_table(epoch_lr: Callable[[int], float], max_epochs: int = 4096
                     dtype=np.float32)
 
 
+def lr_schedule_from_epoch_fn(epoch_lr: Callable[[int], float],
+                              steps_per_epoch: int
+                              ) -> Callable[[int], float]:
+    """step → the lr of its epoch, read from `epoch_lr` tabulated as
+    float32 over 4,096 epochs (the last one past the table), as the JAX
+    package's optax schedule reads its table."""
+    table = epoch_lr_table(epoch_lr)
+
+    def schedule(step: int) -> float:
+        return float(table[min(step // steps_per_epoch, len(table) - 1)])
+
+    return schedule
+
+
 def ffa_cosine_lr(base_lr: float, total_steps: int) -> Callable[[int], float]:
     """FFA-Net's per-step cosine: 0.5 · (1 + cos(π · step / total)) · lr,
     for the update that follows `step` earlier ones (counterpart of

@@ -12,6 +12,9 @@ plain FFN); `ffa_state_dict_from_jax_params` and
   HWIO, spatially flipped   → ConvTranspose2d weight [in, out, kh, kw]
   LayerNorm scale/bias      → weight/bias
   fused W-MSA `qkv` [C, 3C] → `to_q` [C, C] + `to_kv` [2C, C]
+`zoo_state_dict_from_jax_variables` inverts `convert_zoo_state_dict` for
+any zoo model, keyed by the port model's own state_dict names. `load_weights`
+also reads the JAX package's `.msgpack` checkpoints through these bridges.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from dehaze_tpu_torch.train.checkpoint import load_jax_checkpoint
 
 # The numpy scalars and dtypes a reference FFA checkpoint pickles beside its
 # weights (its PSNR/SSIM history holds np.float64s), allowed past
@@ -196,15 +201,108 @@ def clean_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _f32_leaves(tree):
+    """A params tree with its bfloat16 tensor leaves as float32 numpy
+    arrays (exact), so the bridges' numpy transposes take them."""
+    if isinstance(tree, Mapping):
+        return {k: _f32_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return tree
+
+
+_JAX_BRIDGES = {"ffa": ffa_state_dict_from_jax_params,
+                "unet": unet_state_dict_from_jax_params}
+
+
 def load_weights(path: str, arch: str = "uformer"
                  ) -> Dict[str, torch.Tensor]:
-    """Read a `.pth`, `.pt` or `.pk` checkpoint of `arch` for
-    `load_state_dict`: the reference's formats, `{'state_dict': ...}` (the
+    """Read a checkpoint of `arch` for `load_state_dict`: a `.pth`, `.pt`
+    or `.pk` in the reference's formats, `{'state_dict': ...}` (the
     Uformer's and the UNet's) or `{'model': ...}` (FFA-Net's `.pk`, as
-    `cli.ffa_train` writes it), or a bare state_dict."""
+    `cli.ffa_train` writes it), or a bare state_dict; or a `.msgpack` the
+    JAX package wrote (its trainers' `epoch_model_{e}`/`model_best`, or
+    `ffa_best`), whose params go through the arch's bridge."""
+    if path.endswith(".msgpack"):
+        params = load_jax_checkpoint(path)["params"]
+        if isinstance(params.get("params"), Mapping):  # a variables tree
+            params = params["params"]
+        bridge = _JAX_BRIDGES.get(arch, state_dict_from_jax_params)
+        return bridge(_f32_leaves(params))
     with torch.serialization.safe_globals(_NUMPY_SAFE):
         payload = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(payload, Mapping):
         raise ValueError(f"{path}: not a state_dict checkpoint")
     key = "model" if arch == "ffa" else "state_dict"
     return clean_state_dict(payload.get(key, payload))
+
+
+def _flat(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}_{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flat(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def zoo_state_dict_from_jax_variables(variables: Mapping[str, Any],
+                                      model: torch.nn.Module
+                                      ) -> Dict[str, torch.Tensor]:
+    """A JAX zoo model's variables ({'params': ..., 'batch_stats': ...})
+    → the state_dict of the port's `model` (the inverse of
+    `dehaze_tpu/utils/convert_torch.py:convert_zoo_state_dict`). The JAX
+    names are the torch names with "." → "_", which cannot be undone, so
+    each of the model's own names looks up its JAX leaf:
+      weight, 4-D   ← HWIO kernel [kh, kw, in/g, out] → [out, in/g, kh, kw]
+      weight, 3-D   ← token-mix kernel [N, out] → Conv1d [out, N, 1]
+      weight, 2-D   ← Dense kernel [in, out] → [out, in]
+      weight, 1-D   ← LayerNorm/BatchNorm scale
+      bias          ← bias
+      running_mean/var ← batch_stats mean/var
+      num_batches_tracked = 0
+      anything else (cls_token, pos_embedding) ← the leaf of its name.
+    Raises if a tensor of the model has no JAX leaf, if a shape differs,
+    or if a JAX leaf is left unused."""
+    flat = {}
+    for col, tree in variables.items():
+        for k, v in _flat(tree).items():
+            if k in flat:
+                raise KeyError(f"JAX leaf name collision: {k}")
+            flat[k] = v
+    sd: Dict[str, torch.Tensor] = {}
+    used = set()
+    for name, want in model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            sd[name] = torch.zeros_like(want, device="cpu")
+            continue
+        prefix, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        joined = prefix.replace(".", "_")
+        key = {"weight": f"{joined}_kernel" if want.ndim > 1
+               else f"{joined}_scale", "bias": f"{joined}_bias",
+               "running_mean": f"{joined}_mean",
+               "running_var": f"{joined}_var"}.get(
+                   leaf, name.replace(".", "_"))
+        if key not in flat:
+            raise KeyError(f"{name}: no JAX leaf {key!r}")
+        a = flat[key]
+        t = (a.float() if isinstance(a, torch.Tensor)
+             else torch.from_numpy(np.array(a, np.float32)))
+        if leaf == "weight" and want.ndim == 4:
+            t = t.permute(3, 2, 0, 1)
+        elif leaf == "weight" and want.ndim == 3:
+            t = t.T[:, :, None]
+        elif leaf == "weight" and want.ndim == 2:
+            t = t.T
+        if tuple(t.shape) != tuple(want.shape):
+            raise ValueError(f"{name}: shape {tuple(want.shape)}, JAX leaf "
+                             f"{key} gives {tuple(t.shape)}")
+        sd[name] = t.contiguous().to(want.dtype)
+        used.add(key)
+    unused = sorted(set(flat) - used)
+    if unused:
+        raise KeyError(f"JAX leaves with no tensor in the model: "
+                       f"{unused[:10]}{' ...' if len(unused) > 10 else ''}")
+    return sd
