@@ -151,6 +151,18 @@ prints its seconds (`phase <name>: N s`) and the run its total:
      Uformer-32 checkpoint in flax's format read back and timed, and
      `cli.test_long` with --weights the fixture and its `.pth`: the same
      per-image PSNRs, K1 and K2 launched;
+ 17b. the zoo's evaluation harness (phase_zoo_harness): ResNet-18 and
+     ViT-Ti (seeded, 32², f32, TF32 off) on the card against the CPU:
+     `evaluate.test`, `test_perturbation`, the attacks' input gradient
+     (signs where |g| > 1e-4·max|g|), FGSM and 10-step PGD, and the
+     MC-dropout ResNet-18's `evaluate.test` at n_ff = 4; every
+     `cli.zoo` subcommand but `train` in one subprocess on seeded CIFAR-10
+     pickles, CIFAR-10-C/-P `.npy` files and a PNG ImageFolder, each
+     output held to this process's run on the card in the CLI's mode
+     (cuDNN TF32 on); the harness's and the forward's ms per batch of 128
+     over a 10,000-row stream (3 passes: median and spread), and
+     `predtime` img/s in bf16 and f32 (TF32 convolutions); no kernel
+     launched;
  18. the kernels' JSON line, then the device's JSON line.
 The launch counts in the kernels line are those of the serving path (8),
 the evaluation path (9, the three runs together), the parity gate (9b,
@@ -166,8 +178,10 @@ over both ranks, the NCCL rank's DDP steps, the NCCL `cli.train`) and
 the FFA-Net and UNet paths (15: frames, evaluation, artifact, stream,
 serve, `ffa_train`, bands, `cli.train --arch unet`) and phase 17's (the
 zoo's 17 models, `zoo`, and the two `cli.test_long` runs of the
-`.msgpack` fixture and its `.pth`, `test_long_msgpack`), each counted
-from 0 over its own run. Every path runs
+`.msgpack` fixture and its `.pth`, `test_long_msgpack`) and phase 17b's
+(`zoo_harness` in this process; `zoo_eval`, `zoo_perturbation`,
+`zoo_attack`, `zoo_fourier` and `zoo_predtime`, each subcommand's runs
+together), each counted from 0 over its own run. Every path runs
 bf16, so K1's forward and backward go to the tensor-core kernels there
 and the CUDA-core ones have 0 launches; the W-MSA paths run no K1. No
 path runs K3 (no entry point of the JAX package runs its TPU kernels
@@ -4093,6 +4107,443 @@ def phase_zoo(tmp: str):
     return {"zoo": zoo, "test_long_msgpack": counts}
 
 
+# 17b: the zoo's evaluation harness. Two registry models at their published
+# widths on CIFAR geometry (ViT-Ti with the parity cases' 4×4 patches) and
+# the MC-dropout ResNet-18 for n_ff; f32 card-against-CPU checks on
+# ZH_CHECK images (the attacks on ZH_ATTACK), CLI runs on ZH_ROWS rows.
+ZH_MODELS = (("resnet_dnn_18", {}), ("vit_ti", {"patch_size": 4}))
+ZH_MC = "resnet_mcdo_smoothing_18"
+ZH_BATCH = 128      # the harness's batch, timed and in the CLI runs
+ZH_ROWS = 512       # CIFAR-10 test rows: 4 batches
+ZH_TIME_ROWS = 10000  # the timed stream: the CIFAR-10 test set's size
+ZH_TIME_REPS = 3    # timed passes over it; the median and the spread
+ZH_CHECK = 32       # images of the card-against-CPU `evaluate.test`
+ZH_ATTACK = 8       # images of the card-against-CPU attacks
+ZH_PGD = {"eps": 8 / 255, "alpha": 2 / 255, "steps": 10}
+# card against CPU in f32 (TF32 off): probabilities differ by the sum
+# orders of cuDNN/cuBLAS and oneDNN (~1e-6), so NLL, Brier, ECE, ECE± and
+# CEC within 1e-4; a confusion-matrix cell may move only for a sample
+# whose top-2 probabilities, or whose confidence and a cm edge, lie within
+# 1e-5.
+ZH_TOL = 1e-4
+# the CLI runs on the card against this process on the card, in the CLI's
+# mode (torch's defaults: cuDNN TF32 on, cuBLAS TF32 off): 1e-5 on the
+# metrics (printed values: their last digit) and on the Fourier CSVs
+ZH_CLI_TOL = 1e-5
+
+
+def _zoo_files(tmp: str) -> str:
+    """Seeded CIFAR-10 pickles (ZH_ROWS test rows), CIFAR-10-C `fog`
+    (ZH_ROWS rows at intensity 1), CIFAR-10-P `gaussian_noise` (16
+    sequences of 8 frames) and a PNG ImageFolder of 2 classes (8 images of
+    36-63 px each) among 10 class directories (`evaluate.topk` needs 5
+    classes, in the JAX package too), under one root."""
+    import pickle
+
+    import numpy as np
+
+    from dehaze_tpu_torch.data.images import save_img
+
+    root = os.path.join(tmp, "zoo_data")
+    rng = np.random.default_rng(SEED)
+    c10 = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(c10)
+    for f, n in [(f"data_batch_{i}", 16) for i in range(1, 6)] + [
+            ("test_batch", ZH_ROWS)]:
+        with open(os.path.join(c10, f), "wb") as fh:
+            pickle.dump({b"data": rng.integers(0, 256, (n, 3072),
+                                               dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, n).tolist()}, fh)
+    for folder, name, shape in (
+            ("CIFAR-10-C", "fog", (ZH_ROWS, 32, 32, 3)),
+            ("cifar-10-p", "gaussian_noise", (16, 8, 32, 32, 3))):
+        os.makedirs(os.path.join(root, folder))
+        np.save(os.path.join(root, folder, name + ".npy"),
+                rng.integers(0, 256, shape, dtype=np.uint8))
+    np.save(os.path.join(root, "CIFAR-10-C", "labels.npy"),
+            rng.integers(0, 10, ZH_ROWS))
+    for c in range(10):
+        d = os.path.join(root, "imagenet", "val", f"class{c}")
+        os.makedirs(d)
+        for i in range(8 if c < 2 else 0):
+            h, w = rng.integers(36, 64, 2)
+            save_img(os.path.join(d, f"{i}.png"),
+                     rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    return root
+
+
+def _near_ties(p, edges) -> int:
+    import numpy as np
+
+    top = np.sort(p, axis=1)
+    close = top[:, -1] - top[:, -2] < 1e-5
+    for e in edges:
+        close |= np.abs(top[:, -1] - e) < 1e-5
+    return int(close.sum())
+
+
+def _metrics_gap(label: str, got, want, p, tol: float) -> float:
+    """Fails unless `evaluate.test`'s tuples agree: NLL, Brier, ECE and
+    ECE± within tol, the cms and the bins' counts equal but for near-ties.
+    One near-tie sample moves at most 6 entries: an argmax flip 2 in each
+    of the two group cms that hold it (cutoff 0 and one side of 0.9), a
+    confidence across an edge 2 more (leaving one cm or bin for the next).
+    Returns the largest gap of the four."""
+    import numpy as np
+
+    gap = max(abs(float(got[i]) - float(want[i])) for i in (0, 8, 12, 13))
+    cms = [np.asarray(m) for g in (got, want)
+           for m in [c for pair in g[2] for c in pair] + [g[9]]]
+    half = len(cms) // 2
+    moved = sum(int(np.abs(a - b).sum()) for a, b in zip(cms[:half],
+                                                         cms[half:]))
+    ties = _near_ties(p, list(want[1]) + list(np.linspace(0, 1, 11)))
+    if not np.isfinite(gap) or gap > tol or moved > 6 * ties:
+        fail(f"{label}: NLL/Brier/ECE/ECE± gap {gap:.2e} (tolerance "
+             f"{tol}), cm entries moved {moved} with {ties} near-ties")
+    return gap
+
+
+def _zoo_cli_held(x, y, root, seqs, model, second, texts, out, secs,
+                  n_runs):
+    """Phase 17b (b): each `cli.zoo` run's output (`texts` by label, the
+    files under `out`) held to this process's run of `model` (the CLI's
+    `--ckpt`) and `second` (its `--ensemble` member) on the card, in the
+    mode the CLI ran in."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.zoo import adversarial as ADV
+    from dehaze_tpu_torch.zoo import data as ZD
+    from dehaze_tpu_torch.zoo import evaluate as ZE
+    from dehaze_tpu_torch.zoo import fourier as ZF
+    from dehaze_tpu_torch.zoo import get_model
+    from dehaze_tpu_torch.zoo.ensemble import Ensemble, stack_state_dicts
+
+    def cpu_gen():
+        return torch.Generator().manual_seed(SEED)
+
+    name = "resnet_dnn_18"
+
+    def held(label, path, metrics):
+        with open(path) as f:
+            js = json.load(f)
+        want = {"nll": metrics[0], "acc": metrics[3][0], "acc90":
+                metrics[3][1], "top5": metrics[7], "brier": metrics[8],
+                "ece": metrics[12], "ecse": metrics[13]}
+        gap = max(abs(js[k] - v) for k, v in want.items())
+        if not gap <= ZH_CLI_TOL:
+            fail(f"cli.zoo eval {label}: JSON {js} against this process's "
+                 f"{want}")
+        return js
+
+    batches = ZD.batches(x, y, ZH_BATCH)
+    js = held("cifar10", out["eval.json"], ZE.test(model, batches))
+    with open(out["eval.csv"]) as f:
+        row = f.read().strip().split(",")
+    if row[0] != "cifar10" or abs(float(row[1]) - js["nll"]) > 1e-9:
+        fail(f"cli.zoo eval --metrics_csv row {row[:3]}")
+    xf, yf = ZD.load_cifar_c(root, "fog", 1)
+    held("--ctype", out["ctype.json"],
+         ZE.test(model, ZD.batches(xf, yf, ZH_BATCH)))
+    ens = Ensemble.stacked(model, stack_state_dicts(
+        [model.state_dict(), second.state_dict()]))
+    held("--ensemble", out["ens.json"], ZE.test(ens, ZD.batches(
+        x, y, ZH_BATCH)))
+    torch.manual_seed(0)  # the CLI's init without --ckpt
+    inet = get_model(name, num_classes=10, image_size=32,
+                     device="cuda").eval()
+    held("--dataset imagenet", out["inet.json"], ZE.test(
+        inet, ZD.imagenet_batches(16, root=root, size=32)))
+    cons, cec = ZE.test_perturbation(model, [seqs])
+    printed = [float(v) for v in re.findall(
+        r"consistency: (\S+), CEC: (\S+)$", texts["perturbation "])[0]]
+    if abs(printed[0] - cons) > 6e-5 or abs(printed[1] - cec) > 6e-5:
+        fail(f"cli.zoo perturbation printed {printed}, this process "
+             f"{cons:.6f}, {cec:.6f}")
+    xs = ZE.to_nchw(x[:ZH_BATCH], "cuda").contiguous()
+    ys = torch.as_tensor(y[:ZH_BATCH]).cuda()
+
+    def acc(images):
+        with torch.inference_mode():
+            logits = model(images, generators={"dropout": cpu_gen()})
+        return float((logits.argmax(-1) == ys).float().mean())
+
+    fg = ADV.fgsm(model, xs, ys, eps=ZH_PGD["eps"], generator=cpu_gen())[0]
+    adv = {"fgsm": fg,
+           "pgd": ADV.pgd(model, xs, ys, generator=cpu_gen(), **ZH_PGD)[0],
+           "random": ADV.random_attack(xs, ys, eps=ZH_PGD["eps"],
+                                       generator=cpu_gen())[0],
+           "fgsm --freq": xs + ADV.freq_mask(fg - xs, 1.0)}
+    clean = acc(xs)
+    accs = []
+    for label, images in adv.items():
+        got = [float(v) for v in re.findall(
+            r"clean acc: (\S+), adv acc: (\S+)$", texts[f"attack {label}"])[0]]
+        want = (clean, acc(images))
+        # one example may move where cuDNN's backward sums in another order
+        if abs(got[0] - want[0]) > 6e-5 or abs(got[1] - want[1]) > \
+                1 / ZH_BATCH + 6e-5:
+            fail(f"cli.zoo attack {label}: printed {got}, this process "
+                 f"{want}")
+        accs.append(f"{label} {got[1]:.4f}")
+    lat = ZF.collect_latents(model, x[:ZH_BATCH])
+    fgap = 0.0
+    for f, want in (("highfreq_delta.csv", ZF.high_freq_deltas(lat)),
+                    ("variance.csv", ZF.variance_latents(lat))):
+        got = np.loadtxt(os.path.join(out["fourier"], f), delimiter=",")
+        if got.shape != want.shape or not np.allclose(got, want,
+                                                      rtol=ZH_CLI_TOL,
+                                                      atol=ZH_CLI_TOL):
+            fail(f"cli.zoo fourier {f}: {got} against {want}")
+        fgap = max(fgap, float(np.abs(got - want).max()))
+    ips = {label.split(" ", 1)[1]: float(re.findall(
+        r"throughput: (\S+) img/s", text)[0])
+        for label, text in texts.items() if label.startswith("predtime")}
+    print(f"cli.zoo on the card ({secs:.1f} s, {n_runs} runs in one "
+          f"process): eval, --ctype, --ensemble and --dataset imagenet equal "
+          f"this process's metrics (acc {js['acc']:.4f}, NLL "
+          f"{js['nll']:.4f}); perturbation consistency {cons:.4f}; attack "
+          f"clean {clean:.4f}, adv {', '.join(accs)}; fourier's CSVs "
+          f"({len(lat)} latents) within {fgap:.1e}; predtime img/s at "
+          f"batch {ZH_BATCH}: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ips.items())
+          + "; 0 launches of every kernel", flush=True)
+
+
+
+def phase_zoo_harness(tmp: str):
+    """The zoo's evaluation harness (`zoo.data`, `evaluate`, `adversarial`,
+    `fourier`, `ensemble`, `cli.zoo`; plain torch, no kernel of the port).
+    (a) In this process, f32 with TF32 off, for each of ZH_MODELS (seeded
+    init) on the card against the port's CPU run of the same weights:
+    `evaluate.test` on ZH_CHECK CIFAR-10 rows, `test_perturbation` on two
+    CIFAR-10-P sequences, the input gradient of the attacks' loss (within
+    1e-4 of its largest entry, the same sign wherever |g| > 1e-4·max|g|),
+    FGSM there and 10-step PGD (its random start and per-step streams from
+    one CPU generator on both sides; the share of pixels that end apart is
+    printed); `evaluate.test` of ZH_MC with n_ff = 4, the masks from one
+    CPU generator on both sides. (b) `python -m dehaze_tpu_torch.cli.zoo`
+    eval (CIFAR pickles with --json_out and --metrics_csv, --ctype,
+    --ensemble, --dataset imagenet), perturbation, attack (fgsm, pgd,
+    random, fgsm --freq), fourier and predtime (f32 and --bf16, both
+    models) on the card, in one subprocess (_counted_clis) started before
+    (a) and run beside it, on ResNet-18
+    `.pth` files of (a)'s weights; each output held to this process's run
+    on the card with cuDNN TF32 on, as the CLI runs (_zoo_cli_held). (c)
+    ms per batch of ZH_BATCH over ZH_TIME_ROWS seeded rows, ZH_TIME_REPS
+    passes (median and spread): `evaluate.test` (the forward, the softmax
+    and the host's numpy metrics) against the forward alone
+    (`measure_executive_time`), bf16 and f32, and the f32 forward with
+    cuDNN TF32 on (predtime's mode). Every path launches no
+    kernel of the port and calls no twin. Returns the launch counts of
+    (a) and of each subcommand's runs."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.zoo import adversarial as ADV
+    from dehaze_tpu_torch.zoo import data as ZD
+    from dehaze_tpu_torch.zoo import evaluate as ZE
+    from dehaze_tpu_torch.zoo import get_model
+    from dehaze_tpu_torch.zoo.checkpoint import measure_executive_time
+
+    root = _zoo_files(tmp)
+    _, (x, y), _, _ = ZD.get_dataset("cifar10", root)
+    seqs = ZD.load_cifar_p(root, "gaussian_noise")
+    reset_counts()
+
+    def pair(name, kw, seed=SEED):
+        torch.manual_seed(seed)
+        card = get_model(name, num_classes=10, image_size=32,
+                         device="cuda", **kw).eval()
+        cpu = get_model(name, num_classes=10, image_size=32, **kw).eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        return card, cpu
+
+    def cpu_gen():
+        return torch.Generator().manual_seed(SEED)
+
+    pairs = {name: pair(name, kw) for name, kw in ZH_MODELS}
+    models = {name: card for name, (card, _) in pairs.items()}
+    # (b)'s runs go on in a subprocess while (a) runs here: neither is
+    # timed
+    cli_model = "resnet_dnn_18"
+    model = models[cli_model]
+    pth, pth2 = (os.path.join(tmp, f"zoo_{i}.pth") for i in (1, 2))
+    torch.save({"state_dict": {k: v.cpu() for k, v in
+                               model.state_dict().items()}}, pth)
+    second, _ = pair(cli_model, {}, seed=SEED + 1)
+    torch.save({"state_dict": {k: v.cpu() for k, v in
+                               second.state_dict().items()}}, pth2)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    out = {k: os.path.join(tmp, f"zoo_{k}") for k in
+           ("eval.json", "eval.csv", "ctype.json", "ens.json", "inet.json",
+            "fourier")}
+    base = ["--name", cli_model, "--root", root, "--batch_size", ZH_BATCH]
+    cifar = base + ["--dataset", "cifar10", "--ckpt", pth]
+    attack = cifar + ["--n_examples", ZH_BATCH, "--eps", ZH_PGD["eps"],
+                      "--seed", SEED]
+    runs = [
+        ("eval", cifar + ["--json_out", out["eval.json"], "--metrics_csv",
+                          out["eval.csv"]], "cifar10"),
+        ("eval", base + ["--ctype", "fog", "--ckpt", pth, "--json_out",
+                         out["ctype.json"]], "--ctype fog"),
+        ("eval", cifar + ["--ensemble", pth2, "--json_out", out["ens.json"]],
+         "--ensemble"),
+        ("eval", ["--name", cli_model, "--root", root, "--dataset",
+                  "imagenet", "--image_size", 32, "--batch_size", 16,
+                  "--json_out", out["inet.json"]], "--dataset imagenet"),
+        ("perturbation", base[:4] + ["--batch_size", 16, "--ckpt", pth], ""),
+        ("attack", attack + ["--method", "fgsm"], "fgsm"),
+        ("attack", attack + ["--method", "pgd", "--alpha", ZH_PGD["alpha"],
+                             "--steps", ZH_PGD["steps"]], "pgd"),
+        ("attack", attack + ["--method", "random"], "random"),
+        ("attack", attack + ["--method", "fgsm", "--freq", 1.0],
+         "fgsm --freq"),
+        ("fourier", cifar + ["--out", out["fourier"]]
+         + ([] if has_mpl else ["--out_plot", ""]), ""),
+    ] + [("predtime", ["--name", n, "--root", root, "--dataset", "cifar10",
+                       "--batch_size", ZH_BATCH, "--n", 50]
+          + sum((["--" + k, v] for k, v in kw.items()), []) + bf,
+          f"{n} {'bf16' if bf else 'f32'}")
+         for n, kw in ZH_MODELS for bf in ([], ["--bf16"])]
+    behind = cf.ThreadPoolExecutor(1)
+    clis = behind.submit(_counted_clis, [
+        ("zoo", [sub] + args, f"{sub} {label}") for sub, args, label in runs])
+    for name, kw in ZH_MODELS:
+        card, cpu = pairs[name]
+        xc, yc = x[:ZH_CHECK], y[:ZH_CHECK]
+        want = ZE.test(cpu, ZD.batches(xc, yc, 16))
+        got = ZE.test(card, ZD.batches(xc, yc, 16))
+        p = ZE.make_predict_fn(cpu)(xc).numpy()
+        gap = _metrics_gap(f"zoo harness {name} evaluate.test", got, want,
+                           p, ZH_TOL)
+        cons = [ZE.test_perturbation(m, [seqs[:2]]) for m in (card, cpu)]
+        if cons[0][0] != cons[1][0] or not abs(cons[0][1] - cons[1][1]) \
+                <= ZH_TOL:
+            fail(f"zoo harness {name} test_perturbation: card {cons[0]}, "
+                 f"CPU {cons[1]}")
+        xa = ZE.to_nchw(x[:ZH_ATTACK], "cpu").contiguous()
+        ya = torch.as_tensor(y[:ZH_ATTACK])
+        g_cpu = ADV.input_grad(cpu, xa, ya)
+        g_card = ADV.input_grad(card, xa.cuda(), ya.cuda()).cpu()
+        scale = float(g_cpu.abs().max())
+        big = g_cpu.abs() > 1e-4 * scale
+        gerr = float((g_card - g_cpu).abs().max()) / scale
+        flips = int((torch.sign(g_card) != torch.sign(g_cpu))[big].sum())
+        if not scale > 0 or gerr > ZH_TOL or flips:
+            fail(f"zoo harness {name}: input gradient card against CPU "
+                 f"{gerr:.2e} of its max (tolerance {ZH_TOL}), {flips} "
+                 "sign flips where |g| > 1e-4·max|g|")
+        f_cpu, _ = ADV.fgsm(cpu, xa, ya, eps=ZH_PGD["eps"])
+        f_card, _ = ADV.fgsm(card, xa.cuda(), ya.cuda(), eps=ZH_PGD["eps"])
+        if not torch.equal(f_card.cpu()[big], f_cpu[big]):
+            fail(f"zoo harness {name}: FGSM card and CPU differ where "
+                 "|g| > 1e-4·max|g|")
+        p_cpu, _ = ADV.pgd(cpu, xa, ya, generator=cpu_gen(), **ZH_PGD)
+        p_card, _ = ADV.pgd(card, xa.cuda(), ya.cuda(), generator=cpu_gen(),
+                            **ZH_PGD)
+        apart = float(((p_card.cpu() - p_cpu).abs() > 1e-5).float().mean())
+        reach = float((p_card.cpu() - xa).abs().max())
+        if apart > 0.01 or reach > ZH_PGD["eps"] + 1e-5:
+            fail(f"zoo harness {name}: 10-step PGD card against CPU: "
+                 f"{apart:.2%} of the pixels apart (at most 1%), reach "
+                 f"{reach:.4f} (eps {ZH_PGD['eps']:.4f})")
+        print(f"zoo harness {name}: card vs CPU f32, evaluate.test on "
+              f"{ZH_CHECK} rows max gap {gap:.2e} (NLL {got[0]:.6f} / "
+              f"{want[0]:.6f}), perturbation consistency {cons[0][0]:.4f}, "
+              f"CEC {cons[0][1]:.6f} / {cons[1][1]:.6f}; attack gradient "
+              f"{gerr:.2e} of its max, 0 sign flips on {int(big.sum())} of "
+              f"{big.numel()}; FGSM equal there; 10-step PGD "
+              f"{apart:.3%} of the pixels apart", flush=True)
+    del pairs, cpu
+    card, cpu = pair(ZH_MC, {})
+    xc, yc = x[:ZH_CHECK], y[:ZH_CHECK]
+    want = ZE.test(cpu, ZD.batches(xc, yc, 16), n_ff=4, generator=cpu_gen())
+    got = ZE.test(card, ZD.batches(xc, yc, 16), n_ff=4, generator=cpu_gen())
+    p = ZE.make_predict_fn(cpu, n_ff=4)(xc, cpu_gen()).numpy()
+    gap = _metrics_gap(f"zoo harness {ZH_MC} n_ff=4", got, want, p, ZH_TOL)
+    print(f"zoo harness {ZH_MC}: evaluate.test n_ff=4 (masks from one CPU "
+          f"generator) card vs CPU max gap {gap:.2e}", flush=True)
+    del card, cpu
+    harness = read_counts()
+    if any(harness.values()):
+        fail(f"zoo harness: kernels of the port launched {harness}")
+
+    # (b) the CLI's outputs, held to this process on the card
+    res, secs = clis.result()
+    behind.shutdown()
+    paths = {"zoo_harness": harness}
+    for (sub, _, label), (text, stats) in zip(runs, res):
+        if stats["rc"] != 0:
+            fail(f"cli.zoo {sub} {label} exited {stats['rc']}")
+        _zero_launches(f"cli.zoo {sub} {label}", stats)
+        agg = paths.setdefault(f"zoo_{sub}", {})
+        for k, v in stats.items():
+            if k not in ("rc", "secs", "peak_gib"):
+                agg[k] = agg.get(k, 0) + v
+    texts = {f"{sub} {label}": text for (sub, _, label), (text, _)
+             in zip(runs, res)}
+    torch.backends.cudnn.allow_tf32 = True  # the mode the CLI ran in
+    try:
+        _zoo_cli_held(x, y, root, seqs, model, second, texts, out, secs,
+                      len(runs))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+    # (c) the harness's ms per batch against the forward's, over a seeded
+    # stream the size of the CIFAR-10 test set, ZH_TIME_REPS passes each
+    rng = np.random.default_rng(SEED + 2)
+    xt = rng.standard_normal((ZH_TIME_ROWS, 32, 32, 3), dtype=np.float32)
+    yt = rng.integers(0, 10, ZH_TIME_ROWS)
+    nb = ZH_TIME_ROWS // ZH_BATCH
+    for n, kw in ZH_MODELS:
+        for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            timed = get_model(n, num_classes=10, image_size=32, dtype=dt,
+                              device="cuda", **kw).eval()
+            timed.load_state_dict(models[n].state_dict())
+            ZE.test(timed, ZD.batches(xt[:2 * ZH_BATCH], yt[:2 * ZH_BATCH],
+                                      ZH_BATCH))
+            harness, fwd = [], []
+            for _ in range(ZH_TIME_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ZE.test(timed, ZD.batches(xt, yt, ZH_BATCH))
+                harness.append((time.perf_counter() - t0) * 1e3 / nb)
+                fwd.append(measure_executive_time(
+                    timed, size=(ZH_BATCH, 3, 32, 32), n=nb) * 1e3)
+            h, f = float(np.median(harness)), float(np.median(fwd))
+            line = (f"zoo harness {n} {dname}: evaluate.test over "
+                    f"{ZH_TIME_ROWS} rows ({nb} batches of {ZH_BATCH}), "
+                    f"{ZH_TIME_REPS} passes: median {h:.3f} ms per batch "
+                    f"({min(harness):.3f}-{max(harness):.3f}; forward, "
+                    f"softmax, copy to the host, numpy metrics); the "
+                    f"forward alone median {f:.3f} ms ({min(fwd):.3f}-"
+                    f"{max(fwd):.3f}), {f / h:.1%} of it; the rest "
+                    f"{h - f:.3f} ms")
+            if dname == "f32":
+                # predtime's f32: the CLI keeps torch's cuDNN TF32 default
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    tf = measure_executive_time(
+                        timed, size=(ZH_BATCH, 3, 32, 32), n=nb) * 1e3
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                line += (f"; the forward with cuDNN TF32 on {tf:.3f} ms "
+                         f"({ZH_BATCH / tf * 1e3:.1f} img/s), off "
+                         f"{ZH_BATCH / f * 1e3:.1f} img/s")
+            print(line, flush=True)
+    late = read_counts()
+    if any(late.values()):
+        fail(f"zoo harness timing: kernels of the port launched {late}")
+    return paths
+
+
 def main() -> None:
     sys.path.insert(0, REPO)
     try:
@@ -4149,6 +4600,7 @@ def main() -> None:
         multi = timed(phase_multi, tmp, pth, eval_psnrs)
         ffa = {**ffa_frames, **timed(phase_ffa, tmp, ffa_runs)}
         zoo = timed(phase_zoo, tmp)
+        zoo_harness = timed(phase_zoo_harness, tmp)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, res, main, key, paths):
@@ -4165,7 +4617,7 @@ def main() -> None:
     paths = {"serve": serve, "train": train, "eval": evals,
              "parity_gate": gate, **serving,
              "train_device_data": device_data, "train_step_remat": remat,
-             **analysis, **wmsa, **multi, **ffa, **zoo}
+             **analysis, **wmsa, **multi, **ffa, **zoo, **zoo_harness}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
     # K1 rows by kernel, without the kernel column

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -87,6 +87,25 @@ def load_snapshot(model: torch.nn.Module, dataset_name: str,
                  model, optimizer)
 
 
+def _unwrap(payload: dict) -> Dict[str, torch.Tensor]:
+    """The state_dict of a reference checkpoint ({"state_dict": ...} or a
+    bare state_dict), DataParallel's `module.` prefixes dropped."""
+    sd = payload.get("state_dict", payload)
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in sd.items()}
+
+
+def read_state_dict(path: str, model: torch.nn.Module
+                    ) -> Dict[str, torch.Tensor]:
+    """The weights of a checkpoint file as `model`'s state_dict, on the
+    CPU: the JAX package's `.msgpack` (zoo variables, through
+    `zoo_state_dict_from_jax_variables`) or a reference `.pth`/`.pth.tar`."""
+    if path.endswith(".msgpack"):
+        return zoo_state_dict_from_jax_variables(
+            load_jax_checkpoint(path)["params"], model)
+    return _unwrap(torch.load(path, map_location="cpu", weights_only=True))
+
+
 def _load(path: str, model: torch.nn.Module, optimizer):
     if not os.path.exists(path):
         jax_path = path[:-len(".pth.tar")] + ".msgpack"
@@ -96,14 +115,10 @@ def _load(path: str, model: torch.nn.Module, optimizer):
             raise ValueError(f"{jax_path}: a JAX checkpoint's optimizer "
                              "state is optax's; it cannot load into a "
                              "torch optimizer")
-        variables = load_jax_checkpoint(jax_path)["params"]
-        model.load_state_dict(zoo_state_dict_from_jax_variables(variables,
-                                                                model))
+        model.load_state_dict(read_state_dict(jax_path, model))
         return model
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    sd = payload.get("state_dict", payload)
-    model.load_state_dict({k[len("module."):] if k.startswith("module.")
-                           else k: v for k, v in sd.items()})
+    model.load_state_dict(_unwrap(payload))
     if optimizer is not None:
         optimizer.load_state_dict(payload["optimizer"])
     return model
