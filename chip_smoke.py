@@ -163,6 +163,20 @@ prints its seconds (`phase <name>: N s`) and the run its total:
      over a 10,000-row stream (3 passes: median and spread), and
      `predtime` img/s in bf16 and f32 (TF32 convolutions); no kernel
      launched;
+ 17c. the zoo trainer (phase_zoo_train), on 17b's pickles (2,560
+     training rows): ResNet-18 (SGD, weight decay, max_norm) and ViT-Ti
+     4×4 (AdamW, smoothing 0.1, max_norm), 3 ZooTrainer steps at batch
+     128 with augment and mixup on the card against the CPU (f32, TF32
+     off, the same weights and draws: losses, the update, the BN
+     statistics); `cli.zoo train` in a subprocess (ViT-Ti bf16, AdamW,
+     cosine, 1 warmup epoch and 1 epoch, mixup, smoothing 0.1, --max_norm
+     1), its `.pth.tar` files and `cli.zoo eval --ckpt best.pth.tar` at
+     the accuracy it printed; `--data_axis 2` as two gloo ranks on the
+     card and `--data_axis 1` as one NCCL rank (ResNet-18, SGD, one epoch
+     with augment and mixup) against the one-process run; ms per step at
+     batch 128 in bf16 and f32 (median of 3 windows of 20 by CUDA events,
+     the host's ms to queue one, peak memory, a profile with the idle
+     share); no kernel launched;
  18. the kernels' JSON line, then the device's JSON line.
 The launch counts in the kernels line are those of the serving path (8),
 the evaluation path (9, the three runs together), the parity gate (9b,
@@ -181,7 +195,9 @@ zoo's 17 models, `zoo`, and the two `cli.test_long` runs of the
 `.msgpack` fixture and its `.pth`, `test_long_msgpack`) and phase 17b's
 (`zoo_harness` in this process; `zoo_eval`, `zoo_perturbation`,
 `zoo_attack`, `zoo_fourier` and `zoo_predtime`, each subcommand's runs
-together), each counted from 0 over its own run. Every path runs
+together) and phase 17c's (`zoo_train` in this process, `zoo_train_cli`
+the subprocess's three runs, `zoo_train_ddp` the two gloo ranks and the
+NCCL rank), each counted from 0 over its own run. Every path runs
 bf16, so K1's forward and backward go to the tensor-core kernels there
 and the CUDA-core ones have 0 launches; the W-MSA paths run no K1. No
 path runs K3 (no entry point of the JAX package runs its TPU kernels
@@ -1461,15 +1477,16 @@ def _split_runs(out: str):
             (runs[i] for i in sorted(runs))]
 
 
-def _counted_clis(runs, timeout: int = 900):
-    """`runs` [(cli, args, label)] in one subprocess (_RUNNER): ([(stdout,
-    counts)] of each run in order, the process's seconds). Each run's
-    lines are echoed as `cli.<cli> <label> | line`; a process that fails
-    fails the smoke, and the callers check each run's exit code."""
+def _counted_clis(runs, timeout: int = 900, script: str = _RUNNER):
+    """`runs` [(cli, args, label)] in one subprocess (`script`, _RUNNER
+    or a variant): ([(stdout, counts)] of each run in order, the
+    process's seconds). Each run's lines are echoed as `cli.<cli> <label>
+    | line`; a process that fails fails the smoke, and the callers check
+    each run's exit code."""
     spec = json.dumps([[cli, [str(a) for a in args]] for cli, args, _ in
                        runs])
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", _RUNNER, spec],
+    r = subprocess.run([sys.executable, "-c", script, spec],
                        capture_output=True, text=True, timeout=timeout,
                        env={**os.environ, "PYTHONPATH": REPO})
     secs = time.perf_counter() - t0
@@ -3390,12 +3407,13 @@ UNET_REPS = 5
 
 
 def _zero_launches(label: str, counts: dict) -> None:
-    """A path of FFA-Net or the UNet: no kernel of the port and no twin."""
+    """A path that needs no kernel (FFA-Net, the UNet, the zoo): no kernel
+    of the port and no twin."""
     busy = {k: v for k, v in counts.items()
             if k not in ("peak_gib", "secs", "rc") and v}
     if busy:
-        fail(f"{label}: launched {busy}; FFA-Net and the UNet run no kernel "
-             "of the port and no twin")
+        fail(f"{label}: launched {busy}; this path runs no kernel of the "
+             "port and no twin")
 
 
 def _ffa_weights(tmp: str) -> str:
@@ -4133,7 +4151,9 @@ ZH_CLI_TOL = 1e-5
 
 
 def _zoo_files(tmp: str) -> str:
-    """Seeded CIFAR-10 pickles (ZH_ROWS test rows), CIFAR-10-C `fog`
+    """Seeded CIFAR-10 pickles (ZH_ROWS test rows; ZT_ROWS training rows
+    for phase 17c, drawn from a stream of their own so that every other
+    file is the one phase 17b was set against), CIFAR-10-C `fog`
     (ZH_ROWS rows at intensity 1), CIFAR-10-P `gaussian_noise` (16
     sequences of 8 frames) and a PNG ImageFolder of 2 classes (8 images of
     36-63 px each) among 10 class directories (`evaluate.topk` needs 5
@@ -4148,12 +4168,18 @@ def _zoo_files(tmp: str) -> str:
     rng = np.random.default_rng(SEED)
     c10 = os.path.join(root, "cifar-10-batches-py")
     os.makedirs(c10)
+    more = np.random.default_rng(SEED + 1)
     for f, n in [(f"data_batch_{i}", 16) for i in range(1, 6)] + [
             ("test_batch", ZH_ROWS)]:
+        data = rng.integers(0, 256, (n, 3072), dtype=np.uint8)
+        labels = rng.integers(0, 10, n).tolist()
+        if f != "test_batch":  # 17c's training rows, from their own stream
+            extra = ZT_ROWS // 5 - n
+            data = np.concatenate([data, more.integers(
+                0, 256, (extra, 3072), dtype=np.uint8)])
+            labels += more.integers(0, 10, extra).tolist()
         with open(os.path.join(c10, f), "wb") as fh:
-            pickle.dump({b"data": rng.integers(0, 256, (n, 3072),
-                                               dtype=np.uint8),
-                         b"labels": rng.integers(0, 10, n).tolist()}, fh)
+            pickle.dump({b"data": data, b"labels": labels}, fh)
     for folder, name, shape in (
             ("CIFAR-10-C", "fog", (ZH_ROWS, 32, 32, 3)),
             ("cifar-10-p", "gaussian_noise", (16, 8, 32, 32, 3))):
@@ -4544,6 +4570,384 @@ def phase_zoo_harness(tmp: str):
     return paths
 
 
+# 17c. The zoo trainer (`zoo.train`: schedules, the optax-semantics
+# optimizers, ZooTrainer; `cli.zoo train`). No kernel of the port runs.
+ZT_ROWS = 2560        # CIFAR-10 training rows in the pickles: 20 batches
+ZT_BATCH = 128        # the global batch of every part
+ZT_CHECK_STEPS = 3    # (a) steps of the card against the CPU
+ZT_WARMUP, ZT_WINDOW, ZT_WINDOWS = 3, 20, 3  # (d) steps: warm-up, a window
+ZT_PROFILE_STEPS = 1  # (d) steps under torch.profiler
+ZT_MIXUP = {"mixup_alpha": 1.0, "cutmix_alpha": 0.8, "prob": 1.0}
+# (a) and (d): ResNet-18 with SGD, weight decay and max_norm; ViT-Ti
+# (4×4 patches) with AdamW, smoothing 0.1 and max_norm
+ZT_MODELS = (
+    ("resnet_dnn_18", {}, dict(optimizer_name="SGD", lr=0.01,
+                               weight_decay=5e-4, max_norm=1.0)),
+    ("vit_ti", {"patch_size": 4}, dict(optimizer_name="AdamW", lr=1e-3,
+                                       weight_decay=0.05, smoothing=0.1,
+                                       max_norm=1.0)))
+# (a) the card against the CPU, f32 with TF32 off, the same weights and
+# draws: each step's loss within 1e-4 relative; the parameters' change
+# over the 3 steps, as one vector, within 5e-2 of its norm; each BN
+# running statistic within 1e-3 of its tensor's largest entry. Two equal
+# f32 steps of a BN ResNet in other orders differ far beyond rounding in
+# some gradient entries (a ReLU input within rounding of 0 flips; the BN
+# parameters' gradients are sums that cancel), and SGD carries that into
+# the next steps; AdamW's first steps move every entry by about ±lr
+# whatever its gradient's size, so where a gradient is rounding noise the
+# two devices step apart by up to 2·lr.
+ZT_LOSS_TOL, ZT_UPDATE_TOL, ZT_STATS_TOL = 1e-4, 5e-2, 1e-3
+# (c) the data-parallel runs (ResNet-18, f32, TF32 off, one epoch of 20
+# SGD steps at lr 0.005 clipped to a global norm of 1) against the
+# one-process run: the parameters apart by at most ZT_DDP_TOL of the
+# largest change the epoch can make (20 · lr · max_norm, in norm), the
+# epoch's loss within 1e-4 relative, the running statistics within 1e-3
+# of their tensor's largest entry. In f32 two equal steps on other row
+# counts differ far beyond rounding in some gradient entries (a ReLU
+# input within rounding of 0 flips; the BN parameters' gradients are
+# sums that cancel), and SGD carries that into the next steps; a small
+# lr keeps that drift well below the gap of a statistics' backward that
+# does not sum over the ranks. The CPU tests hold the two paths to 1e-4
+# in float64.
+ZT_DDP_TOL, ZT_DDP_LOSS_TOL, ZT_DDP_STATS_TOL = 5e-2, 1e-4, 1e-3
+ZT_DDP_LR, ZT_DDP_MAX_NORM = 0.005, 1.0
+# The CLI processes of 17c: TF32 off, as in this process (their runs are
+# held to each other in float32); started as two ranks, one gloo group on
+# the one card (NCCL refuses two ranks on a device), which `cli.zoo train
+# --data_axis 2` then joins; a single rank is left to the CLI, which
+# starts NCCL.
+_ZT_RUNNER = r'''
+import os, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    from dehaze_tpu_torch.parallel import dist as _dist
+    _dist.init("cuda:0", "gloo")
+''' + _RUNNER
+
+
+def _zt_batches(root: str, n: int):
+    """The first n global batches of the seeded CIFAR-10 training rows."""
+    from dehaze_tpu_torch.zoo import data as ZD
+
+    (x, y), _, _, _ = ZD.get_dataset("cifar10", root)
+    b = ZT_BATCH
+    return (x[:n * b].reshape(n, b, *x.shape[1:]),
+            y[:n * b].reshape(n, b))
+
+
+def _zt_model(name, kw, dtype, device):
+    import torch
+
+    from dehaze_tpu_torch.zoo import get_model
+
+    torch.manual_seed(SEED)
+    return get_model(name, num_classes=10, image_size=32, dtype=dtype,
+                     device=device, **kw)
+
+
+def _zt_trainer(model, recipe):
+    from dehaze_tpu_torch.zoo.train import ZooTrainer
+
+    tr = ZooTrainer(model, num_classes=10, mixup=ZT_MIXUP, seed=SEED,
+                    steps_per_epoch=ZT_ROWS // ZT_BATCH, **recipe)
+    tr.init()
+    return tr
+
+
+def _zt_card_vs_cpu(x, y, card_done=None):
+    """(a) ZT_CHECK_STEPS steps of each of ZT_MODELS on the card and on
+    the CPU from the same weights, with the same augment and mixup draws
+    (the trainers' CPU generator, seeded alike), f32 with TF32 off. The
+    card's steps run first; `card_done()`, when given, is called between
+    them and the CPU's, which use CPU_REFERENCE_THREADS threads."""
+    import numpy as np
+    import torch
+
+    runs = []
+    for name, kw, recipe in ZT_MODELS:
+        cpu = _zt_model(name, kw, torch.float32, "cpu")
+        card = _zt_model(name, kw, torch.float32, "cuda")
+        card.load_state_dict(cpu.state_dict())
+        init = {k: v.detach().clone() for k, v in cpu.named_parameters()}
+        tr = _zt_trainer(card, recipe)
+        losses = [float(tr.train_step(x[i], y[i]))
+                  for i in range(ZT_CHECK_STEPS)]
+        runs.append((name, recipe, cpu, init, losses, {
+            k: v.detach().cpu() for k, v in card.state_dict().items()}))
+        del tr, card
+    if card_done is not None:
+        card_done()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+    try:
+        for name, recipe, cpu, init, got_losses, got_sd in runs:
+            tr = _zt_trainer(cpu, recipe)
+            losses = [got_losses, [float(tr.train_step(x[i], y[i]))
+                                   for i in range(ZT_CHECK_STEPS)]]
+            ref = cpu.state_dict()
+            loss_gap = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+            got = torch.cat([(got_sd[k] - init[k]).ravel() for k in init])
+            want = torch.cat([(ref[k] - init[k]).ravel() for k in init])
+            upd_gap = float((got - want).norm() / want.norm())
+            stats_gap = max([float((v - ref[k]).abs().max()
+                                   / ref[k].abs().max())
+                             for k, v in got_sd.items() if "running" in k]
+                            or [0.0])
+            print(f"zoo train {name} ({recipe['optimizer_name']}, batch "
+                  f"{ZT_BATCH}, augment and mixup on): card against CPU, "
+                  f"f32, {ZT_CHECK_STEPS} steps: losses "
+                  f"{[round(v, 6) for v in losses[0]]} (gap "
+                  f"{loss_gap:.2e}), update {float(want.norm()):.4f} in "
+                  f"norm, apart by {upd_gap:.2e} of it; running statistics "
+                  f"{stats_gap:.2e} of their max", flush=True)
+            if not (loss_gap <= ZT_LOSS_TOL and upd_gap <= ZT_UPDATE_TOL
+                    and stats_gap <= ZT_STATS_TOL
+                    and np.isfinite(losses).all()):
+                fail(f"zoo train {name}: card against CPU, tolerances: "
+                     f"loss {ZT_LOSS_TOL}, update {ZT_UPDATE_TOL}, running "
+                     f"statistics {ZT_STATS_TOL}")
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _zt_times(x, y, card: str):
+    """(d) ms per training step at batch ZT_BATCH of each of ZT_MODELS in
+    bf16 and f32 (TF32 off): CUDA events over ZT_WINDOWS windows of
+    ZT_WINDOW steps after ZT_WARMUP, the median and the spread; the host's
+    ms to queue a step; peak memory; the calls in a step that make the
+    host wait for the card; a profile of ZT_PROFILE_STEPS steps (device
+    time, idle share, kernel groups)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    for name, kw, recipe in ZT_MODELS:
+        for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            tr = _zt_trainer(_zt_model(name, kw, dt, "cuda"), recipe)
+            it = iter(range(1 << 30))
+
+            def step():
+                i = next(it) % len(x)
+                tr.train_step(x[i], y[i])
+
+            for _ in range(ZT_WARMUP):
+                step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, host = [], []
+            for _ in range(ZT_WINDOWS):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e0.record()
+                for _ in range(ZT_WINDOW):
+                    step()
+                host.append((time.perf_counter() - t0) / ZT_WINDOW * 1e3)
+                e1.record()
+                torch.cuda.synchronize()
+                ms.append(e0.elapsed_time(e1) / ZT_WINDOW)
+            med = float(np.median(ms))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            # the calls in a step that make the host wait for the card
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = sorted({f"{os.path.relpath(w.filename, REPO)}:"
+                            f"{w.lineno}" for w in caught
+                            if "prototype" not in str(w.message)})
+            print(f"zoo train step {name} {dname} ({card}): batch "
+                  f"{ZT_BATCH} at 32², {ZT_WINDOWS} windows of {ZT_WINDOW} "
+                  f"steps: median {med:.3f} ms ({min(ms):.3f}-"
+                  f"{max(ms):.3f}), {ZT_BATCH / med * 1e3:.1f} img/s; the "
+                  f"host {float(np.median(host)):.3f} ms to queue a step; "
+                  f"peak {peak:.2f} GiB; host waits for the card in a "
+                  f"step: {len(syncs)} {syncs[:6]}", flush=True)
+            prof = _profile(f"zoo train step {name} {dname}", step,
+                            ZT_PROFILE_STEPS, med)
+            if prof is None:
+                print("  (no device time: idle share not measured)",
+                      flush=True)
+
+
+def phase_zoo_train(tmp: str, card: str):
+    """17c. The zoo trainer, on phase 17b's seeded CIFAR-10 pickles
+    (ZT_ROWS training rows): (a) ZT_MODELS on the card against the CPU
+    (_zt_card_vs_cpu); (b) `cli.zoo train` in a subprocess, ViT-Ti (4×4)
+    in bf16, AdamW with the cosine schedule, 1 warmup epoch and 1 epoch,
+    mixup, smoothing 0.1, --max_norm 1: its `.pth.tar` files, and `cli.zoo
+    eval --ckpt best.pth.tar` giving the accuracy its train run printed
+    for that epoch; (c) ResNet-18 f32 SGD, one epoch with augment and
+    mixup, with --data_axis 2 as two gloo ranks on the card and with
+    --data_axis 1 as one NCCL rank, each held to the one-process run of
+    the same flags; (d) the step times (_zt_times). (c)'s processes run
+    beside (a); the one-process run shares a process with (b), whose runs
+    wait until the ranks have ended and (a) has left the card for its CPU
+    half (on CPU_REFERENCE_THREADS of the host's cores), so that its
+    epochs' img/s see an idle card; (d) last, alone. K1, K2 and K3 launch
+    0 times on every path. Returns the launch counts of (a) and (d)
+    (`zoo_train`), of the CLI process's three runs (`zoo_train_cli`) and
+    of (c)'s ranks (`zoo_train_ddp`)."""
+    import re
+
+    import torch
+
+    root = os.path.join(tmp, "zoo_data")
+    if not os.path.isdir(root):
+        fail(f"phase 17c needs phase 17b's pickles under {root}")
+    out = {k: os.path.join(tmp, f"zoo_train_{k}") for k in
+           ("vit", "one", "gloo", "nccl")}
+    resnet = ["--name", "resnet_dnn_18", "--dataset", "cifar10", "--root",
+              root, "--batch_size", ZT_BATCH, "--optimizer", "SGD", "--lr",
+              ZT_DDP_LR, "--max_norm", ZT_DDP_MAX_NORM, "--weight_decay",
+              5e-4, "--mixup", "--seed", SEED]
+    vit = ["--name", "vit_ti", "--patch_size", 4, "--image_size", 32,
+           "--dataset", "cifar10", "--root", root, "--batch_size",
+           ZT_BATCH, "--bf16"]
+
+    def ranks(n, extra, label):
+        spec = json.dumps([["zoo", [str(a) for a in ["train"] + resnet
+                                    + extra]]])
+        return _ranks(["-c", _ZT_RUNNER, spec], n, label)
+
+    t0 = time.perf_counter()
+    reset_counts()
+    # one process runs (c)'s one-process ResNet-18 run at once, beside
+    # (a) and the ranks, then waits for `go` before (b)'s runs: so (b)
+    # starts warm (imports, CUDA context, torch's lazy modules) and its
+    # epochs see an idle card
+    go = os.path.join(tmp, "zoo_train_go")
+    loop = "for i, (cli, args) in enumerate(json.loads(sys.argv[1])):\n"
+    waiting = _ZT_RUNNER.replace(loop, loop + (
+        "    if i == 1:\n"
+        f"        while not os.path.exists({go!r}):\n"
+        "            time.sleep(0.05)\n"), 1)
+    with cf.ThreadPoolExecutor(4) as behind:
+        gloo = behind.submit(ranks, 2, ["--data_axis", 2, "--device",
+                                        "cuda:0", "--out", out["gloo"]],
+                             "cli.zoo train --data_axis 2 (gloo)")
+        nccl = behind.submit(ranks, 1, ["--data_axis", 1, "--out",
+                                        out["nccl"]],
+                             "cli.zoo train --data_axis 1 (NCCL)")
+        clis = behind.submit(_counted_clis, [
+            ("zoo", ["train"] + resnet + ["--out", out["one"]],
+             "train resnet_dnn_18 f32"),
+            ("zoo", ["train"] + vit + [
+                "--optimizer", "AdamW", "--lr", 1e-3, "--weight_decay",
+                0.05, "--warmup_epochs", 1, "--epochs", 1, "--mixup",
+                "--smoothing", 0.1, "--max_norm", 1, "--seed", SEED,
+                "--out", out["vit"]], "train vit_ti bf16"),
+            ("zoo", ["eval"] + vit + ["--ckpt", os.path.join(
+                out["vit"], "best.pth.tar")], "eval best.pth.tar")],
+            script=waiting)
+        started = []
+
+        def start_b():
+            """(b) goes once the ranks have ended and (a) has left the
+            card."""
+            cf.wait([gloo, nccl])
+            started.append(time.perf_counter())
+            with open(go, "w"):
+                pass
+
+        try:
+            x, y = _zt_batches(root, ZT_CHECK_STEPS)
+            _zt_card_vs_cpu(x, y, lambda: behind.submit(start_b))
+            ta = time.perf_counter()
+            gloo, nccl = gloo.result(), nccl.result()
+        finally:  # (b)'s runs wait for it, whatever failed here
+            if not os.path.exists(go):
+                with open(go, "w"):
+                    pass
+        res, _ = clis.result()
+        t1 = started[0] if started else ta
+    t2 = time.perf_counter()
+    x, y = _zt_batches(root, ZT_ROWS // ZT_BATCH)
+    _zt_times(x, y, card)
+    print(f"phase 17c parts: (a) {ta - t0:.1f} s and the ranks of (c) "
+          f"{t1 - t0:.1f} s beside each other, then (b) {t2 - t1:.1f} s "
+          f"(beside the rest of (a)'s CPU steps), (d) "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+    paths = {"zoo_train": read_counts(), "zoo_train_cli": {},
+             "zoo_train_ddp": {}}
+    _zero_launches("zoo train (in process)", paths["zoo_train"])
+
+    # (b) the CLI's files and the accuracy of its best checkpoint
+    for (text, stats), label in zip(res, ("train resnet_dnn_18",
+                                          "train vit_ti", "eval")):
+        if stats["rc"] != 0:
+            fail(f"cli.zoo {label} exited {stats['rc']}")
+        _zero_launches(f"cli.zoo {label}", stats)
+        for k, v in stats.items():
+            if k not in ("rc", "secs", "peak_gib"):
+                agg = paths["zoo_train_cli"]
+                agg[k] = agg.get(k, 0) + v
+    train_text, eval_text = res[1][0], res[2][0]
+    files = sorted(os.listdir(out["vit"]))
+    if files != ["best.pth.tar", "epoch_0.pth.tar", "epoch_1.pth.tar"]:
+        fail(f"cli.zoo train wrote {files}")
+    best = float(re.findall(r"^best acc: (\S+)$", train_text, re.M)[0])
+    evald = float(re.findall(r"Accs: (\S+) %", eval_text)[0]) / 100
+    if abs(best - evald) > 5e-5:
+        fail(f"cli.zoo eval --ckpt best.pth.tar: acc {evald:.5f}, the "
+             f"train run printed best acc {best:.4f}")
+    ips = [float(v) for v in re.findall(r"^  train: \S+ s, (\S+) img/s",
+                                        train_text, re.M)]
+    epochs = re.findall(r"^((?:Warmup e|E)poch: .*)$", train_text, re.M)
+    vit_stats, eval_stats = res[1][1], res[2][1]
+    print(f"cli.zoo train vit_ti bf16 ({vit_stats['secs']:.1f} s, then "
+          f"eval {eval_stats['secs']:.1f} s): {' | '.join(epochs)}; img/s "
+          f"per epoch {ips} ({ZT_ROWS // ZT_BATCH} steps of {ZT_BATCH}); "
+          f"peak {vit_stats['peak_gib']:.2f} GiB; best acc {best:.4f}, "
+          f"`eval --ckpt best.pth.tar` {evald:.4f}", flush=True)
+
+    # (c) the data-parallel runs against the one-process run
+    want = torch.load(os.path.join(out["one"], "epoch_0.pth.tar"),
+                      weights_only=True)["state_dict"]
+    for label, outs, path in (("--data_axis 2 (2 gloo ranks)", gloo,
+                               out["gloo"]),
+                              ("--data_axis 1 (1 NCCL rank)", [nccl[0]],
+                               out["nccl"])):
+        for r, text in enumerate(outs):
+            (_, stats), = _split_runs(text)
+            if stats["rc"] != 0:
+                fail(f"cli.zoo train {label} rank {r} exited {stats['rc']}")
+            _zero_launches(f"cli.zoo train {label} rank {r}", stats)
+            for k, v in stats.items():
+                if k not in ("rc", "secs", "peak_gib"):
+                    agg = paths["zoo_train_ddp"]
+                    agg[k] = agg.get(k, 0) + v
+        got = torch.load(os.path.join(path, "epoch_0.pth.tar"),
+                         weights_only=True)["state_dict"]
+        reach = ZT_ROWS // ZT_BATCH * ZT_DDP_LR * ZT_DDP_MAX_NORM
+        par = float(torch.cat([(got[k] - v).ravel() for k, v in want.items()
+                               if v.is_floating_point()
+                               and "running" not in k]).norm()) / reach
+        stat = max(float((got[k] - v).abs().max() / v.abs().max())
+                   for k, v in want.items() if "running" in k)
+        loss = [float(re.findall(r"^Epoch: 0, Loss: (\S+),", t, re.M)[0])
+                for t in (outs[0], res[0][0])]
+        loss_gap = abs(loss[0] - loss[1]) / loss[1]
+        print(f"cli.zoo train resnet_dnn_18 {label}: epoch loss {loss[0]} "
+              f"(one process {loss[1]}); parameters apart by {par:.2e} of "
+              f"the epoch's reach ({reach:.2f} in norm), running "
+              f"statistics {stat:.2e} of their max; 0 launches of every "
+              "kernel", flush=True)
+        if not (par <= ZT_DDP_TOL and loss_gap <= ZT_DDP_LOSS_TOL
+                and stat <= ZT_DDP_STATS_TOL):
+            fail(f"cli.zoo train {label} against the one-process run: "
+                 f"parameters {par:.2e} (tolerance {ZT_DDP_TOL}), loss "
+                 f"{loss_gap:.2e} ({ZT_DDP_LOSS_TOL}), running statistics "
+                 f"{stat:.2e} ({ZT_DDP_STATS_TOL})")
+    return paths
+
+
 def main() -> None:
     sys.path.insert(0, REPO)
     try:
@@ -4601,6 +5005,7 @@ def main() -> None:
         ffa = {**ffa_frames, **timed(phase_ffa, tmp, ffa_runs)}
         zoo = timed(phase_zoo, tmp)
         zoo_harness = timed(phase_zoo_harness, tmp)
+        zoo_train = timed(phase_zoo_train, tmp, card)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, res, main, key, paths):
@@ -4617,7 +5022,8 @@ def main() -> None:
     paths = {"serve": serve, "train": train, "eval": evals,
              "parity_gate": gate, **serving,
              "train_device_data": device_data, "train_step_remat": remat,
-             **analysis, **wmsa, **multi, **ffa, **zoo, **zoo_harness}
+             **analysis, **wmsa, **multi, **ffa, **zoo, **zoo_harness,
+             **zoo_train}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
     # K1 rows by kernel, without the kernel column

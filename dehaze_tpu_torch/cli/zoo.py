@@ -10,25 +10,33 @@
     attack        ≙ ops/adversarial.py (FGSM/PGD/Random [+ --freq band])
     fourier       ≙ fourier_analysis.ipynb + featuremap_variance.ipynb
     predtime      ≙ tests.test_prediction_time + models.stats
-    train         parses its flags, then exits: the zoo trainer is not
-                  ported yet
+    train         ≙ ops/trains.train + classification.ipynb (ZooTrainer;
+                  --data_axis N under torchrun: data-parallel with
+                  global-batch BatchNorm, one process per GPU)
 
 Every subcommand takes the JAX package's flags, the reference's YAML
 schema through --config (eval), and --device (default cuda; a missing GPU
 is an error, not a fallback). --ckpt (and each --ensemble member) takes
 the JAX package's `.msgpack` or a reference `.pth`/`.pth.tar`; without
---ckpt the model keeps a seeded random init. `fourier --out_plot ''`
-skips the figures, which need matplotlib, as `--out_plot ''` does in
-`cli.landscape`. No kernel of the port runs here: the zoo's models are
-plain torch.
+--ckpt the model keeps a seeded random init. `train` writes
+`epoch_{e}.pth.tar` and `best.pth.tar` (the reference's zoo payload; the
+JAX package reads them through `load_torch_zoo_checkpoint`) where the
+JAX CLI writes `.msgpack`. `fourier --out_plot ''` skips the figures,
+which need matplotlib, as `--out_plot ''` does in `cli.landscape`. No
+kernel of the port runs here: the zoo's models are plain torch.
 
+    python -m dehaze_tpu_torch.cli.zoo train --name vit_ti --patch_size 4 \\
+        --dataset cifar10 --optimizer AdamW --lr 1e-3 --mixup --out z
+    torchrun --nproc_per_node 2 -m dehaze_tpu_torch.cli.zoo train \\
+        --name resnet_dnn_18 --dataset cifar10 --data_axis 2 --out z
     python -m dehaze_tpu_torch.cli.zoo eval --name vit_ti --patch_size 8 \\
-        --dataset synthetic --ckpt best.msgpack --json_out m.json
+        --dataset synthetic --ckpt z/best.pth.tar --json_out m.json
 """
 
 import argparse
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -50,10 +58,12 @@ def _model_kwargs(args, sample_x=None):
     return kw
 
 
-def _build(args, num_classes, sample_x=None):
+def _build(args, num_classes, sample_x=None, seed: int = 0):
+    """The registry model of --name, its init drawn from `seed` on its
+    device, in eval mode."""
     from dehaze_tpu_torch.zoo import get_model
 
-    torch.manual_seed(0)
+    torch.manual_seed(seed)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     return get_model(args.name, num_classes=num_classes, stem=args.stem,
                      dtype=dtype, device=args.device,
@@ -149,12 +159,74 @@ def _device(model) -> torch.device:
 
 
 def cmd_train(args, parser):
-    raise SystemExit(
-        "cli.zoo train: the zoo trainer (ZooTrainer, its schedules and "
-        "optimizers, data-parallel training) is not ported to "
-        "dehaze_tpu_torch yet (ROADMAP queue 1 item 4b); train with "
-        "`python -m dehaze_tpu.cli.zoo train` and pass its .msgpack to "
-        "--ckpt here")
+    """≙ the JAX CLI's train (`dehaze_tpu/cli/zoo.py:154-207`): the YAML
+    overlay, `warmup_epochs + epochs` epochs each shuffled with seed +
+    epoch, the epoch line, `evaluate.test` on the test split and the
+    checkpoints (`epoch_{e}.pth.tar`, `best.pth.tar`: the reference's zoo
+    payload with acc and loss). Under torchrun (`--data_axis N`, one
+    process per GPU) every rank trains on its share of each global batch
+    of --batch_size rows; rank 0 evaluates and writes while the others
+    wait."""
+    from dehaze_tpu_torch.parallel import dist
+    from dehaze_tpu_torch.zoo import data as zdata
+    from dehaze_tpu_torch.zoo import evaluate as zeval
+    from dehaze_tpu_torch.zoo.checkpoint import save_file
+    from dehaze_tpu_torch.zoo.train import ZooTrainer
+
+    args = _apply_config(args, parser)
+    if args.data_axis > 1 or "RANK" in os.environ:
+        dist.check_world("--data_axis", args.data_axis)
+        args.device = str(dist.init(args.device))
+    lead = dist.rank() == 0
+    (xtr, ytr), (xte, yte), nc, _ = zdata.get_dataset(
+        args.dataset, args.root, n_synth=args.n_synth,
+        synth_size=args.image_size)
+    model = _build(args, nc, xtr, seed=args.seed)
+    steps_per_epoch = max(1, len(xtr) // args.batch_size)
+    mixup_cfg = getattr(args, "mixup_cfg", None)
+    if mixup_cfg is None and args.mixup and not args.no_mixup:
+        mixup_cfg = {"mixup_alpha": 1.0, "cutmix_alpha": 0.8, "prob": 1.0}
+    trainer = ZooTrainer(
+        model, num_classes=nc, optimizer_name=args.optimizer, lr=args.lr,
+        weight_decay=args.weight_decay,
+        scheduler=getattr(args, "scheduler_cfg", None),
+        warmup_epochs=args.warmup_epochs, steps_per_epoch=steps_per_epoch,
+        smoothing=args.smoothing, mixup=mixup_cfg,
+        max_norm=args.max_norm, augment=not args.no_augment,
+        data_parallel=dist.is_on(), seed=args.seed)
+    trainer.init(xtr[:args.batch_size])
+
+    if lead:
+        os.makedirs(args.out, exist_ok=True)
+    rows = len(xtr) // args.batch_size * args.batch_size
+    best_acc = -1.0
+    for epoch in range(args.warmup_epochs + args.epochs):
+        it = zdata.batches(xtr, ytr, args.batch_size, shuffle=True,
+                           seed=args.seed + epoch)
+        t0 = time.perf_counter()
+        loss, nll, l1, l2 = trainer.train_epoch(it)
+        secs = time.perf_counter() - t0
+        if lead:
+            phase = "Warmup epoch" if epoch < args.warmup_epochs else "Epoch"
+            print(f"{phase}: {epoch}, Loss: {loss:.4f}, lr: "
+                  f"{trainer.lr():.3e}, l1: {l1:.1f}, l2: {l2:.2f}")
+            print(f"  train: {secs:.3f} s, {rows / secs:.1f} img/s")
+            metrics = zeval.test(model, zdata.batches(xte, yte,
+                                                      args.batch_size),
+                                 n_ff=args.n_ff)
+            acc = metrics[3][0]
+            print(f"  val: {zeval.repr_metrics(metrics)}")
+            save_file(os.path.join(args.out, f"epoch_{epoch}.pth.tar"),
+                      model, args.name, None, epoch,
+                      extra={"acc": acc, "loss": loss})
+            if acc > best_acc:
+                best_acc = acc
+                save_file(os.path.join(args.out, "best.pth.tar"), model,
+                          args.name, None, epoch, extra={"acc": acc})
+        dist.barrier()
+    if lead:
+        print(f"best acc: {best_acc:.4f}")
+    return best_acc
 
 
 def cmd_eval(args, parser):
@@ -412,4 +484,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from dehaze_tpu_torch.parallel import dist
+
     main()
+    dist.shutdown()

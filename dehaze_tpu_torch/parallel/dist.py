@@ -13,6 +13,9 @@ Data-parallel training wraps the model in `DistributedDataParallel`, which
 broadcasts rank 0's parameters and averages the gradients, so nothing here
 replicates state. The helpers gather per-rank rows to every rank in rank
 order; without a process group they return the caller's rows.
+`mean_over_ranks` (a global loss term) and `sum_over_ranks` (global-batch
+statistics) reduce a tensor over the ranks, each with the backward its
+use needs.
 """
 
 from __future__ import annotations
@@ -137,3 +140,31 @@ def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
     """The mean of every rank's `x` (`_MeanOverRanks`); `x` itself without
     a process group."""
     return _MeanOverRanks.apply(x) if world() > 1 else x
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Forward: the sum of every rank's x. Backward: the sum of every
+    rank's incoming gradient.
+
+    For statistics that enter each rank's own loss (global-batch
+    BatchNorm): rank p's x reaches every rank's loss through the sum, so
+    its gradient is the sum of all the ranks' gradients of the sum; DDP
+    then averages the parameters' gradients as for any other path."""
+
+    @staticmethod
+    def forward(ctx, x):
+        total = x.clone()
+        dist.all_reduce(total)
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        total = g.clone()
+        dist.all_reduce(total)
+        return total
+
+
+def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
+    """The sum of every rank's `x`, its backward summed too
+    (`_SumOverRanks`); `x` itself without a process group."""
+    return _SumOverRanks.apply(x) if world() > 1 else x

@@ -8,13 +8,13 @@ state_dict names, so its `.pth.tar` checkpoints load as they are.
     logits = model(x_nchw)
 
 No TPU kernel computes any zoo model: they run on plain torch (cuBLAS and
-cuDNN on the card). The evaluation harness is here too: `zoo.data`
-(CIFAR-10/100, CIFAR-C/-P and ImageFolder loaders, the batch transforms),
-`evaluate` (the calibration metrics, `test`, `test_perturbation`,
-`test_prediction_time`), `adversarial`, `fourier`, `ensemble` and
-`cli.zoo`'s eval, perturbation, attack, fourier and predtime. The trainer
-(`zoo/train.py` holds only `soft_ce`; `cli.zoo train` refuses) is not
-ported yet.
+cuDNN on the card). The harness is here too: `zoo.data` (CIFAR-10/100,
+CIFAR-C/-P and ImageFolder loaders, the batch transforms), `evaluate`
+(the calibration metrics, `test`, `test_perturbation`,
+`test_prediction_time`), `adversarial`, `fourier`, `ensemble`, the
+trainer `zoo.train` (the schedules, the optimizers with the JAX package's
+optax semantics, `ZooTrainer`, data-parallel with global-batch BatchNorm)
+and every subcommand of `cli.zoo`.
 """
 
 from dehaze_tpu_torch.zoo.registry import get_model, list_models  # noqa: F401

@@ -41,10 +41,13 @@ def _snapshot_path(root: str, dataset_name: str, model_name: str,
     return os.path.join(stem, f"{os.path.basename(stem)}_{typ}.pth.tar")
 
 
-def _save(path: str, model: torch.nn.Module, model_name: str, optimizer,
-          epoch: int) -> str:
+def save_file(path: str, model: torch.nn.Module, model_name: str,
+              optimizer, epoch: int,
+              extra: Optional[Dict[str, Any]] = None) -> str:
+    """The reference's payload (and `extra`'s entries beside it) written
+    to a temporary file, then moved to `path`."""
     payload = {"name": model_name, "state_dict": model.state_dict(),
-               "epoch": epoch}
+               "epoch": epoch, **(extra or {})}
     if optimizer is not None:
         payload["optimizer"] = optimizer.state_dict()
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -58,16 +61,16 @@ def save(model: torch.nn.Module, dataset_name: str, model_name: str,
          uid: str, optimizer=None, root: str = "models_checkpoints",
          epoch: int = 0) -> str:
     """≙ `models.save`. Returns the path."""
-    return _save(_final_path(root, dataset_name, model_name, uid), model,
-                 model_name, optimizer, epoch)
+    return save_file(_final_path(root, dataset_name, model_name, uid),
+                     model, model_name, optimizer, epoch)
 
 
 def save_snapshot(model: torch.nn.Module, dataset_name: str,
                   model_name: str, uid: str, typ: Any, optimizer=None,
                   root: str = "models_checkpoints", epoch: int = 0) -> str:
     """≙ `models.save_snapshot`. Returns the path."""
-    return _save(_snapshot_path(root, dataset_name, model_name, uid, typ),
-                 model, model_name, optimizer, epoch)
+    return save_file(_snapshot_path(root, dataset_name, model_name, uid,
+                                    typ), model, model_name, optimizer, epoch)
 
 
 def load(model: torch.nn.Module, dataset_name: str, model_name: str,

@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dehaze_tpu_torch.models import layers as ml
+from dehaze_tpu_torch.parallel import dist
 
 Generators = Optional[Dict[str, torch.Generator]]
 
@@ -74,18 +75,40 @@ def bn2d(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
+def _global_var_mean(xf: torch.Tensor):
+    """The biased variance and the mean over N, H, W of every rank's rows:
+    one all-reduce of Σx, Σx² and the count (`dist.sum_over_ranks`, whose
+    backward sums the gradient over the ranks), then flax's
+    max(E[x²] − E[x]², 0)."""
+    c = xf.shape[1]
+    count = xf.new_full((1,), xf.numel() // c)
+    sums = dist.sum_over_ranks(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                          xf.square().sum(dim=(0, 2, 3)),
+                                          count]))
+    mean = sums[:c] / sums[-1]
+    var = torch.clamp_min(sums[c:2 * c] / sums[-1] - mean.square(), 0.0)
+    return var, mean
+
+
 def bn(x: torch.Tensor, m: nn.BatchNorm2d) -> torch.Tensor:
-    """BatchNorm over N, H, W, computed in float32 and rounded to x's
-    dtype. In eval mode it is torch's (mixed-type with a bf16 x). In
-    training it normalizes by the batch's mean and biased variance and
-    moves the running stats by `m.momentum` towards them; the running
-    variance takes the biased variance too, as flax's BatchNorm does
-    (torch's takes the unbiased one)."""
+    """BatchNorm over N, H, W, computed in float32 (float64 for a float64
+    x, as flax promotes) and rounded to x's dtype. In eval mode it is
+    torch's (mixed-type with a bf16 x). In training it normalizes by the
+    batch's mean and biased variance and moves the running stats by
+    `m.momentum` towards them; the running variance takes the biased
+    variance too, as flax's BatchNorm does (torch's takes the unbiased
+    one). In a process group of more than one rank (data-parallel
+    training) the batch is the global one: the statistics of every
+    rank's rows (`_global_var_mean`), as the JAX package's BatchNorm sees
+    its whole sharded batch."""
     if not m.training:
         return F.batch_norm(x, m.running_mean, m.running_var, m.weight,
                             m.bias, False, 0.0, m.eps)
-    xf = x.float()
-    var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    if dist.world() > 1:
+        var, mean = _global_var_mean(xf)
+    else:
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
     with torch.no_grad():
         m.running_mean.lerp_(mean, m.momentum)
         m.running_var.lerp_(var, m.momentum)

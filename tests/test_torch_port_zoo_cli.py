@@ -6,7 +6,8 @@ no training step. `eval` (CIFAR-10 pickles, synthetic data with
 `--ensemble`, CIFAR-10-C with `--ctype`, an ImageNet-style folder;
 `--json_out`, `--metrics_csv`, `--fig`), `perturbation`, `attack` (FGSM,
 PGD, Random, `--freq`), `fourier`'s CSVs, the YAML overlay's resolved
-arguments, `predtime`'s lines and the refusal of `train`. f32: the
+arguments, `predtime`'s lines and `train --data_axis 2`'s launch hint
+outside torchrun. f32: the
 metrics within 2e-4; printed values within their last printed digit.
 """
 
@@ -408,7 +409,10 @@ def test_config_without_yaml_and_train_refusal(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "yaml", None)
     with pytest.raises(SystemExit, match="needs PyYAML"):
         TZ._apply_config(args, parsers["eval"])
-    with pytest.raises(SystemExit, match=r"not ported.*queue 1 item 4b"):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(SystemExit, match=r"--data_axis 2 runs one process "
+                       r"per GPU: launch it with `torchrun --nproc_per_node "
+                       r"2`.*not started by torchrun"):
         TZ.main(["train", "--name", "vit_ti", "--epochs", "2", "--mixup",
                  "--data_axis", "2", "--optimizer", "AdamW", "--out",
                  str(tmp_path / "never")])
