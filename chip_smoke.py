@@ -63,6 +63,15 @@ prints its seconds (`phase <name>: N s`) and the run its total:
      one 1000×1500 for any-resolution), Uformer-32 bf16: s/frame,
      launches per frame, peak memory, and each per-image PSNR against the
      in-process function;
+  9a. --act_store (phase_k2_actstore): K2 with act_store fp8 and int8
+     against its twin at the serving frame's enc0, dec3 and bottleneck
+     (bf16) and enc0 (f32): max error, share beyond K2_TOL, steps of the
+     quantizer beyond it (ACT_SHARE); fp8 NaN cases (LN outputs at 448,
+     464, 466 and a sparse 500: the kernel's NaNs are the twin's); the
+     1200×1600 frame with act_store None, fp8 and int8 (s/frame, 18 K1
+     and 18 K2 launches and no twin call per frame, PSNR against the
+     plain frame); `cli.test_long --rect_canvas --act_store int8`
+     (per-image PSNR against the in-process forward);
   9b. the parity gate: `cli.parity_gate` on the seeded .pth and the three
      1200×1600 pairs, once with the in-process mean PSNR expected (--tol
      1e-3; exit 0), once 1 dB off (exit 1): s/frame and launches per
@@ -179,6 +188,7 @@ prints its seconds (`phase <name>: N s`) and the run its total:
      share); no kernel launched;
  18. the kernels' JSON line, then the device's JSON line.
 The launch counts in the kernels line are those of the serving path (8),
+9a's paths for the two --act_store rows (its frames and `test_long`),
 the evaluation path (9, the three runs together), the parity gate (9b,
 both runs), the stream with --weights and with --exported, the exported
 evaluation (rect and square artifacts) and the exported server (9c), the training path (11), the
@@ -233,6 +243,18 @@ K1_TOL = {"float32": (1e-4, 0.0), "bfloat16": (1.6e-2, 1e-3)}
 # at the same points in both, but a sum-order difference can move one
 # rounding by an ulp.
 K2_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# K2 with act_store (fp8, int8) against its twin: at most ACT_SHARE of the
+# elements beyond K2_TOL, and every element within K2_TOL plus ACT_STEPS
+# quantization steps at the output's largest magnitude (int8: its amax /
+# 127; fp8: the e4m3 spacing there). Where the kernel and the twin round a
+# value an ulp apart (sum order), a quantizer near a step boundary moves a
+# whole step; at the LN output or in a hidden value that step reaches
+# every output channel of the pixel and its neighbours, so an output far
+# smaller than its pixel's largest can move by many of its own steps.
+# Revised after the first chip run (PERF.md, PR 20): the first bar, one
+# step of each element's own value, failed there for that reason.
+ACT_SHARE = {"bfloat16": 0.005, "float32": 0.001}
+ACT_STEPS = 2.0
 # K1 backward, per gradient tensor (dq, dk, dv, dbias): every element
 # within tol·max|ref| of the twin, a bar set by the tensor's own scale (dq
 # and dk are ~1e-3 where dv is ~1, so a bar of fixed size would pass a dq
@@ -1006,6 +1028,34 @@ def phase_k3():
     return results
 
 
+def _k2_case(g, shape, Ch):
+    """Seeded K2 parameters (float32, on g's device) for x of `shape` and
+    hidden width Ch, then x itself."""
+    import torch
+
+    C = shape[-1]
+
+    def rnd(*s, std=1.0, mean=0.0):
+        return torch.randn(*s, generator=g, device=g.device) * std + mean
+
+    p = {"ln_scale": rnd(C, std=0.1, mean=1.0),
+         "ln_bias": rnd(C, std=0.1),
+         "w1": rnd(C, Ch, std=1 / math.sqrt(C)), "b1": rnd(Ch, std=0.1),
+         "dw_kernel": rnd(3, 3, 1, Ch, std=1 / 3),
+         "dw_bias": rnd(Ch, std=0.1),
+         "w2": rnd(Ch, C, std=1 / math.sqrt(Ch)), "b2": rnd(C, std=0.1)}
+    return p, rnd(*shape)
+
+
+def _k2_bytes_flops(x, p):
+    """K2's bytes (x read, out written, the parameters read once) and
+    operations (both Dense layers, the dwconv and its bias) for x."""
+    C, Ch = p["w1"].shape
+    nbytes = (2 * x.numel() + sum(t.numel() for t in p.values())
+              ) * x.element_size()
+    return nbytes, x.numel() // C * (4 * C * Ch + 18 * Ch)
+
+
 def phase_k2():
     import torch
 
@@ -1045,18 +1095,7 @@ def phase_k2():
                      f"shared memory, the planner counts {want}")
     results, wrong = [], []
     for name, shape, Ch, runs in cases:
-        C = shape[-1]
-
-        def rnd(*s, std=1.0, mean=0.0):
-            return torch.randn(*s, generator=g, device=dev) * std + mean
-
-        p = {"ln_scale": rnd(C, std=0.1, mean=1.0),
-             "ln_bias": rnd(C, std=0.1),
-             "w1": rnd(C, Ch, std=1 / math.sqrt(C)), "b1": rnd(Ch, std=0.1),
-             "dw_kernel": rnd(3, 3, 1, Ch, std=1 / 3),
-             "dw_bias": rnd(Ch, std=0.1),
-             "w2": rnd(Ch, C, std=1 / math.sqrt(Ch)), "b2": rnd(C, std=0.1)}
-        x32 = rnd(*shape)
+        p, x32 = _k2_case(g, shape, Ch)
         for dtype, fast in runs:
             x = x32.to(dtype)
             dname = str(dtype).split(".")[1]
@@ -1075,17 +1114,218 @@ def phase_k2():
                 return err, (f"max|d|={err:.3e} elements beyond tol: "
                              f"{bad}")
 
-            nbytes = (2 * x.numel() * x.element_size()
-                      + sum(t.numel() for t in p.values())
-                      * x.element_size())
             results.append((name, dname, gelu) + _run_case(
                 label, lambda: leff_fused(x, fast_gelu=fast, **p),
                 lambda: leff_reference(x, fast_gelu=fast, **p), check,
-                nbytes, x.numel() // C * (4 * C * Ch + 18 * Ch), dname,
-                reps=20))
+                *_k2_bytes_flops(x, p), dname, reps=20))
     if wrong:
         fail("; ".join(wrong))
     return results
+
+
+def _act_step(want, mode):
+    """The quantization step of each stored output value: int8, the
+    pixel's scale (its amax / 127); fp8, the e4m3 spacing at the value
+    (2^(e - 3), 2^-9 below the smallest normal 2^-6)."""
+    import torch
+
+    w = want.float().abs()
+    if mode == "int8":
+        return (w.amax(dim=-1, keepdim=True) / 127).expand_as(w)
+    return torch.exp2(torch.floor(torch.log2(w.clamp_min(2.0 ** -6))) - 3)
+
+
+def _act_check(label, mode, dname, got, want, wrong):
+    """K2 with act_store against its twin: the same NaNs, then the bars
+    ACT_SHARE and ACT_STEPS. Returns (max|d|, share beyond K2_TOL, its
+    largest excess in steps of the element's own value, and in steps at
+    the output's largest magnitude, text)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    nan = torch.isnan(w)
+    if not torch.equal(torch.isnan(g), nan):
+        wrong.append(f"{label}: NaN at {int(torch.isnan(g).sum())} elements,"
+                     f" the twin at {int(nan.sum())}")
+        return float("nan"), 1.0, float("inf"), float("inf"), "NaNs differ"
+    tol = K2_TOL[dname]
+    d = torch.where(nan, 0.0, (g - w).abs())
+    excess = torch.where(~nan, d - tol - tol * w.abs(), 0.0).clamp_min(0.0)
+    share = float((excess > 0).sum()) / max(1, int((~nan).sum()))
+    own = float(torch.where(nan, 0.0, excess / _act_step(w, mode)).max())
+    top_w = torch.where(nan, 0.0, w.abs()).max().reshape(1, 1)
+    top = float((excess / _act_step(top_w, mode)).max())
+    err = float(d.max())
+    if top > ACT_STEPS or share > ACT_SHARE[dname] or torch.isinf(g).any():
+        wrong.append(f"{label}: {share:.4%} beyond K2_TOL (at most "
+                     f"{ACT_SHARE[dname]:.1%}), {top:.3f} top steps beyond "
+                     f"it (at most {ACT_STEPS:g})")
+    return err, share, own, top, (
+        f"max|d|={err:.3e}, {share:.4%} beyond K2_TOL, at most {own:.3f} "
+        f"own steps, {top:.3f} top steps beyond it, NaN {int(nan.sum())}")
+
+
+def _k2_actstore_cases():
+    """phase_k2_actstore's (a) and (b): K2 with act_store against its twin;
+    rows (case, dtype, mode, share beyond K2_TOL, own and top steps beyond
+    it (_act_check), max|d|, ms, twin ms, bound ms, bound by)."""
+    import torch
+
+    from dehaze_tpu_torch.ops.kernels.leff import leff_fused, leff_reference
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    wrong, results = [], []
+    # (a)
+    cases = [(name, shape, torch.bfloat16) for name, shape in K2_STAGES
+             if name in ("enc0", "dec3", "bottleneck")]
+    cases.append(("enc0", K2_STAGES[0][1], torch.float32))
+    for name, shape, dtype in cases:
+        p, x32 = _k2_case(g, shape, 4 * shape[-1])
+        x = x32.to(dtype)
+        dname = str(dtype).split(".")[1]
+        for mode in ("fp8", "int8"):
+            label = (f"K2 act_store={mode} {name} {dname} x={list(shape)} "
+                     f"hidden={4 * shape[-1]}")
+            seen = {}
+
+            def check(got, want):
+                *seen["stats"], text = _act_check(label, mode, dname, got,
+                                                  want, wrong)
+                return seen["stats"][0], text
+
+            row = _run_case(
+                label, lambda: leff_fused(x, act_store=mode, **p),
+                lambda: leff_reference(x, act_store=mode, **p), check,
+                *_k2_bytes_flops(x, p), dname, reps=10)
+            results.append((name, dname, mode) + tuple(seen["stats"][1:])
+                           + row)
+        del p, x32, x
+    # (b)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        p, x32 = _k2_case(g, (1, 64, 96, 32), 128)
+        for what, bias, scale, sparse in (("448", 448.0, 0.0, False),
+                                          ("464", 464.0, 0.0, False),
+                                          ("466", 466.0, 0.0, False),
+                                          ("500 sparse", 500.0, 10.0, True)):
+            q = dict(p, ln_bias=p["ln_bias"].clone(),
+                     ln_scale=p["ln_scale"].clone(), w1=p["w1"].clone())
+            # channel 0 feeds no hidden channel: its LN output is only
+            # stored, so a NaN there is the fp8 cast's alone
+            q["ln_bias"][0], q["ln_scale"][0], q["w1"][0] = bias, scale, 0.0
+            x = x32.clone()
+            if sparse:
+                keep = torch.rand(x.shape[:-1], generator=g, device=dev) < 0.01
+                x[..., 0] = torch.where(keep, x[..., 0], -20.0)
+            x = x.to(dtype)
+            got = leff_fused(x, act_store="fp8", **q)
+            want = leff_reference(x, act_store="fp8", **q)
+            label = f"K2 fp8 NaN case ln_bias {what} {dname}"
+            text = _act_check(label, "fp8", dname, got, want, wrong)[-1]
+            n_nan, n = int(torch.isnan(want).sum()), want.numel()
+            ok = {"448": n_nan == 0, "464": n_nan == 0, "466": n_nan == n,
+                  "500 sparse": 0 < n_nan < n // 2}[what]
+            if not ok:
+                wrong.append(f"{label}: the twin has {n_nan} of {n} NaN")
+            print(f"{label}: {text} of {n}", flush=True)
+    if wrong:
+        fail("; ".join(wrong))
+    return results
+
+
+def phase_k2_actstore(tmp: str, pth: str):
+    """--act_store on K2 and on the serving path (the modes' rows of the
+    kernels line, and their paths' launch counts):
+    (a) K2 with act_store fp8 and int8 against its twin (bf16 at the
+        serving frame's enc0, dec3 and bottleneck shapes, exact GELU; f32,
+        the CUDA-core kernel, at enc0): _act_check, kernel and twin ms;
+    (b) fp8 NaN cases, [1, 64, 96, 32] in both types: LN output channels
+        fixed at 448 and 464 (read back as 448: no NaN), 466 (NaN
+        everywhere), and an ln_bias of 500 at ln_scale 10 where x is -20
+        but at 1% of the pixels (NaN around those pixels only): the
+        kernel's NaNs are the twin's;
+    (c) the 1200×1600 frame (rect canvas, bf16) with act_store None, fp8
+        and int8: s/frame, 18 K1 and 18 K2 launches and no twin call per
+        frame, each mode's PSNR against the plain frame;
+    (d) `cli.test_long --rect_canvas --act_store int8` in a subprocess on
+        the three 1200×1600 pairs: per-image PSNR against the in-process
+        forward, launches per frame."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli.common import build_model_and_params
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.data.pipeline import PairedFolder, val_images
+    from dehaze_tpu_torch.infer.tiled import make_whole_image_fn
+    from dehaze_tpu_torch.ops import metrics as M
+
+    results = _k2_actstore_cases()
+    dev = torch.device("cuda")
+    # (c)
+    frame = np.random.default_rng(SEED).integers(
+        0, 256, size=(1,) + FRAME + (3,), dtype=np.uint8)
+
+    def whole_image(mode):
+        model = build_model_and_params(ModelConfig(act_store=mode), pth, dev)
+        return make_whole_image_fn(
+            lambda c: model(c, generator=torch.Generator().manual_seed(SEED)),
+            FRAME[0], FRAME[1], ps=128, square=False, device="cuda")
+
+    paths, outs, reps = {}, {}, 3
+    for mode in (None, "fp8", "int8"):
+        run = whole_image(mode)
+        run(frame)
+        torch.cuda.synchronize()
+        reset_counts()
+        with _TwinCounts() as twins:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                outs[mode] = run(frame)
+            torch.cuda.synchronize()
+            secs = (time.perf_counter() - t0) / reps
+        counts = {**read_counts(), **twins}
+        y = outs[mode]
+        psnr = float(M.psnr(y, outs[None]))
+        print(f"frame {FRAME[0]}x{FRAME[1]} rect canvas bf16 act_store="
+              f"{mode}: {secs:.4f} s/frame, launches over {reps} frames "
+              f"K1 (tensor cores) {counts['k1_fwd_tc']} K2 {counts['k2']} "
+              f"twins {twins}, PSNR against the plain frame {psnr:.3f} dB, "
+              f"range [{float(y.min()):.4f}, {float(y.max()):.4f}]",
+              flush=True)
+        _check_launches(f"frame act_store={mode}", counts, reps)
+        if not torch.isfinite(y).all() or tuple(y.shape) != (1,) + FRAME + (
+                3,):
+            fail(f"frame act_store={mode}: non-finite or misshapen output")
+        if mode is not None:
+            paths[mode] = {f"frame_{mode}": counts}
+    # (d)
+    long_dir = os.path.join(tmp, "eval_long")
+    (out, stats), = _counted_clis([("test_long", [
+        "--input_dir", long_dir, "--weights", pth, "--seed", SEED,
+        "--rect_canvas", "--act_store", "int8", "--no-save_images"],
+        "--rect_canvas --act_store int8")])[0]
+    if stats["rc"] != 0:
+        fail(f"cli.test_long --act_store int8 exited {stats['rc']}")
+    lines = re.findall(r"^(\S+): PSNR (\S+) SSIM (\S+)$", out, re.M)
+    run, worst = whole_image("int8"), 0.0
+    for (name, psnr, _), (clean, hazy, fname) in zip(
+            lines, val_images(PairedFolder(long_dir))):
+        y = run(torch.from_numpy(hazy[None]).cuda())[0]
+        ref = float(M.psnr(y, torch.from_numpy(clean).cuda()))
+        worst = max(worst, abs(ref - float(psnr)))
+    print(f"cli.test_long --rect_canvas --act_store int8: {len(lines)} "
+          f"frames, launches per frame K2 {stats['k2'] / max(1, len(lines)):g}"
+          f", per-image PSNR vs the in-process forward: max |d| "
+          f"{worst:.2e} dB", flush=True)
+    if len(lines) != 3 or worst > EVAL_PSNR_TOL:
+        fail("cli.test_long --act_store int8: per-image PSNRs differ from "
+             "the in-process forward's")
+    _check_launches("cli.test_long --act_store int8", stats, len(lines))
+    paths["int8"]["test_long_int8"] = stats
+    return results, paths
 
 
 def _counters():
@@ -4992,6 +5232,7 @@ def main() -> None:
         timed(phase_model_pad, pth)
         serve = timed(phase_serve, pth)
         evals, eval_psnrs = timed(phase_eval, tmp, pth)
+        act_res, act_paths = timed(phase_k2_actstore, tmp, pth)
         gate = timed(phase_parity_gate, tmp, pth)
         serving = timed(phase_serving, tmp, pth, eval_psnrs)
         timed(phase_train_parity)
@@ -5057,6 +5298,19 @@ def main() -> None:
              cases=[dict(zip(("case", "dtype", "gelu", "max_abs_err", "ms",
                               "plain_ms", "bound_ms", "bound_by"), r))
                     for r in k2_res]),
+        *(dict(entry(f"K2 fused LayerNorm+LeFF with --act_store {mode} "
+                     "(the round trips inside the kernel)",
+                     "dehaze_tpu_torch/csrc/leff.cu",
+                     "dehaze_tpu/ops/pallas/leff.py:120",
+                     [r[:2] + r[3:] for r in act_res if r[2] == mode],
+                     ("enc0", "bfloat16"), "k2", act_paths[mode]),
+               cases=[dict(zip(("case", "dtype", "share_beyond_k2_tol",
+                                "own_steps_beyond", "top_steps_beyond",
+                                "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by"),
+                               r[:2] + r[3:]))
+                      for r in act_res if r[2] == mode])
+          for mode in ("fp8", "int8")),
         entry("K3-v1 ProbSparse window attention fwd, [B,H,N,D], tensor "
               "cores (bf16)", "dehaze_tpu_torch/csrc/window_attention_tc.cu",
               f"{pw}:317", k3_of("v1", "tc"), ("enc1", "bfloat16"),

@@ -80,6 +80,12 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "backward pass (less memory, one more forward); "
                         "the Uformer only: FFA-Net and the UNet ignore it, "
                         "as in the JAX package")
+    p.add_argument("--act_store", default=None, choices=["fp8", "int8"],
+                   help="quantized activation storage on the INFERENCE "
+                        "path (ops/actstore.py): the LeWin blocks' "
+                        "activations round-trip through fp8 or int8, "
+                        "inside K2 for LeFF's; matmuls stay bf16. The "
+                        "Uformer only: FFA-Net and the UNet ignore it")
     # loss
     p.add_argument("--is_ab", action="store_true",
                    help="CR ablation: drop the negative term")
@@ -189,7 +195,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
                           attention=a.attention,
                           use_rel_pos_bias=not a.no_rel_pos_bias,
                           dtype=_DTYPES[a.dtype], fast_gelu=a.fast_gelu,
-                          remat=a.remat, ffa_gps=a.ffa_gps,
+                          remat=a.remat, act_store=a.act_store,
+                          ffa_gps=a.ffa_gps,
                           ffa_blocks=a.ffa_blocks, ffa_dim=a.ffa_dim),
         loss=LossConfig(w_charbonnier=a.w_loss_CharbonnierLoss,
                         w_contrast=a.w_loss_vgg7, contrast_ablation=a.is_ab,

@@ -77,6 +77,7 @@ def main(argv=None) -> dict:
         "canvas": canvas,
         "embed_dim": cfg.embed_dim,
         "dtype": args.dtype,
+        "act_store": cfg.act_store,
         "weights": os.path.basename(args.weights),
         "seed": args.seed,
         # provenance: the tracing device and torch, and the version of the

@@ -5,8 +5,7 @@ flag names; dtypes are torch dtypes. The JAX flags `use_pallas`/
 `use_pallas_leff` have no counterpart: the tensor's device decides whether
 the kernels run. `band_axis` has none either: a banded forward takes its
 band as an argument (`Uformer.forward(..., bands=)`, `FFA.forward(...,
-bands=)`). `act_store`, a mechanism the port does not have yet, is left
-out.
+bands=)`).
 """
 
 from __future__ import annotations
@@ -48,6 +47,9 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     # tanh-approximate GELU in LeFF (exact erf by default).
     fast_gelu: bool = False
+    # Round-trip the LeWin blocks' activations through 8-bit storage at
+    # inference ('fp8' or 'int8'; ops/actstore.py); never in training.
+    act_store: Optional[str] = None
     # Recompute each LeWin block's activations in the backward pass
     # (torch.utils.checkpoint): peak training memory holds one block's
     # activations instead of every block's, for one more forward per block.

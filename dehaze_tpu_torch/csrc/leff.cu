@@ -51,8 +51,36 @@
 // the hidden width in chunks of 32 (one lane per channel) and accumulates
 // dense2 in a float tile in shared memory, 8 columns by the rows the
 // wrapper plans.
+//
+// act_store (mode 1 fp8, 2 int8; 0 none): the LeWin block's --act_store
+// round trips that fall inside LeFF (dehaze_tpu/models/uformer.py:383,393,
+// dehaze_tpu/models/layers.py:154,158): the LN output, the hidden after
+// each GELU and the output, each right after its rounding to T, as the twin
+// applies ops/actstore.compress. Both kernels do them (the bf16 one is
+// compiled once per mode, so the plain kernel keeps its registers); nothing
+// of the hidden reaches HBM.
+//   - fp8 is elementwise (fp8_trip): e4m3 without saturation, so |v| > 464,
+//     inf and NaN read back as NaN, as JAX's cast does.
+//   - int8 scales each pixel by the amax of its values over the channel
+//     axis (i8_scale, i8_trip). The LN output's amax is a reduction over
+//     the lanes of its pixel; the output's over the quad and the warps that
+//     hold the pixel's channels (an atomicMax in shared memory, after the
+//     chunk loop). The two hidden tensors span every chunk of the hidden
+//     width, so their amax is known only after the last chunk. The design
+//     is the simple one that is right: the chunk loop runs three sweeps.
+//     Sweep 0 computes dense1 + GELU and takes each haloed pixel's amax;
+//     sweep 1 recomputes them, quantizes with it, runs the dwconv + GELU
+//     and takes each output pixel's amax; sweep 2 recomputes both,
+//     quantizes both and runs dense2. dense1 runs three times and the
+//     dwconv twice. A halo pixel gets its own amax over its whole hidden
+//     width, as in the tile that owns it. Keeping a whole hidden tile in
+//     shared memory instead would fit only at C <= 64. The amaxes are kept
+//     as the bits of |v| (ints order them as floats, and NaN's bits exceed
+//     inf's, so a NaN propagates as torch's amax propagates it).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -91,12 +119,54 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// LayerNorm of pixel row xp (C values) by one warp; writes C normalized
-// values of type T to dst[0..C) and zeros to dst[C..Kp).
+constexpr int kFp8 = 1, kInt8 = 2;  // act_store modes
+
+// v read back from its e4m3 storage: nearest, ties to even; no saturation,
+// so |v| > 464 (448 plus half a step), inf and NaN give NaN.
+__device__ __forceinline__ float fp8_trip(float v) {
+  const __nv_fp8_storage_t q = __nv_cvt_float_to_fp8(v, __NV_NOSAT, __NV_E4M3);
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(q, __NV_E4M3)));
+}
+
+// The bits of |v|: as ints they order as the floats, NaN above inf.
+__device__ __forceinline__ int abs_bits(float v) {
+  return __float_as_int(fabsf(v));
+}
+
+// Max of m over aligned groups of `width` lanes (a power of two <= 32).
+__device__ __forceinline__ int group_max(int m, int width) {
+  for (int o = width / 2; o > 0; o >>= 1) {
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  }
+  return m;
+}
+
+// The int8 scale of a pixel whose amax bits are `bits`: max(amax, 1e-8) /
+// 127 rounded to T (a NaN amax stays NaN, as in torch's clamp_min).
+template <typename T>
+__device__ __forceinline__ float i8_scale(int bits) {
+  const float amax = __int_as_float(bits), tiny = round_to<T>(1e-8f);
+  return round_to<T>(__fdiv_rn(amax < tiny ? tiny : amax, 127.f));
+}
+
+// v read back from its int8 storage at `scale`: round(v / scale) with
+// v / scale rounded to T first, ties to even, clipped to +-127 (NaN to 0,
+// as JAX casts it), times scale rounded to T.
+template <typename T>
+__device__ __forceinline__ float i8_trip(float v, float scale) {
+  float q = rintf(round_to<T>(__fdiv_rn(v, scale)));
+  q = q != q ? 0.f : fminf(fmaxf(q, -127.f), 127.f);
+  return round_to<T>(q * scale);
+}
+
+// LayerNorm of pixel row xp (C values) by one warp, each value rounded to T
+// and round-tripped by `mode`; writes them to dst[0..C), zeros to
+// dst[C..Kp).
 template <typename T>
 __device__ __forceinline__ void layer_norm_row(const T* xp, const T* gamma,
                                                const T* beta, T* dst, int C,
-                                               int Kp, float eps, int lane) {
+                                               int Kp, float eps, int lane,
+                                               int mode) {
   float s = 0.f;
   for (int c = lane; c < C; c += 32) s += to_f(xp[c]);
   const float mu = warp_sum(s) / C;
@@ -106,10 +176,19 @@ __device__ __forceinline__ void layer_norm_row(const T* xp, const T* gamma,
     s2 += d * d;
   }
   const float rs = rsqrtf(warp_sum(s2) / C + eps);
+  int m = 0;
   for (int c = lane; c < Kp; c += 32) {
-    dst[c] = c < C ? from_f<T>((to_f(xp[c]) - mu) * rs * to_f(gamma[c]) +
-                               to_f(beta[c]))
-                   : from_f<T>(0.f);
+    float y = c < C ? round_to<T>((to_f(xp[c]) - mu) * rs * to_f(gamma[c]) +
+                                  to_f(beta[c]))
+                    : 0.f;
+    if (mode == kFp8) y = fp8_trip(y);
+    m = max(m, abs_bits(y));
+    dst[c] = from_f<T>(y);
+  }
+  if (mode != kInt8) return;
+  const float scale = i8_scale<T>(group_max(m, 32));
+  for (int c = lane; c < C; c += 32) {
+    dst[c] = from_f<T>(i8_trip<T>(to_f(dst[c]), scale));
   }
 }
 
@@ -125,7 +204,7 @@ __global__ void __launch_bounds__(kF32Threads) leff_fwd_f32_kernel(
     const float* __restrict__ b1, const float* __restrict__ dw,
     const float* __restrict__ dwb, const float* __restrict__ w2,
     const float* __restrict__ b2, float* __restrict__ out, int H, int W,
-    int C, int Ch, int TH, int TW, float eps, int fast_gelu) {
+    int C, int Ch, int TH, int TW, float eps, int fast_gelu, int mode) {
   extern __shared__ float smem[];
   const int PW = TW + 2;               // haloed tile width
   const int HP = (TH + 2) * PW;        // haloed pixels
@@ -134,7 +213,9 @@ __global__ void __launch_bounds__(kF32Threads) leff_fwd_f32_kernel(
   float* sHid = sOut + TP * C;         // [HP][kF32Chunk] GELU(dense1) chunk
   float* sG = sHid + HP * kF32Chunk;   // [TP][kF32Chunk] GELU(dwconv) chunk
   float* sXn = sG + TP * kF32Chunk;    // [HP][C]
-  unsigned char* sIn = reinterpret_cast<unsigned char*>(sXn + HP * C);  // [HP]
+  int* sMax1 = reinterpret_cast<int*>(sXn + HP * C);  // [HP] int8: GELU1's
+  int* sMax2 = sMax1 + HP;             // [TP] int8: GELU2's, then the output's
+  unsigned char* sIn = reinterpret_cast<unsigned char*>(sMax2 + TP);  // [HP]
 
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TH;
@@ -151,12 +232,19 @@ __global__ void __launch_bounds__(kF32Threads) leff_fwd_f32_kernel(
     if (lane == 0) sIn[p] = inside;
     if (!inside) continue;  // its hidden values are masked to zero below
     layer_norm_row(x + ((static_cast<size_t>(b) * H + gy) * W + gx) * C,
-                   gamma, beta, sXn + p * C, C, C, eps, lane);
+                   gamma, beta, sXn + p * C, C, C, eps, lane, mode);
   }
   for (int e = tid; e < TP * C; e += kF32Threads) sOut[e] = 0.f;
+  for (int e = tid; e < HP + TP; e += kF32Threads) sMax1[e] = 0;
   __syncthreads();
 
-  for (int c0 = 0; c0 < Ch; c0 += kF32Chunk) {
+  // The chunks of the hidden width, once, or in three sweeps for int8 (see
+  // the header): a warp keeps its pixels in every step, so the amaxes are
+  // its own to update.
+  const int n_chunks = (Ch + kF32Chunk - 1) / kF32Chunk;
+  const int n_sweeps = mode == kInt8 ? 3 : 1;
+  for (int v = 0; v < n_sweeps * n_chunks; ++v) {
+    const int c0 = (v % n_chunks) * kF32Chunk, sweep = v / n_chunks;
     const int ch = c0 + lane;
     const bool live = ch < Ch;
 
@@ -171,9 +259,18 @@ __global__ void __launch_bounds__(kF32Threads) leff_fwd_f32_kernel(
         }
         g = gelu(acc + b1[ch], fast_gelu);
       }
+      if (mode == kFp8) {
+        g = fp8_trip(g);
+      } else if (mode == kInt8 && sweep == 0) {
+        const int m = group_max(abs_bits(g), 32);
+        if (lane == 0) sMax1[p] = max(sMax1[p], m);
+      } else if (mode == kInt8) {
+        g = i8_trip<float>(g, i8_scale<float>(sMax1[p]));
+      }
       sHid[p * kF32Chunk + lane] = g;
     }
     __syncthreads();
+    if (mode == kInt8 && sweep == 0) continue;
 
     // 2b. depthwise 3x3 (VALID over the halo) + bias + GELU.
     for (int t = warp; t < TP; t += kF32Warps) {
@@ -189,9 +286,18 @@ __global__ void __launch_bounds__(kF32Threads) leff_fwd_f32_kernel(
         }
         g = gelu(acc + dwb[ch], fast_gelu);
       }
+      if (mode == kFp8) {
+        g = fp8_trip(g);
+      } else if (mode == kInt8 && sweep == 1) {
+        const int m = group_max(abs_bits(g), 32);
+        if (lane == 0) sMax2[t] = max(sMax2[t], m);
+      } else if (mode == kInt8) {
+        g = i8_trip<float>(g, i8_scale<float>(sMax2[t]));
+      }
       sG[t * kF32Chunk + lane] = g;
     }
     __syncthreads();
+    if (sweep + 1 < n_sweeps) continue;
 
     // 2c. this chunk's share of dense2.
     const int n_live = min(kF32Chunk, Ch - c0);
@@ -207,13 +313,30 @@ __global__ void __launch_bounds__(kF32Threads) leff_fwd_f32_kernel(
     __syncthreads();
   }
 
-  // 3. + b2, store the tile.
+  // 3. + b2, the output's round trip, store the tile. int8: a warp per
+  //    pixel takes its amax over C (into sMax2, free once the last 2b is
+  //    done).
+  for (int e = tid; e < TP * C; e += kF32Threads) {
+    const float y = sOut[e] + b2[e % C];
+    sOut[e] = mode == kFp8 ? fp8_trip(y) : y;
+  }
+  if (mode == kInt8) {
+    __syncthreads();
+    for (int t = warp; t < TP; t += kF32Warps) {
+      int m = 0;
+      for (int n = lane; n < C; n += 32) m = max(m, abs_bits(sOut[t * C + n]));
+      m = group_max(m, 32);
+      if (lane == 0) sMax2[t] = m;
+    }
+    __syncthreads();
+  }
   for (int e = tid; e < TP * C; e += kF32Threads) {
     const int t = e / C, n = e - t * C;
     const int gy = y0 + t / TW, gx = x0 + t % TW;
     if (gy < H && gx < W) {
       out[((static_cast<size_t>(b) * H + gy) * W + gx) * C + n] =
-          sOut[e] + b2[n];
+          mode == kInt8 ? i8_trip<float>(sOut[e], i8_scale<float>(sMax2[t]))
+                        : sOut[e];
     }
   }
 }
@@ -221,7 +344,7 @@ __global__ void __launch_bounds__(kF32Threads) leff_fwd_f32_kernel(
 size_t f32_smem_bytes(int C, int TH, int TW) {
   const size_t HP = (TH + 2) * (TW + 2), TP = TH * TW;
   return (TP * C + HP * kF32Chunk + TP * kF32Chunk + HP * C) * sizeof(float) +
-         HP;
+         (HP + TP) * sizeof(int) + HP;
 }
 
 // ---------------------------------------------------- bf16, tensor cores
@@ -318,18 +441,20 @@ struct Tile {
   static_assert(NW % 2 == 0 && KC % 32 == 0 && NC % 32 == 0,
                 "MMA tile multiples");
   static_assert(kThreads % (KC / 2) == 0, "dwconv: fixed channel pair");
+  static_assert(HP * (KC / 2) % 32 == 0, "GELU pass: whole warps");
 
   // Shared memory in bytes for K = C padded to 16: bf16 tiles whose rows
   // are padded by 8 elements (16 bytes, which keeps ldmatrix free of bank
   // conflicts): LN tile, W1 chunk, W2 chunk (one buffer each: their copies
   // are staggered, see the kernel), two buffers of the chunk's parameters,
-  // the hidden tile and dense2's A; a byte per haloed pixel (in the image
-  // or not).
+  // the hidden tile and dense2's A; the int8 amaxes of the haloed and the
+  // output pixels (an int each); a byte per haloed pixel (in the image or
+  // not).
   static size_t smem_bytes(int C) {
     const size_t Kp = (C + 15) / 16 * 16;
     return 2 * (HPP * (Kp + 8) + Kp * HS + KC * NS + 2 * kPar * KC +
                 HPP * HS + TP * HS) +
-           HPP;
+           4 * (HPP + TP) + HPP;
   }
 };
 
@@ -340,7 +465,9 @@ using Tile128 = Tile<32, 4, 4, 4, 4, 64, 1>;   // C <= 128: 8x32, 16 warps
 using Tile256 = Tile<16, 2, 8, 4, 4, 64, 1>;   // C <= 256: 8x16, 16 warps
 using Tile512 = Tile<8, 1, 16, 4, 4, 32, 1>;   // C <= 512: 8x8, 16 warps
 
-template <class L>
+// MODE is the act_store mode (a template argument, so that the plain
+// kernel carries none of the round trips' registers).
+template <class L, int MODE>
 __global__ void __launch_bounds__(L::kThreads, L::MINB)
     leff_fwd_mma_kernel(const bf16* __restrict__ x,
                         const bf16* __restrict__ gamma,
@@ -354,7 +481,7 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
                         int H, int W, int C, int Ch, float eps, int fast_gelu,
                         int vec) {
   constexpr int KC = L::KC, HS = L::HS, NS = L::NS, NC = L::NC,
-                NT = L::kThreads;
+                NT = L::kThreads, mode = MODE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Kp = (C + 15) / 16 * 16, XS = Kp + 8;
   bf16* sXn = reinterpret_cast<bf16*>(smem_raw);  // [HPP][XS] LN(x)
@@ -363,20 +490,25 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
   bf16* sPar = sW2 + KC * NS;        // 2 x [kPar][KC]: b1, dw bias, taps
   bf16* sHid = sPar + 2 * L::kPar * KC;           // [HPP][HS] hidden chunk
   bf16* sG = sHid + L::HPP * HS;                  // [TP][HS] GELU(dwconv)
+  int* sMax1 = reinterpret_cast<int*>(sG + L::TP * HS);  // [HPP] int8 amaxes
+  int* sMax2 = sMax1 + L::HPP;                            // [TP]
   unsigned char* sIn =
-      reinterpret_cast<unsigned char*>(sG + L::TP * HS);  // [HPP] in image
+      reinterpret_cast<unsigned char*>(sMax2 + L::TP);  // [HPP] in image
 
   const int b = blockIdx.z, y0 = blockIdx.y * L::TH, x0 = blockIdx.x * L::TW;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_chunks = (Ch + KC - 1) / KC;
-  const bf16 zero = __float2bfloat16_rn(0.f);
+  // the chunk loop's steps: the chunks once, or three sweeps over them for
+  // int8 (see the header)
+  constexpr int n_sweeps = mode == kInt8 ? 3 : 1;
+  const int n_steps = n_sweeps * n_chunks;
 
-  // The chunk's copies (one cp.async group each), zero outside [C, Ch]:
-  // P1(k): W1[:, chunk] and the chunk's b1, dw bias and taps (buffer k&1);
-  // P2(k): W2[chunk, :].
-  auto issue_p1 = [&](int k) {
-    const int c0 = k * KC;
-    bf16* par = sPar + (k & 1) * L::kPar * KC;
+  // Step v's copies (one cp.async group each), zero outside [C, Ch], for
+  // its chunk k = v % n_chunks: P1(v): W1[:, chunk] and the chunk's b1, dw
+  // bias and taps (buffer v&1); P2(v): W2[chunk, :].
+  auto issue_p1 = [&](int v) {
+    const int c0 = (v % n_chunks) * KC;
+    bf16* par = sPar + (v & 1) * L::kPar * KC;
     copy_rows<KC, NT>(sW1, HS, w1 + c0, Ch, Kp, C, Ch - c0, vec, tid);
     copy_rows<KC, NT>(par, KC, b1 + c0, 0, 1, 1, Ch - c0, vec, tid);
     copy_rows<KC, NT>(par + KC, KC, dwb + c0, 0, 1, 1, Ch - c0, vec, tid);
@@ -384,19 +516,21 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
                       tid);
     if (vec) cp_async_commit();
   };
-  auto issue_p2 = [&](int k) {
-    const int c0 = k * KC;
+  auto issue_p2 = [&](int v) {
+    const int c0 = (v % n_chunks) * KC;
     copy_rows<NC, NT>(sW2, NS, w2 + static_cast<size_t>(c0) * C, C, KC,
                       Ch - c0, C, vec, tid);
     if (vec) cp_async_commit();
   };
 
   issue_p1(0);
+  for (int e = tid; e < L::HPP + L::TP; e += NT) sMax1[e] = 0;
 
   // 1. LayerNorm of the haloed tile into sXn, LG lanes per pixel (one at
   //    C <= 32: no shuffles), each lane holding 32 channels in four runs of
   //    8 (one 16-byte load each when vec); rows outside the image and
-  //    padding rows are zero.
+  //    padding rows are zero. Then its round trip (int8: the pixel's amax
+  //    over its LG lanes).
   {
     constexpr int G = L::LG, PPW = 32 / G;  // pixels per warp and pass
     const int sub = lane % G;
@@ -444,6 +578,28 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
 #pragma unroll
       for (int o = G / 2; o > 0; o >>= 1) s2 += __shfl_xor_sync(~0u, s2, o);
       const float rs = rsqrtf(s2 / C + eps);
+      int m = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int c = (j * G + sub) * 8 + i;
+          float y = in && c < C
+                        ? round_to<bf16>((v[j][i] - mu) * rs * to_f(gamma[c]) +
+                                         to_f(beta[c]))
+                        : 0.f;
+          if (mode == kFp8) y = fp8_trip(y);
+          m = max(m, abs_bits(y));
+          v[j][i] = y;
+        }
+      }
+      if (mode == kInt8) {
+        const float scale = i8_scale<bf16>(group_max(m, G));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v[j][i] = i8_trip<bf16>(v[j][i], scale);
+      }
       if (p < L::HPP) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -452,13 +608,7 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
           uint4 q;
           bf16* e = reinterpret_cast<bf16*>(&q);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int c = c0 + i;
-            e[i] = in && c < C
-                       ? from_f<bf16>((v[j][i] - mu) * rs * to_f(gamma[c]) +
-                                      to_f(beta[c]))
-                       : zero;
-          }
+          for (int i = 0; i < 8; ++i) e[i] = from_f<bf16>(v[j][i]);
           *reinterpret_cast<uint4*>(sXn + p * XS + c0) = q;
         }
       }
@@ -476,16 +626,19 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  // Per chunk k, four barriers: A (P1(k) landed;
-  // dense2(k-1) done, so the W2 buffer is free for P2(k)), B (dense1(k)
-  // done, so the W1 buffer is free for P1(k+1)), G (GELU over the hidden
-  // tile done), C (P2(k) landed, sG written). Each copy has at least a
-  // phase of compute to land in.
-  for (int k = 0; k < n_chunks; ++k) {
-    const bf16* par = sPar + (k & 1) * L::kPar * KC;
-    cp_async_wait_all();  // P1(k), this thread's copies
+  // Per step v, four barriers: A (P1(v) landed;
+  // dense2(v-1) done, so the W2 buffer is free for P2(v)), B (dense1(v)
+  // done, so the W1 buffer is free for P1(v+1)), G (GELU over the hidden
+  // tile done), C (P2(v) landed, sG written). Each copy has at least a
+  // phase of compute to land in. The int8 sweeps 0 and 1 stop after G and
+  // after the dwconv, and issue no P2.
+  for (int v = 0; v < n_steps; ++v) {
+    const int sweep = v / n_chunks;
+    const bool last = sweep + 1 == n_sweeps;  // the sweep that runs dense2
+    const bf16* par = sPar + (v & 1) * L::kPar * KC;
+    cp_async_wait_all();  // P1(v), this thread's copies
     __syncthreads();      // A
-    issue_p2(k);
+    if (last) issue_p2(v);
 
     // 2a. dense1 on the tensor cores: a warp per 16 pixels x 32 channels,
     //     one A fragment feeding four MMAs; + b1, rounded to bf16: the
@@ -525,20 +678,37 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
       }
     }
     __syncthreads();  // B
-    if (k + 1 < n_chunks) issue_p1(k + 1);
+    if (v + 1 < n_steps) issue_p1(v + 1);
 
     // 2b. GELU over the haloed hidden tile by all threads, zero outside the
-    //     image (the conv's SAME padding sees zeros).
+    //     image (the conv's SAME padding sees zeros), rounded, then its
+    //     round trip. The KC/2 threads of a pixel are an aligned group of
+    //     lanes (HP * KC/2 is a multiple of 32: every lane runs every pass).
     for (int e = tid; e < L::HP * (KC / 2); e += NT) {
       const int p = e / (KC / 2), cl = 2 * (e % (KC / 2));
       __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(sHid + p * HS +
                                                              cl);
       const float2 hv = __bfloat1622float2(*hp);
-      *hp = sIn[p] ? __floats2bfloat162_rn(gelu(hv.x, fast_gelu),
-                                           gelu(hv.y, fast_gelu))
-                   : __floats2bfloat162_rn(0.f, 0.f);
+      float g0 = 0.f, g1 = 0.f;
+      if (sIn[p]) {
+        g0 = round_to<bf16>(gelu(hv.x, fast_gelu));
+        g1 = round_to<bf16>(gelu(hv.y, fast_gelu));
+      }
+      if (mode == kFp8) {
+        g0 = fp8_trip(g0);
+        g1 = fp8_trip(g1);
+      } else if (mode == kInt8 && sweep == 0) {
+        const int m = group_max(max(abs_bits(g0), abs_bits(g1)), KC / 2);
+        if (cl == 0) atomicMax(sMax1 + p, m);
+      } else if (mode == kInt8) {
+        const float scale = i8_scale<bf16>(sMax1[p]);
+        g0 = i8_trip<bf16>(g0, scale);
+        g1 = i8_trip<bf16>(g1, scale);
+      }
+      *hp = __floats2bfloat162_rn(g0, g1);
     }
     __syncthreads();  // G
+    if (mode == kInt8 && sweep == 0) continue;
 
     // 2c. depthwise 3x3 (VALID over the halo) + bias + GELU, two channels
     //     per thread (a fixed pair, so its taps stay in registers).
@@ -552,6 +722,9 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
         k1[t] = to_f(par[(2 + t) * KC + cl + 1]);
       }
       const float db0 = to_f(par[KC + cl]), db1 = to_f(par[KC + cl + 1]);
+      // the kPairs threads of an output pixel are an aligned group of lanes,
+      // and every lane runs every pass (TP is a multiple of NT / kPairs)
+      static_assert(L::TP % (NT / kPairs) == 0, "dwconv: whole passes");
       for (int t = tid / kPairs; t < L::TP; t += NT / kPairs) {
         const int r = t / L::TW, c = t % L::TW;
         float a0 = 0.f, a1 = 0.f;
@@ -566,14 +739,26 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
             a1 = fmaf(hv.y, k1[di * 3 + dj], a1);
           }
         }
+        float g0 = round_to<bf16>(gelu(round_to<bf16>(a0 + db0), fast_gelu));
+        float g1 = round_to<bf16>(gelu(round_to<bf16>(a1 + db1), fast_gelu));
+        if (mode == kFp8) {
+          g0 = fp8_trip(g0);
+          g1 = fp8_trip(g1);
+        } else if (mode == kInt8 && sweep == 1) {
+          const int m = group_max(max(abs_bits(g0), abs_bits(g1)), kPairs);
+          if (cl == 0) atomicMax(sMax2 + t, m);
+        } else if (mode == kInt8) {
+          const float scale = i8_scale<bf16>(sMax2[t]);
+          g0 = i8_trip<bf16>(g0, scale);
+          g1 = i8_trip<bf16>(g1, scale);
+        }
         *reinterpret_cast<__nv_bfloat162*>(sG + t * HS + cl) =
-            __floats2bfloat162_rn(
-                gelu(round_to<bf16>(a0 + db0), fast_gelu),
-                gelu(round_to<bf16>(a1 + db1), fast_gelu));
+            __floats2bfloat162_rn(g0, g1);
       }
     }
-    // P2(k) landed: the newest group, P1(k+1), may still be in flight.
-    if (k + 1 < n_chunks) {
+    if (!last) continue;  // int8 sweep 1: its amaxes are in for sweep 2
+    // P2(v) landed: the newest group, P1(v+1), may still be in flight.
+    if (v + 1 < n_steps) {
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
       cp_async_wait_all();
@@ -605,7 +790,35 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
     }
   }
 
-  // 3. + b2, round, store the tile.
+  // 3. + b2, rounded, the output's round trip, store the tile. int8: a
+  //    pixel's channels lie in a quad of lanes of each of the WN warps of
+  //    its row, so its amax is a quad reduction, then an atomicMax into
+  //    sMax2 (free: every thread is past the last dwconv's reads of it).
+  auto out_val = [&](int i, int j, int e, int n) {
+    const float y = n < C ? round_to<bf16>(acc[i][j][e] + to_f(b2[n])) : 0.f;
+    return mode == kFp8 ? fp8_trip(y) : y;
+  };
+  if (mode == kInt8) {
+    for (int e = tid; e < L::TP; e += NT) sMax2[e] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < L::MW; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = (wm * L::MW + i) * 16 + (lane >> 2) + h * 8;
+        int m = 0;
+#pragma unroll
+        for (int j = 0; j < L::NW; ++j) {
+          const int n = (wn * L::NW + j) * 8 + (lane & 3) * 2;
+          m = max(m, max(abs_bits(out_val(i, j, 2 * h, n)),
+                         abs_bits(out_val(i, j, 2 * h + 1, n + 1))));
+        }
+        m = group_max(m, 4);
+        if ((lane & 3) == 0) atomicMax(sMax2 + t, m);
+      }
+    }
+    __syncthreads();
+  }
 #pragma unroll
   for (int i = 0; i < L::MW; ++i) {
 #pragma unroll
@@ -613,13 +826,16 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
       const int t = (wm * L::MW + i) * 16 + (lane >> 2) + h * 8;
       const int gy = y0 + t / L::TW, gx = x0 + t % L::TW;
       if (gy >= H || gx >= W) continue;
+      const float scale = mode == kInt8 ? i8_scale<bf16>(sMax2[t]) : 0.f;
       bf16* o = out + ((static_cast<size_t>(b) * H + gy) * W + gx) * C;
 #pragma unroll
       for (int j = 0; j < L::NW; ++j) {
         const int n = (wn * L::NW + j) * 8 + (lane & 3) * 2;
-        if (n < C) o[n] = from_f<bf16>(acc[i][j][2 * h] + to_f(b2[n]));
-        if (n + 1 < C) {
-          o[n + 1] = from_f<bf16>(acc[i][j][2 * h + 1] + to_f(b2[n + 1]));
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (n + u >= C) continue;
+          const float y = out_val(i, j, 2 * h + u, n + u);
+          o[n + u] = from_f<bf16>(mode == kInt8 ? i8_trip<bf16>(y, scale) : y);
         }
       }
     }
@@ -631,9 +847,11 @@ int launch_mma(const void* x, const void* gamma, const void* beta,
                const void* w1, const void* b1, const void* dw,
                const void* dwb, const void* w2, const void* b2, void* out,
                int B, int H, int W, int C, int Ch, float eps, int fast_gelu,
-               cudaStream_t stream) {
+               int mode, cudaStream_t stream) {
   const size_t smem = L::smem_bytes(C);
-  auto kernel = leff_fwd_mma_kernel<L>;
+  auto kernel = mode == kInt8  ? leff_fwd_mma_kernel<L, kInt8>
+                : mode == kFp8 ? leff_fwd_mma_kernel<L, kFp8>
+                               : leff_fwd_mma_kernel<L, 0>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -684,13 +902,17 @@ long leff_smem_bytes(int dtype, int C, int TH, int TW) {
 // all of the activation type. Any H and W: the last row and column tiles
 // are ragged (pixels past the image load as zero, the conv's halo, and are
 // never stored). The tile (TH, TW) is the wrapper's plan (for bf16, the
-// class of C). Returns cudaGetLastError().
+// class of C). act_store: 0 none, 1 fp8, 2 int8 (the header); another
+// value is refused. Returns cudaGetLastError().
 int leff_fwd(int dtype, const void* x, const void* gamma, const void* beta,
              const void* w1, const void* b1, const void* dw, const void* dwb,
              const void* w2, const void* b2, void* out, int B, int H, int W,
              int C, int Ch, int TH, int TW, float eps, int fast_gelu,
-             void* stream) {
+             int act_store, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (act_store < 0 || act_store > kInt8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0) {
     const size_t smem = f32_smem_bytes(C, TH, TW);
     cudaError_t e = cudaFuncSetAttribute(
@@ -704,7 +926,7 @@ int leff_fwd(int dtype, const void* x, const void* gamma, const void* beta,
         static_cast<const float*>(b1), static_cast<const float*>(dw),
         static_cast<const float*>(dwb), static_cast<const float*>(w2),
         static_cast<const float*>(b2), static_cast<float*>(out), H, W, C, Ch,
-        TH, TW, eps, fast_gelu);
+        TH, TW, eps, fast_gelu, act_store);
     return static_cast<int>(cudaGetLastError());
   }
   if (mma_smem_bytes(C, TH, TW) < 0) {
@@ -712,7 +934,7 @@ int leff_fwd(int dtype, const void* x, const void* gamma, const void* beta,
   }
 #define LEFF_LAUNCH(L)                                                      \
   return launch_mma<L>(x, gamma, beta, w1, b1, dw, dwb, w2, b2, out, B, H, \
-                       W, C, Ch, eps, fast_gelu, s)
+                       W, C, Ch, eps, fast_gelu, act_store, s)
   if (C <= 32) LEFF_LAUNCH(Tile32);
   if (C <= 64) LEFF_LAUNCH(Tile64);
   if (C <= 128) LEFF_LAUNCH(Tile128);

@@ -5,7 +5,8 @@ The artifact holds the [1, h, w, 3] float32 → [1, h, w, 3] forward of
 `infer.tiled.make_whole_image_fn` (wrap-pad canvas, model, crop, clamp;
 `WholeImage`) with the weights and the ProbSparse sample tables folded
 in, so it computes what `--weights --seed S` computes for the seed it was
-drawn with; or, for FFA-Net, the native-resolution forward of
+drawn with (and with the model's `--act_store`: its plain-torch round
+trips are traced in, and K2's mode is an argument of its operator node); or, for FFA-Net, the native-resolution forward of
 `infer.tiled.make_native_image_fn` with the protocol's input
 normalization folded in (`Native`). K1's forward and K2 stay in its
 graph as the operators

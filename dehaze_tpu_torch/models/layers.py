@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dehaze_tpu_torch.ops import actstore
 from dehaze_tpu_torch.ops.kernels.leff import leff_fused
 from dehaze_tpu_torch.parallel.halo import Bands, halo_rows
 from dehaze_tpu_torch.utils.transfer import to_device
@@ -197,7 +198,13 @@ class LeFF(nn.Module):
     only there too, and its zero halo is the canvas edge's, not a band's):
     LayerNorm, `F.linear`, GELU, grouped `F.conv2d` (over the neighbour
     bands' rows), GELU, `F.linear`. The residual add stays with the
-    block."""
+    block.
+
+    `act_store` (the block's mode, None in training) round-trips four
+    tensors through `ops.actstore.compress`, as the JAX block and LeFF do:
+    norm's output, the hidden after each GELU (the first before the
+    conv, so the neighbour bands exchange compressed rows) and the
+    output. K2 does it inside the kernel."""
 
     def __init__(self, dim: int, hidden_dim: int, fast_gelu: bool = False,
                  device=None):
@@ -210,23 +217,28 @@ class LeFF(nn.Module):
         self.linear2 = nn.Sequential(nn.Linear(hidden_dim, dim, device=device))
 
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm,
-                bands: Optional[Bands] = None) -> torch.Tensor:
+                bands: Optional[Bands] = None,
+                act_store: Optional[str] = None) -> torch.Tensor:
         l1, dw, l2 = self.linear1[0], self.dwconv[0], self.linear2[0]
         if self.training or bands is not None:
             approx = "tanh" if self.fast_gelu else "none"
-            h = F.linear(layer_norm(x, norm), cast(l1.weight, x),
+
+            def store(t):
+                return actstore.compress(t, act_store)
+
+            h = F.linear(store(layer_norm(x, norm)), cast(l1.weight, x),
                          cast(l1.bias, x))
-            h = F.gelu(h, approximate=approx)
+            h = store(F.gelu(h, approximate=approx))
             h_, pad = _conv_rows(h, bands)
             h = F.conv2d(h_, cast(dw.weight, h), cast(dw.bias, h),
                          padding=pad, groups=h.shape[-1])
-            h = F.gelu(_nhwc(h), approximate=approx)
-            return F.linear(h, cast(l2.weight, h), cast(l2.bias, h))
+            h = store(F.gelu(_nhwc(h), approximate=approx))
+            return store(F.linear(h, cast(l2.weight, h), cast(l2.bias, h)))
         return leff_fused(
             x, ln_scale=norm.weight, ln_bias=norm.bias, w1=l1.weight.t(),
             b1=l1.bias, dw_kernel=dw.weight.permute(2, 3, 1, 0),
             dw_bias=dw.bias, w2=l2.weight.t(), b2=l2.bias, eps=norm.eps,
-            fast_gelu=self.fast_gelu)
+            fast_gelu=self.fast_gelu, act_store=act_store)
 
 
 class Mlp(nn.Module):

@@ -68,6 +68,7 @@ from dehaze_tpu_torch.models.layers import (DropPath, InputProj, LeFF, Mlp,
                                             OutputProj, Downsample, SELayer,
                                             SepConv2d, Upsample, cast,
                                             dropout, layer_norm)
+from dehaze_tpu_torch.ops import actstore
 from dehaze_tpu_torch.ops import probsparse as ps_ops
 from dehaze_tpu_torch.ops import window as win_ops
 from dehaze_tpu_torch.ops.kernels.window_attention import (
@@ -269,7 +270,14 @@ class LeWinBlock(nn.Module):
     Window and shift collapse (win = resolution, shift 0) when the
     CONFIGURED stage resolution is not bigger than the window, so the
     parameters do not depend on the runtime geometry; the runtime H and W
-    must be multiples of the (collapsed) window."""
+    must be multiples of the (collapsed) window.
+
+    `act_store` ('fp8', 'int8' or None) round-trips six tensors through
+    `ops.actstore.compress` when not training, as the JAX block does when
+    deterministic: norm1's output, the attention's output (after the
+    unshift, before the residual), and norm2's output, the hidden after
+    each GELU and the output of LeFF (`LeFF`; inside K2 at eval), or
+    norm2's and the output of the plain FFN."""
 
     def __init__(self, dim: int, input_resolution: int, num_heads: int,
                  win_size: int = 8, shift_size: int = 0,
@@ -278,8 +286,11 @@ class LeWinBlock(nn.Module):
                  fast_gelu: bool = False, attention: str = "probsparse",
                  token_projection: str = "linear", token_mlp: str = "leff",
                  se_layer: bool = False, qkv_bias: bool = True,
-                 drop: float = 0.0, device=None):
+                 drop: float = 0.0, act_store: Optional[str] = None,
+                 device=None):
         super().__init__()
+        actstore.mode_code(act_store)  # refuses an unknown mode
+        self.act_store = act_store
         self.win = win_size
         self.shift = shift_size
         if input_resolution <= win_size:
@@ -314,7 +325,8 @@ class LeWinBlock(nn.Module):
             raise ValueError(f"feature map {H}x{W} not divisible by window "
                              f"{win}; pad the input to a multiple of "
                              "win*2^4 (see infer.tiled)")
-        y = layer_norm(x, self.norm1)
+        mode = None if self.training else self.act_store
+        y = actstore.compress(layer_norm(x, self.norm1), mode)
         sw_region = None
         if shift > 0 and bands is None:
             y = win_ops.cyclic_shift(y, shift)
@@ -335,11 +347,12 @@ class LeWinBlock(nn.Module):
         if shift > 0:
             y = (win_ops.cyclic_unshift(y, shift) if bands is None
                  else halo.cyclic_unshift_banded(y, shift, bands))
-        x = x + self.drop_path(y, droppath)
+        x = x + self.drop_path(actstore.compress(y, mode), droppath)
         if isinstance(self.mlp, LeFF):
-            z = self.mlp(x, self.norm2, bands)
+            z = self.mlp(x, self.norm2, bands, mode)
         else:
-            z = self.mlp(layer_norm(x, self.norm2), dropout_gen)
+            z = actstore.compress(self.mlp(actstore.compress(
+                layer_norm(x, self.norm2), mode), dropout_gen), mode)
         return x + self.drop_path(z, droppath)
 
 
@@ -401,7 +414,8 @@ class UformerStage(nn.Module):
                 fast_gelu=cfg.fast_gelu, attention=cfg.attention,
                 token_projection=cfg.token_projection,
                 token_mlp=cfg.token_mlp, se_layer=cfg.se_layer,
-                qkv_bias=cfg.qkv_bias, drop=cfg.drop_rate, device=device)
+                qkv_bias=cfg.qkv_bias, drop=cfg.drop_rate,
+                act_store=cfg.act_store, device=device)
             for j in range(depth)])
         self.remat = cfg.remat
 

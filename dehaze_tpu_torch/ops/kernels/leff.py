@@ -14,22 +14,32 @@ stays on the CUDA cores (csrc/leff.cu says why).
 Public layouts are the JAX kernel's: x [B, H, W, C]; w1 [C, Ch]; dw_kernel
 [3, 3, 1, Ch] (HWIO); w2 [Ch, C]. All parameters are cast to x.dtype, as the
 JAX kernel does.
+
+`act_store` ('fp8', 'int8' or None; `ops/actstore.py`) round-trips the
+four tensors of the LeWin block's `--act_store` sites that fall inside
+LeFF: the LN output, the hidden after each GELU and the output. The JAX
+package compresses them between its unfused layers
+(`dehaze_tpu/models/uformer.py:383,393`, `models/layers.py:154,158`); here
+the kernel does it in registers and shared memory, and the twin at its
+rounding points. The operator takes the mode as an int
+(`actstore.MODE_CODES`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from dehaze_tpu_torch.ops import actstore
 from dehaze_tpu_torch.ops.kernels import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "leff_fwd": [_I] + [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _P],
+    "leff_fwd": [_I] + [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
@@ -57,20 +67,22 @@ class TilePlan(NamedTuple):
 
 def _f32_smem_bytes(C: int, TH: int, TW: int) -> int:
     HP, TP = (TH + 2) * (TW + 2), TH * TW
-    return (TP * C + HP * _F32_CHUNK + TP * _F32_CHUNK + HP * C) * 4 + HP
+    return ((TP * C + HP * _F32_CHUNK + TP * _F32_CHUNK + HP * C) * 4
+            + (HP + TP) * 4 + HP)
 
 
 def _mma_smem_bytes(C: int, tw: int, nc: int, kc: int) -> int:
     """csrc/leff.cu Tile<...>::smem_bytes: bf16 LN tile [HPP][Kp+8], the W1
     chunk [Kp][KC+8], the W2 chunk [KC][NC+8], two buffers of the chunk's
     11 parameter rows [11][KC], hidden [HPP][KC+8] and dense2's A
-    [TP][KC+8]; a byte per haloed pixel."""
+    [TP][KC+8]; the int8 amaxes of the haloed and the output pixels (an
+    int each); a byte per haloed pixel."""
     hp = 10 * (tw + 2)
     hpp = -(-hp // 16) * 16
     kp = -(-C // 16) * 16
     hs = kc + 8
     return (2 * (hpp * (kp + 8) + kp * hs + kc * (nc + 8) + 2 * 11 * kc
-                 + hpp * hs + 8 * tw * hs) + hpp)
+                 + hpp * hs + 8 * tw * hs) + 4 * (hpp + 8 * tw) + hpp)
 
 
 def _f32_tile_rows(C: int) -> int:
@@ -99,14 +111,18 @@ def plan_tile(C: int, dtype: torch.dtype) -> TilePlan:
 
 
 def leff_reference(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
-                   b2, eps: float = 1e-5, fast_gelu: bool = False):
+                   b2, eps: float = 1e-5, fast_gelu: bool = False,
+                   act_store: Optional[str] = None):
     """Plain torch LN + LeFF with the kernel's interface and roundings.
 
     Parameters are rounded to x.dtype; every stage (LN, Dense + bias, GELU,
     dwconv + bias, GELU, Dense + bias) computes in float32 from its rounded
     inputs and rounds its output once to x.dtype, as the kernel does. (A
     bf16 Dense followed by a separate bias add would round twice.) On CUDA,
-    the float32 matmul and conv must not use TF32 for this to hold."""
+    the float32 matmul and conv must not use TF32 for this to hold.
+    `act_store` round-trips the LN output, both GELU outputs and the output
+    through `actstore.compress` (looked up at call time), each after its
+    rounding to x.dtype."""
     dt = x.dtype
     C = x.shape[-1]
     Ch = w1.shape[1]
@@ -118,14 +134,17 @@ def leff_reference(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
         return F.gelu(t.float(), approximate="tanh" if fast_gelu else "none"
                       ).to(dt)
 
-    xn = F.layer_norm(x.float(), (C,), cast(ln_scale), cast(ln_bias),
-                      eps).to(dt)
-    h = gelu(F.linear(xn.float(), cast(w1).t(), cast(b1)).to(dt))
+    def store(t):
+        return actstore.compress(t, act_store)
+
+    xn = store(F.layer_norm(x.float(), (C,), cast(ln_scale), cast(ln_bias),
+                            eps).to(dt))
+    h = store(gelu(F.linear(xn.float(), cast(w1).t(), cast(b1)).to(dt)))
     dw = cast(dw_kernel).reshape(3, 3, Ch).permute(2, 0, 1)[:, None]
     h = F.conv2d(h.float().permute(0, 3, 1, 2), dw, cast(dw_bias), padding=1,
                  groups=Ch).permute(0, 2, 3, 1).to(dt)
-    h = gelu(h)
-    return F.linear(h.float(), cast(w2).t(), cast(b2)).to(dt)
+    h = store(gelu(h))
+    return store(F.linear(h.float(), cast(w2).t(), cast(b2)).to(dt))
 
 
 def kernel_smem_bytes(C: int, dtype: torch.dtype) -> int:
@@ -139,16 +158,19 @@ def kernel_smem_bytes(C: int, dtype: torch.dtype) -> int:
 
 
 def leff_fused(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
-               eps: float = 1e-5, fast_gelu: bool = False) -> torch.Tensor:
+               eps: float = 1e-5, fast_gelu: bool = False,
+               act_store: Optional[str] = None) -> torch.Tensor:
     """LeFF(LN(x)) for x [B, H, W, C], any H and W, through the operator
     `torch.ops.dehaze_tpu_torch.leff_fused` (`leff_fused_op`, below): the
-    kernel on a CUDA tensor, `leff_reference` on a CPU tensor. Forward only
-    on CUDA: a CUDA x that requires grad raises."""
+    kernel on a CUDA tensor, `leff_reference` on a CPU tensor, with the
+    `act_store` round trips inside. Forward only on CUDA: a CUDA x that
+    requires grad raises."""
     if (x.device.type == "cuda" and torch.is_grad_enabled()
             and x.requires_grad):
         raise NotImplementedError("K2 is forward only (inference)")
     return leff_fused_op(x, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias,
-                         w2, b2, float(eps), bool(fast_gelu))
+                         w2, b2, float(eps), bool(fast_gelu),
+                         actstore.mode_code(act_store))
 
 
 # K2 as one operator, `torch.ops.dehaze_tpu_torch.leff_fused`, which
@@ -156,22 +178,27 @@ def leff_fused(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
 # twin `leff_reference`; its CUDA kernel launches csrc/leff.cu and counts the
 # launch in `leff_fused.launches`; any other device raises. (Registered
 # through `torch.library.Library`, as K1's forward: `torch.library.custom_op`
-# imports torch._dynamo at an operator's first call.)
+# imports torch._dynamo at an operator's first call.) `act_store` is the
+# mode's code and trails with a default, so artifacts exported before it
+# existed still load.
 _LIB = torch.library.Library("dehaze_tpu_torch", "FRAGMENT")
 _LIB.define("leff_fused(Tensor x, Tensor ln_scale, Tensor ln_bias, "
             "Tensor w1, Tensor b1, Tensor dw_kernel, Tensor dw_bias, "
-            "Tensor w2, Tensor b2, float eps, bool fast_gelu) -> Tensor")
+            "Tensor w2, Tensor b2, float eps, bool fast_gelu, "
+            "int act_store=0) -> Tensor")
 
 
 def _leff_fused_cpu(x, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
-                    eps, fast_gelu):
+                    eps, fast_gelu, act_store=0):
     return leff_reference(x, ln_scale=ln_scale, ln_bias=ln_bias, w1=w1,
                           b1=b1, dw_kernel=dw_kernel, dw_bias=dw_bias, w2=w2,
-                          b2=b2, eps=eps, fast_gelu=fast_gelu)
+                          b2=b2, eps=eps, fast_gelu=fast_gelu,
+                          act_store=actstore.mode_of(act_store))
 
 
 def _leff_fused_cuda(x, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
-                     b2, eps, fast_gelu):
+                     b2, eps, fast_gelu, act_store=0):
+    actstore.mode_of(act_store)  # an unknown code raises
     if x.dtype not in _DTYPES:
         raise TypeError(f"K2 takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
@@ -200,14 +227,14 @@ def _leff_fused_cuda(x, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
             p["ln_bias"].data_ptr(), p["w1"].data_ptr(), p["b1"].data_ptr(),
             dw.data_ptr(), p["dw_bias"].data_ptr(), p["w2"].data_ptr(),
             p["b2"].data_ptr(), out.data_ptr(), B, H, W, C, Ch, plan.th,
-            plan.tw, float(eps), int(fast_gelu), stream)
+            plan.tw, float(eps), int(fast_gelu), int(act_store), stream)
     _build.check(lib, err, "leff_fwd")
     leff_fused.launches += 1
     return out
 
 
 def _leff_fused_fake(x, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
-                     b2, eps, fast_gelu):
+                     b2, eps, fast_gelu, act_store=0):
     return torch.empty_like(x)
 
 

@@ -3,6 +3,7 @@
 frame, on one NVIDIA GPU, from the port found under --root.
 
     python3 scripts/k2_stages.py [--root DIR] [--reps N] [--twin]
+                                 [--act_store fp8|int8]
 
 The shapes are Uformer-32's on the rect canvas 1280×1664 (chip_smoke's
 K2_STAGES), bf16, exact GELU, hidden width 4C, seeded random weights. --root
@@ -10,7 +11,9 @@ names a checkout holding `dehaze_tpu_torch/` (default: this repository), so
 that two trees' kernels are timed on the same card in one call. Prints one
 line per stage, then a JSON line with each stage's kernel ms (CUDA events,
 mean of --reps calls after a warm-up), its bound and, with --twin, the plain
-twin's ms and the largest |kernel - twin|. Imports nothing of JAX.
+twin's ms and the largest |kernel - twin|. --act_store times the kernel
+(and the twin) with that mode's round trips; the bound is the plain one's
+(the same bytes and operations). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ def main() -> None:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--twin", action="store_true")
+    ap.add_argument("--act_store", choices=["fp8", "int8"], default=None)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -60,6 +64,7 @@ def main() -> None:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1235)
+    mode = {"act_store": args.act_store} if args.act_store else {}
     rows = []
     for name, shape in STAGES:
         C = shape[-1]
@@ -80,14 +85,16 @@ def main() -> None:
         flops = pixels * (4 * C * Ch + 18 * Ch)
         b_bytes, b_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
         row = {"stage": name, "x": list(shape), "hidden": Ch,
-               "ms": cuda_ms(lambda: leff_fused(x, **p), args.reps),
+               "ms": cuda_ms(lambda: leff_fused(x, **p, **mode), args.reps),
                "bound_ms": max(b_bytes, b_ops),
                "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
         if args.twin:
-            got, want = leff_fused(x, **p), leff_reference(x, **p)
+            got = leff_fused(x, **p, **mode)
+            want = leff_reference(x, **p, **mode)
             row["max_abs_err"] = float((got.float() - want.float()).abs()
                                        .max())
-            row["plain_ms"] = cuda_ms(lambda: leff_reference(x, **p), 3)
+            row["plain_ms"] = cuda_ms(lambda: leff_reference(x, **p, **mode),
+                                      3)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         print(f"{name} x={list(shape)} hidden={Ch}: {row['ms']:.4f} ms, "
@@ -100,7 +107,8 @@ def main() -> None:
     print(f"18 launches of a serving frame (2 per stage): {total:.3f} ms",
           flush=True)
     print(json.dumps({"root": os.path.abspath(args.root),
-                      "frame_ms": total, "stages": rows}), flush=True)
+                      "act_store": args.act_store, "frame_ms": total,
+                      "stages": rows}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1's tensor-core and CUDA-core forwards and
 backwards, with and without padding flags, at every window size and head
-width; the K3 variants v1, v2 and v3; K2 at any stage height) against their
+width; the K3 variants v1, v2 and v3; K2 at any stage height and with each
+--act_store mode) against their
 plain twins, on an NVIDIA GPU.
 
 Every test here needs the card and skips without one (the kernels have no
@@ -19,6 +20,8 @@ rounding points (nearer its own twin than the other numerics' twins). The
 tensor-core K1 forward and backward select exactly the twin's rows: 0
 flipped rows.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -803,6 +806,79 @@ def test_k2_refuses_what_it_does_not_take(cuda):
         leff_fused(x.clone().requires_grad_(), **p)
     with pytest.raises(ValueError):
         leff_fused(x, **{**p, "w1": p["w1"][:, :32]})
+
+
+def _act_within_two_steps(got, want, mode, dtype):
+    """K2 with act_store against its twin, as `chip_smoke.py` holds it: the
+    same NaNs; every finite element within K2_TOL plus two quantization
+    steps at the output's largest magnitude (int8: its amax / 127; fp8:
+    the e4m3 spacing there): a step flipped at the LN output or in a hidden
+    value reaches every output channel of a pixel. Returns the share of
+    elements beyond K2_TOL."""
+    g, w = got.float(), want.float()
+    nan = torch.isnan(w)
+    assert torch.equal(torch.isnan(g), nan)
+    top = float(torch.where(nan, 0.0, w.abs()).max())
+    step = (top / 127 if mode == "int8"
+            else 2.0 ** (math.floor(math.log2(max(top, 2.0 ** -6))) - 3))
+    d = torch.where(nan, 0.0, (g - w).abs())
+    bar = K2_TOL[dtype] * (1 + w.abs())
+    assert float((d - bar).max()) <= 2 * step
+    return float(((d > bar) & ~nan).sum()) / max(1, int((~nan).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp8", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,W,C,Ch", [s + (4 * s[3],) for s in _K2_SHAPES]
+                         + [(1, 8, 19, 20, 100), (1, 8, 21, 40, 160),
+                            (1, 12, 13, 512, 2048)],
+                         ids=[f"C{s[3]}" for s in _K2_SHAPES]
+                         + ["C20-Ch100", "C40-Ch160", "C512-H12"])
+def test_k2_act_store_matches_twin(cuda, B, H, W, C, Ch, dtype, mode):
+    """Every tile class, C and Ch off the MMA tiles, a ragged chunk and a
+    ragged last row tile, with act_store: within two steps (above), and at
+    most 1% of the elements beyond K2_TOL (at these small shapes a few
+    flips weigh more than on the serving frame, where chip_smoke.py's bar
+    is 0.5% in bf16 and 0.1% in f32)."""
+    x, p = _leff_inputs(cuda, B, H, W, C, Ch, dtype, seed=C + W + 1)
+    before = leff_fused.launches
+    got = leff_fused(x, act_store=mode, **p)
+    assert leff_fused.launches == before + 1
+    want = leff_reference(x, act_store=mode, **p)
+    torch.cuda.synchronize()
+    assert _act_within_two_steps(got, want, mode, dtype) <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("value,nan", [(448.0, False), (464.0, False),
+                                       (466.0, True), (1e4, True)])
+def test_k2_fp8_gives_nan_beyond_464(cuda, dtype, value, nan):
+    """An LN output channel fixed at `value` (ln_scale 0) that feeds no
+    hidden channel: fp8 stores 448 and 464 as 448, and gives NaN (no
+    saturation) beyond 464, which dense1 then spreads to every output."""
+    x, p = _leff_inputs(cuda, 1, 8, 37, 32, 128, dtype, seed=9)
+    p["ln_scale"][0], p["ln_bias"][0], p["w1"][0] = 0.0, value, 0.0
+    got = leff_fused(x, act_store="fp8", **p)
+    want = leff_reference(x, act_store="fp8", **p)
+    assert bool(torch.isnan(want).all()) is nan
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if not nan:
+        _act_within_two_steps(got, want, "fp8", dtype)
+
+
+@pytest.mark.cuda
+def test_k2_refuses_an_unknown_act_store(cuda):
+    x, p = _leff_inputs(cuda, 1, 8, 16, 16, 64, torch.float32, 0)
+    with pytest.raises(ValueError):
+        leff_fused(x, act_store="int4", **p)
+    args = [x] + [p[k] for k in ("ln_scale", "ln_bias", "w1", "b1",
+                                 "dw_kernel", "dw_bias", "w2", "b2")]
+    with pytest.raises(ValueError):
+        torch.ops.dehaze_tpu_torch.leff_fused(*args, 1e-5, False, 3)
 
 
 @pytest.mark.cuda
