@@ -64,14 +64,18 @@ prints its seconds (`phase <name>: N s`) and the run its total:
      launches per frame, peak memory, and each per-image PSNR against the
      in-process function;
   9a. --act_store (phase_k2_actstore): K2 with act_store fp8 and int8
-     against its twin at the serving frame's enc0, dec3 and bottleneck
-     (bf16) and enc0 (f32): max error, share beyond K2_TOL, steps of the
-     quantizer beyond it (ACT_SHARE); fp8 NaN cases (LN outputs at 448,
-     464, 466 and a sparse 500: the kernel's NaNs are the twin's); the
-     1200×1600 frame with act_store None, fp8 and int8 (s/frame, 18 K1
-     and 18 K2 launches and no twin call per frame, PSNR against the
-     plain frame); `cli.test_long --rect_canvas --act_store int8`
-     (per-image PSNR against the in-process forward);
+     against its twin at the serving frame's enc0, dec3, enc2, enc3 and
+     bottleneck (bf16: int8 in one pass, two sweeps and three sweeps) and
+     enc0 (f32): max error, share beyond K2_TOL, steps of the quantizer
+     beyond it (ACT_SHARE); fp8 NaN cases (LN outputs at 448, 464, 466 and
+     a sparse 500: the kernel's NaNs are the twin's); the 1200×1600 frame
+     with act_store None, fp8 and int8 (s/frame, 18 K1 and 18 K2 launches
+     and no twin call per frame, PSNR against the plain frame);
+     `cli.test_long --rect_canvas --act_store int8` (per-image PSNR
+     against the in-process forward); then phase_k2_trips: K2's fp8
+     device function against `compress(·, "fp8")` on every bf16 and every
+     float32 bit pattern, and its int8 one on every bf16 value and amax,
+     NaN for NaN and bit for bit elsewhere;
   9b. the parity gate: `cli.parity_gate` on the seeded .pth and the three
      1200×1600 pairs, once with the in-process mean PSNR expected (--tol
      1e-3; exit 0), once 1 dB off (exit 1): s/frame and launches per
@@ -1089,10 +1093,13 @@ def phase_k2():
         for name, shape in K2_STAGES if name not in ("enc0", "bottleneck")]
     for dtype in (torch.float32, torch.bfloat16):
         for C in sorted({c[1][-1] for c in cases}):
-            got, want = kernel_smem_bytes(C, dtype), plan_tile(C, dtype).smem
-            if got != want:
-                fail(f"K2 C={C} {dtype}: the kernel allocates {got} bytes of "
-                     f"shared memory, the planner counts {want}")
+            for mode in (None, "fp8", "int8"):
+                got = kernel_smem_bytes(C, dtype, mode)
+                want = plan_tile(C, dtype, mode).smem
+                if got != want:
+                    fail(f"K2 C={C} {dtype} act_store={mode}: the kernel "
+                         f"allocates {got} bytes of shared memory, the "
+                         f"planner counts {want}")
     results, wrong = [], []
     for name, shape, Ch, runs in cases:
         p, x32 = _k2_case(g, shape, Ch)
@@ -1171,22 +1178,26 @@ def _k2_actstore_cases():
     it (_act_check), max|d|, ms, twin ms, bound ms, bound by)."""
     import torch
 
-    from dehaze_tpu_torch.ops.kernels.leff import leff_fused, leff_reference
+    from dehaze_tpu_torch.ops.kernels.leff import (leff_fused, leff_reference,
+                                                   plan_tile)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
     wrong, results = [], []
-    # (a)
+    # (a): int8 in one pass (enc0, dec3), two sweeps (enc2, enc3) and three
+    # sweeps (bottleneck)
     cases = [(name, shape, torch.bfloat16) for name, shape in K2_STAGES
-             if name in ("enc0", "dec3", "bottleneck")]
+             if name in ("enc0", "dec3", "enc2", "enc3", "bottleneck")]
     cases.append(("enc0", K2_STAGES[0][1], torch.float32))
     for name, shape, dtype in cases:
         p, x32 = _k2_case(g, shape, 4 * shape[-1])
         x = x32.to(dtype)
         dname = str(dtype).split(".")[1]
         for mode in ("fp8", "int8"):
+            plan = plan_tile(shape[-1], dtype, mode)
             label = (f"K2 act_store={mode} {name} {dname} x={list(shape)} "
-                     f"hidden={4 * shape[-1]}")
+                     f"hidden={4 * shape[-1]} tile 8x{plan.tw}, dense1 "
+                     f"sweeps {plan.sweeps}")
             seen = {}
 
             def check(got, want):
@@ -1238,8 +1249,9 @@ def phase_k2_actstore(tmp: str, pth: str):
     """--act_store on K2 and on the serving path (the modes' rows of the
     kernels line, and their paths' launch counts):
     (a) K2 with act_store fp8 and int8 against its twin (bf16 at the
-        serving frame's enc0, dec3 and bottleneck shapes, exact GELU; f32,
-        the CUDA-core kernel, at enc0): _act_check, kernel and twin ms;
+        serving frame's enc0, dec3, enc2, enc3 and bottleneck shapes, exact
+        GELU: int8 in one pass, two sweeps and three sweeps; f32, the
+        CUDA-core kernel, at enc0): _act_check, kernel and twin ms;
     (b) fp8 NaN cases, [1, 64, 96, 32] in both types: LN output channels
         fixed at 448 and 464 (read back as 448: no NaN), 466 (NaN
         everywhere), and an ln_bias of 500 at ln_scale 10 where x is -20
@@ -1326,6 +1338,82 @@ def phase_k2_actstore(tmp: str, pth: str):
     _check_launches("cli.test_long --act_store int8", stats, len(lines))
     paths["int8"]["test_long_int8"] = stats
     return results, paths
+
+
+FP8_CHUNK = 2 ** 26  # float32 patterns per call of phase_k2_trips
+I8_CHUNK = 2 ** 10   # amaxes per call of phase_k2_trips (x 2^16 values)
+
+
+def phase_k2_trips():
+    """K2's round-trip device functions against `actstore.compress` on the
+    card, NaN for NaN and bit for bit elsewhere:
+    (a) fp8 (`leff.fp8_trip`: the hardware e4m3 convert and its NaN
+        select, the code of K2's four fp8 sites): every bf16 pattern, and
+        every float32 pattern in chunks of FP8_CHUNK;
+    (b) int8 as K2's bf16 kernels quantize (`leff.i8_trip`: the division
+        as a product and a remainder step): every bf16 value v against
+        every amax a it can have in its row (every non-negative bf16
+        pattern, inf and NaN with it; |v| <= a where a is finite), at
+        compress's scale for a, against `i8_trip_reference` (compress's
+        int8 steps in torch on the card) bit for bit, and against
+        `compress([a, v], "int8")` as a value (its int8 cast gives +0
+        where v / scale rounds to -0; the kernel keeps -0)."""
+    import torch
+
+    from dehaze_tpu_torch.ops import actstore
+    from dehaze_tpu_torch.ops.kernels.leff import (fp8_trip, i8_trip,
+                                                   i8_trip_reference)
+
+    dev = torch.device("cuda")
+
+    def differ(got, want, bits, keep=None):
+        same = (got.view(bits) == want.view(bits)) | (got.isnan()
+                                                      & want.isnan())
+        if keep is not None:
+            same |= ~keep
+        return int((~same).sum())
+
+    def fp8(x, bits):
+        want = actstore.compress(x, "fp8")
+        return differ(fp8_trip(x), want, bits), int(want.isnan().sum())
+
+    t0 = time.perf_counter()
+    pat = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=dev)
+    v = pat.to(torch.int16).view(torch.bfloat16)
+    bf_diff, bf_nan = fp8(v, torch.int16)
+    f_diff = f_nan = 0
+    for lo in range(-2 ** 31, 2 ** 31, FP8_CHUNK):
+        x = torch.arange(lo, lo + FP8_CHUNK, dtype=torch.int32, device=dev)
+        d, n = fp8(x.view(torch.float32), torch.int32)
+        f_diff, f_nan = f_diff + d, f_nan + n
+    t1 = time.perf_counter()
+    print(f"K2 fp8 device function against compress(., 'fp8'): bf16 "
+          f"{bf_diff} of 65536 patterns differ ({bf_nan} NaN); float32 "
+          f"{f_diff} of {2 ** 32} differ ({f_nan} NaN); {t1 - t0:.1f} s",
+          flush=True)
+    i8_diff = i8_value = i8_zero = i8_pairs = 0
+    amaxes = pat[pat >= 0].to(torch.int16).view(torch.bfloat16)
+    for lo in range(0, amaxes.numel(), I8_CHUNK):
+        a = amaxes[lo:lo + I8_CHUNK].repeat_interleave(v.numel())
+        x = v.repeat(I8_CHUNK)
+        keep = (x.abs() <= a) | ~a.isfinite()
+        scale = torch.clamp_min(a, 1e-8) / torch.full_like(a, 127.0)
+        got = i8_trip(x, scale)
+        i8_diff += differ(got, i8_trip_reference(x, scale), torch.int16,
+                          keep)
+        ref = actstore.compress(torch.stack([a, x], -1), "int8")[:, 1]
+        i8_value += int((keep & ((got != ref) & ~(got.isnan()
+                                                  & ref.isnan()))).sum())
+        i8_zero += differ(got, ref, torch.int16, keep)
+        i8_pairs += int(keep.sum())
+    print(f"K2 int8 device function: {i8_diff} of {i8_pairs} (value, amax) "
+          f"pairs differ from i8_trip_reference; against compress(., "
+          f"'int8') {i8_value} differ in value, {i8_zero} in bits (-0 for "
+          f"+0); {time.perf_counter() - t1:.1f} s", flush=True)
+    if bf_diff or f_diff:
+        fail("K2's fp8 device function differs from compress(., 'fp8')")
+    if i8_diff or i8_value:
+        fail("K2's int8 device function differs from its reference")
 
 
 def _counters():
@@ -5233,6 +5321,7 @@ def main() -> None:
         serve = timed(phase_serve, pth)
         evals, eval_psnrs = timed(phase_eval, tmp, pth)
         act_res, act_paths = timed(phase_k2_actstore, tmp, pth)
+        timed(phase_k2_trips)
         gate = timed(phase_parity_gate, tmp, pth)
         serving = timed(phase_serving, tmp, pth, eval_psnrs)
         timed(phase_train_parity)

@@ -8,8 +8,9 @@ the caller. `leff_fused` calls the operator
 node of its graph: on a CUDA tensor it launches `csrc/leff.cu`, on a CPU
 tensor it runs the plain twin `leff_reference`. There is no other path. In
 bf16 the kernel runs both Dense layers on the tensor cores with their
-weights staged in shared memory, tiled per C by `plan_tile`; in float32 it
-stays on the CUDA cores (csrc/leff.cu says why).
+weights staged in shared memory, tiled per C (for int8 per C and Ch) by
+`plan_tile`; in float32 it stays on the CUDA cores (csrc/leff.cu says
+why).
 
 Public layouts are the JAX kernel's: x [B, H, W, C]; w1 [C, Ch]; dw_kernel
 [3, 3, 1, Ch] (HWIO); w2 [Ch, C]. All parameters are cast to x.dtype, as the
@@ -40,6 +41,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "leff_fwd": [_I] + [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
+    "leff_fp8_trip": [_I, _P, _P, ctypes.c_longlong, _P],
+    "leff_i8_trip": [_P, _P, _P, ctypes.c_longlong, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
@@ -50,14 +53,23 @@ _F32_CHUNK = 32  # hidden channels per chunk of the float32 path
 # tile rows and holds `largest C` output channels in registers.
 _MMA_CLASSES = ((32, 32, 32), (64, 32, 64), (128, 32, 64), (256, 16, 64),
                 (512, 8, 32))
+# int8's own bf16 classes (I8Tile32 ... I8Tile256), tried in this order:
+# (largest C, TW, KC, sweeps of dense1: 1 with the whole hidden tile
+# resident, 2 with the output pixels' hidden resident). Where none fits
+# (C, Ch), int8 runs three sweeps in the class of C above.
+_I8_CLASSES = ((32, 32, 32, 1), (64, 16, 64, 1), (128, 16, 32, 2),
+               (256, 8, 32, 2))
 
 
 class TilePlan(NamedTuple):
-    """K2's output tile for one (C, dtype): th x tw pixels per CTA and the
-    bytes of shared memory the kernel allocates."""
+    """K2's output tile for one (C, Ch, dtype, act_store): th x tw pixels
+    per CTA, the bytes of shared memory the kernel allocates, and how many
+    times the kernel runs dense1 over the hidden width (1 but for int8: 1,
+    2 or 3 by what fits)."""
     th: int
     tw: int
     smem: int
+    sweeps: int = 1
 
     @property
     def halo_ratio(self) -> float:
@@ -71,18 +83,31 @@ def _f32_smem_bytes(C: int, TH: int, TW: int) -> int:
             + (HP + TP) * 4 + HP)
 
 
-def _mma_smem_bytes(C: int, tw: int, nc: int, kc: int) -> int:
-    """csrc/leff.cu Tile<...>::smem_bytes: bf16 LN tile [HPP][Kp+8], the W1
-    chunk [Kp][KC+8], the W2 chunk [KC][NC+8], two buffers of the chunk's
-    11 parameter rows [11][KC], hidden [HPP][KC+8] and dense2's A
-    [TP][KC+8]; the int8 amaxes of the haloed and the output pixels (an
-    int each); a byte per haloed pixel."""
+def _mma_smem_bytes(C: int, Ch: int, tw: int, nc: int, kc: int,
+                    sweeps: int = 0) -> int:
+    """csrc/leff.cu Tile<...>::smem_bytes. The classes of every mode
+    (sweeps 0): bf16 LN tile [HPP][Kp+8], the W1 chunk [Kp][KC+8], the W2
+    chunk [KC][NC+8], two buffers of the chunk's 11 parameter rows
+    [11][KC], hidden [HPP][KC+8] and dense2's A [TP][KC+8]. int8's own
+    (sweeps 1 or 2; ChP = Ch padded to KC): the LN tile or two W2 chunks,
+    whichever is larger, the W1 chunk, the parameters ([11][ChP] for one
+    sweep, two chunks' for two), hidden1 ([HPP][ChP+8] for one sweep, a
+    chunk for two) and hidden2 [TP][ChP+8]. Then the int8 amaxes of the
+    haloed and the output pixels (an int each; int8's own classes also the
+    reciprocals of their scales, a float each) and a byte per haloed
+    pixel."""
     hp = 10 * (tw + 2)
     hpp = -(-hp // 16) * 16
     kp = -(-C // 16) * 16
-    hs = kc + 8
-    return (2 * (hpp * (kp + 8) + kp * hs + kc * (nc + 8) + 2 * 11 * kc
-                 + hpp * hs + 8 * tw * hs) + 4 * (hpp + 8 * tw) + hpp)
+    hs, ns, tp = kc + 8, nc + 8, 8 * tw
+    if sweeps == 0:
+        return (2 * (hpp * (kp + 8) + kp * hs + kc * ns + 2 * 11 * kc
+                     + hpp * hs + tp * hs) + 4 * (hpp + tp) + hpp)
+    hsw = -(-Ch // kc) * kc + 8
+    par = 11 * (hsw - 8) if sweeps == 1 else 2 * 11 * kc
+    hid = hpp * (hsw if sweeps == 1 else hs)
+    return (2 * (max(hpp * (kp + 8), 2 * kc * ns) + kp * hs + par + hid
+                 + tp * hsw) + 8 * (hpp + tp) + hpp)
 
 
 def _f32_tile_rows(C: int) -> int:
@@ -95,19 +120,70 @@ def _f32_tile_rows(C: int) -> int:
                      "of shared memory")
 
 
-def plan_tile(C: int, dtype: torch.dtype) -> TilePlan:
-    """The tile csrc/leff.cu runs for channel width C in `dtype`. bf16: the
+def plan_tile(C: int, dtype: torch.dtype, act_store: Optional[str] = None,
+              Ch: Optional[int] = None) -> TilePlan:
+    """The tile csrc/leff.cu runs for channel width C, hidden width Ch (4C,
+    LeFF's ratio, by default) and `act_store` in `dtype`. bf16: the
     tensor-core class of C (8 rows; 32, 16 or 8 columns as C grows, the
-    widest whose LN tile, weight buffers and register accumulator fit).
-    float32: 8 columns, rows by `_f32_tile_rows`."""
+    widest whose LN tile, weight buffers and register accumulator fit);
+    for int8 the first of its own classes whose resident hidden fits
+    (`_I8_CLASSES`), else three sweeps in the class of C. float32: 8
+    columns, rows by `_f32_tile_rows` (int8 in three sweeps)."""
+    actstore.mode_code(act_store)  # an unknown mode raises
+    Ch = 4 * C if Ch is None else Ch
+    int8 = act_store == "int8"
     if dtype == torch.bfloat16:
+        if int8:
+            for cmax, tw, kc, sweeps in _I8_CLASSES:
+                smem = _mma_smem_bytes(C, Ch, tw, cmax, kc, sweeps)
+                if C <= cmax and smem <= SMEM_LIMIT:
+                    return TilePlan(8, tw, smem, sweeps)
         for cmax, tw, kc in _MMA_CLASSES:
             if C <= cmax:
-                return TilePlan(8, tw, _mma_smem_bytes(C, tw, cmax, kc))
+                return TilePlan(8, tw, _mma_smem_bytes(C, Ch, tw, cmax, kc),
+                                3 if int8 else 1)
         raise ValueError(f"K2 takes C <= {_MMA_CLASSES[-1][0]} in bfloat16, "
                          f"got {C}")
     th = _f32_tile_rows(C)
-    return TilePlan(th, 8, _f32_smem_bytes(C, th, 8))
+    return TilePlan(th, 8, _f32_smem_bytes(C, th, 8), 3 if int8 else 1)
+
+
+def i8_trip_reference(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x read back from int8 at `scale` as K2's kernels compute it, in plain
+    torch on x's device: `actstore.compress`'s int8 steps at that scale
+    (round(x / scale) ties to even, clipped to ±127, NaN to 0, times the
+    scale, each in x's dtype), with q kept in floating point, so that a
+    quotient that rounds to zero keeps its sign (compress's int8 cast
+    gives +0 there; the values are equal)."""
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    return torch.nan_to_num(q, nan=0.0) * scale
+
+
+def i8_trip(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x read back from int8 at `scale` (same shape, bf16) as K2's bf16
+    kernels read back each value: `csrc/leff.cu`'s `leff_i8_trip` (the
+    division as a product and a remainder step) on a CUDA tensor,
+    `i8_trip_reference` on a CPU tensor. It exists to hold the device
+    function to the division on the card."""
+    if x.dtype != torch.bfloat16 or scale.dtype != torch.bfloat16:
+        raise TypeError("i8_trip takes bfloat16 values and scales")
+    if x.shape != scale.shape:
+        raise ValueError(f"i8_trip: x {tuple(x.shape)} and scale "
+                         f"{tuple(scale.shape)} differ")
+    if x.device.type == "cpu":
+        return i8_trip_reference(x, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"i8_trip takes a CPU or CUDA tensor, got "
+                         f"{x.device}")
+    x, scale = x.contiguous(), scale.contiguous()
+    out = torch.empty_like(x)
+    lib = _build.load_library("leff", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.leff_i8_trip(x.data_ptr(), scale.data_ptr(),
+                               out.data_ptr(), x.numel(), stream)
+    _build.check(lib, err, "leff_i8_trip")
+    return out
 
 
 def leff_reference(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
@@ -147,14 +223,42 @@ def leff_reference(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
     return store(F.linear(h.float(), cast(w2).t(), cast(b2)).to(dt))
 
 
-def kernel_smem_bytes(C: int, dtype: torch.dtype) -> int:
-    """The bytes of shared memory csrc/leff.cu allocates for plan_tile(C,
-    dtype), as the compiled kernel counts them (builds it; needs nvcc)."""
-    plan = plan_tile(C, dtype)
+def kernel_smem_bytes(C: int, dtype: torch.dtype,
+                      act_store: Optional[str] = None,
+                      Ch: Optional[int] = None) -> int:
+    """The bytes of shared memory csrc/leff.cu allocates for
+    plan_tile(C, dtype, act_store, Ch), as the compiled kernel counts them
+    (builds it; needs nvcc)."""
+    Ch = 4 * C if Ch is None else Ch
+    plan = plan_tile(C, dtype, act_store, Ch)
     lib = _build.load_library("leff", _SIGNATURES)
     fn = lib.leff_smem_bytes
-    fn.argtypes, fn.restype = [_I] * 4, ctypes.c_long
-    return fn(_DTYPES[dtype], C, plan.th, plan.tw)
+    fn.argtypes, fn.restype = [_I] * 6, ctypes.c_long
+    return fn(_DTYPES[dtype], C, Ch, plan.th, plan.tw,
+              actstore.mode_code(act_store))
+
+
+def fp8_trip(x: torch.Tensor) -> torch.Tensor:
+    """x read back from its e4m3 storage as K2 reads it at each of its fp8
+    sites: `csrc/leff.cu`'s device function (`leff_fp8_trip`) on a CUDA
+    tensor, `actstore.compress(x, "fp8")` on a CPU tensor. It exists to
+    hold that device function to `compress` on the card."""
+    if x.device.type == "cpu":
+        return actstore.compress(x, "fp8")
+    if x.device.type != "cuda":
+        raise ValueError(f"fp8_trip takes a CPU or CUDA tensor, got "
+                         f"{x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fp8_trip takes float32 or bfloat16, got {x.dtype}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    lib = _build.load_library("leff", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.leff_fp8_trip(_DTYPES[x.dtype], x.data_ptr(),
+                                out.data_ptr(), x.numel(), stream)
+    _build.check(lib, err, "leff_fp8_trip")
+    return out
 
 
 def leff_fused(x, *, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2, b2,
@@ -217,7 +321,7 @@ def _leff_fused_cuda(x, ln_scale, ln_bias, w1, b1, dw_kernel, dw_bias, w2,
     p = {name: kw[name].to(device=x.device, dtype=x.dtype).contiguous()
          for name in shapes}
     dw = p["dw_kernel"].reshape(9, Ch)
-    plan = plan_tile(C, x.dtype)
+    plan = plan_tile(C, x.dtype, actstore.mode_of(act_store), Ch)
     out = torch.empty_like(x)
     lib = _build.load_library("leff", _SIGNATURES)
     with torch.cuda.device(x.device):

@@ -47,12 +47,12 @@ __device__ unsigned long long g_phase[8];
 """, 1)
     src = src.replace("  issue_p1(0);\n",
                       "  long long t_prev = clock64();\n  issue_p1(0);\n", 1)
-    for tag, idx in (("A", "k == 0 ? 0 : 1"), ("B", "2"), ("G", "3"),
+    for tag, idx in (("A", "v == 0 ? 0 : 1"), ("B", "2"), ("G", "3"),
                      ("C", "4")):
         src, n = re.subn(rf"(__syncthreads\(\); +// {tag}\n)",
                          rf"\1    PHASE({idx});\n", src, count=1)
         assert n == 1, f"barrier {tag} not found"
-    mark = "  // 3. + b2, round, store the tile.\n"
+    mark = "  store_tile<L, MODE>(acc, b2, out, sMax2,"
     assert mark in src
     src = src.replace(mark, "  PHASE(5);\n  if (threadIdx.x == 0) "
                       "atomicAdd(&g_phase[7], 1ull);\n" + mark, 1)

@@ -791,12 +791,27 @@ def test_k2_matches_twin_at_ragged_heights(cuda, H, C, W, dtype):
     assert float(err.max()) <= 0
 
 
+# (C, Ch) beyond Ch = 4C that move int8's design: two sweeps at C = 64 and
+# 128 in the classes of larger C, three sweeps at C = 64
+_K2_INT8_WIDTHS = [(64, 512), (128, 1024), (64, 2048)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [s[3] for s in _K2_SHAPES])
+@pytest.mark.parametrize("C,Ch,act_store",
+                         [pytest.param(s[3], 4 * s[3], None, id=str(s[3]))
+                          for s in _K2_SHAPES]
+                         + [pytest.param(s[3], 4 * s[3], m, id=f"{s[3]}-{m}")
+                            for s in _K2_SHAPES for m in ("fp8", "int8")]
+                         + [pytest.param(C, Ch, "int8", id=f"{C}-Ch{Ch}-int8")
+                            for C, Ch in _K2_INT8_WIDTHS])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_k2_plan_is_what_the_kernel_allocates(cuda, C, dtype):
-    assert kernel_smem_bytes(C, dtype) == plan_tile(C, dtype).smem
+def test_k2_plan_is_what_the_kernel_allocates(cuda, C, Ch, act_store, dtype):
+    """The planner and the compiled kernel count the same bytes for every
+    mode, and for int8 in each of its designs (one pass, two sweeps, three
+    sweeps)."""
+    assert kernel_smem_bytes(C, dtype, act_store, Ch) == plan_tile(
+        C, dtype, act_store, Ch).smem
 
 
 @pytest.mark.cuda
@@ -806,6 +821,29 @@ def test_k2_refuses_what_it_does_not_take(cuda):
         leff_fused(x.clone().requires_grad_(), **p)
     with pytest.raises(ValueError):
         leff_fused(x, **{**p, "w1": p["w1"][:, :32]})
+
+
+# the act_store cases: every tile class at Ch = 4C, C and Ch off the MMA
+# tiles, and a ragged last row tile in each bf16 int8 design (one pass at
+# C = 32, two sweeps at C = 128 and 256, three sweeps at C = 64 with
+# Ch = 2048 and at C = 512)
+_K2_ACT_SHAPES = ([s + (4 * s[3],) for s in _K2_SHAPES]
+                  + [(1, 8, 19, 20, 100), (1, 8, 21, 40, 160),
+                     (1, 12, 13, 512, 2048), (1, 12, 37, 32, 128),
+                     (1, 11, 19, 128, 512), (1, 13, 9, 256, 1024),
+                     (1, 9, 21, 64, 2048)])
+
+
+def test_k2_act_store_cases_reach_every_int8_design():
+    """The act_store cases above run int8 in one pass, two sweeps and three
+    sweeps, each with a last row tile that the image leaves ragged (runs
+    on the CPU: the planner only)."""
+    ragged = {}
+    for B, H, W, C, Ch in _K2_ACT_SHAPES:
+        plan = plan_tile(C, torch.bfloat16, "int8", Ch)
+        if H % plan.th:
+            ragged.setdefault(plan.sweeps, []).append(C)
+    assert sorted(ragged) == [1, 2, 3]
 
 
 def _act_within_two_steps(got, want, mode, dtype):
@@ -831,17 +869,18 @@ def _act_within_two_steps(got, want, mode, dtype):
 @pytest.mark.parametrize("mode", ["fp8", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,H,W,C,Ch", [s + (4 * s[3],) for s in _K2_SHAPES]
-                         + [(1, 8, 19, 20, 100), (1, 8, 21, 40, 160),
-                            (1, 12, 13, 512, 2048)],
+@pytest.mark.parametrize("B,H,W,C,Ch", _K2_ACT_SHAPES,
                          ids=[f"C{s[3]}" for s in _K2_SHAPES]
-                         + ["C20-Ch100", "C40-Ch160", "C512-H12"])
+                         + ["C20-Ch100", "C40-Ch160", "C512-H12", "C32-H12",
+                            "C128-H11", "C256-H13", "C64-Ch2048-H9"])
 def test_k2_act_store_matches_twin(cuda, B, H, W, C, Ch, dtype, mode):
     """Every tile class, C and Ch off the MMA tiles, a ragged chunk and a
     ragged last row tile, with act_store: within two steps (above), and at
     most 1% of the elements beyond K2_TOL (at these small shapes a few
     flips weigh more than on the serving frame, where chip_smoke.py's bar
-    is 0.5% in bf16 and 0.1% in f32)."""
+    is 0.5% in bf16 and 0.1% in f32). In bf16 int8 runs each of its
+    designs, each with a ragged last tile (test_k2_act_store_cases_reach_
+    every_int8_design)."""
     x, p = _leff_inputs(cuda, B, H, W, C, Ch, dtype, seed=C + W + 1)
     before = leff_fused.launches
     got = leff_fused(x, act_store=mode, **p)
@@ -868,6 +907,66 @@ def test_k2_fp8_gives_nan_beyond_464(cuda, dtype, value, nan):
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     if not nan:
         _act_within_two_steps(got, want, "fp8", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k2_fp8_trip_matches_compress(cuda, dtype):
+    """K2's fp8 device function (`fp8_trip`, the hardware e4m3 convert and
+    its NaN select) equals `compress(·, "fp8")` NaN for NaN and bit for
+    bit elsewhere: every bf16 pattern; in float32, the 2^21 patterns
+    around each edge (448, 464, 480, e4m3's smallest subnormal and normal,
+    zero, inf) and their negatives."""
+    from dehaze_tpu_torch.ops import actstore
+    from dehaze_tpu_torch.ops.kernels.leff import fp8_trip
+
+    if dtype == torch.bfloat16:
+        x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                         device=cuda).to(torch.int16).view(torch.bfloat16)
+    else:
+        edges = torch.tensor([448.0, 464.0, 480.0, 2.0 ** -9, 2.0 ** -6,
+                              0.0, float("inf")]).view(torch.int32)
+        x = torch.cat([torch.arange(int(e) - 2 ** 20, int(e) + 2 ** 20,
+                                    dtype=torch.int32, device=cuda)
+                       for e in edges.tolist()])
+        x = torch.cat([x, x | -2 ** 31]).view(torch.float32)
+    got, want = fp8_trip(x), actstore.compress(x, "fp8")
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[dtype]
+    same = (got.view(bits) == want.view(bits)) | (got.isnan() & want.isnan())
+    assert bool(same.all()), int((~same).sum())
+    assert int(want.isnan().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_k2_i8_trip_matches_compress(cuda):
+    """K2's int8 device function of its bf16 kernels (the division as a
+    product and a remainder step) equals `i8_trip_reference` (compress's
+    int8 steps at the same scale, on the card) bit for bit, NaN for NaN:
+    every bf16 value v against 258 amaxes a (every 128th non-negative bf16
+    pattern, inf and NaN) with |v| <= a or a not finite, at compress's
+    scale for a; and `compress([a, v], "int8")` as a value (compress's
+    int8 cast gives +0 where the kernel keeps -0)."""
+    from dehaze_tpu_torch.ops import actstore
+    from dehaze_tpu_torch.ops.kernels.leff import i8_trip, i8_trip_reference
+
+    pat = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=cuda)
+    v = pat.to(torch.int16).view(torch.bfloat16)
+    amax = torch.cat([pat[(pat >= 0) & (pat % 128 == 0)],
+                      torch.tensor([0x7F80, 0x7FC0], device=cuda)])
+    a = amax.to(torch.int16).view(torch.bfloat16).repeat_interleave(
+        v.numel())
+    x = v.repeat(amax.numel())
+    keep = (x.abs() <= a) | ~a.isfinite()
+    scale = torch.clamp_min(a, 1e-8) / torch.full_like(a, 127.0)
+    got = i8_trip(x, scale)
+    want = i8_trip_reference(x, scale)
+    same = (got.view(torch.int16) == want.view(torch.int16)) | (
+        got.isnan() & want.isnan()) | ~keep
+    assert bool(same.all()), int((~same).sum())
+    ref = actstore.compress(torch.stack([a, x], -1), "int8")[:, 1]
+    assert torch.equal(torch.nan_to_num(got[keep]),
+                       torch.nan_to_num(ref[keep]))
 
 
 @pytest.mark.cuda

@@ -238,17 +238,110 @@ def _k2_plan_before(C, itemsize):
     raise AssertionError(f"no earlier plan for C={C}")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("C", [8, 16, 32, 64, 96, 128, 256, 512])
-def test_k2_tile_plan(C, dtype):
+# Today's plans (mode 0, any hidden width): (C -> (th, tw, smem)), bf16.
+_K2_PLANS_BF16 = {8: (8, 32, 73568), 16: (8, 32, 73568),
+                  32: (8, 32, 86112), 64: (8, 32, 162272),
+                  96: (8, 32, 197600), 128: (8, 32, 224736),
+                  256: (8, 16, 222400), 512: (8, 8, 207024)}
+_K2_DTYPES = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+# (C, dtype, act_store, Ch / C): mode 0 at 4C under the ids it always had,
+# then every mode at C in {8, 32, 64, 128, 256, 512} and Ch in {2C, 4C}
+_K2_PLAN_CASES = (
+    [pytest.param(C, dt, None, 4, id=f"{C}-{name}")
+     for C in _K2_PLANS_BF16 for dt, name in _K2_DTYPES]
+    + [pytest.param(C, dt, mode, r, id=f"{C}-{name}-{mode}-Ch{r}C")
+       for C in (8, 32, 64, 128, 256, 512) for dt, name in _K2_DTYPES
+       for mode in (None, "fp8", "int8") for r in (2, 4)])
+
+
+@pytest.mark.parametrize("C,dtype,act_store,ratio", _K2_PLAN_CASES)
+def test_k2_tile_plan(C, dtype, act_store, ratio):
     """The planned K2 tile fits a Hopper CTA's shared memory (the bytes
     the kernel allocates, checked against the compiled kernel on the card),
     has at most 8 rows (any H is covered, the last row tile ragged), and
-    computes dense1 on the halo no more often than the earlier plan did."""
-    plan = plan_tile(C, dtype)
+    computes dense1 on the halo no more often than the earlier plan did.
+    Mode 0 and fp8 keep the plan of every C as it was, whatever Ch; int8
+    runs dense1 once over the hidden width where the whole hidden tile
+    fits (C <= 64 at Ch = 4C), twice where the output pixels' hidden fits
+    (C = 128, 256), and three times where neither does (C = 512)."""
+    Ch = ratio * C
+    plan = plan_tile(C, dtype, act_store, Ch)
     assert 0 < plan.smem <= SMEM_LIMIT == 232448
     assert plan.th in (1, 2, 4, 8)
     assert plan.halo_ratio <= _k2_plan_before(C, dtype.itemsize) + 1e-12
     if dtype == torch.bfloat16:  # the tensor-core classes: 8 rows
         assert plan.th == 8 and plan.tw in (8, 16, 32)
+        if act_store != "int8":
+            assert plan[:3] == _K2_PLANS_BF16[C] and plan.sweeps == 1
+        elif ratio == 4:
+            assert plan.sweeps == {8: 1, 32: 1, 64: 1, 128: 2, 256: 2,
+                                   512: 3}[C]
+    else:  # the CUDA-core kernel: int8 in three sweeps
+        assert plan.sweeps == (3 if act_store == "int8" else 1)
+    assert plan == plan_tile(C, dtype, act_store, Ch)
+    if act_store is None and ratio == 4:
+        assert plan == plan_tile(C, dtype)
+
+
+@pytest.mark.parametrize("C,Ch,sweeps", [(32, 128, 1), (64, 256, 1),
+                                         (64, 512, 2), (128, 512, 2),
+                                         (256, 1024, 2), (64, 2048, 3),
+                                         (256, 2048, 3), (512, 2048, 3)])
+def test_k2_int8_plan_keeps_what_fits(C, Ch, sweeps):
+    """int8's design is the fewest sweeps whose resident hidden fits: a
+    plan of fewer sweeps would exceed SMEM_LIMIT at this (C, Ch)."""
+    from dehaze_tpu_torch.ops.kernels import leff as K2
+
+    plan = plan_tile(C, torch.bfloat16, "int8", Ch)
+    assert plan.sweeps == sweeps and plan.smem <= SMEM_LIMIT
+    fewer = [K2._mma_smem_bytes(C, Ch, tw, cmax, kc, r)
+             for cmax, tw, kc, r in K2._I8_CLASSES if C <= cmax and r < sweeps]
+    assert all(b > SMEM_LIMIT for b in fewer)
+
+
+def test_k2_fp8_trip_is_compress_on_the_cpu():
+    """On a CPU tensor the wrapper of K2's fp8 device function is
+    `compress(·, "fp8")` itself, edges included (NaN beyond ±464)."""
+    from dehaze_tpu_torch.ops import actstore
+    from dehaze_tpu_torch.ops.kernels.leff import fp8_trip
+
+    x = torch.tensor([0.0, -0.0, 1e-3, 2.0 ** -10, 0.3, 17.0, 447.0, 448.0,
+                      464.0, -464.0, 464.5, 480.0, float("inf"),
+                      float("nan")])
+    for dtype in (torch.float32, torch.bfloat16):
+        got = fp8_trip(x.to(dtype))
+        want = actstore.compress(x.to(dtype), "fp8")
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+        assert bool(torch.isnan(got[-3:]).all())  # 480, inf, NaN
+        assert float(got[8]) == 448.0  # 464 ties to 448
+        # 464.5 is NaN in float32 but 464 (so 448) once rounded to bf16
+        assert bool(torch.isnan(got[10])) == (dtype == torch.float32)
+
+
+def test_k2_i8_trip_is_compress_on_the_cpu():
+    """On CPU tensors the wrapper of K2's int8 device function is
+    `i8_trip_reference`, `compress(·, "int8")`'s round trip at a given
+    scale: for rows [a, v] with |v| <= a (and rows of an inf or NaN amax),
+    v's trip at the scale compress takes from a equals compress's output
+    (NaN for NaN); the bits differ only where v / scale rounds to -0,
+    which compress's int8 cast turns into +0."""
+    from dehaze_tpu_torch.ops import actstore
+    from dehaze_tpu_torch.ops.kernels.leff import i8_trip
+
+    rng = np.random.default_rng(21)
+    a = np.abs(rng.normal(size=512) * 10.0 ** rng.integers(-12, 6, 512))
+    a[:4] = [0.0, np.inf, np.nan, 1e-9]
+    v = rng.uniform(-1, 1, (512, 64)) * np.nan_to_num(a, posinf=1e4)[:, None]
+    v[:, :3] = [0.0, -0.0, 1e-30]
+    a, v = (torch.from_numpy(t).float().bfloat16() for t in (a, v))
+    a = a[:, None].expand_as(v)
+    scale = torch.clamp_min(a, 1e-8) / torch.full_like(a, 127.0)
+    want = actstore.compress(torch.stack([a, v], -1), "int8")[..., 1]
+    got = i8_trip(v, scale)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    bits = got.view(torch.int16) != want.view(torch.int16)
+    assert bool((got[bits & ~got.isnan()] == 0).all())
+    assert bool(torch.signbit(got[bits & ~got.isnan()]).all())
+    assert int((bits & ~got.isnan()).sum()) > 0  # such quotients occur
