@@ -20,9 +20,10 @@ prints its seconds (`phase <name>: N s`) and the run its total:
      the 1200×1600 JPEG's among them;
   3. K1 forward against its plain twin at the nine stages of the serving
      frame, N = 16, the training enc0 and 16×16 windows (N = 256), f32
-     and bf16 (bf16 at N <= 64 runs the tensor-core kernel, the rest the
-     CUDA-core one), in bf16 with q and k at std 0.5 and 2 and 0 rows
-     flipped between a2 @ V and mean(V); then with padding flags at the
+     and bf16 (at N <= 64 bf16 runs the tensor-core kernel and f32 K1's
+     float32 kernel, N = 256 the CUDA-core one), in bf16 with q and k at
+     std 0.5 and 2, 0 rows flipped between a2 @ V and mean(V), each call
+     counted on its kernel; then with padding flags at the
      any-resolution shapes of a 1200×1600 frame on the 1664² canvas (enc0
      shifted, bottleneck), and the backward with padding at the training
      enc0 shape;
@@ -31,6 +32,10 @@ prints its seconds (`phase <name>: N s`) and the run its total:
      kernel) and bf16 (the tensor-core kernel, q and k at std 0.5 and 2,
      0 flipped rows: dq is exactly zero on the twin's unselected rows and
      only there), and at 16×16 windows (N = 256, the CUDA-core kernel);
+     first a float32 train step's attention at enc0 and dec3 through
+     autograd (K1's float32 forward kernel, then the CUDA-core backward):
+     gradients against the twin's, 0 flipped rows in the forward's output
+     and in dq, so both passes keep the same rows;
   5. K3 (the older TPU variants, which round at other points) against
      their twins: v1 and v2 head-major at the serving enc1 and bottleneck
      shapes (CUDA-core kernel), the v3 forward and backward at the
@@ -44,15 +49,19 @@ prints its seconds (`phase <name>: N s`) and the run its total:
      the training eval forward's (batch 32 × 128²) and the 76-row
      bottleneck of a 1216×1664 canvas (--train_ps 64), f32 and bf16,
      exact and tanh GELU; the other seven stages of the serving frame
-     (K2_STAGES) in bf16 with exact GELU; the planner's shared-memory
-     count against the kernel's at every C;
+     (K2_STAGES) in bf16 and f32 with exact GELU (f32 on the 3xTF32
+     classes); the planner's shared-memory count against the kernel's at
+     every C;
   7. a seeded random-init Uformer-32 saved as a .pth state_dict:
      (a) CUDA forward (kernels) against the CPU forward (plain twins) at
          256², f32, same sampling seed; (b) the 1200×1600 uint8 frame
          through the whole-image function (rect canvas 1280×1664, bf16)
          and a profile of one such frame;
          (c) a 200×240 image with its padding mask on the 256² canvas,
-         CUDA against CPU, f32;
+         CUDA against CPU, f32 (18 launches of K1's float32 kernel);
+         (d) the 1200×1600 frame in f32 (phase_frame_f32): s/frame, 18
+         launches each of K1's float32 forward and of K2, nothing else and
+         no twin call;
   8. the serving path: the serving CLI's machinery in-process with
      --weights, three PNG requests of synthetic hazy scenes (two
      concurrent) and /healthz;
@@ -66,8 +75,9 @@ prints its seconds (`phase <name>: N s`) and the run its total:
   9a. --act_store (phase_k2_actstore): K2 with act_store fp8 and int8
      against its twin at the serving frame's enc0, dec3, enc2, enc3 and
      bottleneck (bf16: int8 in one pass, two sweeps and three sweeps) and
-     enc0 (f32): max error, share beyond K2_TOL, steps of the quantizer
-     beyond it (ACT_SHARE); fp8 NaN cases (LN outputs at 448, 464, 466 and
+     enc0 and dec0 (f32): max error, share beyond K2_TOL, steps of the
+     quantizer beyond it (ACT_SHARE; f32 int8 at dec0 against the twin's
+     own share, ACT_SHARE_BY_CHAIN); fp8 NaN cases (LN outputs at 448, 464, 466 and
      a sparse 500: the kernel's NaNs are the twin's); the 1200×1600 frame
      with act_store None, fp8 and int8 (s/frame, 18 K1 and 18 K2 launches
      and no twin call per frame, PSNR against the plain frame);
@@ -200,7 +210,8 @@ device-resident training path (11b), the remat train step (11c), the
 analysis stack (11d: the three Uformer-32 sweeps together as `landscape`,
 FFA-Net's sweep, `params_flops` and the trajectory's training run) and the
 W-MSA paths (13: its frames, its gate, its exported evaluation, its
-training run), the multi-GPU paths (14: the banded frames over both
+training run), the float32 frame (7d, the only path of the float32
+kernels' rows: K1's float32 forward and K2's 3xTF32 classes), the multi-GPU paths (14: the banded frames over both
 ranks, the Uformer's and FFA-Net's, the frame-parallel evaluation over both ranks, the gloo DDP steps
 over both ranks, the NCCL rank's DDP steps, the NCCL `cli.train`) and
 the FFA-Net and UNet paths (15: frames, evaluation, artifact, stream,
@@ -212,8 +223,8 @@ zoo's 17 models, `zoo`, and the two `cli.test_long` runs of the
 together) and phase 17c's (`zoo_train` in this process, `zoo_train_cli`
 the subprocess's three runs, `zoo_train_ddp` the two gloo ranks and the
 NCCL rank), each counted from 0 over its own run. Every path runs
-bf16, so K1's forward and backward go to the tensor-core kernels there
-and the CUDA-core ones have 0 launches; the W-MSA paths run no K1. No
+bf16 but the float32 frame, so K1's forward and backward go to the
+tensor-core kernels there and the CUDA-core ones have 0 launches; the W-MSA paths run no K1. No
 path runs K3 (no entry point of the JAX package runs its TPU kernels
 either): its launches, on either kernel, are 0.
 Imports nothing of JAX.
@@ -259,6 +270,21 @@ K2_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # step of each element's own value, failed there for that reason.
 ACT_SHARE = {"bfloat16": 0.005, "float32": 0.001}
 ACT_STEPS = 2.0
+# (dtype, mode, C) whose share beyond K2_TOL against the twin is held to
+# the twin's own share against the same chain summed in float64
+# (_k2_exact), measured on the same inputs in the same run, in place of
+# ACT_SHARE: float32 int8 at C = 512 (serve dec0, hidden 2048). Nothing
+# there rounds the hidden values to a coarser type before their round
+# trip, so the last bit of a sum moves an int8 step wherever a value lies
+# at a step's edge, and an output reads 9 x 2,048 of them: the twin itself
+# lies 1.13-1.18% beyond K2_TOL from the float64 chain, the kernel that
+# K2's float32 path replaced 0.32-0.34% from the twin (bit for bit
+# today's outputs), so no float32 sum order but the twin's own meets 0.1%
+# against it (scripts/k2_act_share.py; PERF.md). A control, the twin with
+# its products in TF32, must lie beyond this bar, or the bar could not
+# tell a loss of float32 precision. Its NaNs and ACT_STEPS are held as
+# everywhere.
+ACT_SHARE_BY_CHAIN = {("float32", "int8", 512)}
 # K1 backward, per gradient tensor (dq, dk, dv, dbias): every element
 # within tol·max|ref| of the twin, a bar set by the tensor's own scale (dq
 # and dk are ~1e-3 where dv is ~1, so a bar of fixed size would pass a dq
@@ -321,9 +347,13 @@ K2_STAGES = [("enc0", (1, 1280, 1664, 32)), ("enc1", (1, 640, 832, 64)),
              ("dec1", (1, 320, 416, 256)), ("dec2", (1, 640, 832, 128)),
              ("dec3", (1, 1280, 1664, 64))]
 # H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM bytes/s and
-# dense FLOP/s by operand type (bf16 on tensor cores, f32 on CUDA cores).
+# dense FLOP/s by how the products run: bf16 on the tensor cores; float32
+# on the CUDA cores (FFMA); float32 as three TF32 products each on the
+# tensor cores (3xTF32, K2's float32 Dense layers); float64 on the CUDA
+# cores (K1's float32 S, an ordered fma chain per element).
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 495e12 / 3,
+              "float64": 34e12}
 
 
 def fail(msg: str) -> None:
@@ -364,11 +394,14 @@ def phase_device():
     return card
 
 
-def bound(nbytes: float, flops: float, dname: str):
+def bound(nbytes: float, flops, dname: str):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the peak rate of the operands' type."""
+    operations over the peak rate of the operands' type; flops is a count
+    at dname's peak or {peak (a PEAK_FLOPS key): count}."""
+    if not isinstance(flops, dict):
+        flops = {dname: flops}
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    t_ops = sum(f / PEAK_FLOPS[k] for k, f in flops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -597,7 +630,9 @@ def _flipped_rows(got, q, k, v, kw, numerics="v4"):
     s = torch.zeros(B, H, D, device=v.device)
     for j in range(N):
         s = s + v[:, :, j].float()
-    mean = (s / N).to(v.dtype)
+    # the kernels divide by N; torch's division by a number multiplies by
+    # its reciprocal, which rounds otherwise where N is not a power of 2
+    mean = (s / torch.full_like(s, N)).to(v.dtype)
     is_mean = (got == mean[:, :, None]).all(-1)
     return int((is_mean == row_mask).sum())
 
@@ -654,8 +689,9 @@ def _attn_run(label, kern, twin_of, own, q, kw, nW, bwd, wrong, kv=None):
     N, D]. Bytes: q/k/v and the output (q/k/v/g and dq/dk/dv in a
     backward), the bias (read, and written once more in a backward), the
     count matrix and each [nW, N] mask; operations: S (2·N²·D per window
-    and head) and PV for the u kept rows (2·u·N·D; 8·u·N·D for dv, da2, dq
-    and dk in a backward)."""
+    and head; in float32 at the float64 rate of the CUDA cores) and PV for
+    the u kept rows (2·u·N·D; 8·u·N·D for dv, da2, dq and dk in a
+    backward)."""
     from dehaze_tpu_torch.ops.probsparse import probsparse_u
 
     dname = str(q.dtype).split(".")[1]
@@ -668,8 +704,12 @@ def _attn_run(label, kern, twin_of, own, q, kw, nW, bwd, wrong, kv=None):
     nbytes = ((7 if bwd else 4) * q.numel() * q.element_size()
               + (0 if bias is None else (2 if bwd else 1) * bias.numel() * 4)
               + N * N * 4 + (masks * nW * N * 4 if nW > 1 else 0))
-    flops = B * heads * (2 * N * N * D
-                         + (8 if bwd else 2) * probsparse_u(N) * N * D)
+    s_flops = B * heads * 2 * N * N * D
+    other = B * heads * (8 if bwd else 2) * probsparse_u(N) * N * D
+    # float32: S in float64 on the CUDA cores (an ordered fma chain per
+    # element, as the kernels and the backward's recomputation need it)
+    flops = ({"float64": s_flops, "float32": other} if dname == "float32"
+             else s_flops + other)
 
     def check(got, want):
         if bwd:
@@ -700,7 +740,7 @@ def _qkv(g, dev, shape, dtype, scales):
 
 
 def _k1_kernel(q, heads):
-    """Which K1 forward kernel takes q: "tc" or "cuda_core"."""
+    """Which K1 forward kernel takes q: "tc", "f32" or "cuda_core"."""
     from dehaze_tpu_torch.ops.kernels.window_attention import fwd_kernel_for
 
     return fwd_kernel_for(q.dtype, "v4", q.shape[1], q.shape[2] // heads)
@@ -709,10 +749,11 @@ def _k1_kernel(q, heads):
 def phase_k1():
     """K1 forward at the serving frame's nine stages (shifted), N = 16, the
     training enc0 and 16×16 windows (N = 256, training enc0 at
-    --win_size 16): f32 (the CUDA-core kernel) at five of them, bf16 at
-    all, with q and k at std 0.5 and, where the tensor-core kernel runs,
-    also at std 2. Returns rows (case, dtype, kernel, max|d|, ms, twin ms,
-    bound ms, bound by)."""
+    --win_size 16): f32 at all of them (K1's float32 kernel at N <= 64,
+    the CUDA-core kernel at N = 256), bf16 at all, with q and k at std 0.5
+    and, where the tensor-core kernel runs, also at std 2; each call
+    counted on the kernel `fwd_kernel_for` names. Returns rows (case,
+    dtype, kernel, max|d|, ms, twin ms, bound ms, bound by)."""
     import torch
 
     from dehaze_tpu_torch.ops import probsparse as ps_ops
@@ -722,30 +763,33 @@ def phase_k1():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     H0, W0 = 1280, 1664
-    # (name, windows B_, C, heads, win, region-map H x W or None, f32 too)
-    cases = [("enc0", 33280, 32, 1, 8, (H0, W0), True),
-             ("enc1", 8320, 64, 2, 8, (H0 // 2, W0 // 2), True),
-             ("enc2", 2080, 128, 4, 8, (H0 // 4, W0 // 4), False),
-             ("enc3", 520, 256, 8, 8, (H0 // 8, W0 // 8), False),
-             ("bottleneck", 130, 512, 16, 8, None, True),
-             ("dec0", 520, 512, 16, 8, (H0 // 8, W0 // 8), False),
-             ("dec1", 2080, 256, 8, 8, (H0 // 4, W0 // 4), False),
-             ("dec2", 8320, 128, 4, 8, (H0 // 2, W0 // 2), False),
-             ("dec3", 33280, 64, 2, 8, (H0, W0), False),
-             ("N16", 2080, 128, 4, 4, None, True),
-             ("train_enc0", 8192, 32, 1, 8, (TRAIN_PS, TRAIN_PS), True),
-             ("N256", 2048, 32, 1, 16, (TRAIN_PS, TRAIN_PS), True)]
+    # (name, windows B_, C, heads, win, region-map H x W or None)
+    cases = [("enc0", 33280, 32, 1, 8, (H0, W0)),
+             ("enc1", 8320, 64, 2, 8, (H0 // 2, W0 // 2)),
+             ("enc2", 2080, 128, 4, 8, (H0 // 4, W0 // 4)),
+             ("enc3", 520, 256, 8, 8, (H0 // 8, W0 // 8)),
+             ("bottleneck", 130, 512, 16, 8, None),
+             ("dec0", 520, 512, 16, 8, (H0 // 8, W0 // 8)),
+             ("dec1", 2080, 256, 8, 8, (H0 // 4, W0 // 4)),
+             ("dec2", 8320, 128, 4, 8, (H0 // 2, W0 // 2)),
+             ("dec3", 33280, 64, 2, 8, (H0, W0)),
+             ("N16", 2080, 128, 4, 4, None),
+             ("train_enc0", 8192, 32, 1, 8, (TRAIN_PS, TRAIN_PS)),
+             ("N256", 2048, 32, 1, 16, (TRAIN_PS, TRAIN_PS))]
     results, wrong = [], []
-    for name, B, C, heads, win, reg_hw, f32 in cases:
+    counter = {"tc": "launches_tc", "f32": "launches_f32",
+               "cuda_core": "launches"}
+    for name, B, C, heads, win, reg_hw in cases:
         N = win * win
         si, bias, region, nW = _attn_case(g, dev, heads, win, reg_hw)
-        runs = [(torch.float32, 0.5)] if f32 else []
-        runs += [(torch.bfloat16, 0.5), (torch.bfloat16, 2.0)]
+        runs = [(torch.float32, 0.5), (torch.bfloat16, 0.5),
+                (torch.bfloat16, 2.0)]
         for dtype, std in runs:
             q, k, v = _qkv(g, dev, (B, N, C), dtype, (std, std, 0.5))
             kern = _k1_kernel(q, heads)
             if kern == "cuda_core" and std != 0.5:
                 continue
+            before = getattr(window_attention_fwd, counter[kern])
             kw = dict(num_heads=heads, sample_idx=si, rel_pos_bias=bias,
                       sw_region=region)
             dname = str(dtype).split(".")[1]
@@ -757,6 +801,9 @@ def phase_k1():
                 lambda n: ps_ops.probsparse_attention_bnc(
                     q, k, v, numerics=n, **kw), "v4", q, kw, nW, False,
                 wrong, kv=(k, v)))
+            if getattr(window_attention_fwd, counter[kern]) == before:
+                wrong.append(f"K1 {name} {dtype}: no launch counted in "
+                             f".{counter[kern]}")
             del q, k, v
     if wrong:  # every case is printed before the first failure stops us
         fail("; ".join(wrong))
@@ -790,6 +837,51 @@ def _bwd_flipped_rows(got, want, q, k, v, kw, numerics="v4"):
     return int((~row_mask & ~zero).sum() + (row_mask & clear & zero).sum())
 
 
+def _k1_f32_train_grads(g, dev, wrong):
+    """A float32 train step's attention at the training enc0 and dec3
+    shapes through `fused_window_attention` (autograd: K1's float32
+    forward kernel, then the CUDA-core backward, which recomputes the
+    selection): q, k, v and bias gradients within K1B_TOL of the twin's,
+    and both passes keep the twin's rows (0 flipped rows in the forward's
+    output, and in dq, which is zero exactly on the rows the backward did
+    not keep), so they agree on every kept row."""
+    import torch
+
+    from dehaze_tpu_torch.ops import probsparse as ps_ops
+    from dehaze_tpu_torch.ops.kernels.window_attention import (
+        fused_window_attention, window_attention_fwd)
+
+    P = TRAIN_PS
+    for name, B, C, heads, reg_hw in (("enc0", 8192, 32, 1, (P, P)),
+                                      ("dec3", 8192, 64, 2, (P, P))):
+        si, bias, region, nW = _attn_case(g, dev, heads, 8, reg_hw)
+        q, k, v, go = _qkv(g, dev, (B, 64, C), torch.float32,
+                           (0.5, 0.5, 0.5, 1))
+        kw = dict(num_heads=heads, sample_idx=si, sw_region=region)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        before = window_attention_fwd.launches_f32
+        out = fused_window_attention(*leaves[:3], rel_pos_bias=leaves[3],
+                                     num_windows=nW, **kw)
+        out.backward(go)
+        torch.cuda.synchronize()
+        label = f"K1 f32 train step {name} B_={B} C={C} h={heads}"
+        if window_attention_fwd.launches_f32 != before + 1:
+            wrong.append(f"{label}: the forward did not run K1's float32 "
+                         "kernel")
+        got = [t.grad for t in leaves]
+        kw["rel_pos_bias"] = bias
+        want = ps_ops.probsparse_attention_bnc_bwd(q, k, v, go, **kw)
+        _, text = _check_grads(label, got, want, "float32", wrong)
+        flips = (_flipped_rows(out.detach(), q, k, v, kw),
+                 _bwd_flipped_rows(got, want, q, k, v, kw))
+        if any(flips):
+            wrong.append(f"{label}: flipped rows (forward, backward) "
+                         f"{flips}")
+        print(f"{label} through autograd against the twin: {text}; flipped "
+              f"rows (forward, backward) {flips}", flush=True)
+        del q, k, v, go, leaves, out, got, want
+
+
 def phase_k1_bwd():
     """K1 backward at the training path's shapes (batch 32 × 128²), f32
     (the CUDA-core kernel) and bf16 (the tensor-core kernel) with q and k
@@ -814,6 +906,7 @@ def phase_k1_bwd():
              ("N256", 2048, 32, 1, 16, (P, P))]
     results, wrong = [], []
     before = (window_attention_bwd.launches, window_attention_bwd.launches_tc)
+    _k1_f32_train_grads(g, dev, wrong)
     for name, B, C, heads, win, reg_hw in cases:
         N = win * win
         si, bias, region, nW = _attn_case(g, dev, heads, win, reg_hw)
@@ -1053,11 +1146,17 @@ def _k2_case(g, shape, Ch):
 
 def _k2_bytes_flops(x, p):
     """K2's bytes (x read, out written, the parameters read once) and
-    operations (both Dense layers, the dwconv and its bias) for x."""
+    operations (both Dense layers, the dwconv and its bias) for x; in
+    float32 the Dense layers' at the 3xTF32 rate, the dwconv's at the CUDA
+    cores' (`bound`)."""
     C, Ch = p["w1"].shape
     nbytes = (2 * x.numel() + sum(t.numel() for t in p.values())
               ) * x.element_size()
-    return nbytes, x.numel() // C * (4 * C * Ch + 18 * Ch)
+    pixels = x.numel() // C
+    if x.element_size() == 4:  # float32
+        return nbytes, {"3xtf32": pixels * 4 * C * Ch,
+                        "float32": pixels * 18 * Ch}
+    return nbytes, pixels * (4 * C * Ch + 18 * Ch)
 
 
 def phase_k2():
@@ -1086,10 +1185,11 @@ def phase_k2():
              ("bottleneck_1216", (1, 76, 104, 512), 2048)]
     sweep = [(d, f) for d in (torch.float32, torch.bfloat16)
              for f in (False, True)]
-    # the other seven stages of the serving frame (K2_STAGES), in the
-    # serving configuration only: bf16, exact GELU
+    # the other seven stages of the serving frame (K2_STAGES), exact GELU
+    # only: bf16 (serving) and f32 (the float32 frame)
     cases = [c + (sweep,) for c in cases] + [
-        (name, shape, 4 * shape[-1], [(torch.bfloat16, False)])
+        (name, shape, 4 * shape[-1],
+         [(torch.bfloat16, False), (torch.float32, False)])
         for name, shape in K2_STAGES if name not in ("enc0", "bottleneck")]
     for dtype in (torch.float32, torch.bfloat16):
         for C in sorted({c[1][-1] for c in cases}):
@@ -1142,11 +1242,12 @@ def _act_step(want, mode):
     return torch.exp2(torch.floor(torch.log2(w.clamp_min(2.0 ** -6))) - 3)
 
 
-def _act_check(label, mode, dname, got, want, wrong):
+def _act_check(label, mode, dname, got, want, wrong, bar=None):
     """K2 with act_store against its twin: the same NaNs, then the bars
-    ACT_SHARE and ACT_STEPS. Returns (max|d|, share beyond K2_TOL, its
-    largest excess in steps of the element's own value, and in steps at
-    the output's largest magnitude, text)."""
+    ACT_SHARE (or `bar` where given: ACT_SHARE_BY_CHAIN) and ACT_STEPS.
+    Returns (max|d|, share beyond K2_TOL, its largest excess in steps of
+    the element's own value, and in steps at the output's largest
+    magnitude, text)."""
     import torch
 
     g, w = got.float(), want.float()
@@ -1156,6 +1257,7 @@ def _act_check(label, mode, dname, got, want, wrong):
                      f" the twin at {int(nan.sum())}")
         return float("nan"), 1.0, float("inf"), float("inf"), "NaNs differ"
     tol = K2_TOL[dname]
+    share_bar = ACT_SHARE[dname] if bar is None else bar
     d = torch.where(nan, 0.0, (g - w).abs())
     excess = torch.where(~nan, d - tol - tol * w.abs(), 0.0).clamp_min(0.0)
     share = float((excess > 0).sum()) / max(1, int((~nan).sum()))
@@ -1163,13 +1265,66 @@ def _act_check(label, mode, dname, got, want, wrong):
     top_w = torch.where(nan, 0.0, w.abs()).max().reshape(1, 1)
     top = float((excess / _act_step(top_w, mode)).max())
     err = float(d.max())
-    if top > ACT_STEPS or share > ACT_SHARE[dname] or torch.isinf(g).any():
+    if top > ACT_STEPS or share > share_bar or torch.isinf(g).any():
         wrong.append(f"{label}: {share:.4%} beyond K2_TOL (at most "
-                     f"{ACT_SHARE[dname]:.1%}), {top:.3f} top steps beyond "
+                     f"{share_bar:.4%}), {top:.3f} top steps beyond "
                      f"it (at most {ACT_STEPS:g})")
     return err, share, own, top, (
-        f"max|d|={err:.3e}, {share:.4%} beyond K2_TOL, at most {own:.3f} "
-        f"own steps, {top:.3f} top steps beyond it, NaN {int(nan.sum())}")
+        f"max|d|={err:.3e}, {share:.4%} beyond K2_TOL (at most "
+        f"{share_bar:.4%}), at most {own:.3f} own steps, {top:.3f} top "
+        f"steps beyond it, NaN {int(nan.sum())}")
+
+
+def _k2_exact(x, p, mode):
+    """K2's twin (`leff_reference`, float32) with its LayerNorm, both Dense
+    layers and the dwconv summed in float64, each rounded once to float32
+    where the twin rounds; GELU and the act_store round trips as the twin
+    has them."""
+    import torch.nn.functional as F
+
+    from dehaze_tpu_torch.ops.actstore import compress
+
+    C, Ch = p["w1"].shape
+    d = {k: v.double() for k, v in p.items()}
+
+    def gelu(t):
+        return F.gelu(t.float())
+
+    xn = compress(F.layer_norm(x.double(), (C,), d["ln_scale"], d["ln_bias"],
+                               1e-5).float(), mode)
+    h = compress(gelu(F.linear(xn.double(), d["w1"].t(), d["b1"]).float()),
+                 mode)
+    dw = d["dw_kernel"].reshape(3, 3, Ch).permute(2, 0, 1)[:, None]
+    h = F.conv2d(h.double().permute(0, 3, 1, 2), dw, d["dw_bias"], padding=1,
+                 groups=Ch).permute(0, 2, 3, 1).float()
+    h = compress(gelu(h), mode)
+    return compress(F.linear(h.double(), d["w2"].t(), d["b2"]).float(), mode)
+
+
+def _chain_bar(label, x, p, mode, twin, wrong):
+    """The share bar of an ACT_SHARE_BY_CHAIN case: the float32 twin's own
+    share beyond K2_TOL against _k2_exact. The control, the twin with its
+    products in TF32, must lie beyond it against the twin. Returns (bar,
+    text)."""
+    import torch
+
+    from dehaze_tpu_torch.ops.kernels.leff import leff_reference
+
+    bar = _act_check(label, mode, "float32", twin, _k2_exact(x, p, mode),
+                     [], 1.0)[1]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ctl = leff_reference(x, act_store=mode, **p)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    control = _act_check(label, mode, "float32", ctl, twin, [], 1.0)[1]
+    if not control > bar:
+        wrong.append(f"{label}: the TF32 control lies {control:.4%} beyond "
+                     f"K2_TOL from the twin, within the bar {bar:.4%}")
+    return bar, (f"bar: the twin {bar:.4%} beyond K2_TOL from its float64 "
+                 f"chain; TF32 control {control:.4%} from the twin")
 
 
 def _k2_actstore_cases():
@@ -1188,7 +1343,8 @@ def _k2_actstore_cases():
     # sweeps (bottleneck)
     cases = [(name, shape, torch.bfloat16) for name, shape in K2_STAGES
              if name in ("enc0", "dec3", "enc2", "enc3", "bottleneck")]
-    cases.append(("enc0", K2_STAGES[0][1], torch.float32))
+    cases += [(name, shape, torch.float32) for name, shape in K2_STAGES
+              if name in ("enc0", "dec0")]
     for name, shape, dtype in cases:
         p, x32 = _k2_case(g, shape, 4 * shape[-1])
         x = x32.to(dtype)
@@ -1199,11 +1355,14 @@ def _k2_actstore_cases():
                      f"hidden={4 * shape[-1]} tile 8x{plan.tw}, dense1 "
                      f"sweeps {plan.sweeps}")
             seen = {}
+            by_chain = (dname, mode, shape[-1]) in ACT_SHARE_BY_CHAIN
 
             def check(got, want):
+                bar, note = (_chain_bar(label, x, p, mode, want, wrong)
+                             if by_chain else (None, ""))
                 *seen["stats"], text = _act_check(label, mode, dname, got,
-                                                  want, wrong)
-                return seen["stats"][0], text
+                                                  want, wrong, bar)
+                return seen["stats"][0], f"{text}{'; ' if note else ''}{note}"
 
             row = _run_case(
                 label, lambda: leff_fused(x, act_store=mode, **p),
@@ -1251,7 +1410,8 @@ def phase_k2_actstore(tmp: str, pth: str):
     (a) K2 with act_store fp8 and int8 against its twin (bf16 at the
         serving frame's enc0, dec3, enc2, enc3 and bottleneck shapes, exact
         GELU: int8 in one pass, two sweeps and three sweeps; f32, the
-        CUDA-core kernel, at enc0): _act_check, kernel and twin ms;
+        3xTF32 classes with int8 in three sweeps, at enc0 and dec0):
+        _act_check, kernel and twin ms;
     (b) fp8 NaN cases, [1, 64, 96, 32] in both types: LN output channels
         fixed at 448 and 464 (read back as 448: no NaN), 466 (NaN
         everywhere), and an ln_bias of 500 at ln_scale 10 where x is -20
@@ -1423,6 +1583,7 @@ def _counters():
 
     return {"k1_fwd_tc": (wa.window_attention_fwd, "launches_tc"),
             "k1_fwd": (wa.window_attention_fwd, "launches"),
+            "k1_fwd_f32": (wa.window_attention_fwd, "launches_f32"),
             "k1_bwd_tc": (wa.window_attention_bwd, "launches_tc"),
             "k1_bwd": (wa.window_attention_bwd, "launches"),
             "k2": (leff_fused, "launches"),
@@ -1538,7 +1699,7 @@ def phase_model_pad(pth: str):
             outs[dev] = model(canvas.to(dev), pad_mask=pad.to(dev),
                               generator=torch.Generator().manual_seed(SEED)
                               ).cpu()
-    k1 = read_counts()["k1_fwd"]
+    k1 = read_counts()["k1_fwd_f32"]
     d = (outs["cuda"] - outs["cpu"]).abs()
     print(f"model with padding mask, 200x240 on the {canvas.shape[1]}² "
           f"canvas, f32 CUDA vs CPU: max|d|={float(d.max()):.3e} "
@@ -1546,7 +1707,58 @@ def phase_model_pad(pth: str):
     if not torch.isfinite(outs["cuda"]).all() or float(d.max()) > MODEL_TOL:
         fail(f"model with padding mask: CUDA vs CPU beyond {MODEL_TOL:g}")
     if k1 != 18:
-        fail("the padded forward did not run K1 18 times")
+        fail("the padded forward did not run K1's float32 kernel 18 times")
+
+
+FRAME_F32_REPS = 2
+
+
+def phase_frame_f32(pth: str):
+    """The 1200×1600 frame through the whole-image function in float32
+    (rect canvas 1280×1664, TF32 off), the evaluators' frame at the
+    reference's own precision: s/frame, 18 launches of K1's float32
+    forward and of K2 (its 3xTF32 classes) per frame and nothing else, no
+    twin call, output finite and in [0, 1]. Returns its launch counts (the
+    float32 kernels' path)."""
+    import numpy as np
+    import torch
+
+    from dehaze_tpu_torch.cli.common import build_model_and_params
+    from dehaze_tpu_torch.config import ModelConfig
+    from dehaze_tpu_torch.infer.tiled import make_whole_image_fn
+
+    model = build_model_and_params(ModelConfig(dtype=torch.float32), pth,
+                                   torch.device("cuda"))
+    run = make_whole_image_fn(
+        lambda c: model(c, generator=torch.Generator().manual_seed(SEED)),
+        FRAME[0], FRAME[1], ps=128, square=False, device="cuda")
+    frame = np.random.default_rng(SEED).integers(
+        0, 256, size=(1,) + FRAME + (3,), dtype=np.uint8)
+    run(frame)
+    torch.cuda.synchronize()
+    reset_counts()
+    with _TwinCounts() as twins:
+        t0 = time.perf_counter()
+        for _ in range(FRAME_F32_REPS):
+            y = run(frame)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / FRAME_F32_REPS
+    counts = {**read_counts(), **twins}
+    n = FRAME_F32_REPS
+    print(f"whole image {FRAME[0]}x{FRAME[1]} rect canvas 1280x1664 f32: "
+          f"{secs:.4f} s/frame; launches per frame K1 f32 "
+          f"{counts['k1_fwd_f32'] / n:g} K2 {counts['k2'] / n:g}, K1 "
+          f"tensor cores {counts['k1_fwd_tc'] / n:g} CUDA cores "
+          f"{counts['k1_fwd'] / n:g}, twin calls K1 {twins['twin_k1']} K2 "
+          f"{twins['twin_k2']}", flush=True)
+    want = {k: 0 for k in counts}
+    want.update(k1_fwd_f32=18 * n, k2=18 * n)
+    if counts != want:
+        fail(f"the float32 frame's launches {counts}, want {want}")
+    if not bool(torch.isfinite(y).all()) or float(y.min()) < 0.0 \
+            or float(y.max()) > 1.0 or tuple(y.shape) != (1,) + FRAME + (3,):
+        fail("the float32 frame has the wrong shape or leaves [0, 1]")
+    return counts
 
 
 def _write_eval_folders(tmp: str):
@@ -5318,6 +5530,7 @@ def main() -> None:
         k2_res = timed(phase_k2)
         pth = timed(phase_model, tmp)
         timed(phase_model_pad, pth)
+        frame_f32 = timed(phase_frame_f32, pth)
         serve = timed(phase_serve, pth)
         evals, eval_psnrs = timed(phase_eval, tmp, pth)
         act_res, act_paths = timed(phase_k2_actstore, tmp, pth)
@@ -5356,9 +5569,12 @@ def main() -> None:
              **zoo_train}
     wa = "dehaze_tpu_torch/csrc/window_attention.cu"
     pw = "dehaze_tpu/ops/pallas/window_attention.py"
+    # the float32 frame: the path of the float32 kernels
+    f32_paths = {"frame_f32": frame_f32}
     # K1 rows by kernel, without the kernel column
     k1_all = k1_res + k1p_res
     tc = [r[:2] + r[3:] for r in k1_all if r[2] == "tc"]
+    f32 = [r[:2] + r[3:] for r in k1_all if r[2] == "f32"]
     cc = [r[:2] + r[3:] for r in k1_all if r[2] == "cuda_core"]
     bwd_all = k1b_res + [r[:2] + (r[2][:-4],) + r[3:] for r in k1p_res
                          if r[2].endswith("_bwd")]
@@ -5372,8 +5588,11 @@ def main() -> None:
         entry("K1 ProbSparse window attention fwd, tensor cores (bf16, "
               "N <= 64)", "dehaze_tpu_torch/csrc/window_attention_tc.cu",
               f"{pw}:912", tc, ("enc0", "bfloat16"), "k1_fwd_tc", paths),
-        entry("K1 ProbSparse window attention fwd, CUDA cores (f32, "
-              "N > 64, other head dims)", wa, f"{pw}:912", cc,
+        entry("K1 ProbSparse window attention fwd, float32 (N <= 64, head "
+              "dims 16-64; CUDA cores, register-blocked)", wa, f"{pw}:912",
+              f32, ("enc0", "float32"), "k1_fwd_f32", f32_paths),
+        entry("K1 ProbSparse window attention fwd, CUDA cores (N > 64, "
+              "other head dims)", wa, f"{pw}:912", cc,
               ("N256", "bfloat16"), "k1_fwd", paths),
         entry("K1 ProbSparse window attention bwd, tensor cores (bf16, "
               "N <= 64)", "dehaze_tpu_torch/csrc/window_attention_tc.cu",
@@ -5381,12 +5600,17 @@ def main() -> None:
         entry("K1 ProbSparse window attention bwd, CUDA cores (f32, "
               "N > 64, other head dims)", wa, f"{pw}:938", cc_bwd,
               ("N256", "bfloat16"), "k1_bwd", paths),
-        dict(entry("K2 fused LayerNorm+LeFF", "dehaze_tpu_torch/csrc/leff.cu",
-                   "dehaze_tpu/ops/pallas/leff.py:120", k2_res,
-                   ("enc0", "bfloat16", "erf"), "k2", paths),
-             cases=[dict(zip(("case", "dtype", "gelu", "max_abs_err", "ms",
-                              "plain_ms", "bound_ms", "bound_by"), r))
-                    for r in k2_res]),
+        *(dict(entry(f"K2 fused LayerNorm+LeFF, {what}",
+                     "dehaze_tpu_torch/csrc/leff.cu",
+                     "dehaze_tpu/ops/pallas/leff.py:120",
+                     [r for r in k2_res if r[1] == dname],
+                     ("enc0", dname, "erf"), "k2", where),
+               cases=[dict(zip(("case", "dtype", "gelu", "max_abs_err", "ms",
+                                "plain_ms", "bound_ms", "bound_by"), r))
+                      for r in k2_res if r[1] == dname])
+          for what, dname, where in (
+              ("bf16 (tensor cores)", "bfloat16", paths),
+              ("float32 (3xTF32 tensor cores)", "float32", f32_paths))),
         *(dict(entry(f"K2 fused LayerNorm+LeFF with --act_store {mode} "
                      "(the round trips inside the kernel)",
                      "dehaze_tpu_torch/csrc/leff.cu",

@@ -47,11 +47,40 @@
 // the reverse. scripts/k2_phases.py measures the phases. Overlapping them
 // (warp specialisation, wgmma) is the next step; neither bound is HBM.
 //
-// float32 (the card's test path, not the serving one) stays on CUDA cores:
-// TF32 would move the result past the tolerance against the twin. It walks
-// the hidden width in chunks of 32 (one lane per channel) and accumulates
-// dense2 in a float tile in shared memory, 8 columns by the rows the
-// wrapper plans.
+// float32 (the evaluators' whole-image frame at the reference's own
+// precision) runs the same kernel and phases with float tiles (the F32Tile
+// classes): both Dense layers on the tensor cores in 3xTF32. Each operand
+// is split into TF32 hi = tf32(x) and lo = tf32(x - hi) (cvt.rna, 22 of
+// float's 24 significand bits kept), and each product is taken as a_lo
+// b_hi + a_hi b_lo + a_hi b_hi by mma.sync m16n8k8 (TF32 in, float32 sum):
+// three TF32 products, 495 / 3 TFLOP/s on the H100 against FFMA's 67. One
+// TF32 product alone keeps 11 bits and misses K2_TOL (1e-4) by far; the
+// split's own error is about 2^-22 of a product; the tensor cores' sums
+// truncate, so each k-step's three products are summed from zero and added
+// to the float32 accumulator by a float add (round to nearest). That keeps
+// the result within about 6e-6 of the twin at every C, well inside K2_TOL,
+// so every C takes this design without act_store. With act_store (fp8,
+// int8) the quantizers turn a value's last bit into a whole step where the
+// value lies at a step's edge, and any sum order but the twin's flips
+// steps: 3xTF32 flipped 1.0-1.5% of the int8 outputs past K2_TOL at C =
+// 512, and so did exact sums (the float64 tensor cores), where the CUDA
+// tests hold 1% (test_k2_act_store_matches_twin). So the act_store
+// modes run both Dense layers as float32 fmas on the CUDA cores, each
+// output one chain over k ascending, the order of the twin's cuBLAS
+// product (and of the CUDA-core kernel this design replaced), and the
+// float32 LayerNorm sums as that kernel did (a warp per pixel). A
+// fragments come by ldmatrix from float rows
+// padded by 16 bytes (its four 8 x 16-byte matrices are the m16n8k8 A
+// registers), B fragments by scalar loads from W chunks whose rows are
+// padded by 8 floats (a fragment's 32 values in 32 banks); the split is
+// done per fragment, so the LN tile and the weights stay float in shared
+// memory. LayerNorm, GELU, the dwconv and the act_store round trips are
+// the float code of the bf16 kernel's phases (rounding to float is no
+// rounding); int8 runs three sweeps. Float tiles are twice bf16's, so the
+// classes are narrower as C grows: 8x32 at C <= 32, 8x16 to C = 128 (1.41
+// haloed pixels per output pixel), 8x8 at 256 (1.56) and 8x4 at 512
+// (1.875, hidden chunks of 16); dense1's warp unit is sized per class
+// (Tile::kN1) against the warps' rounds over a chunk.
 //
 // act_store (mode 1 fp8, 2 int8; 0 none): the LeWin block's --act_store
 // round trips that fall inside LeFF (dehaze_tpu/models/uformer.py:383,393,
@@ -143,11 +172,6 @@ __device__ __forceinline__ float gelu(float x, int fast) {
   return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
 }
 
-__device__ __forceinline__ float warp_sum(float s) {
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
-}
-
 constexpr int kFp8 = 1, kInt8 = 2;  // act_store modes
 constexpr float kFp8NanAbove = 464.f;  // = actstore.FP8_NAN_ABOVE
 
@@ -229,204 +253,29 @@ __device__ __forceinline__ float i8_trip_rcp(float v, float scale,
   return round_to<T>(q * scale);
 }
 
+// The int8 round trip of type T's kernels: bf16 i8_trip_rcp (inv = 1 /
+// scale), float32 i8_trip (the division, as the float32 kernel had it).
+template <typename T>
+__device__ __forceinline__ float i8_trip_of(float v, float scale,
+                                            float inv) {
+  if constexpr (sizeof(T) == 2) {
+    return i8_trip_rcp<T>(v, scale, inv);
+  } else {
+    return i8_trip<T>(v, scale);
+  }
+}
+
 // Each of n amaxes (the bits of |v|) replaced in place by its pixel's int8
-// scale, and that scale's reciprocal into inv if given, by threads tid,
-// tid + nt, ...
+// scale in type T, and that scale's reciprocal into inv if given, by
+// threads tid, tid + nt, ...
+template <typename T = bf16>
 __device__ __forceinline__ void amax_to_scale(int* m, int n, int tid, int nt,
                                               float* inv = nullptr) {
   for (int p = tid; p < n; p += nt) {
-    const float scale = i8_scale<bf16>(m[p]);
+    const float scale = i8_scale<T>(m[p]);
     reinterpret_cast<float*>(m)[p] = scale;
     if (inv) inv[p] = __frcp_rn(scale);
   }
-}
-
-// LayerNorm of pixel row xp (C values) by one warp, each value rounded to T
-// and round-tripped by `mode`; writes them to dst[0..C), zeros to
-// dst[C..Kp).
-template <typename T>
-__device__ __forceinline__ void layer_norm_row(const T* xp, const T* gamma,
-                                               const T* beta, T* dst, int C,
-                                               int Kp, float eps, int lane,
-                                               int mode) {
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += to_f(xp[c]);
-  const float mu = warp_sum(s) / C;
-  float s2 = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = to_f(xp[c]) - mu;
-    s2 += d * d;
-  }
-  const float rs = rsqrtf(warp_sum(s2) / C + eps);
-  int m = 0;
-  for (int c = lane; c < Kp; c += 32) {
-    float y = c < C ? round_to<T>((to_f(xp[c]) - mu) * rs * to_f(gamma[c]) +
-                                  to_f(beta[c]))
-                    : 0.f;
-    if (mode == kFp8) y = fp8_trip(y);
-    m = max(m, abs_bits(y));
-    dst[c] = from_f<T>(y);
-  }
-  if (mode != kInt8) return;
-  const float scale = i8_scale<T>(group_max(m, 32));
-  for (int c = lane; c < C; c += 32) {
-    dst[c] = from_f<T>(i8_trip<T>(to_f(dst[c]), scale));
-  }
-}
-
-// ----------------------------------------------------------------- float32
-
-constexpr int kF32Threads = 256;
-constexpr int kF32Warps = kF32Threads / 32;
-constexpr int kF32Chunk = 32;  // hidden channels per chunk: one per lane
-
-__global__ void __launch_bounds__(kF32Threads) leff_fwd_f32_kernel(
-    const float* __restrict__ x, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const float* __restrict__ w1,
-    const float* __restrict__ b1, const float* __restrict__ dw,
-    const float* __restrict__ dwb, const float* __restrict__ w2,
-    const float* __restrict__ b2, float* __restrict__ out, int H, int W,
-    int C, int Ch, int TH, int TW, float eps, int fast_gelu, int mode) {
-  extern __shared__ float smem[];
-  const int PW = TW + 2;               // haloed tile width
-  const int HP = (TH + 2) * PW;        // haloed pixels
-  const int TP = TH * TW;              // output pixels
-  float* sOut = smem;                  // [TP][C] dense2 accumulator
-  float* sHid = sOut + TP * C;         // [HP][kF32Chunk] GELU(dense1) chunk
-  float* sG = sHid + HP * kF32Chunk;   // [TP][kF32Chunk] GELU(dwconv) chunk
-  float* sXn = sG + TP * kF32Chunk;    // [HP][C]
-  int* sMax1 = reinterpret_cast<int*>(sXn + HP * C);  // [HP] int8: GELU1's
-  int* sMax2 = sMax1 + HP;             // [TP] int8: GELU2's, then the output's
-  unsigned char* sIn = reinterpret_cast<unsigned char*>(sMax2 + TP);  // [HP]
-
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * TH;
-  const int x0 = blockIdx.x * TW;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  // 1. LayerNorm of the haloed input tile, one warp per pixel.
-  for (int p = warp; p < HP; p += kF32Warps) {
-    const int gy = y0 - 1 + p / PW;
-    const int gx = x0 - 1 + p % PW;
-    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    if (lane == 0) sIn[p] = inside;
-    if (!inside) continue;  // its hidden values are masked to zero below
-    layer_norm_row(x + ((static_cast<size_t>(b) * H + gy) * W + gx) * C,
-                   gamma, beta, sXn + p * C, C, C, eps, lane, mode);
-  }
-  for (int e = tid; e < TP * C; e += kF32Threads) sOut[e] = 0.f;
-  for (int e = tid; e < HP + TP; e += kF32Threads) sMax1[e] = 0;
-  __syncthreads();
-
-  // The chunks of the hidden width, once, or in three sweeps for int8 (see
-  // the header): a warp keeps its pixels in every step, so the amaxes are
-  // its own to update.
-  const int n_chunks = (Ch + kF32Chunk - 1) / kF32Chunk;
-  const int n_sweeps = mode == kInt8 ? 3 : 1;
-  for (int v = 0; v < n_sweeps * n_chunks; ++v) {
-    const int c0 = (v % n_chunks) * kF32Chunk, sweep = v / n_chunks;
-    const int ch = c0 + lane;
-    const bool live = ch < Ch;
-
-    // 2a. dense1 + GELU on the haloed tile; zero outside the image.
-    for (int p = warp; p < HP; p += kF32Warps) {
-      float g = 0.f;
-      if (live && sIn[p]) {
-        const float* xr = sXn + p * C;
-        float acc = 0.f;
-        for (int c = 0; c < C; ++c) {
-          acc = fmaf(xr[c], w1[static_cast<size_t>(c) * Ch + ch], acc);
-        }
-        g = gelu(acc + b1[ch], fast_gelu);
-      }
-      if (mode == kFp8) {
-        g = fp8_trip(g);
-      } else if (mode == kInt8 && sweep == 0) {
-        const int m = group_max(abs_bits(g), 32);
-        if (lane == 0) sMax1[p] = max(sMax1[p], m);
-      } else if (mode == kInt8) {
-        g = i8_trip<float>(g, i8_scale<float>(sMax1[p]));
-      }
-      sHid[p * kF32Chunk + lane] = g;
-    }
-    __syncthreads();
-    if (mode == kInt8 && sweep == 0) continue;
-
-    // 2b. depthwise 3x3 (VALID over the halo) + bias + GELU.
-    for (int t = warp; t < TP; t += kF32Warps) {
-      const int r = t / TW, c = t % TW;
-      float g = 0.f;
-      if (live) {
-        float acc = 0.f;
-        for (int di = 0; di < 3; ++di) {
-          for (int dj = 0; dj < 3; ++dj) {
-            acc = fmaf(sHid[((r + di) * PW + c + dj) * kF32Chunk + lane],
-                       dw[(di * 3 + dj) * Ch + ch], acc);
-          }
-        }
-        g = gelu(acc + dwb[ch], fast_gelu);
-      }
-      if (mode == kFp8) {
-        g = fp8_trip(g);
-      } else if (mode == kInt8 && sweep == 1) {
-        const int m = group_max(abs_bits(g), 32);
-        if (lane == 0) sMax2[t] = max(sMax2[t], m);
-      } else if (mode == kInt8) {
-        g = i8_trip<float>(g, i8_scale<float>(sMax2[t]));
-      }
-      sG[t * kF32Chunk + lane] = g;
-    }
-    __syncthreads();
-    if (sweep + 1 < n_sweeps) continue;
-
-    // 2c. this chunk's share of dense2.
-    const int n_live = min(kF32Chunk, Ch - c0);
-    for (int e = tid; e < TP * C; e += kF32Threads) {
-      const int t = e / C, n = e - t * C;
-      float acc = sOut[e];
-      for (int j = 0; j < n_live; ++j) {
-        acc = fmaf(sG[t * kF32Chunk + j],
-                   w2[static_cast<size_t>(c0 + j) * C + n], acc);
-      }
-      sOut[e] = acc;
-    }
-    __syncthreads();
-  }
-
-  // 3. + b2, the output's round trip, store the tile. int8: a warp per
-  //    pixel takes its amax over C (into sMax2, free once the last 2b is
-  //    done).
-  for (int e = tid; e < TP * C; e += kF32Threads) {
-    const float y = sOut[e] + b2[e % C];
-    sOut[e] = mode == kFp8 ? fp8_trip(y) : y;
-  }
-  if (mode == kInt8) {
-    __syncthreads();
-    for (int t = warp; t < TP; t += kF32Warps) {
-      int m = 0;
-      for (int n = lane; n < C; n += 32) m = max(m, abs_bits(sOut[t * C + n]));
-      m = group_max(m, 32);
-      if (lane == 0) sMax2[t] = m;
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < TP * C; e += kF32Threads) {
-    const int t = e / C, n = e - t * C;
-    const int gy = y0 + t / TW, gx = x0 + t % TW;
-    if (gy < H && gx < W) {
-      out[((static_cast<size_t>(b) * H + gy) * W + gx) * C + n] =
-          mode == kInt8 ? i8_trip<float>(sOut[e], i8_scale<float>(sMax2[t]))
-                        : sOut[e];
-    }
-  }
-}
-
-size_t f32_smem_bytes(int C, int TH, int TW) {
-  const size_t HP = (TH + 2) * (TW + 2), TP = TH * TW;
-  return (TP * C + HP * kF32Chunk + TP * kF32Chunk + HP * C) * sizeof(float) +
-         (HP + TP) * sizeof(int) + HP;
 }
 
 // ---------------------------------------------------- bf16, tensor cores
@@ -474,19 +323,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Copy rows x COLS bf16 of src (row stride src_stride) to dst (row stride
-// dst_stride) by all NT threads, zero where row >= row_end or col >= col_end:
-// by 16-byte cp.async (zero-filled; the caller commits) when vec, else by
-// plain loads and stores. With vec, COLS and col_end are multiples of 8.
-template <int COLS, int NT>
-__device__ __forceinline__ void copy_rows(bf16* dst, int dst_stride,
-                                          const bf16* src, size_t src_stride,
+// Copy rows x COLS values (bf16 or float) of src (row stride src_stride) to
+// dst (row stride dst_stride) by all NT threads, zero where row >= row_end
+// or col >= col_end: by 16-byte cp.async (zero-filled; the caller commits)
+// when vec, else by plain loads and stores. With vec, COLS and col_end are
+// multiples of 16 bytes' worth of values.
+template <int COLS, int NT, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int dst_stride,
+                                          const T* src, size_t src_stride,
                                           int rows, int row_end, int col_end,
                                           int vec, int tid) {
   if (vec) {
-    constexpr int kSegs = COLS / 8;
+    constexpr int kV = 16 / sizeof(T), kSegs = COLS / kV;
     for (int i = tid; i < rows * kSegs; i += NT) {
-      const int r = i / kSegs, c = (i % kSegs) * 8;
+      const int r = i / kSegs, c = (i % kSegs) * kV;
       const bool ok = r < row_end && c < col_end;
       cp_async16(smem_addr(dst + r * dst_stride + c),
                  ok ? src + r * src_stride + c : src, ok);
@@ -496,7 +346,7 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int dst_stride,
       const int r = i / COLS, c = i % COLS;
       dst[r * dst_stride + c] = r < row_end && c < col_end
                                     ? src[r * src_stride + c]
-                                    : __float2bfloat16_rn(0.f);
+                                    : from_f<T>(0.f);
     }
   }
 }
@@ -509,25 +359,47 @@ __device__ __forceinline__ void cp_async_wait_one() {
 // Copy a chunk's parameters (KC hidden channels from c0): b1, the dw bias
 // and the 9 taps, as rows 0, 1 and 2-10 of par (row stride ps), zero past
 // Ch; by cp.async when vec (the caller commits).
-template <int KC, int NT>
-__device__ __forceinline__ void copy_par(bf16* par, int ps, const bf16* b1,
-                                         const bf16* dwb, const bf16* dw,
+template <int KC, int NT, typename T>
+__device__ __forceinline__ void copy_par(T* par, int ps, const T* b1,
+                                         const T* dwb, const T* dw,
                                          int c0, int Ch, int vec, int tid) {
   copy_rows<KC, NT>(par, ps, b1 + c0, 0, 1, 1, Ch - c0, vec, tid);
   copy_rows<KC, NT>(par + ps, ps, dwb + c0, 0, 1, 1, Ch - c0, vec, tid);
   copy_rows<KC, NT>(par + 2 * ps, ps, dw + c0, Ch, 9, 9, Ch - c0, vec, tid);
 }
 
+// The n-tiles (8 channels) per warp unit of float32's dense1 for a chunk
+// of nt n-tiles over hmt m-tiles and `warps` warps. A unit of n n-tiles
+// costs about 2 + n n-tiles' work (its A fragment's load and split are
+// shared), and a chunk takes as many rounds of units as the warps need:
+// the n of the least rounds x cost, of 4, 2 and 1.
+constexpr int dense1_cost(int hmt, int nt, int warps, int n) {
+  return nt % n ? 1 << 20 : (hmt * nt / n + warps - 1) / warps * (2 + n);
+}
+constexpr int dense1_units(int hmt, int nt, int warps) {
+  return dense1_cost(hmt, nt, warps, 4) <= dense1_cost(hmt, nt, warps, 2) &&
+                 dense1_cost(hmt, nt, warps, 4) <=
+                     dense1_cost(hmt, nt, warps, 1)
+             ? 4
+         : dense1_cost(hmt, nt, warps, 2) <= dense1_cost(hmt, nt, warps, 1)
+             ? 2
+             : 1;
+}
+
 // A tile class: output tile 8 x TW; warps WM x WN, each holding MW x NW
 // dense2 fragments (16 pixels x 8 channels each); hidden chunk KC; MINB
 // CTAs per SM. R is the int8 design of the classes only int8 runs (the
 // header): 0 for the classes of every mode (int8 in three sweeps), 1 one
-// pass, 2 two sweeps.
+// pass, 2 two sweeps. T is the activation type (bf16, or float for the
+// 3xTF32 classes, which take R = 0 only).
 template <int TW_, int WM_, int WN_, int MW_, int NW_, int KC_, int MINB_,
-          int R_ = 0>
+          int R_ = 0, typename T_ = bf16>
 struct Tile {
+  using T = T_;
   static constexpr int TH = 8, TW = TW_, WM = WM_, WN = WN_, MW = MW_,
                        NW = NW_, KC = KC_, MINB = MINB_, R = R_;
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kVec = 16 / sizeof(T);        // values in 16 bytes
   static constexpr int kWarps = WM * WN, kThreads = 32 * kWarps;
   static constexpr int PW = TW + 2;                  // haloed tile width
   static constexpr int HP = (TH + 2) * PW;           // haloed pixels
@@ -535,21 +407,29 @@ struct Tile {
   static constexpr int HPP = HMT * 16;               // ... padded to 16
   static constexpr int TP = TH * TW;                 // output pixels
   static constexpr int NC = WN * NW * 8;             // output channels held
-  static constexpr int HS = KC + 8;  // row stride of the W1 chunk, sHid, sG
+  static constexpr int HS = KC + 8;  // row stride of the W1 chunk and sHid
   static constexpr int NS = NC + 8;  // row stride of the W2 chunk
+  // row stride of dense2's A (sG): bf16 shares sHid's; float's is padded
+  // by 16 bytes, as the LN tile's (ldmatrix rows in distinct banks)
+  static constexpr int GS = kF32 ? KC + 4 : HS;
   static constexpr int kPar = 11;    // parameter rows: b1, dw bias, 9 taps
   static constexpr int LG = NC / 32;  // LN: lanes per pixel, 32 values each
+  // float32 dense1: n-tiles (8 channels) per warp unit (dense1_units)
+  static constexpr int kN1 = dense1_units(HMT, KC / 8, kWarps);
   static_assert(TP == WM * MW * 16, "the warps cover the output pixels");
-  static_assert(NW % 2 == 0 && KC % 32 == 0 && NC % 32 == 0,
+  static_assert(NW % 2 == 0 && KC % (kF32 ? 16 : 32) == 0 && NC % 32 == 0,
                 "MMA tile multiples");
+  static_assert(!kF32 || R == 0, "float32 runs int8 in three sweeps");
   static_assert(kThreads % (KC / 2) == 0, "dwconv: fixed channel pair");
   static_assert(HP * (KC / 2) % 32 == 0, "GELU pass: whole warps");
 
   // Shared memory in bytes for K = C padded to 16 and hidden width Ch:
-  // bf16 tiles whose rows are padded by 8 elements (16 bytes, which keeps
-  // ldmatrix free of bank conflicts), then the int8 amaxes of the haloed
-  // and the output pixels (an int each; R > 0: and the reciprocals of
-  // their scales) and a byte per haloed pixel (in the image or not).
+  // tiles of T whose rows are padded by 16 bytes (8 bf16 or 4 floats,
+  // which keeps ldmatrix free of bank conflicts; the float W chunks and
+  // sHid by 8, so that the 3xTF32 B fragments' scalar loads and sHid's
+  // pair stores are too), then the int8 amaxes of the haloed and the
+  // output pixels (an int each; R > 0: and the reciprocals of their
+  // scales) and a byte per haloed pixel (in the image or not).
   // R = 0: the LN tile, W1 chunk, W2 chunk (one buffer each: their copies
   // are staggered, see the kernel), two buffers of the chunk's parameters,
   // the hidden tile and dense2's A. R > 0 (Ch padded to KC): the LN tile
@@ -559,8 +439,8 @@ struct Tile {
   static size_t smem_bytes(int C, int Ch) {
     const size_t Kp = (C + 15) / 16 * 16;
     if (R == 0) {
-      return 2 * (HPP * (Kp + 8) + Kp * HS + KC * NS + 2 * kPar * KC +
-                  HPP * HS + TP * HS) +
+      return sizeof(T) * (HPP * (Kp + kVec) + Kp * HS + KC * NS +
+                          2 * kPar * KC + HPP * HS + TP * GS) +
              4 * (HPP + TP) + HPP;
     }
     const size_t ChP = (Ch + KC - 1) / KC * KC, HSW = ChP + 8;
@@ -586,101 +466,172 @@ using I8Tile32 = Tile<32, 16, 1, 1, 4, 32, 1, 1>;  // C <= 32: 8x32, one pass
 using I8Tile64 = Tile<16, 8, 2, 1, 4, 64, 1, 1>;   // C <= 64: 8x16, one pass
 using I8Tile128 = Tile<16, 4, 4, 2, 4, 32, 1, 2>;  // C <= 128: 8x16, 2 sweeps
 using I8Tile256 = Tile<8, 2, 8, 2, 4, 32, 1, 2>;   // C <= 256: 8x8, 2 sweeps
+// float32's classes (3xTF32), by the largest C each takes (must match
+// plan_tile's _TF32_CLASSES); int8 runs three sweeps in them.
+using F32Tile32 = Tile<32, 8, 2, 2, 2, 32, 1, 0, float>;   // 8x32, 16 warps
+using F32Tile64 = Tile<16, 4, 4, 2, 2, 64, 1, 0, float>;   // 8x16, 16 warps
+using F32Tile128 = Tile<16, 2, 8, 4, 2, 32, 1, 0, float>;  // 8x16, 16 warps
+using F32Tile256 = Tile<8, 1, 16, 4, 2, 32, 1, 0, float>;  // 8x8, 16 warps
+using F32Tile512 = Tile<4, 1, 8, 2, 8, 16, 1, 0, float>;   // 8x4, 8 warps
 constexpr size_t kSmemLimit = 232448;  // = SMEM_LIMIT of ops/kernels/leff.py
+
+// 8 bf16 values at p (16-byte aligned) as floats, and back.
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&q);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = to_f(e[i]);
+}
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
+  uint4 q;
+  bf16* e = reinterpret_cast<bf16*>(&q);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = from_f<bf16>(v[i]);
+  *reinterpret_cast<uint4*>(p) = q;
+}
+
+// A pair of values of type T at p (aligned to the pair) as floats, and back.
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
 
 // 1. LayerNorm of the haloed tile into sXn (row stride XS), LG lanes per
 //    pixel (one at C <= 32: no shuffles), each lane holding 32 channels in
-//    four runs of 8 (one 16-byte load each when vec); rows outside the
-//    image and padding rows are zero, sIn[p] says whether pixel p lies in
-//    the image. Then its round trip (int8: the pixel's amax over its LG
-//    lanes).
+//    four runs of 8 (one 16-byte load each when vec); float32: a warp per
+//    pixel (below). Rows outside the image and padding rows are zero,
+//    sIn[p] says whether pixel p lies in the image. Then its round trip
+//    (int8: the pixel's amax over its lanes).
 template <class L, int MODE>
 __device__ __forceinline__ void layer_norm_tile(
-    const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-    const bf16* __restrict__ beta, bf16* sXn, unsigned char* sIn, int XS,
-    int Kp, int b, int y0, int x0, int H, int W, int C, float eps, int vec,
-    int warp, int lane) {
-  constexpr int G = L::LG, PPW = 32 / G;  // pixels per warp and pass
-  const int sub = lane % G;
-  for (int p0 = warp * PPW; p0 < L::HPP; p0 += L::kWarps * PPW) {
-    const int p = p0 + lane / G;
-    const int gy = y0 - 1 + p / L::PW, gx = x0 - 1 + p % L::PW;
-    const bool in = p < L::HP && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    if (sub == 0 && p < L::HPP) sIn[p] = in;
-    const bf16* xp =
-        x + ((static_cast<size_t>(b) * H + (in ? gy : 0)) * W +
-             (in ? gx : 0)) * C;
-    float v[4][8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c0 = (j * G + sub) * 8;
-      if (vec && in && c0 < C) {
-        const uint4 q = *reinterpret_cast<const uint4*>(xp + c0);
-        const bf16* e = reinterpret_cast<const bf16*>(&q);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[j][i] = to_f(e[i]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          v[j][i] = in && c0 + i < C ? to_f(xp[c0 + i]) : 0.f;
-        }
+    const typename L::T* __restrict__ x,
+    const typename L::T* __restrict__ gamma,
+    const typename L::T* __restrict__ beta, typename L::T* sXn,
+    unsigned char* sIn, int XS, int Kp, int b, int y0, int x0, int H, int W,
+    int C, float eps, int vec, int warp, int lane) {
+  using T = typename L::T;
+  if constexpr (L::kF32) {
+    // float32: a warp per pixel, lane l summing channels l, l + 32, ...,
+    // then a butterfly over the warp, as the twin's float32 sums are
+    // closest to (an int8 or fp8 step turns a last-bit difference of the
+    // LN output into a whole step)
+    for (int p = warp; p < L::HPP; p += L::kWarps) {
+      const int gy = y0 - 1 + p / L::PW, gx = x0 - 1 + p % L::PW;
+      const bool in = p < L::HP && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      if (lane == 0) sIn[p] = in;
+      T* dst = sXn + p * XS;
+      if (!in) {
+        for (int c = lane; c < Kp; c += 32) dst[c] = 0.f;
+        continue;
       }
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s += v[j][i];
-#pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(~0u, s, o);
-    const float mu = s / C;
-    float s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float d = (j * G + sub) * 8 + i < C ? v[j][i] - mu : 0.f;
+      const T* xp = x + ((static_cast<size_t>(b) * H + gy) * W + gx) * C;
+      float s = 0.f;
+      for (int c = lane; c < C; c += 32) s += xp[c];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(~0u, s, o);
+      const float mu = s / C;
+      float s2 = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float d = xp[c] - mu;
         s2 += d * d;
       }
-    }
-#pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1) s2 += __shfl_xor_sync(~0u, s2, o);
-    const float rs = rsqrtf(s2 / C + eps);
-    int m = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int c = (j * G + sub) * 8 + i;
-        float y = in && c < C
-                      ? round_to<bf16>((v[j][i] - mu) * rs * to_f(gamma[c]) +
-                                       to_f(beta[c]))
-                      : 0.f;
+      for (int o = 16; o > 0; o >>= 1) s2 += __shfl_xor_sync(~0u, s2, o);
+      const float rs = rsqrtf(s2 / C + eps);
+      int m = 0;
+      for (int c = lane; c < Kp; c += 32) {
+        float y = c < C ? (xp[c] - mu) * rs * gamma[c] + beta[c] : 0.f;
         if (MODE == kFp8) y = fp8_trip(y);
         m = max(m, abs_bits(y));
-        v[j][i] = y;
+        dst[c] = y;
+      }
+      if (MODE != kInt8) continue;
+      const float scale = i8_scale<T>(group_max(m, 32));
+      for (int c = lane; c < C; c += 32) {
+        dst[c] = i8_trip<T>(dst[c], scale);
       }
     }
-    if (MODE == kInt8) {
-      const float scale = i8_scale<bf16>(group_max(m, G));
-      const float inv = __frcp_rn(scale);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          v[j][i] = i8_trip_rcp<bf16>(v[j][i], scale, inv);
-        }
-    }
-    if (p < L::HPP) {
+  } else {
+    constexpr int G = L::LG, PPW = 32 / G;  // pixels per warp and pass
+    const int sub = lane % G;
+    for (int p0 = warp * PPW; p0 < L::HPP; p0 += L::kWarps * PPW) {
+      const int p = p0 + lane / G;
+      const int gy = y0 - 1 + p / L::PW, gx = x0 - 1 + p % L::PW;
+      const bool in = p < L::HP && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      if (sub == 0 && p < L::HPP) sIn[p] = in;
+      const T* xp =
+          x + ((static_cast<size_t>(b) * H + (in ? gy : 0)) * W +
+               (in ? gx : 0)) * C;
+      float v[4][8];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c0 = (j * G + sub) * 8;
-        if (c0 >= Kp) continue;
-        uint4 q;
-        bf16* e = reinterpret_cast<bf16*>(&q);
+        if (vec && in && c0 < C) {
+          load8(xp + c0, v[j]);
+        } else {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) e[i] = from_f<bf16>(v[j][i]);
-        *reinterpret_cast<uint4*>(sXn + p * XS + c0) = q;
+          for (int i = 0; i < 8; ++i) {
+            v[j][i] = in && c0 + i < C ? to_f(xp[c0 + i]) : 0.f;
+          }
+        }
+      }
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s += v[j][i];
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(~0u, s, o);
+      const float mu = s / C;
+      float s2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float d = (j * G + sub) * 8 + i < C ? v[j][i] - mu : 0.f;
+          s2 += d * d;
+        }
+      }
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1) s2 += __shfl_xor_sync(~0u, s2, o);
+      const float rs = rsqrtf(s2 / C + eps);
+      int m = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int c = (j * G + sub) * 8 + i;
+          float y = in && c < C
+                        ? round_to<T>((v[j][i] - mu) * rs * to_f(gamma[c]) +
+                                      to_f(beta[c]))
+                        : 0.f;
+          if (MODE == kFp8) y = fp8_trip(y);
+          m = max(m, abs_bits(y));
+          v[j][i] = y;
+        }
+      }
+      if (MODE == kInt8) {
+        const float scale = i8_scale<T>(group_max(m, G));
+        const float inv = __frcp_rn(scale);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            v[j][i] = i8_trip_of<T>(v[j][i], scale, inv);
+          }
+      }
+      if (p < L::HPP) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c0 = (j * G + sub) * 8;
+          if (c0 < Kp) store8(sXn + p * XS + c0, v[j]);
+        }
       }
     }
   }
@@ -732,15 +683,144 @@ __device__ __forceinline__ void dense1_chunk(const bf16* sXn, int XS, int Kp,
   }
 }
 
+// x as the sum of two TF32 values, hi = tf32(x) and lo = tf32(x - hi), each
+// rounded to nearest (ties away) on its 10-bit mantissa: hi + lo keeps 22
+// significand bits of x's 24, and x - hi is exact in float.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// d += a (16x8, row) * b (8x8, col), TF32 operands, float32 sum. Not
+// volatile: independent products may interleave.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment (16 rows x 8 columns) of a float tile at row address
+// a_row (lane l's: row l & 15, columns 4 * (l >> 4) on), split into TF32
+// hi and lo: ldmatrix's four 8 x 16-byte matrices are the fragment's four
+// registers (rows 0-7 and 8-15, columns 0-3 and 4-7).
+__device__ __forceinline__ void ld_a_tf32(uint32_t a_row, uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  uint32_t a[4];
+  ldsm_x4(a_row, a);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[e]), hi[e], lo[e]);
+}
+
+// The B fragment (8 k-rows x 8 columns) of a float tile [k][n] (row stride
+// ws) at b = &w[t][g] for lane (g, t), split into TF32 hi and lo.
+__device__ __forceinline__ void ld_b_tf32(const float* b, int ws,
+                                          uint32_t (&hi)[2],
+                                          uint32_t (&lo)[2]) {
+  split_tf32(b[0], hi[0], lo[0]);
+  split_tf32(b[4 * ws], hi[1], lo[1]);
+}
+
+// d += a * b (one k-step of 8) to float32 accuracy in three TF32 products
+// (3xTF32): the small terms a_lo b_hi and a_hi b_lo, then a_hi b_hi (a_lo
+// b_lo, 2^-22 of the product, is left out). The tensor cores truncate the
+// sums they accumulate, a bias toward zero of up to an ulp of the
+// accumulator per MMA (4.8e-5 of the result over dense2's 768 MMAs at Ch
+// = 2048 on the H100, when d took them all); so each k-step's products are
+// summed from zero and added to d by a float add, which rounds to nearest.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, al, bh[0], bh[1]);
+  mma_tf32(t, ah, bl[0], bl[1]);
+  mma_tf32(t, ah, bh[0], bh[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// 2a, float32. dense1 of a chunk: a warp per 16 pixels x kN1 * 8 channels,
+// one A fragment feeding kN1 n-tiles; + b1 (par's first row) into hid (row
+// stride hs). B fragments are scalar loads from the W1 chunk, whose row
+// stride (KC + 8) puts a fragment's 32 values in 32 banks. In 3xTF32, or
+// with CHAIN as float32 fmas on the CUDA cores, each of the lane's outputs
+// one chain over k ascending (the order of the twin's cuBLAS product): the
+// act_store modes take it, whose quantizers turn a value's last bit into a
+// whole step where the value lies at a step's edge (the header).
+template <class L, bool CHAIN>
+__device__ __forceinline__ void dense1_chunk_tf32(const float* sXn, int XS,
+                                                  int Kp, const float* sW1,
+                                                  const float* par,
+                                                  float* hid, int hs,
+                                                  int warp, int lane) {
+  constexpr int KC = L::KC, HS = L::HS, N1 = L::kN1, UN = KC / (8 * N1);
+  const int g = lane >> 2, t = lane & 3;
+  for (int u = warp; u < L::HMT * UN; u += L::kWarps) {
+    const int mt = u / UN, n0 = (u % UN) * 8 * N1;
+    float d[N1][4];
+#pragma unroll
+    for (int j = 0; j < N1; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+    const uint32_t a_addr =
+        smem_addr(sXn + (mt * 16 + (lane & 15)) * XS + (lane >> 4) * 4);
+    const float* bp = sW1 + t * HS + n0 + g;
+    if constexpr (CHAIN) {
+      // rows mt*16 + g and + 8, columns n0 + j*8 + 2t and + 1
+      const float* x0 = sXn + (mt * 16 + g) * XS;
+      const float* x1 = x0 + 8 * XS;
+      const float* w = sW1 + n0 + 2 * t;
+      for (int k = 0; k < Kp; ++k) {
+        const float a0 = x0[k], a1 = x1[k];
+#pragma unroll
+        for (int j = 0; j < N1; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(w + k * HS +
+                                                            j * 8);
+          d[j][0] = fmaf(a0, b.x, d[j][0]);
+          d[j][1] = fmaf(a0, b.y, d[j][1]);
+          d[j][2] = fmaf(a1, b.x, d[j][2]);
+          d[j][3] = fmaf(a1, b.y, d[j][3]);
+        }
+      }
+    } else {
+#pragma unroll 2
+      for (int kk = 0; kk < Kp / 8; ++kk) {
+        uint32_t ah[4], al[4];
+        ld_a_tf32(a_addr + kk * 32, ah, al);
+#pragma unroll
+        for (int j = 0; j < N1; ++j) {
+          uint32_t bh[2], bl[2];
+          ld_b_tf32(bp + kk * 8 * HS + j * 8, HS, bh, bl);
+          mma_3xtf32(d[j], ah, al, bh, bl);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = mt * 16 + g + h * 8;
+#pragma unroll
+      for (int j = 0; j < N1; ++j) {
+        const int cl = n0 + j * 8 + 2 * t;
+        store2(hid + p * hs + cl, d[j][2 * h] + par[cl],
+               d[j][2 * h + 1] + par[cl + 1]);
+      }
+    }
+  }
+}
+
 // GELU of the hidden pair at hid (a haloed pixel's, row stride hs),
 // rounded; zero outside the image (the conv's SAME padding sees zeros).
-__device__ __forceinline__ float2 gelu_pair(const bf16* hp, bool in,
+template <typename T>
+__device__ __forceinline__ float2 gelu_pair(const T* hp, bool in,
                                             int fast_gelu) {
-  const float2 hv =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hp));
+  const float2 hv = load2(hp);
   if (!in) return make_float2(0.f, 0.f);
-  return make_float2(round_to<bf16>(gelu(hv.x, fast_gelu)),
-                     round_to<bf16>(gelu(hv.y, fast_gelu)));
+  return make_float2(round_to<T>(gelu(hv.x, fast_gelu)),
+                     round_to<T>(gelu(hv.y, fast_gelu)));
 }
 
 // 2b. GELU over a chunk of the haloed hidden tile (row stride hs) by all
@@ -749,16 +829,16 @@ __device__ __forceinline__ float2 gelu_pair(const bf16* hp, bool in,
 //     an aligned group of lanes (HP * KC/2 is a multiple of 32: every lane
 //     runs every pass).
 template <class L, class Fn>
-__device__ __forceinline__ void gelu_chunk(bf16* hid, int hs,
+__device__ __forceinline__ void gelu_chunk(typename L::T* hid, int hs,
                                            const unsigned char* sIn,
                                            int fast_gelu, int tid, Fn fn) {
   constexpr int KC = L::KC;
   for (int e = tid; e < L::HP * (KC / 2); e += L::kThreads) {
     const int p = e / (KC / 2), cl = 2 * (e % (KC / 2));
-    bf16* hp = hid + p * hs + cl;
+    typename L::T* hp = hid + p * hs + cl;
     float2 g = gelu_pair(hp, sIn[p], fast_gelu);
     fn(p, cl, g.x, g.y);
-    *reinterpret_cast<__nv_bfloat162*>(hp) = __floats2bfloat162_rn(g.x, g.y);
+    store2(hp, g.x, g.y);
   }
 }
 
@@ -766,7 +846,8 @@ __device__ __forceinline__ void gelu_chunk(bf16* hid, int hs,
 // channel pair cl.
 struct PairTaps {
   float k0[9], k1[9], db0, db1;
-  __device__ __forceinline__ PairTaps(const bf16* par, int ps, int cl) {
+  template <typename T>
+  __device__ __forceinline__ PairTaps(const T* par, int ps, int cl) {
 #pragma unroll
     for (int t = 0; t < 9; ++t) {
       k0[t] = to_f(par[(2 + t) * ps + cl]);
@@ -780,33 +861,33 @@ struct PairTaps {
 // depthwise 3x3 (VALID over the halo of hid, row stride hs) + bias + GELU
 // of output pixel t's channel pair cl, rounded.
 template <class L>
-__device__ __forceinline__ float2 dwconv_pair(const bf16* hid, int hs, int t,
-                                              int cl, const PairTaps& k,
+__device__ __forceinline__ float2 dwconv_pair(const typename L::T* hid,
+                                              int hs, int t, int cl,
+                                              const PairTaps& k,
                                               int fast_gelu) {
+  using T = typename L::T;
   const int r = t / L::TW, c = t % L::TW;
   float a0 = 0.f, a1 = 0.f;
 #pragma unroll
   for (int di = 0; di < 3; ++di) {
 #pragma unroll
     for (int dj = 0; dj < 3; ++dj) {
-      const float2 hv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(
-              hid + ((r + di) * L::PW + c + dj) * hs + cl));
+      const float2 hv = load2(hid + ((r + di) * L::PW + c + dj) * hs + cl);
       a0 = fmaf(hv.x, k.k0[di * 3 + dj], a0);
       a1 = fmaf(hv.y, k.k1[di * 3 + dj], a1);
     }
   }
   return make_float2(
-      round_to<bf16>(gelu(round_to<bf16>(a0 + k.db0), fast_gelu)),
-      round_to<bf16>(gelu(round_to<bf16>(a1 + k.db1), fast_gelu)));
+      round_to<T>(gelu(round_to<T>(a0 + k.db0), fast_gelu)),
+      round_to<T>(gelu(round_to<T>(a1 + k.db1), fast_gelu)));
 }
 
 // 2c. depthwise 3x3 + bias + GELU of a chunk (dwconv_pair), two channels
 //     per thread (a fixed pair, so its taps stay in registers); fn(t, cl,
 //     g0, g1) takes each output pixel's pair.
 template <class L, class Fn>
-__device__ __forceinline__ void dwconv_chunk(const bf16* hid, int hs,
-                                             const bf16* par, int ps,
+__device__ __forceinline__ void dwconv_chunk(const typename L::T* hid, int hs,
+                                             const typename L::T* par, int ps,
                                              int fast_gelu, int tid, Fn fn) {
   constexpr int kPairs = L::KC / 2, NT = L::kThreads;
   const int cl = 2 * (tid % kPairs);
@@ -851,17 +932,70 @@ __device__ __forceinline__ void dense2_chunk(float (&acc)[L::MW][L::NW][4],
   }
 }
 
+// 2d, float32. a chunk's share of dense2 in 3xTF32: A (split once per
+//     m-tile and k-step) from the chunk's KC columns of a (row stride as),
+//     B (split once per n-tile and k-step) from the W2 chunk w. With CHAIN
+//     as float32 fma chains over k ascending (dense1_chunk_tf32): the
+//     chunks in order, so each output is one chain over the hidden width.
+template <class L, bool CHAIN>
+__device__ __forceinline__ void dense2_chunk_tf32(
+    float (&acc)[L::MW][L::NW][4], const float* a_src, int as,
+    const float* w, int wm, int wn, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (CHAIN) {
+    for (int k = 0; k < L::KC; ++k) {
+#pragma unroll
+      for (int i = 0; i < L::MW; ++i) {
+        const float* a = a_src + ((wm * L::MW + i) * 16 + g) * as + k;
+        const float a0 = a[0], a1 = a[8 * as];
+#pragma unroll
+        for (int j = 0; j < L::NW; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              w + k * L::NS + (wn * L::NW + j) * 8 + 2 * t);
+          acc[i][j][0] = fmaf(a0, b.x, acc[i][j][0]);
+          acc[i][j][1] = fmaf(a0, b.y, acc[i][j][1]);
+          acc[i][j][2] = fmaf(a1, b.x, acc[i][j][2]);
+          acc[i][j][3] = fmaf(a1, b.y, acc[i][j][3]);
+        }
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int kk = 0; kk < L::KC / 8; ++kk) {
+    uint32_t ah[L::MW][4], al[L::MW][4];
+#pragma unroll
+    for (int i = 0; i < L::MW; ++i) {
+      ld_a_tf32(smem_addr(a_src + ((wm * L::MW + i) * 16 + (lane & 15)) * as +
+                          kk * 8 + (lane >> 4) * 4),
+                ah[i], al[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < L::NW; ++j) {
+      uint32_t bh[2], bl[2];
+      ld_b_tf32(w + (kk * 8 + t) * L::NS + (wn * L::NW + j) * 8 + g, L::NS,
+                bh, bl);
+#pragma unroll
+      for (int i = 0; i < L::MW; ++i) {
+        mma_3xtf32(acc[i][j], ah[i], al[i], bh, bl);
+      }
+    }
+  }
+}
+
 // 3. + b2, rounded, the output's round trip, store the tile. int8: a
 //    pixel's channels lie in a quad of lanes of each of the WN warps of its
 //    row, so its amax is a quad reduction, then an atomicMax into sMax2
 //    (free: every thread is past its last read of it).
 template <class L, int MODE>
 __device__ __forceinline__ void store_tile(
-    const float (&acc)[L::MW][L::NW][4], const bf16* __restrict__ b2,
-    bf16* __restrict__ out, int* sMax2, int b, int y0, int x0, int H, int W,
-    int C, int wm, int wn, int tid, int lane) {
+    const float (&acc)[L::MW][L::NW][4],
+    const typename L::T* __restrict__ b2, typename L::T* __restrict__ out,
+    int* sMax2, int b, int y0, int x0, int H, int W, int C, int wm, int wn,
+    int tid, int lane) {
+  using T = typename L::T;
   auto out_val = [&](int i, int j, int e, int n) {
-    const float y = n < C ? round_to<bf16>(acc[i][j][e] + to_f(b2[n])) : 0.f;
+    const float y = n < C ? round_to<T>(acc[i][j][e] + to_f(b2[n])) : 0.f;
     return MODE == kFp8 ? fp8_trip(y) : y;
   };
   if (MODE == kInt8) {
@@ -892,9 +1026,9 @@ __device__ __forceinline__ void store_tile(
       const int t = (wm * L::MW + i) * 16 + (lane >> 2) + h * 8;
       const int gy = y0 + t / L::TW, gx = x0 + t % L::TW;
       if (gy >= H || gx >= W) continue;
-      const float scale = MODE == kInt8 ? i8_scale<bf16>(sMax2[t]) : 0.f;
+      const float scale = MODE == kInt8 ? i8_scale<T>(sMax2[t]) : 0.f;
       const float inv = MODE == kInt8 ? __frcp_rn(scale) : 0.f;
-      bf16* o = out + ((static_cast<size_t>(b) * H + gy) * W + gx) * C;
+      T* o = out + ((static_cast<size_t>(b) * H + gy) * W + gx) * C;
 #pragma unroll
       for (int j = 0; j < L::NW; ++j) {
         const int n = (wn * L::NW + j) * 8 + (lane & 3) * 2;
@@ -902,8 +1036,8 @@ __device__ __forceinline__ void store_tile(
         for (int u = 0; u < 2; ++u) {
           if (n + u >= C) continue;
           const float y = out_val(i, j, 2 * h + u, n + u);
-          o[n + u] = from_f<bf16>(
-              MODE == kInt8 ? i8_trip_rcp<bf16>(y, scale, inv) : y);
+          o[n + u] = from_f<T>(
+              MODE == kInt8 ? i8_trip_of<T>(y, scale, inv) : y);
         }
       }
     }
@@ -912,35 +1046,36 @@ __device__ __forceinline__ void store_tile(
 
 // The classes of every mode. MODE is the act_store mode (a template
 // argument, so that the plain kernel carries none of the round trips'
-// registers); int8 runs here only where no class of its own fits.
+// registers); int8 runs here only where no class of its own fits. L::T is
+// bf16 (dense1 and dense2 as bf16 MMAs) or float (3xTF32).
 template <class L, int MODE>
 __global__ void __launch_bounds__(L::kThreads, L::MINB)
-    leff_fwd_mma_kernel(const bf16* __restrict__ x,
-                        const bf16* __restrict__ gamma,
-                        const bf16* __restrict__ beta,
-                        const bf16* __restrict__ w1,
-                        const bf16* __restrict__ b1,
-                        const bf16* __restrict__ dw,
-                        const bf16* __restrict__ dwb,
-                        const bf16* __restrict__ w2,
-                        const bf16* __restrict__ b2, bf16* __restrict__ out,
-                        int H, int W, int C, int Ch, float eps, int fast_gelu,
-                        int vec) {
-  constexpr int KC = L::KC, HS = L::HS, NS = L::NS, NC = L::NC,
+    leff_fwd_mma_kernel(const typename L::T* __restrict__ x,
+                        const typename L::T* __restrict__ gamma,
+                        const typename L::T* __restrict__ beta,
+                        const typename L::T* __restrict__ w1,
+                        const typename L::T* __restrict__ b1,
+                        const typename L::T* __restrict__ dw,
+                        const typename L::T* __restrict__ dwb,
+                        const typename L::T* __restrict__ w2,
+                        const typename L::T* __restrict__ b2,
+                        typename L::T* __restrict__ out, int H, int W, int C,
+                        int Ch, float eps, int fast_gelu, int vec) {
+  using T = typename L::T;
+  constexpr int KC = L::KC, HS = L::HS, NS = L::NS, NC = L::NC, GS = L::GS,
                 NT = L::kThreads, mode = MODE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Kp = (C + 15) / 16 * 16, XS = Kp + 8;
-  bf16* sXn = reinterpret_cast<bf16*>(smem_raw);  // [HPP][XS] LN(x)
-  bf16* sW1 = sXn + L::HPP * XS;                  // [Kp][HS] W1[:, chunk]
-  bf16* sW2 = sW1 + Kp * HS;                      // [KC][NS] W2[chunk, :]
-  bf16* sPar = sW2 + KC * NS;        // 2 x [kPar][KC]: b1, dw bias, taps
-  bf16* sHid = sPar + 2 * L::kPar * KC;           // [HPP][HS] hidden chunk
-  bf16* sG = sHid + L::HPP * HS;                  // [TP][HS] GELU(dwconv)
-  int* sMax1 = reinterpret_cast<int*>(sG + L::TP * HS);  // [HPP] int8 amaxes
+  const int Kp = (C + 15) / 16 * 16, XS = Kp + L::kVec;
+  T* sXn = reinterpret_cast<T*>(smem_raw);        // [HPP][XS] LN(x)
+  T* sW1 = sXn + L::HPP * XS;                     // [Kp][HS] W1[:, chunk]
+  T* sW2 = sW1 + Kp * HS;                         // [KC][NS] W2[chunk, :]
+  T* sPar = sW2 + KC * NS;           // 2 x [kPar][KC]: b1, dw bias, taps
+  T* sHid = sPar + 2 * L::kPar * KC;              // [HPP][HS] hidden chunk
+  T* sG = sHid + L::HPP * HS;                     // [TP][GS] GELU(dwconv)
+  int* sMax1 = reinterpret_cast<int*>(sG + L::TP * GS);  // [HPP] int8 amaxes
   int* sMax2 = sMax1 + L::HPP;                            // [TP]
   unsigned char* sIn =
       reinterpret_cast<unsigned char*>(sMax2 + L::TP);  // [HPP] in image
-
   const int b = blockIdx.z, y0 = blockIdx.y * L::TH, x0 = blockIdx.x * L::TW;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_chunks = (Ch + KC - 1) / KC;
@@ -991,18 +1126,25 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
   for (int v = 0; v < n_steps; ++v) {
     const int sweep = v / n_chunks;
     const bool last = sweep + 1 == n_sweeps;  // the sweep that runs dense2
-    const bf16* par = sPar + (v & 1) * L::kPar * KC;
+    const T* par = sPar + (v & 1) * L::kPar * KC;
     cp_async_wait_all();  // P1(v), this thread's copies
     __syncthreads();      // A
     if (last) issue_p2(v);
     // int8: an amax is complete once its sweep is done; its scale replaces
     // it before B, for the GELU (sweeps 1, 2) and the dwconv (sweep 2)
-    if (mode == kInt8 && v == n_chunks) amax_to_scale(sMax1, L::HPP, tid, NT);
+    if (mode == kInt8 && v == n_chunks) {
+      amax_to_scale<T>(sMax1, L::HPP, tid, NT);
+    }
     if (mode == kInt8 && v == 2 * n_chunks) {
-      amax_to_scale(sMax2, L::TP, tid, NT);
+      amax_to_scale<T>(sMax2, L::TP, tid, NT);
     }
 
-    dense1_chunk<L>(sXn, XS, Kp, sW1, par, sHid, HS, warp, lane);
+    if constexpr (L::kF32) {
+      dense1_chunk_tf32<L, MODE != 0>(sXn, XS, Kp, sW1, par, sHid, HS, warp,
+                                      lane);
+    } else {
+      dense1_chunk<L>(sXn, XS, Kp, sW1, par, sHid, HS, warp, lane);
+    }
     __syncthreads();  // B
     if (v + 1 < n_steps) issue_p1(v + 1);
 
@@ -1017,8 +1159,8 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
       } else if (mode == kInt8) {
         const float scale = reinterpret_cast<const float*>(sMax1)[p];
         const float inv = __frcp_rn(scale);
-        g0 = i8_trip_rcp<bf16>(g0, scale, inv);
-        g1 = i8_trip_rcp<bf16>(g1, scale, inv);
+        g0 = i8_trip_of<T>(g0, scale, inv);
+        g1 = i8_trip_of<T>(g1, scale, inv);
       }
     });
     __syncthreads();  // G
@@ -1034,11 +1176,10 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
       } else if (mode == kInt8) {
         const float scale = reinterpret_cast<const float*>(sMax2)[t];
         const float inv = __frcp_rn(scale);
-        g0 = i8_trip_rcp<bf16>(g0, scale, inv);
-        g1 = i8_trip_rcp<bf16>(g1, scale, inv);
+        g0 = i8_trip_of<T>(g0, scale, inv);
+        g1 = i8_trip_of<T>(g1, scale, inv);
       }
-      *reinterpret_cast<__nv_bfloat162*>(sG + t * HS + cl) =
-          __floats2bfloat162_rn(g0, g1);
+      store2(sG + t * GS + cl, g0, g1);
     });
     if (!last) continue;  // int8 sweep 1: its amaxes are in for sweep 2
     // P2(v) landed: the newest group, P1(v+1), may still be in flight.
@@ -1049,7 +1190,11 @@ __global__ void __launch_bounds__(L::kThreads, L::MINB)
     }
     __syncthreads();  // C
 
-    dense2_chunk<L>(acc, sG, HS, sW2, wm, wn, lane);
+    if constexpr (L::kF32) {
+      dense2_chunk_tf32<L, MODE != 0>(acc, sG, GS, sW2, wm, wn, lane);
+    } else {
+      dense2_chunk<L>(acc, sG, HS, sW2, wm, wn, lane);
+    }
   }
 
   store_tile<L, MODE>(acc, b2, out, sMax2, b, y0, x0, H, W, C, wm, wn, tid,
@@ -1314,15 +1459,17 @@ int launch(K kernel, const void* x, const void* gamma, const void* beta,
                         reinterpret_cast<uintptr_t>(b1) |
                         reinterpret_cast<uintptr_t>(dw) |
                         reinterpret_cast<uintptr_t>(dwb);
-  const int vec = C % 8 == 0 && Ch % 8 == 0 && any % 16 == 0;
+  // 16-byte copies: C, Ch and the pointers aligned to them
+  const int vec = C % L::kVec == 0 && Ch % L::kVec == 0 && any % 16 == 0;
+  using T = typename L::T;
   dim3 grid((W + L::TW - 1) / L::TW, (H + L::TH - 1) / L::TH, B);
   kernel<<<grid, L::kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(gamma),
-      static_cast<const bf16*>(beta), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(dw),
-      static_cast<const bf16*>(dwb), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(out), H, W, C, Ch,
-      eps, fast_gelu, vec);
+      static_cast<const T*>(x), static_cast<const T*>(gamma),
+      static_cast<const T*>(beta), static_cast<const T*>(w1),
+      static_cast<const T*>(b1), static_cast<const T*>(dw),
+      static_cast<const T*>(dwb), static_cast<const T*>(w2),
+      static_cast<const T*>(b2), static_cast<T*>(out), H, W, C, Ch, eps,
+      fast_gelu, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1355,12 +1502,20 @@ int i8_class(int C, int Ch) {
   return 0;
 }
 
-// The shared memory of the bf16 class that runs (C, Ch, mode), if (TH, TW)
-// is that class's tile; -1 otherwise.
-long mma_smem_bytes(int C, int Ch, int TH, int TW, int mode) {
+// The shared memory of the class that runs (dtype, C, Ch, mode), if (TH,
+// TW) is that class's tile; -1 otherwise.
+long mma_smem_bytes(int dtype, int C, int Ch, int TH, int TW, int mode) {
   if (TH != 8 || C < 1 || Ch < 1) return -1;
 #define LEFF_BYTES(L) \
   return TW == L::TW ? static_cast<long>(L::smem_bytes(C, Ch)) : -1
+  if (dtype == 0) {
+    if (C <= 32) LEFF_BYTES(F32Tile32);
+    if (C <= 64) LEFF_BYTES(F32Tile64);
+    if (C <= 128) LEFF_BYTES(F32Tile128);
+    if (C <= 256) LEFF_BYTES(F32Tile256);
+    if (C <= 512) LEFF_BYTES(F32Tile512);
+    return -1;
+  }
   if (mode == kInt8) {
     switch (i8_class(C, Ch)) {
       case 1: LEFF_BYTES(I8Tile32);
@@ -1418,8 +1573,7 @@ extern "C" {
 // the hidden width; act_store the mode (int8 has classes of its own).
 long leff_smem_bytes(int dtype, int C, int Ch, int TH, int TW,
                      int act_store) {
-  if (dtype == 0) return static_cast<long>(f32_smem_bytes(C, TH, TW));
-  return mma_smem_bytes(C, Ch, TH, TW, act_store);
+  return mma_smem_bytes(dtype, C, Ch, TH, TW, act_store);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. x/out: [B, H, W, C] contiguous;
@@ -1438,29 +1592,13 @@ int leff_fwd(int dtype, const void* x, const void* gamma, const void* beta,
   if (act_store < 0 || act_store > kInt8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) {
-    const size_t smem = f32_smem_bytes(C, TH, TW);
-    cudaError_t e = cudaFuncSetAttribute(
-        leff_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-    leff_fwd_f32_kernel<<<grid, kF32Threads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<const float*>(w1),
-        static_cast<const float*>(b1), static_cast<const float*>(dw),
-        static_cast<const float*>(dwb), static_cast<const float*>(w2),
-        static_cast<const float*>(b2), static_cast<float*>(out), H, W, C, Ch,
-        TH, TW, eps, fast_gelu, act_store);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (mma_smem_bytes(C, Ch, TH, TW, act_store) < 0) {
+  if (mma_smem_bytes(dtype, C, Ch, TH, TW, act_store) < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #define LEFF_I8(L)                                                          \
   return launch<L>(leff_fwd_i8_kernel<L>, x, gamma, beta, w1, b1, dw, dwb, \
                    w2, b2, out, B, H, W, C, Ch, eps, fast_gelu, s)
-  if (act_store == kInt8) {
+  if (dtype != 0 && act_store == kInt8) {
     switch (i8_class(C, Ch)) {
       case 1: LEFF_I8(I8Tile32);
       case 2: LEFF_I8(I8Tile64);
@@ -1473,6 +1611,13 @@ int leff_fwd(int dtype, const void* x, const void* gamma, const void* beta,
 #define LEFF_LAUNCH(L)                                                      \
   return launch_mma<L>(x, gamma, beta, w1, b1, dw, dwb, w2, b2, out, B, H, \
                        W, C, Ch, eps, fast_gelu, act_store, s)
+  if (dtype == 0) {
+    if (C <= 32) LEFF_LAUNCH(F32Tile32);
+    if (C <= 64) LEFF_LAUNCH(F32Tile64);
+    if (C <= 128) LEFF_LAUNCH(F32Tile128);
+    if (C <= 256) LEFF_LAUNCH(F32Tile256);
+    LEFF_LAUNCH(F32Tile512);
+  }
   if (C <= 32) LEFF_LAUNCH(Tile32);
   if (C <= 64) LEFF_LAUNCH(Tile64);
   if (C <= 128) LEFF_LAUNCH(Tile128);

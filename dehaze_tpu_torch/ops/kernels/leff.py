@@ -9,8 +9,10 @@ node of its graph: on a CUDA tensor it launches `csrc/leff.cu`, on a CPU
 tensor it runs the plain twin `leff_reference`. There is no other path. In
 bf16 the kernel runs both Dense layers on the tensor cores with their
 weights staged in shared memory, tiled per C (for int8 per C and Ch) by
-`plan_tile`; in float32 it stays on the CUDA cores (csrc/leff.cu says
-why).
+`plan_tile`; in float32 it runs them on the tensor cores too, each product
+as three TF32 products (3xTF32: each operand split into TF32 hi + lo),
+which keeps float32's accuracy; with `act_store` as float32 fma chains on
+the CUDA cores (csrc/leff.cu says how and why).
 
 Public layouts are the JAX kernel's: x [B, H, W, C]; w1 [C, Ch]; dw_kernel
 [3, 3, 1, Ch] (HWIO); w2 [Ch, C]. All parameters are cast to x.dtype, as the
@@ -46,8 +48,6 @@ _SIGNATURES = {
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
-_F32_SMEM_BUDGET = 200 * 1024  # the float32 path's planning budget
-_F32_CHUNK = 32  # hidden channels per chunk of the float32 path
 # bf16 tile classes of csrc/leff.cu (Tile32 ... Tile512), by the largest C
 # each takes: (largest C, tile width TW, hidden chunk KC). Every class has 8
 # tile rows and holds `largest C` output channels in registers.
@@ -59,6 +59,11 @@ _MMA_CLASSES = ((32, 32, 32), (64, 32, 64), (128, 32, 64), (256, 16, 64),
 # (C, Ch), int8 runs three sweeps in the class of C above.
 _I8_CLASSES = ((32, 32, 32, 1), (64, 16, 64, 1), (128, 16, 32, 2),
                (256, 8, 32, 2))
+# float32's 3xTF32 classes (F32Tile32 ... F32Tile512), by the largest C each
+# takes: (largest C, tile width TW, hidden chunk KC); 8 rows each; int8
+# runs three sweeps in them.
+_TF32_CLASSES = ((32, 32, 32), (64, 16, 64), (128, 16, 32), (256, 8, 32),
+                 (512, 4, 16))
 
 
 class TilePlan(NamedTuple):
@@ -75,12 +80,6 @@ class TilePlan(NamedTuple):
     def halo_ratio(self) -> float:
         """Haloed pixels per output pixel: how often dense1 is computed."""
         return (self.th + 2) * (self.tw + 2) / (self.th * self.tw)
-
-
-def _f32_smem_bytes(C: int, TH: int, TW: int) -> int:
-    HP, TP = (TH + 2) * (TW + 2), TH * TW
-    return ((TP * C + HP * _F32_CHUNK + TP * _F32_CHUNK + HP * C) * 4
-            + (HP + TP) * 4 + HP)
 
 
 def _mma_smem_bytes(C: int, Ch: int, tw: int, nc: int, kc: int,
@@ -110,14 +109,19 @@ def _mma_smem_bytes(C: int, Ch: int, tw: int, nc: int, kc: int,
                  + tp * hsw) + 8 * (hpp + tp) + hpp)
 
 
-def _f32_tile_rows(C: int) -> int:
-    """Rows of the float32 path's 8-wide tile (the plan K2 had for both
-    types before its bf16 path moved onto tensor cores)."""
-    for th in (8, 4, 2, 1):
-        if _f32_smem_bytes(C, th, 8) <= _F32_SMEM_BUDGET:
-            return th
-    raise ValueError(f"K2 cannot tile C={C} within {_F32_SMEM_BUDGET} bytes "
-                     "of shared memory")
+def _tf32_smem_bytes(C: int, tw: int, nc: int, kc: int) -> int:
+    """csrc/leff.cu Tile<..., float>::smem_bytes (three sweeps for int8, so
+    one count for every mode and Ch): float32 LN tile [HPP][Kp+4], the W1
+    chunk [Kp][KC+8], the W2 chunk [KC][NC+8], two buffers of the chunk's
+    11 parameter rows [11][KC], hidden [HPP][KC+8] and dense2's A
+    [TP][KC+4]; then the int8 amaxes (an int per haloed and output pixel)
+    and a byte per haloed pixel."""
+    hp = 10 * (tw + 2)
+    hpp = -(-hp // 16) * 16
+    kp = -(-C // 16) * 16
+    tp = 8 * tw
+    return (4 * (hpp * (kp + 4) + kp * (kc + 8) + kc * (nc + 8) + 2 * 11 * kc
+                 + hpp * (kc + 8) + tp * (kc + 4)) + 4 * (hpp + tp) + hpp)
 
 
 def plan_tile(C: int, dtype: torch.dtype, act_store: Optional[str] = None,
@@ -127,8 +131,9 @@ def plan_tile(C: int, dtype: torch.dtype, act_store: Optional[str] = None,
     tensor-core class of C (8 rows; 32, 16 or 8 columns as C grows, the
     widest whose LN tile, weight buffers and register accumulator fit);
     for int8 the first of its own classes whose resident hidden fits
-    (`_I8_CLASSES`), else three sweeps in the class of C. float32: 8
-    columns, rows by `_f32_tile_rows` (int8 in three sweeps)."""
+    (`_I8_CLASSES`), else three sweeps in the class of C. float32: the
+    3xTF32 class of C (8 rows; 32, 16, 8 or 4 columns as C grows, the
+    widest whose float32 tiles fit; int8 in three sweeps)."""
     actstore.mode_code(act_store)  # an unknown mode raises
     Ch = 4 * C if Ch is None else Ch
     int8 = act_store == "int8"
@@ -144,8 +149,12 @@ def plan_tile(C: int, dtype: torch.dtype, act_store: Optional[str] = None,
                                 3 if int8 else 1)
         raise ValueError(f"K2 takes C <= {_MMA_CLASSES[-1][0]} in bfloat16, "
                          f"got {C}")
-    th = _f32_tile_rows(C)
-    return TilePlan(th, 8, _f32_smem_bytes(C, th, 8), 3 if int8 else 1)
+    for cmax, tw, kc in _TF32_CLASSES:
+        if C <= cmax:
+            return TilePlan(8, tw, _tf32_smem_bytes(C, tw, cmax, kc),
+                            3 if int8 else 1)
+    raise ValueError(f"K2 takes C <= {_TF32_CLASSES[-1][0]} in float32, "
+                     f"got {C}")
 
 
 def i8_trip_reference(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

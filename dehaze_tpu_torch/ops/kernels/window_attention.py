@@ -16,7 +16,7 @@ q, k, v and `rel_pos_bias`; the backward reuses the forward's
 `torch.export` graph keeps it as one node and an exported artifact
 launches the kernel on the card.
 
-Two forward kernels, chosen by shape, dtype, numerics and layout alone
+Three forward kernels, chosen by shape, dtype, numerics and layout alone
 (`fwd_kernel_for`):
 - "tc", `csrc/window_attention_tc.cu`: bf16, N <= 64, head dim 16, 32, 48
   or 64 — every shape of the model's default configuration — in K1's
@@ -25,10 +25,14 @@ Two forward kernels, chosen by shape, dtype, numerics and layout alone
   warp per window-head; counted in `.launches_tc` of its entry point
   (`window_attention_fwd`, `window_attention_v3_fwd`,
   `probsparse_window_attention_v1`, `probsparse_window_attention_v2`);
+- "f32", `window_attention_f32_fwd_kernel` of `csrc/window_attention.cu`:
+  K1 in float32 at the same shapes (token-major), register-blocked on the
+  CUDA cores with S computed exactly as the backward recomputes it;
+  counted in `window_attention_fwd.launches_f32`;
 - "cuda_core", `window_attention_fwd_kernel` of `csrc/window_attention.cu`:
-  everything else (float32, larger windows or heads); counted in
+  everything else (larger windows or heads, K3 in float32); counted in
   `.launches` of its entry point.
-Both select exactly the rows the twin selects (see the sources' notes).
+All select exactly the rows the twin selects (see the sources' notes).
 Two backward kernels, chosen the same way (`bwd_kernel_for`):
 - "tc", `window_attention_tc_bwd_kernel` of `csrc/window_attention_tc.cu`:
   the forward's shapes with u <= 32 kept rows (every shape of the default
@@ -36,7 +40,7 @@ Two backward kernels, chosen the same way (`bwd_kernel_for`):
   rows' products on the bf16 tensor cores; counted in `.launches_tc` of
   `window_attention_bwd` and `window_attention_v3_bwd`;
 - "cuda_core", `window_attention_bwd_kernel` of `csrc/window_attention.cu`:
-  everything else; counted in `.launches`.
+  everything else, float32 included; counted in `.launches`.
 
 K3 are the older TPU kernels of the same chain, which round at other points
 (see `ops.probsparse`); the same CUDA kernels run them with another
@@ -78,6 +82,7 @@ _SIGNATURES = {
     "window_attention_bwd": ([_I, _I] + [_P] * 13 + [_I] * 6
                              + [_F, _I, _P, _P]),
     "window_attention_ws_bytes": [_I] * 3,
+    "window_attention_f32_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 _TC_SIGNATURES = {
     "window_attention_tc_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
@@ -106,11 +111,15 @@ def fwd_kernel_for(dtype: torch.dtype, numerics: str, n: int,
     """Which forward kernel a CUDA call launches: "tc" (the tensor-core
     kernel: bf16, N <= 64, head dim 16, 32, 48 or 64, K1's or K3-v3's
     numerics token-major [B_, N, C], K3-v2's or v1's head-major [B, H, N,
-    D]) or "cuda_core" (everything else)."""
+    D]), "f32" (K1's float32 kernel: float32, K1's numerics token-major,
+    the same N and head dims) or "cuda_core" (everything else)."""
+    if n > TC_MAX_N or head_dim not in TC_HEAD_DIMS:
+        return "cuda_core"
     if (dtype == torch.bfloat16 and numerics in TC_NUMERICS
-            and head_major in TC_LAYOUTS[numerics] and n <= TC_MAX_N
-            and head_dim in TC_HEAD_DIMS):
+            and head_major in TC_LAYOUTS[numerics]):
         return "tc"
+    if dtype == torch.float32 and numerics == "v4" and not head_major:
+        return "f32"
     return "cuda_core"
 
 
@@ -204,7 +213,8 @@ def _launch_fwd(entry, numerics, head_major, q, k, v, *, num_heads,
                 factor, scale, cnt):
     """Launch the forward kernel that `fwd_kernel_for` names on CUDA
     tensors and count it on `entry` (`.launches_tc` for the tensor-core
-    kernel, `.launches` for the CUDA-core one)."""
+    kernel, `.launches_f32` for K1's float32 one, `.launches` for the
+    CUDA-core one)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     bias, region, pad, nW = _check(q, k, v, num_heads, rel_pos_bias,
@@ -219,7 +229,19 @@ def _launch_fwd(entry, numerics, head_major, q, k, v, *, num_heads,
     if cnt is None:
         cnt = count_matrix(sample_idx, N, dev)
     out = torch.empty_like(q)
-    if fwd_kernel_for(q.dtype, numerics, N, C // H, head_major) == "tc":
+    route = fwd_kernel_for(q.dtype, numerics, N, C // H, head_major)
+    if route == "f32":
+        lib = _build.load_library("window_attention", _SIGNATURES)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.window_attention_f32_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), cnt.data_ptr(),
+                _ptr(bias), _ptr(region), _ptr(pad), out.data_ptr(), B, N, C,
+                H, nW, u, float(scale), stream)
+        _build.check(lib, err, "window_attention_f32_fwd")
+        entry.launches_f32 += 1
+        return out
+    if route == "tc":
         lib = _build.load_library("window_attention_tc", _TC_SIGNATURES)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -391,8 +413,9 @@ def window_attention_fwd(q, k, v, **kw):
     a kernel on CUDA, the twin on the CPU. Keywords as
     `fused_window_attention`'s, plus `cnt`, `count_matrix(sample_idx,
     ...)` when the caller has it already. Counts
-    the tensor-core kernel's launches in `.launches_tc` and the CUDA-core
-    kernel's in `.launches` (`fwd_kernel_for` says which runs)."""
+    the tensor-core kernel's launches in `.launches_tc`, the float32
+    kernel's in `.launches_f32` and the CUDA-core kernel's in `.launches`
+    (`fwd_kernel_for` says which runs)."""
     return _attention_fwd("v4", q, k, v, **kw)
 
 
@@ -477,6 +500,7 @@ for _entry in (window_attention_fwd, window_attention_bwd,
                probsparse_window_attention_v2):
     _entry.launches = 0
     _entry.launches_tc = 0
+    _entry.launches_f32 = 0
 
 _FWD_ENTRIES = {"v4": window_attention_fwd, "v23": window_attention_v3_fwd}
 _VERSIONS = {4: (window_attention_fwd, window_attention_bwd),

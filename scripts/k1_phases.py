@@ -2,7 +2,7 @@
 """Where K1 spends its time, phase by phase, on one NVIDIA GPU.
 
     python3 scripts/k1_phases.py [--root DIR]
-        [--kernel cuda_core|tc|cuda_core_bwd|tc_bwd]
+        [--kernel cuda_core|tc|cuda_core_bwd|tc_bwd|f32]
         [--numerics v4|v23|v1|v2hm]
 
 Builds an instrumented copy of one K1 source of the port found under
@@ -32,6 +32,12 @@ prints the cycles per CTA of each phase.
   reach it only in a tree without the tensor-core backward.
 --kernel tc_bwd: `window_attention_tc_bwd_kernel` of
   csrc/window_attention_tc.cu, by its `// phase:` lines as for tc.
+--kernel f32: `window_attention_f32_fwd_kernel` of csrc/window_attention.cu
+  (float32 inputs; persistent CTAs walking window-heads); its phases end
+  at its barriers: wait (the copies of this window-head, and the previous
+  one's PV and stores), widen (q and k to float64), QK^T, S store, M /
+  mean(V), rank, chain read, chain, and the end (the last window-head's
+  PV and stores), summed over the CTA's window-heads.
 --numerics v23 runs K3-v3's calls (`window_attention_v3_fwd` / `_bwd`,
 the same kernels with K3-v3's rounding points) instead of K1's; v1 and
 v2hm the head-major K3-v1 and K3-v2 forwards
@@ -73,6 +79,9 @@ KERNELS = {
                        "end"]),
     "tc_bwd": ("window_attention_tc", "window_attention_tc_bwd_kernel",
                None),
+    "f32": ("window_attention", "window_attention_f32_fwd_kernel",
+            ["wait", "widen", "QK^T", "S store", "M/mean", "rank",
+             "chain read", "chain", "end"]),
 }
 COUNTERS = """
 __device__ unsigned long long g_phase[16];
@@ -199,9 +208,10 @@ def main() -> None:
             region = torch.from_numpy(win_ops.shift_region_ids(
                 reg_hw[0], reg_hw[1], 8, 4)).to(dev)
         shape = (B, heads, N, C // heads) if head_major else (B, N, C)
+        dtype = torch.float32 if args.kernel == "f32" else torch.bfloat16
         q, k, v = (torch.randn(*shape, generator=g, device=dev).mul_(0.5)
-                   .bfloat16() for _ in range(3))
-        go = torch.randn(B, N, C, generator=g, device=dev).bfloat16()
+                   .to(dtype) for _ in range(3))
+        go = torch.randn(B, N, C, generator=g, device=dev).to(dtype)
         kw = dict(sample_idx=si, rel_pos_bias=bias, sw_region=region,
                   num_windows=1 if region is None else region.shape[0])
         if not head_major:

@@ -3,21 +3,31 @@
 frame (forward) or of one train step (backward, --bwd), on one NVIDIA GPU,
 from the port found under --root.
 
-    python3 scripts/k1_stages.py [--root DIR] [--reps N] [--twin] [--bwd]
-        [--numerics v4|v23|v1|v2hm]
+    python3 scripts/k1_stages.py [--root DIR [--root DIR2]] [--reps N]
+        [--twin] [--bwd] [--numerics v4|v23|v1|v2hm]
+        [--dtype bfloat16|float32] [--save DIR]
 
-The shapes are Uformer-32's, N = 64, head dim 32, bf16, q/k/v at std 0.5
-(the output gradient at std 1), a rel-pos bias, seeded inputs: at each
-stage one unshifted and one shifted block (region ids of the stage's map;
-the 8×8 bottleneck of a 128² crop does not shift). Forward: the rect
-canvas 1280×1664, the 18 K1 forward launches of a serving frame. --bwd:
-batch 32 × 128², the 18 K1 backward calls of a train step. --root names a
-checkout holding `dehaze_tpu_torch/` (default: this repository), so that
-two trees' kernels are timed on the same card in one call. Prints one line
-per stage, then a JSON line with each call's kernel ms (CUDA events, mean
-of --reps calls after a warm-up) and its bound and, with --twin, the plain
-twin's ms and the largest |kernel - twin| (over dq, dk and dv in the
-backward, relative to each tensor's largest |twin|). --numerics v23 times
+The shapes are Uformer-32's, N = 64, head dim 32, bf16 (or --dtype
+float32), q/k/v at std 0.5 (the output gradient at std 1), a rel-pos bias,
+seeded inputs: at each stage one unshifted and one shifted block (region
+ids of the stage's map; the 8×8 bottleneck of a 128² crop does not shift).
+Forward: the rect canvas 1280×1664, the 18 K1 forward launches of a
+serving frame. --bwd: batch 32 × 128², the 18 K1 backward calls of a train
+step. --root names a checkout holding `dehaze_tpu_torch/` (default: this
+repository). Prints one line per stage, then a JSON line with each call's
+kernel ms (CUDA events, mean of --reps calls after a warm-up) and its bound
+and, with --twin, the plain twin's ms and the largest |kernel - twin| (over
+dq, dk and dv in the backward, relative to each tensor's largest |twin|).
+The bound is the larger of the bytes over 3.35 TB/s and the operations over
+their peak on the card: bf16 at 989 TFLOP/s; float32's S (QK^T, an ordered
+float64 fma chain per element, which the tensor cores do not give) at 34
+TFLOP/s, the float64 rate of the CUDA cores, and its other products at 67.
+--save DIR writes each call's output (the backward's gradients) to
+DIR/<stage>_<shifted>.pt. With two roots (say the parent and the change),
+it runs itself once per root in turns, A, B, B, A, each in a process of
+its own on the same card, then compares the two trees' outputs bit for bit
+at each call (NaN matches NaN); its JSON line gives each root's ms and
+18-call totals. --numerics v23 times
 K3-v3 (`window_attention_v3_fwd` / `_bwd`, the same kernels with K3-v3's
 rounding points) at the same shapes instead; no path runs it, but its
 per-stage times compare with K1's. --numerics v1 and v2hm time the
@@ -56,7 +66,93 @@ BWD_STAGES = [("enc0", 8192, 32, 1, (128, 128)),
               ("dec1", 512, 256, 8, (32, 32)),
               ("dec2", 2048, 128, 4, (64, 64)),
               ("dec3", 8192, 64, 2, (128, 128))]
-HBM_BPS, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
+# H100 SXM data sheet: HBM bytes/s; bf16 tensor-core, float64 and float32
+# CUDA-core FLOP/s
+HBM_BPS, BF16_FLOPS, F64_FLOPS, F32_FLOPS = 3.35e12, 989e12, 34e12, 67e12
+
+
+def bound_ms(nbytes: float, s_flops: float, other_flops: float,
+             dtype: str):
+    """(bound ms, what bounds it): bytes against the products (S and the
+    rest) at their type's peak (see the docstring)."""
+    if dtype == "bfloat16":
+        ops = (s_flops + other_flops) / BF16_FLOPS
+    else:
+        ops = s_flops / F64_FLOPS + other_flops / F32_FLOPS
+    t_bytes = nbytes / HBM_BPS
+    return (max(t_bytes, ops) * 1e3,
+            "bytes" if t_bytes >= ops else "operations")
+
+
+def _save_path(save: str, row: dict) -> str:
+    return os.path.join(save, f"{row['stage']}_{int(row['shifted'])}.pt")
+
+
+def compare_roots(args) -> None:
+    """Run each of the two roots twice in turns (A, B, B, A), the first run
+    of each saving its outputs, then compare the outputs call by call."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    roots = [os.path.abspath(r) for r in args.root]
+    tmp = tempfile.mkdtemp(prefix="k1_stages_")
+    runs = []
+    try:
+        for turn, i in enumerate((0, 1, 1, 0)):
+            cmd = [sys.executable, os.path.abspath(__file__), "--root",
+                   roots[i], "--reps", str(args.reps), "--numerics",
+                   args.numerics, "--dtype", args.dtype]
+            if args.bwd:
+                cmd.append("--bwd")
+            if turn < 2:
+                cmd += ["--save", os.path.join(tmp, str(i))]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            if r.returncode != 0:
+                sys.exit(f"{roots[i]}: exit {r.returncode}\n{r.stderr[-3000:]}")
+            print(f"run {turn + 1} ({roots[i]}): "
+                  f"{r.stdout.splitlines()[-2]}", flush=True)
+            runs.append((i, json.loads(r.stdout.splitlines()[-1])))
+        calls = []
+        for k, row in enumerate(runs[0][1]["stages"]):
+            a, b = (torch.load(_save_path(os.path.join(tmp, str(i)), row))
+                    for i in (0, 1))
+            a = a if isinstance(a, (list, tuple)) else [a]
+            b = b if isinstance(b, (list, tuple)) else [b]
+            n_diff, numel, worst = 0, 0, 0.0
+            for x, y in zip(a, b):
+                if x is None:
+                    continue
+                x, y = x.cuda(), y.cuda()
+                ints = torch.int16 if x.element_size() == 2 else torch.int32
+                same = (x.view(ints) == y.view(ints)) | (x.isnan() & y.isnan())
+                n_diff += int((~same).sum())
+                numel += x.numel()
+                if not bool(same.all()):
+                    worst = max(worst, float((x.float() - y.float()).abs()
+                                             [~same].max()))
+            ms = [[r["stages"][k]["ms"] for i, r in runs if i == j]
+                  for j in (0, 1)]
+            call = {"stage": row["stage"], "shifted": row["shifted"],
+                    "ms": ms, "equal": n_diff == 0, "n_diff": n_diff,
+                    "numel": numel, "max_abs_diff": worst}
+            calls.append(call)
+            same = ("bit for bit equal" if not n_diff else
+                    f"{n_diff} of {numel} elements differ, max|d| "
+                    f"{worst:.3e}")
+            print(f"{row['stage']} shifted={row['shifted']}: {same}; ms "
+                  f"{ms[0]} against {ms[1]}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    key = "step_ms" if args.bwd else "frame_ms"
+    totals = [[r[key] for i, r in runs if i == j] for j in (0, 1)]
+    print(f"18 calls: {roots[0]} {totals[0]} ms, {roots[1]} {totals[1]} ms "
+          f"(in turns A, B, B, A)", flush=True)
+    print(json.dumps({"roots": roots, "numerics": args.numerics,
+                      "dtype": args.dtype, "bwd": args.bwd, key: totals,
+                      "stages": calls}), flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -76,16 +172,28 @@ def cuda_ms(fn, reps: int) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--root", action="append")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--twin", action="store_true")
     ap.add_argument("--bwd", action="store_true")
     ap.add_argument("--numerics", choices=("v4", "v23", "v1", "v2hm"),
                     default="v4")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
+    ap.add_argument("--save", default=None)
     args = ap.parse_args()
     head_major = args.numerics in ("v1", "v2hm")
     if head_major and args.bwd:
         sys.exit("K3-v1 and v2 have no backward")
+    roots = args.root or [HERE]
+    if len(roots) > 2:
+        sys.exit("--root takes one or two checkouts")
+    if len(roots) == 2:
+        if args.twin or args.save:
+            sys.exit("two roots compare the kernels: no --twin or --save")
+        compare_roots(args)
+        return
+    args.root = roots[0]
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
     import torch
@@ -107,6 +215,8 @@ def main() -> None:
     twin_hm = (ps_ops.probsparse_attention_v1 if args.numerics == "v1"
                else ps_ops.probsparse_attention_v2)
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, args.dtype)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1238)
     N, u = 64, ps_ops.probsparse_u(64)
@@ -120,8 +230,8 @@ def main() -> None:
         bias = torch.randn(heads, N, N, generator=g, device=dev) * 0.1
         shape = (B, heads, N, C // heads) if head_major else (B, N, C)
         q, k, v = (torch.randn(*shape, generator=g, device=dev).mul_(0.5)
-                   .bfloat16() for _ in range(3))
-        go = (torch.randn(B, N, C, generator=g, device=dev).bfloat16()
+                   .to(dtype) for _ in range(3))
+        go = (torch.randn(B, N, C, generator=g, device=dev).to(dtype)
               if args.bwd else None)
         regions = (None, None if hw is None else torch.from_numpy(
             win_ops.shift_region_ids(hw[0], hw[1], 8, 4)).to(dev))
@@ -155,19 +265,17 @@ def main() -> None:
             # dbias written in a backward), the counts, the region ids;
             # operations: S and the kept rows' products (PV; dv, da2, dq
             # and dk in a backward)
-            nbytes = ((7 if args.bwd else 4) * q.numel() * 2
+            nbytes = ((7 if args.bwd else 4) * q.numel() * q.element_size()
                       + (2 if args.bwd else 1) * bias.numel() * 4
                       + N * N * 4 + (0 if region is None else nW * N * 4))
-            flops = B * heads * (2 * N * N * (C // heads)
-                                 + (8 if args.bwd else 2) * u * N
-                                 * (C // heads))
-            b_bytes = nbytes / HBM_BPS * 1e3
-            b_ops = flops / BF16_FLOPS * 1e3
+            b_ms, b_by = bound_ms(
+                nbytes, B * heads * 2 * N * N * (C // heads),
+                B * heads * (8 if args.bwd else 2) * u * N * (C // heads),
+                args.dtype)
             row = {"stage": name, "shifted": region is not None,
                    "windows": B, "C": C, "heads": heads,
                    "ms": cuda_ms(kern, args.reps),
-                   "bound_ms": max(b_bytes, b_ops),
-                   "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+                   "bound_ms": b_ms, "bound_by": b_by}
             if args.twin:
                 got, want = kern(), twin()
                 if args.bwd:
@@ -179,6 +287,13 @@ def main() -> None:
                     row["max_abs_err"] = float((got.float() - want.float())
                                                .abs().max())
                 row["plain_ms"] = cuda_ms(twin, 2)
+            if args.save:
+                os.makedirs(args.save, exist_ok=True)
+                got = kern()
+                torch.save([t.cpu() if t is not None else None for t in got]
+                           if args.bwd else got.cpu(),
+                           _save_path(args.save, row))
+                del got
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             rows.append(row)
             err = ("" if not args.twin else
@@ -197,7 +312,7 @@ def main() -> None:
             "v2hm": "K3-v2"}[args.numerics]
     print(f"18 {name} {what}: {total:.3f} ms", flush=True)
     print(json.dumps({"root": os.path.abspath(args.root),
-                      "numerics": args.numerics,
+                      "numerics": args.numerics, "dtype": args.dtype,
                       "step_ms" if args.bwd else "frame_ms": total,
                       "stages": rows}), flush=True)
 

@@ -4,14 +4,20 @@ frame, on one NVIDIA GPU, from the port found under --root.
 
     python3 scripts/k2_stages.py [--root DIR [--root DIR2]] [--reps N]
                                  [--twin] [--act_store fp8|int8]
-                                 [--save DIR]
+                                 [--dtype bfloat16|float32] [--save DIR]
 
 The shapes are Uformer-32's on the rect canvas 1280×1664 (chip_smoke's
-K2_STAGES), bf16, exact GELU, hidden width 4C, seeded random weights. --root
-names a checkout holding `dehaze_tpu_torch/` (default: this repository).
-Prints one line per stage, then a JSON line with each stage's kernel ms
-(CUDA events, mean of --reps calls after a warm-up), its bound and, with
---twin, the plain twin's ms and the largest |kernel - twin|. --act_store
+K2_STAGES), bf16 (or --dtype float32, with TF32 off for the twin), exact
+GELU, hidden width 4C, seeded random weights. --root names a checkout
+holding `dehaze_tpu_torch/` (default: this repository). Prints one line per
+stage, then a JSON line with each stage's kernel ms (CUDA events, mean of
+--reps calls after a warm-up), its bound and, with --twin, the plain twin's
+ms and the largest |kernel - twin|. The bound is the larger of the bytes
+(x, the output and the parameters once) over 3.35 TB/s and the operations
+over the peak their type has on the card: bf16 products at 989 TFLOP/s;
+float32 products (both Dense layers) at 495 / 3 TFLOP/s, the rate of three
+TF32 products each (the split that keeps float32 accuracy on the tensor
+cores), plus the dwconv's on the CUDA cores at 67 TFLOP/s. --act_store
 times the kernel (and the twin) with that mode's round trips; the bound is
 the plain one's (the same bytes and operations). --save DIR writes each
 stage's kernel output to DIR/<stage>.pt.
@@ -40,7 +46,21 @@ STAGES = [("enc0", (1, 1280, 1664, 32)), ("enc1", (1, 640, 832, 64)),
           ("bottleneck", (1, 80, 104, 512)), ("dec0", (1, 160, 208, 512)),
           ("dec1", (1, 320, 416, 256)), ("dec2", (1, 640, 832, 128)),
           ("dec3", (1, 1280, 1664, 64))]
-HBM_BPS, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
+# H100 SXM data sheet: HBM bytes/s; bf16 and TF32 tensor-core and float32
+# CUDA-core FLOP/s
+HBM_BPS, BF16_FLOPS, TF32_FLOPS, F32_FLOPS = 3.35e12, 989e12, 495e12, 67e12
+
+
+def bound_ms(nbytes: float, pixels: int, C: int, Ch: int, dtype: str):
+    """(bound ms, what bounds it) of one K2 call (see the docstring)."""
+    dense, dw = pixels * 4 * C * Ch, pixels * 18 * Ch
+    if dtype == "bfloat16":
+        ops = (dense + dw) / BF16_FLOPS
+    else:
+        ops = dense / (TF32_FLOPS / 3) + dw / F32_FLOPS
+    t_bytes = nbytes / HBM_BPS
+    return (max(t_bytes, ops) * 1e3,
+            "bytes" if t_bytes >= ops else "operations")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -72,6 +92,7 @@ def compare_roots(args) -> None:
                    roots[i], "--reps", str(args.reps)]
             if args.act_store:
                 cmd += ["--act_store", args.act_store]
+            cmd += ["--dtype", args.dtype]
             if turn < 2:
                 cmd += ["--save", os.path.join(tmp, str(i))]
             r = subprocess.run(cmd, capture_output=True, text=True)
@@ -85,8 +106,8 @@ def compare_roots(args) -> None:
             name = row["stage"]
             a, b = (torch.load(os.path.join(tmp, str(i), f"{name}.pt"))
                     .cuda() for i in (0, 1))
-            bits = (a.view(torch.int16) == b.view(torch.int16)) | (
-                a.isnan() & b.isnan())
+            ints = torch.int16 if a.element_size() == 2 else torch.int32
+            bits = (a.view(ints) == b.view(ints)) | (a.isnan() & b.isnan())
             n_diff = int((~bits).sum())
             d = (a.float() - b.float()).abs()
             d = torch.where(bits, 0.0, torch.nan_to_num(d, nan=float("inf")))
@@ -107,7 +128,8 @@ def compare_roots(args) -> None:
     print(f"18 launches: {roots[0]} {totals[0]} ms, {roots[1]} {totals[1]} "
           f"ms (in turns A, B, B, A)", flush=True)
     print(json.dumps({"roots": roots, "act_store": args.act_store,
-                      "frame_ms": totals, "stages": stages}), flush=True)
+                      "dtype": args.dtype, "frame_ms": totals,
+                      "stages": stages}), flush=True)
 
 
 def main() -> None:
@@ -116,6 +138,8 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--twin", action="store_true")
     ap.add_argument("--act_store", choices=["fp8", "int8"], default=None)
+    ap.add_argument("--dtype", choices=["bfloat16", "float32"],
+                    default="bfloat16")
     ap.add_argument("--save", default=None)
     args = ap.parse_args()
     roots = args.root or [HERE]
@@ -134,6 +158,9 @@ def main() -> None:
         sys.exit("needs an NVIDIA GPU")
     from dehaze_tpu_torch.ops.kernels.leff import leff_fused, leff_reference
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtype = getattr(torch, args.dtype)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1235)
     mode = {"act_store": args.act_store} if args.act_store else {}
@@ -144,7 +171,7 @@ def main() -> None:
 
         def rnd(*s, std=1.0, mean=0.0):
             return (torch.randn(*s, generator=g, device=dev) * std + mean
-                    ).bfloat16()
+                    ).to(dtype)
 
         p = {"ln_scale": rnd(C, std=0.1, mean=1.0), "ln_bias": rnd(C, std=0.1),
              "w1": rnd(C, Ch, std=1 / math.sqrt(C)), "b1": rnd(Ch, std=0.1),
@@ -152,14 +179,12 @@ def main() -> None:
              "dw_bias": rnd(Ch, std=0.1),
              "w2": rnd(Ch, C, std=1 / math.sqrt(Ch)), "b2": rnd(C, std=0.1)}
         x = rnd(*shape)
-        pixels = x.numel() // C
-        nbytes = 2 * (2 * x.numel() + sum(t.numel() for t in p.values()))
-        flops = pixels * (4 * C * Ch + 18 * Ch)
-        b_bytes, b_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+        nbytes = x.element_size() * (2 * x.numel()
+                                     + sum(t.numel() for t in p.values()))
+        b_ms, b_by = bound_ms(nbytes, x.numel() // C, C, Ch, args.dtype)
         row = {"stage": name, "x": list(shape), "hidden": Ch,
                "ms": cuda_ms(lambda: leff_fused(x, **p, **mode), args.reps),
-               "bound_ms": max(b_bytes, b_ops),
-               "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+               "bound_ms": b_ms, "bound_by": b_by}
         if args.twin:
             got = leff_fused(x, **p, **mode)
             want = leff_reference(x, **p, **mode)
@@ -183,8 +208,8 @@ def main() -> None:
     print(f"18 launches of a serving frame (2 per stage): {total:.3f} ms",
           flush=True)
     print(json.dumps({"root": os.path.abspath(args.root),
-                      "act_store": args.act_store, "frame_ms": total,
-                      "stages": rows}), flush=True)
+                      "act_store": args.act_store, "dtype": args.dtype,
+                      "frame_ms": total, "stages": rows}), flush=True)
 
 
 if __name__ == "__main__":

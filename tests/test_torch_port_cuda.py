@@ -94,8 +94,8 @@ def _attn_inputs(dev, heads, win, D, shifted, dtype, seed, bias=True,
 
 def _fwd_count(dtype, N, D):
     """The launch counter of the forward kernel that a K1 call takes."""
-    attr = ("launches_tc" if fwd_kernel_for(dtype, "v4", N, D) == "tc"
-            else "launches")
+    attr = {"tc": "launches_tc", "f32": "launches_f32",
+            "cuda_core": "launches"}[fwd_kernel_for(dtype, "v4", N, D)]
     return lambda: getattr(window_attention_fwd, attr)
 
 
@@ -122,7 +122,9 @@ def _flipped_rows(got, q, k, v, kw, numerics="v4"):
     s = torch.zeros(B, C, device=v.device)
     for j in range(N):
         s = s + v[:, j].float()
-    mean = (s / N).to(v.dtype)                                # [B, C]
+    # the kernels divide by N; torch's division by a number multiplies by
+    # its reciprocal, which rounds otherwise where N is not a power of 2
+    mean = (s / torch.full_like(s, N)).to(v.dtype)            # [B, C]
     is_mean = (TPS._heads(got, heads) == TPS._heads(mean[:, None], heads)
                ).all(-1)                                      # [B, H, N]
     return int((is_mean == row_mask).sum())
@@ -208,6 +210,77 @@ def test_k1_tc_selects_the_twins_rows(cuda, heads, win, shifted, pad, std):
     torch.cuda.synchronize()
     assert _flipped_rows(got, q, k, v, kw) == 0
     _assert_rows_close(got, want, heads, 32, torch.bfloat16)
+
+
+# K1's float32 forward kernel ("f32"): every head dim it takes, N on and
+# off 64, shifted and unshifted windows, padding flags, with and without
+# the rel-pos bias
+_K1_F32_CASES = [  # heads, win, D, shifted, pad, bias
+    (1, 8, 32, True, False, True), (2, 8, 32, False, True, True),
+    (4, 8, 16, True, True, True), (1, 8, 48, True, False, False),
+    (2, 8, 64, False, False, True), (3, 6, 64, True, True, True),
+    (8, 2, 32, False, False, True), (2, 7, 16, True, False, True),
+    (4, 4, 48, False, True, False), (16, 8, 32, True, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,win,D,shifted,pad,bias", _K1_F32_CASES)
+def test_k1_f32_matches_twin(cuda, heads, win, D, shifted, pad, bias):
+    """K1's float32 forward kernel against its twin: K1_TOL on every row,
+    no row flipped between a2 @ V and mean(V), the call counted in
+    `.launches_f32` only; and its rows are the ones the float32 backward
+    (the CUDA-core kernel, which recomputes the selection) keeps: dq is
+    zero on every row the forward gave mean(V), and on no other row where
+    the twin's is not."""
+    q, k, v, kw, nW = _attn_inputs(cuda, heads, win, D, shifted,
+                                   torch.float32, seed=90 + heads * win + D,
+                                   bias=bias, pad=pad)
+    q, k, v = (t.repeat(4, 1, 1) for t in (q, k, v))
+    assert fwd_kernel_for(torch.float32, "v4", win * win, D) == "f32"
+    before = (window_attention_fwd.launches_f32,
+              window_attention_fwd.launches, window_attention_fwd.launches_tc)
+    got = window_attention_fwd(q, k, v, num_windows=nW, **kw)
+    assert (window_attention_fwd.launches_f32 - before[0],
+            window_attention_fwd.launches - before[1],
+            window_attention_fwd.launches_tc - before[2]) == (1, 0, 0)
+    want = TPS.probsparse_attention_bnc(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    _assert_rows_close(got, want, heads, D, torch.float32)
+    assert _flipped_rows(got, q, k, v, kw) == 0
+    g = torch.randn_like(q)
+    dq = window_attention_bwd(q, k, v, g, num_windows=nW, **kw)[0]
+    B, N, _ = q.shape
+    s = torch.zeros(B, heads * D, device=cuda)
+    for j in range(N):
+        s = s + v[:, j]
+    mean = TPS._heads((s / torch.full_like(s, N))[:, None], heads)
+    fwd_mean = (TPS._heads(got, heads) == mean).all(-1)
+    bwd_zero = (TPS._heads(dq, heads) == 0).all(-1)
+    # a kept row whose softmax saturates under the -100 masks has a dq
+    # that is zero in the twin too
+    want_dq = TPS.probsparse_attention_bnc_bwd(q, k, v, g, **kw)[0]
+    clear = TPS._heads(want_dq, heads).abs().amax(-1) > 1e-30
+    assert not bool((fwd_mean & ~bwd_zero).any())
+    assert not bool((~fwd_mean & bwd_zero & clear).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 37, 130])
+def test_k1_f32_ragged_window_counts(cuda, B):
+    """Window counts below and off the CTAs of one wave: every CTA walks
+    its windows, the idle ones none."""
+    q, k, v, kw, _ = _attn_inputs(cuda, 2, 8, 32, False, torch.float32,
+                                  seed=110 + B)
+    q, k, v = (t.repeat(B, 1, 1)[:B] for t in (q, k, v))
+    q = q + torch.randn_like(q) * 0.05
+    before = window_attention_fwd.launches_f32
+    got = window_attention_fwd(q, k, v, **kw)
+    assert window_attention_fwd.launches_f32 == before + 1
+    want = TPS.probsparse_attention_bnc(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_rows_close(got, want, 2, 32, torch.float32)
+    assert _flipped_rows(got, q, k, v, kw) == 0
 
 
 @pytest.mark.cuda
@@ -791,6 +864,29 @@ def test_k2_matches_twin_at_ragged_heights(cuda, H, C, W, dtype):
     assert float(err.max()) <= 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [None, "fp8", "int8"])
+@pytest.mark.parametrize("B,H,W,C", _K2_SHAPES,
+                         ids=[f"C{s[3]}" for s in _K2_SHAPES])
+def test_k2_f32_ragged_heights_every_mode(cuda, B, H, W, C, mode):
+    """The float32 (3xTF32) classes at each C with a ragged last row tile
+    (H = 12) in every mode: K2_TOL without act_store, the two-step bar
+    (below) with it."""
+    x, p = _leff_inputs(cuda, B, 12, W, C, 4 * C, torch.float32,
+                        seed=C + W + 2)
+    before = leff_fused.launches
+    got = leff_fused(x, act_store=mode, **p)
+    assert leff_fused.launches == before + 1
+    want = leff_reference(x, act_store=mode, **p)
+    torch.cuda.synchronize()
+    if mode is None:
+        tol = K2_TOL[torch.float32]
+        err = (got - want).abs() - tol * (1 + want.abs())
+        assert float(err.max()) <= 0
+    else:
+        assert _act_within_two_steps(got, want, mode, torch.float32) <= 0.01
+
+
 # (C, Ch) beyond Ch = 4C that move int8's design: two sweeps at C = 64 and
 # 128 in the classes of larger C, three sweeps at C = 64
 _K2_INT8_WIDTHS = [(64, 512), (128, 1024), (64, 2048)]
@@ -878,7 +974,8 @@ def test_k2_act_store_matches_twin(cuda, B, H, W, C, Ch, dtype, mode):
     ragged last row tile, with act_store: within two steps (above), and at
     most 1% of the elements beyond K2_TOL (at these small shapes a few
     flips weigh more than on the serving frame, where chip_smoke.py's bar
-    is 0.5% in bf16 and 0.1% in f32). In bf16 int8 runs each of its
+    is 0.5% in bf16 and 0.1% in f32, and at f32 int8's C = 512 the twin's
+    own share against its float64 chain). In bf16 int8 runs each of its
     designs, each with a ragged last tile (test_k2_act_store_cases_reach_
     every_int8_design)."""
     x, p = _leff_inputs(cuda, B, H, W, C, Ch, dtype, seed=C + W + 1)

@@ -5,7 +5,12 @@
 
 The two-rank runs are real gloo ranks, one process each, started once by
 a module fixture; the JAX side is the mesh train step on the conftest's
-virtual CPU devices. Tiny model (embed 8, img_size 32, f32), batch 4.
+virtual CPU devices. Tiny model (embed 8, img_size 32, f32), batch 4; the
+train steps' models have the depths `DEPTHS` (two blocks, unshifted and
+shifted, in the first and last stages, one, unshifted, in every other:
+DDP's reduction, the per-rank slices and the generators' replay are the
+same for every block, and the JAX mesh step then compiles in about 60% of
+the full depth's time); the CLIs' models have the full depth.
 Tolerances: the two-rank step against the one-rank step, loss rtol 1e-5,
 gradients rtol 1e-4 over a floor of 1e-5 of the tensor's largest
 element (`_grad_floor`), parameters after the first step rtol
@@ -45,6 +50,7 @@ from dehaze_tpu_torch.utils.convert import state_dict_from_jax_params
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMG, B, STEPS = 32, 4, 2
+DEPTHS = (2, 1, 1, 1, 1, 1, 1, 1, 2)
 LAM = np.array([0.2, 0.9, 0.5, 0.7], np.float32)  # pinned MixUp draws
 PERM = np.array([2, 0, 3, 1])
 
@@ -70,6 +76,7 @@ def port_cfg(spec, vgg_npz):
     """The port's config of a scenario (the workers run this source)."""
     return TC.Config(
         model=TC.ModelConfig(img_size=32, embed_dim=8, dtype=torch.float32,
+                             depths=DEPTHS,
                              drop_path_rate=spec["drop_path_rate"],
                              remat=spec.get("remat", False)),
         loss=TC.LossConfig(w_contrast=1.0 if spec["cr"] else 0.0,
@@ -86,7 +93,7 @@ import json, sys, warnings
 import numpy as np, torch
 torch.set_num_threads(1)
 from dehaze_tpu_torch import config as TC
-''' + inspect.getsource(port_cfg) + r'''
+''' + f"DEPTHS = {DEPTHS!r}\n" + inspect.getsource(port_cfg) + r'''
 from dehaze_tpu_torch.data import augment as TA
 from dehaze_tpu_torch.ops import probsparse as TPS
 from dehaze_tpu_torch.parallel import dist
@@ -333,7 +340,7 @@ def test_ddp_step_matches_jax_mesh_step(two_ranks, tables, vgg_npz,
                         lambda key, a, b, shape: jnp.asarray(
                             LAM.reshape(shape)))
     jcfg = JC.Config(model=JC.ModelConfig(img_size=IMG, embed_dim=8,
-                                          dtype=jnp.float32,
+                                          dtype=jnp.float32, depths=DEPTHS,
                                           drop_path_rate=0.0),
                      loss=JC.LossConfig(vgg_weights=vgg_npz),
                      train=JC.TrainConfig(warmup=False))
@@ -341,7 +348,8 @@ def test_ddp_step_matches_jax_mesh_step(two_ranks, tables, vgg_npz,
     jt = JaxTrainer(jcfg, steps_per_epoch=1, mesh=mesh)
     init = Trainer(port_cfg(SCENARIOS["pinned"], vgg_npz),
                    steps_per_epoch=1, device="cpu").model.state_dict()
-    params = jax.tree.map(jnp.asarray, convert_uformer_state_dict(init))
+    params = jax.tree.map(jnp.asarray,
+                          convert_uformer_state_dict(init, depths=DEPTHS))
     state = jax.device_put(TrainState(step=jnp.zeros((), jnp.int32),
                                       params=params,
                                       opt_state=jt.tx.init(params)),
@@ -363,6 +371,69 @@ def test_ddp_step_matches_jax_mesh_step(two_ranks, tables, vgg_npz,
     for k, g in got_g.items():
         np.testing.assert_allclose(g, jgrads[k].numpy(), rtol=2e-4,
                                    atol=2e-4, err_msg=k)
+
+
+# stages 2 to 6 empty: the model the act_store tests use
+EMPTY_DEPTHS = (2, 1, 0, 0, 0, 0, 0, 1, 2)
+
+
+def test_one_rank_step_matches_jax_in_float64_at_empty_stages(
+        tables, vgg_npz, batches, monkeypatch):
+    """A witness that tells a port fault from rounding. At EMPTY_DEPTHS the
+    pinned scenario's float32 gradients (MixUp and the CR loss on, as in
+    the mesh test above) differ from JAX's far beyond 2e-4, on one process
+    and one device as on two ranks and a 2-device mesh; with the CR loss
+    off they agree within it. Here the same one-process step and JAX's
+    one-device step run their activations in float64 (the parameters stay
+    float32 on both sides): every gradient leaf within 1e-5 of the
+    tensor's largest element (and 1e-12 for the key biases, zero
+    analytically), so the float32 gap is the CR loss's rounding, not a
+    difference of the two functions."""
+    from dehaze_tpu_torch.data import augment as TA
+    from dehaze_tpu_torch.ops import probsparse as TPS
+
+    monkeypatch.setattr(PS, "sample_indices",
+                        lambda key, l_q, l_k, u_part: jnp.asarray(
+                            tables[l_q][:, :u_part]))
+    monkeypatch.setattr(jax.random, "permutation",
+                        lambda key, b: jnp.asarray(PERM))
+    monkeypatch.setattr(jax.random, "beta",
+                        lambda key, a, b, shape: jnp.asarray(
+                            LAM.reshape(shape)))
+    monkeypatch.setattr(TPS, "sample_indices",
+                        lambda n_q, n_k, u_part, generator: torch.from_numpy(
+                            tables[n_q][:, :u_part].copy()))
+    monkeypatch.setattr(TA, "mixup_draw", lambda b, beta, g: (LAM, PERM))
+    tr = Trainer(TC.Config(
+        model=TC.ModelConfig(img_size=IMG, embed_dim=8, dtype=torch.float64,
+                             depths=EMPTY_DEPTHS, drop_path_rate=0.0),
+        loss=TC.LossConfig(w_contrast=1.0, vgg_weights=vgg_npz),
+        train=TC.TrainConfig(warmup=False)), steps_per_epoch=1, device="cpu")
+    params = convert_uformer_state_dict(tr.model.state_dict(),
+                                        depths=EMPTY_DEPTHS)
+    with jax.enable_x64(True):
+        jt = JaxTrainer(JC.Config(
+            model=JC.ModelConfig(img_size=IMG, embed_dim=8,
+                                 dtype=jnp.float64, depths=EMPTY_DEPTHS,
+                                 drop_path_rate=0.0),
+            loss=JC.LossConfig(vgg_weights=vgg_npz),
+            train=JC.TrainConfig(warmup=False)), steps_per_epoch=1)
+        params = jax.tree.map(jnp.asarray, params)
+        state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                           opt_state=jt.tx.init(params))
+        state, _ = jt.train_step(state, batches[0][0], batches[1][0],
+                                 jax.random.PRNGKey(0), use_mixup=True)
+        jgrads = state_dict_from_jax_params(jax.tree.map(
+            lambda mu: np.asarray(mu, np.float64) / (1 - 0.9),
+            state.opt_state[0].mu))
+    tr.train_step(batches[0][0], batches[1][0], use_mixup=True)
+    named = dict(tr.model.named_parameters())
+    assert set(named) == set(jgrads)
+    for k, p in named.items():
+        want = jgrads[k].numpy()
+        np.testing.assert_allclose(
+            p.grad.double().numpy(), want, rtol=0,
+            atol=1e-5 * float(np.abs(want).max()) + 1e-12, err_msg=k)
 
 
 # ------------------------------------------------------------ data slices

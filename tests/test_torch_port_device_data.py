@@ -6,7 +6,11 @@ Mirrors tests/test_device_data.py: the index-map dihedral against JAX's
 `load_all_pairs` equal to the JAX package's; the gathered batches equal to
 `train_batches`' for a whole epoch; `Trainer.train_step_data` equal to
 `train_step` on the streaming batch bit for bit, and to the JAX data step
-with ProbSparse sampling pinned (f32 2e-4, as test_torch_port_train); the
+with ProbSparse sampling pinned (f32 2e-4, as test_torch_port_train; at
+the depths `JAX_DEPTHS`, one block a stage and two in the first and last,
+so that the JAX step compiles in about 60% of the full depth's time: the
+data step's gather is the same for every block, and the streaming step is
+held to JAX at full depth in test_torch_port_train); the
 refusals; and `cli.train --device_data --remat` for one epoch, whose step
 losses equal the streaming run's. Small sizes: embed 8, 32² crops of 40²
 or 48² images.
@@ -38,6 +42,7 @@ from dehaze_tpu_torch.utils.convert import state_dict_from_jax_params
 
 TOL = 2e-4
 IMG = 32
+JAX_DEPTHS = (2, 1, 1, 1, 1, 1, 1, 1, 2)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -184,16 +189,18 @@ def test_train_step_data_matches_jax(dirs, pinned):
     sched = TP.epoch_schedule_arrays(10, (48, 48), 2, IMG, 7, 1)[0]
     jcfg = JC.Config(model=JC.ModelConfig(img_size=IMG, embed_dim=8,
                                           dtype=jnp.float32,
+                                          depths=JAX_DEPTHS,
                                           drop_path_rate=0.0),
                      loss=JC.LossConfig(w_contrast=0.0),
                      data=JC.DataConfig(train_ps=IMG, batch_size=2),
                      train=JC.TrainConfig(warmup=False))
     jt = JaxTrainer(jcfg, steps_per_epoch=1)
-    tr = Trainer(TC.replace(_port_cfg(drop_path_rate=0.0),
+    tr = Trainer(TC.replace(_port_cfg(drop_path_rate=0.0,
+                                      depths=JAX_DEPTHS),
                             data=TC.DataConfig(train_ps=IMG, batch_size=2)),
                  steps_per_epoch=1, device="cpu")
     params = jax.tree.map(jnp.asarray, convert_uformer_state_dict(
-        tr.model.state_dict()))
+        tr.model.state_dict(), depths=JAX_DEPTHS))
     state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
                        opt_state=jt.tx.init(params))
     new_state, jm = jt.train_step_data(state, jnp.asarray(all_c),

@@ -238,11 +238,16 @@ def _k2_plan_before(C, itemsize):
     raise AssertionError(f"no earlier plan for C={C}")
 
 
-# Today's plans (mode 0, any hidden width): (C -> (th, tw, smem)), bf16.
+# Today's plans (mode 0, any hidden width): (C -> (th, tw, smem)), bf16;
+# and float32's 3xTF32 classes (every mode and hidden width)
 _K2_PLANS_BF16 = {8: (8, 32, 73568), 16: (8, 32, 73568),
                   32: (8, 32, 86112), 64: (8, 32, 162272),
                   96: (8, 32, 197600), 128: (8, 32, 224736),
                   256: (8, 16, 222400), 512: (8, 8, 207024)}
+_K2_PLANS_F32 = {8: (8, 32, 134624), 16: (8, 32, 134624),
+                 32: (8, 32, 159712), 64: (8, 16, 186304),
+                 96: (8, 16, 163008), 128: (8, 16, 192704),
+                 256: (8, 8, 222000), 512: (8, 4, 225088)}
 _K2_DTYPES = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
 # (C, dtype, act_store, Ch / C): mode 0 at 4C under the ids it always had,
 # then every mode at C in {8, 32, 64, 128, 256, 512} and Ch in {2C, 4C}
@@ -263,7 +268,9 @@ def test_k2_tile_plan(C, dtype, act_store, ratio):
     Mode 0 and fp8 keep the plan of every C as it was, whatever Ch; int8
     runs dense1 once over the hidden width where the whole hidden tile
     fits (C <= 64 at Ch = 4C), twice where the output pixels' hidden fits
-    (C = 128, 256), and three times where neither does (C = 512)."""
+    (C = 128, 256), and three times where neither does (C = 512). float32
+    has one 3xTF32 class per C for every mode and Ch (int8 in three
+    sweeps)."""
     Ch = ratio * C
     plan = plan_tile(C, dtype, act_store, Ch)
     assert 0 < plan.smem <= SMEM_LIMIT == 232448
@@ -276,11 +283,60 @@ def test_k2_tile_plan(C, dtype, act_store, ratio):
         elif ratio == 4:
             assert plan.sweeps == {8: 1, 32: 1, 64: 1, 128: 2, 256: 2,
                                    512: 3}[C]
-    else:  # the CUDA-core kernel: int8 in three sweeps
+    else:  # the 3xTF32 classes, one plan for every mode: int8 in three
+        # sweeps
+        assert plan[:3] == _K2_PLANS_F32[C]
         assert plan.sweeps == (3 if act_store == "int8" else 1)
     assert plan == plan_tile(C, dtype, act_store, Ch)
     if act_store is None and ratio == 4:
         assert plan == plan_tile(C, dtype)
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to TF32 as `cvt.rna.tf32.f32` rounds it: to nearest on
+    the 10-bit mantissa, ties away from zero (finite values)."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _linear_tf32(split: bool):
+    """F.linear with K2's float32 products on the tensor cores: 3xTF32
+    (x = hi + lo on each side, hi = tf32(x), lo = tf32(x - hi); the three
+    products lo·hi + hi·lo + hi·hi, each exact in float32, summed in
+    float32) or, with split False, one TF32 product."""
+    def linear(x, wt, b):
+        w = wt.t()
+        xh, wh = _tf32(x), _tf32(w)
+        if not split:
+            return xh @ wh + b
+        xl, wl = _tf32(x - xh), _tf32(w - wh)
+        return xl @ wh + xh @ wl + xh @ wh + b
+    return linear
+
+
+@pytest.mark.parametrize("C", [32, 512])
+def test_k2_3xtf32_split_keeps_float32_accuracy(C, monkeypatch):
+    """The float32 kernel's 3xTF32 products, modelled in the twin's dense1
+    and dense2, stay within K2_TOL["float32"] / 10 (1e-5·(1 + |ref|)) of
+    the float32 twin; one TF32 product per term does not."""
+    import types
+
+    import torch.nn.functional as F
+
+    from dehaze_tpu_torch.ops.kernels import leff as K2
+
+    rng = np.random.default_rng(C)
+    Ch = 4 * C
+    x = _t(rng.normal(size=(1, 6, 7, C)).astype(np.float32))
+    p = {n: _t(a) for n, a in _leff_params(C, Ch, seed=C + 1).items()}
+    want = leff_reference(x, **p)
+    errs = []
+    for split in (True, False):
+        monkeypatch.setattr(K2, "F", types.SimpleNamespace(
+            layer_norm=F.layer_norm, gelu=F.gelu, conv2d=F.conv2d,
+            linear=_linear_tf32(split)))
+        got = leff_reference(x, **p)
+        errs.append(float(((got - want).abs() / (1 + want.abs())).max()))
+    assert errs[0] <= 1e-4 / 10 < errs[1], errs
 
 
 @pytest.mark.parametrize("C,Ch,sweeps", [(32, 128, 1), (64, 256, 1),

@@ -7,7 +7,12 @@ sample tables and DropPath masks), in a train step with one and with two
 microbatches, and for the model alone with a padding mask; K1's forward
 runs twice per block, its backward once. Against the JAX model with
 `remat=True`: one train step with sampling pinned and drop_path 0, every
-gradient within 2e-4 (test_torch_port_train's bar). Embed 8, 32² images.
+gradient within 2e-4 (test_torch_port_train's bar), at the depths
+`JAX_DEPTHS` (one block a stage, two in the first and last: remat wraps
+every block alike, and the JAX remat step compiles in about 60% of the
+full depth's time; the plain step is held to JAX at full depth in
+test_torch_port_train, and the remat step to the plain one here). Embed
+8, 32² images.
 """
 
 import jax
@@ -28,6 +33,7 @@ from dehaze_tpu_torch.utils.convert import state_dict_from_jax_params
 
 TOL = 2e-4
 IMG = 32
+JAX_DEPTHS = (2, 1, 1, 1, 1, 1, 1, 1, 2)
 GENS = ("sample_gen", "droppath_gen", "dropout_gen", "mixup_gen")
 
 
@@ -162,14 +168,15 @@ def test_remat_train_step_matches_jax_remat(pinned):
     clean, hazy = _batch(2, b=2)
     jcfg = JC.Config(model=JC.ModelConfig(img_size=IMG, embed_dim=8,
                                           dtype=jnp.float32,
+                                          depths=JAX_DEPTHS,
                                           drop_path_rate=0.0, remat=True),
                      loss=JC.LossConfig(w_contrast=0.0),
                      train=JC.TrainConfig(warmup=False))
     jt = JaxTrainer(jcfg, steps_per_epoch=1)
-    tr = Trainer(_cfg(True, drop_path_rate=0.0), steps_per_epoch=1,
-                 device="cpu")
+    tr = Trainer(_cfg(True, drop_path_rate=0.0, depths=JAX_DEPTHS),
+                 steps_per_epoch=1, device="cpu")
     params = jax.tree.map(jnp.asarray, convert_uformer_state_dict(
-        tr.model.state_dict()))
+        tr.model.state_dict(), depths=JAX_DEPTHS))
     state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
                        opt_state=jt.tx.init(params))
     new_state, jm = jt.train_step(state, clean, hazy, jax.random.PRNGKey(1),

@@ -145,7 +145,10 @@ def test_uformer_ragged_stage_heights_matches_jax(pinned):
     (torch.bfloat16, "v4", 36, 64, "tc"),
     (torch.bfloat16, "v4", 49, 16, "tc"),
     (torch.bfloat16, "v4", 64, 48, "tc"),
-    (torch.float32, "v4", 64, 32, "cuda_core"),  # f32: the tests' type
+    # f32: K1's float32 kernel (the case keeps the id it had when f32 took
+    # the CUDA-core kernel)
+    pytest.param(torch.float32, "v4", 64, 32, "f32",
+                 id="dtype6-v4-64-32-cuda_core"),
     (torch.bfloat16, "v23", 64, 32, "tc"),     # K3-v3, token-major
     (torch.bfloat16, "v1", 64, 32, "cuda_core"),
     (torch.bfloat16, "v4", 256, 32, "cuda_core"),  # F2: 16x16 windows
